@@ -95,11 +95,21 @@ def load_library() -> ctypes.CDLL:
     path, _, _ = build_library()
     lib = ctypes.CDLL(str(path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.dg_pos_launch.argtypes = [vp, i32, i32, ctypes.POINTER(i32), i32,
-                                  vp, vp]
-    for name in ("dg_fwd_f32_launch", "dg_fwd_bf16_launch"):
-        getattr(lib, name).argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                       vp]
-    for name in ("dg_pos_launch", "dg_fwd_f32_launch", "dg_fwd_bf16_launch"):
-        getattr(lib, name).restype = i32
+    argtypes = {
+        # keys, n, kv, geom, sentinel, reverse, pos, stream
+        "dg_pos_launch": [vp, i32, i32, ctypes.POINTER(i32), i32, i32, vp,
+                          vp],
+        # x, w, pos, out, n, C, K, kv, stream
+        "dg_fwd_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        "dg_fwd_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        # x, dout, pos_rev, part, out, n, C, K, kv, splits, stream
+        "dg_wgrad_f32_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                vp],
+        "dg_wgrad_bf16_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32,
+                                 i32, vp],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = i32
     return lib

@@ -3,7 +3,7 @@
 (3->64->64->96->96->128->128->160->160->192->192->224->224->256->256,
 ``bias=False``, paired by ``indice_key`` ``c0``..``c6``) with 6
 ``SparseMaxPool3d(2, 2)`` between the pairs, on a key-sorted scan on an
-``[80, 1600, 1600]`` grid.
+``[80, 1600, 1600]`` grid, and its training step (:func:`train_step`).
 
 The reference's real 125,562-voxel scan is not in the repository, so
 :func:`synthetic_scan` makes a deterministic LiDAR-like scan from a seed.
@@ -25,6 +25,7 @@ __all__ = [
     "BenchNet",
     "make_bench_input",
     "measure_pool_bounds",
+    "train_step",
     "synthetic_scan",
     "matched_offsets_per_voxel",
 ]
@@ -78,6 +79,24 @@ class BenchNet(nn.Module):
 
     def forward(self, x: SparseConvTensor) -> SparseConvTensor:
         return self.forward_stages(x)[-1]
+
+
+def train_step(net: nn.Module, x: SparseConvTensor,
+               lr: float) -> torch.Tensor:
+    """One SGD step: clear every grad, ``loss = sum(out.features.float()
+    ** 2)`` (the JAX package's ``bench.py`` loss), ``backward()``, then
+    ``p -= lr * p.grad`` in place.  The grads of this step stay on the
+    parameters.  Returns the loss (0-d f32, on the net's device; reading it
+    syncs)."""
+    for p in net.parameters():
+        p.grad = None
+    loss = (net(x).features.float() ** 2).sum()
+    loss.backward()
+    with torch.no_grad():
+        for p in net.parameters():
+            if p.grad is not None:
+                p.add_(p.grad, alpha=-lr)
+    return loss.detach()
 
 
 def make_bench_input(voxels: np.ndarray, coors: np.ndarray,

@@ -1,13 +1,17 @@
 // B2 `dg_fwd`: gather-GEMM forward of a submanifold conv through a cached
-// match table ("posmode").
+// match table ("posmode"), and B3's input gradient through the same kernel.
 //
 // Replaces: spconv_tpu/ops/pallas/dg_conv.py::_dg_fwd_kernel in packmodes
 //   "f32" and "pack2" with posmode=True (launched by _dg_conv_call, public
-//   entry dg_subm_conv).  The TPU kernel DMAs window-planned, lane-chunked,
-//   transposed feature tables (bf16 channel pairs packed in int32 lanes),
-//   lane-gathers the matched columns and runs one deep GEMM per 128-row tile.
-//   Those layouts exist for Mosaic; here the matched rows are gathered
-//   straight from the row-major [N, C] features.
+//   entry dg_subm_conv); on the reversed table with W[k]^T it is also the
+//   din half of _dg_bwd_kernel (the wrapper dg_dgrad), and so of
+//   sorted_conv.py::_sk_fwd_kernel and _sk_bwd_kernel, which compute the
+//   same functions through a one-hot key join.  The TPU kernel DMAs
+//   window-planned, lane-chunked, transposed feature tables (bf16 channel
+//   pairs packed in int32 lanes), lane-gathers the matched columns and runs
+//   one deep GEMM per 128-row tile.  Those layouts exist for Mosaic; here
+//   the matched rows are gathered straight from the row-major [N, C]
+//   features.
 //
 // Computes: out[i, :] = sum_k x[pos[k, i], :] @ W[k], x [N, C] and
 //   W [kv, C, K] in f32 or bf16, pos [kv, N] int32 (-1 = no match).  The sum

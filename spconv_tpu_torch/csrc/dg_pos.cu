@@ -1,5 +1,5 @@
 // B1 `dg_pos`: the match table of a submanifold conv stage on key-sorted
-// input.
+// input, in the forward direction or reversed (the backward's table).
 //
 // Replaces: spconv_tpu/ops/pallas/dg_conv.py::_dg_pos_kernel (launched by
 //   _build_dg_pos, public entry build_dg_pos).  The TPU kernel searches
@@ -15,7 +15,12 @@
 //   axis, and binary-search the shifted key in keys[0, N).  Writes the
 //   matching row or -1 to pos[k * N + i] (offset-major, so the gather-GEMM
 //   reads one offset's column of a row tile coalesced).  Sentinel rows get
-//   -1 at every offset.
+//   -1 at every offset.  With `reverse` every displacement is negated
+//   (probe = key - delta_k, each axis bounds-checked at coord - d_k): the
+//   table that dgrad and wgrad gather dout through (build_dg_pos with
+//   reverse=True, built in _dg_conv_p_fwd).  For a subm kernel, odd and so
+//   symmetric, that is the forward table with its offset axis flipped, but
+//   the kernel computes it directly and does not rely on the symmetry.
 //
 // Bound on the H100: latency.  A probe is ~log2(N) = 17 dependent key loads
 //   that hit L2 (the top levels of the search hit L1); there is almost no
@@ -40,7 +45,8 @@ struct PosGeom {
 };
 
 __global__ void dg_pos_kernel(const int* __restrict__ keys, int n, int kv,
-                              PosGeom g, int sentinel, int* __restrict__ pos) {
+                              PosGeom g, int sentinel, int reverse,
+                              int* __restrict__ pos) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= kv * n) return;
   const int k = t / n;
@@ -60,7 +66,8 @@ __global__ void dg_pos_kernel(const int* __restrict__ keys, int n, int kv,
         rem /= g.dims[a];
         const int ka = kr % g.ksize[a];
         kr /= g.ksize[a];
-        const int d = (ka - g.ksize[a] / 2) * g.dil[a];
+        int d = (ka - g.ksize[a] / 2) * g.dil[a];
+        if (reverse) d = -d;
         const int c = coord + d;
         ok = ok && c >= 0 && c < g.dims[a];
         delta += d * stride;
@@ -87,9 +94,11 @@ __global__ void dg_pos_kernel(const int* __restrict__ keys, int n, int kv,
 
 }  // namespace
 
-// geom (host memory): ndim, dims[4], ksize[4], dilation[4].
+// geom (host memory): ndim, dims[4], ksize[4], dilation[4].  reverse != 0
+// negates every displacement.
 extern "C" int dg_pos_launch(const void* keys, int n, int kv, const int* geom,
-                             int sentinel, void* pos, void* stream) {
+                             int sentinel, int reverse, void* pos,
+                             void* stream) {
   PosGeom g;
   g.ndim = geom[0];
   for (int a = 0; a < kMaxNdim; ++a) {
@@ -101,7 +110,7 @@ extern "C" int dg_pos_launch(const void* keys, int n, int kv, const int* geom,
   const int total = kv * n;
   const int blocks = (total + threads - 1) / threads;
   dg_pos_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), n, kv, g, sentinel,
+      static_cast<const int*>(keys), n, kv, g, sentinel, reverse != 0,
       static_cast<int*>(pos));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,22 @@
 """Sparse convolution modules (counterpart of
 ``spconv_tpu/modules/conv.py``).
 
-Ported: the submanifold conv on the dynamic-gather (DG) path and the 1x1
-path.  The stage's match table is built once per ``indice_key``, cached in
-``indice_dict`` with the geometry it was built for, and reused by every
-later layer of the stage.
+Ported: the submanifold conv on the dynamic-gather (DG) path, forward and
+backward, and the 1x1 path.  The stage's match table is built once per
+``indice_key``, cached in ``indice_dict`` with the geometry it was built
+for, and reused by every later layer of the stage; its reversed table (the
+backward's) is added to the same record the first time a layer of the
+stage runs with a gradient wanted, and never under ``torch.no_grad()`` or
+``torch.inference_mode()``.
+
+``algo="sk"`` (the JAX package's sorted-key kernels, which compute the DG
+conv's function through a one-hot key join on the TPU) runs the same match
+table through the same kernels.  ``"auto"`` is ``"dg"``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
-computed some other way: the native rulebook path (any ``algo`` other than
-``"auto"``/``"dg"``, and input that is not key-sorted; ROADMAP A4-A5) and
-strided, transposed and inverse convs (ROADMAP A9).
+computed some other way: the native rulebook path (any other ``algo``, and
+input that is not key-sorted; ROADMAP A4-A5) and strided, transposed and
+inverse convs (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -35,13 +42,17 @@ IntOrSeq = Union[int, Sequence[int]]
 
 class DGData:
     """Cached state of an ``indice_key`` stage: the sorted keys, the match
-    table ``pos`` ``[kv, N]`` and the geometry they were built for."""
+    table ``pos`` ``[kv, N]``, the reversed table ``pos_rev`` (None until a
+    layer of the stage needs a gradient) and the geometry they were built
+    for."""
 
     def __init__(self, keys: torch.Tensor, pos: torch.Tensor, *,
                  ksize: Tuple[int, ...], dilation: Tuple[int, ...],
-                 spatial_shape: Tuple[int, ...]):
+                 spatial_shape: Tuple[int, ...],
+                 pos_rev: Optional[torch.Tensor] = None):
         self.keys = keys
         self.pos = pos
+        self.pos_rev = pos_rev
         self.ksize = tuple(ksize)
         self.dilation = tuple(dilation)
         self.spatial_shape = tuple(spatial_shape)
@@ -134,10 +145,11 @@ class SparseConvolution(SparseModule):
             out = input.shadow_copy()
             out.features = out_feat
             return out
-        if self.algo not in ("auto", "dg"):
+        if self.algo not in ("auto", "dg", "sk"):
             raise NotImplementedError(
-                f"algo={self.algo!r}: only the dynamic-gather path is "
-                "ported; the native rulebook path waits for ROADMAP A4-A5")
+                f"algo={self.algo!r}: only the dynamic-gather path (and "
+                "\"sk\", which shares its kernels) is ported; the native "
+                "rulebook path waits for ROADMAP A4-A5")
         if not input.keys_sorted:
             raise NotImplementedError(
                 "the DG conv needs key-sorted input (call sort_by_key()); "
@@ -153,11 +165,15 @@ class SparseConvolution(SparseModule):
         return torch.where(input.valid_mask[:, None], out_feat,
                            torch.zeros_like(out_feat))
 
-    def _stage_pos(self, input: SparseConvTensor):
-        """The stage's match table: reused from ``indice_dict`` when this
-        ``indice_key`` already built one, else built (and returned as the
-        new record to cache)."""
+    def _stage_pos(self, input: SparseConvTensor, need_rev: bool):
+        """The stage's match tables ``(pos, pos_rev, new_rec)``: reused
+        from ``indice_dict`` when this ``indice_key`` already built them,
+        else built (``new_rec`` is then the record to cache).  ``pos_rev``
+        is built only when ``need_rev``, once per stage: it is added to a
+        cached record that lacks it."""
         shape = tuple(input.spatial_shape)
+        geom = dict(ksize=self.kernel_size, dilation=self.dilation,
+                    spatial_shape=shape, batch_size=input.batch_size)
         rec = input.find_indice_pair(self.indice_key)
         if rec is not None:
             if not isinstance(rec, DGData):
@@ -176,20 +192,25 @@ class SparseConvolution(SparseModule):
                     f"subm match-table reuse mismatch under indice_key="
                     f"{self.indice_key!r}: " + ", ".join(
                         f"{w} {g} vs {x}" for w, g, x in mismatch))
-            return rec.pos, None
+            if need_rev and rec.pos_rev is None:
+                rec.pos_rev = build_dg_pos(rec.keys, reverse=True, **geom)
+            return rec.pos, rec.pos_rev, None
         keys, _ = C.linearize(input.indices, shape, input.batch_size)
-        pos = build_dg_pos(keys, ksize=self.kernel_size,
-                           dilation=self.dilation, spatial_shape=shape,
-                           batch_size=input.batch_size)
+        pos = build_dg_pos(keys, **geom)
+        pos_rev = (build_dg_pos(keys, reverse=True, **geom) if need_rev
+                   else None)
         if self.indice_key is None:
-            return pos, None
-        return pos, DGData(keys, pos, ksize=self.kernel_size,
-                           dilation=self.dilation, spatial_shape=shape)
+            return pos, pos_rev, None
+        return pos, pos_rev, DGData(keys, pos, ksize=self.kernel_size,
+                                    dilation=self.dilation,
+                                    spatial_shape=shape, pos_rev=pos_rev)
 
     def _call_dg(self, input: SparseConvTensor,
                  add_input: Optional[SparseConvTensor]) -> SparseConvTensor:
-        pos, new_rec = self._stage_pos(input)
-        out_feat = dg_subm_conv(input.features, self.weight, pos)
+        need_rev = torch.is_grad_enabled() and (
+            input.features.requires_grad or self.weight.requires_grad)
+        pos, pos_rev, new_rec = self._stage_pos(input, need_rev)
+        out_feat = dg_subm_conv(input.features, self.weight, pos, pos_rev)
         out = SparseConvTensor(
             self._epilogue(out_feat, input, add_input),
             input.indices,

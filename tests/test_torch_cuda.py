@@ -48,21 +48,29 @@ def _sorted_input(seed, n, c, nbuf):
     return fb, ib
 
 
-def _plain_pos(inds):
+def _plain_pos(inds, reverse=False):
     keys, _ = TC.linearize(torch.from_numpy(inds), SHAPE, 1)
     return keys, TD.dg_pos_plain(keys, ksize=KSIZE, dilation=DIL,
-                                 spatial_shape=SHAPE, batch_size=1)
+                                 spatial_shape=SHAPE, batch_size=1,
+                                 reverse=reverse)
 
 
-def test_dg_pos_kernel_matches_plain(dev):
+@pytest.mark.parametrize("reverse", [False, True])
+def test_dg_pos_kernel_matches_plain(dev, reverse):
+    """Exact; the reversed table is also the forward one flipped on its
+    offset axis (an odd kernel)."""
     _, inds = _sorted_input(5, 3000, 4, 3072)
-    keys, ref = _plain_pos(inds)
-    before = TD.dg_pos_launches
+    keys, ref = _plain_pos(inds, reverse)
+    name = "dg_pos_rev" if reverse else "dg_pos"
+    before = dict(TD.launch_counts)
     got = TD.build_dg_pos(keys.to(dev), ksize=KSIZE, dilation=DIL,
-                          spatial_shape=SHAPE, batch_size=1)
+                          spatial_shape=SHAPE, batch_size=1, reverse=reverse)
     torch.cuda.synchronize()
-    assert TD.dg_pos_launches == before + 1
+    assert TD.launch_counts[name] == before[name] + 1
+    assert sum(TD.launch_counts.values()) == sum(before.values()) + 1
     assert torch.equal(got.cpu(), ref)
+    if reverse:
+        assert torch.equal(ref, _plain_pos(inds)[1].flip(0))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -80,14 +88,70 @@ def test_dg_fwd_kernel_matches_plain(dev, dtype, tol, c, k_out):
     w = w.to(dev, dtype)
     pos = pos.to(dev)
     ref = TD.dg_fwd_plain(x, w, pos).float()
-    before = TD.dg_fwd_launches
+    before = TD.launch_counts["dg_fwd"]
     got = TD.dg_fwd(x, w, pos)
     torch.cuda.synchronize()
-    assert TD.dg_fwd_launches == before + 1 and got.dtype == dtype
+    assert TD.launch_counts["dg_fwd"] == before + 1 and got.dtype == dtype
     got = got.float()
     err = (got - ref).abs().max().item()
     assert err <= tol * ref.abs().max().item(), err
     assert not got[3000:].any()
+
+
+# N = 3000 active rows in a 3072-row buffer: neither a multiple of the
+# 64-row tile nor of the 32-row wgrad chunk, with an all-invalid tail
+_BWD_WIDTHS = [(3, 64), (64, 96), (160, 256), (256, 256), (12, 20)]
+
+
+def _bwd_case(dev, dtype, c, k_out, seed):
+    feats, inds = _sorted_input(seed, 3000, c, 3072)
+    _, rev = _plain_pos(inds, reverse=True)
+    g = torch.Generator().manual_seed(seed)
+    dout = torch.randn((3072, k_out), generator=g)
+    dout[3000:] = 0
+    w = torch.randn((KV, c, k_out), generator=g) / np.sqrt(KV * c)
+    return (torch.from_numpy(feats).to(dev, dtype), dout.to(dev, dtype),
+            w.to(dev, dtype), rev.to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("c,k_out", _BWD_WIDTHS)
+def test_dg_dgrad_kernel_matches_plain(dev, dtype, tol, c, k_out):
+    """B2's kernel on the reversed table and W^T; tolerances as B2's.
+    Rows without a reversed match (the invalid tail) are 0."""
+    _, dout, w, rev = _bwd_case(dev, dtype, c, k_out, 8)
+    ref = TD.dg_dgrad_plain(dout, w, rev).float()
+    before = dict(TD.launch_counts)
+    got = TD.dg_dgrad(dout, w, rev)
+    torch.cuda.synchronize()
+    assert TD.launch_counts["dg_dgrad"] == before["dg_dgrad"] + 1
+    assert TD.launch_counts["dg_fwd"] == before["dg_fwd"]
+    assert got.dtype == dtype and tuple(got.shape) == (3072, c)
+    got = got.float()
+    err = (got - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err
+    assert not got[3000:].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("c,k_out", _BWD_WIDTHS)
+def test_dg_wgrad_kernel_matches_plain(dev, dtype, tol, c, k_out):
+    """f32 within 1e-4*max|ref| (sums of up to 3000 products per entry in
+    another order); bf16 within 1.6e-2*max|ref| (one bf16 rounding).  Two
+    runs are bit-equal (fixed-order reduction, no atomics)."""
+    x, dout, _, rev = _bwd_case(dev, dtype, c, k_out, 9)
+    ref = TD.dg_wgrad_plain(x, dout, rev).float()
+    before = TD.launch_counts["dg_wgrad"]
+    got = TD.dg_wgrad(x, dout, rev)
+    again = TD.dg_wgrad(x, dout, rev)
+    torch.cuda.synchronize()
+    assert TD.launch_counts["dg_wgrad"] == before + 2
+    assert got.dtype == dtype and tuple(got.shape) == (KV, c, k_out)
+    assert torch.equal(got, again)
+    err = (got.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err
 
 
 def test_benchnet_on_card_matches_cpu(dev):
@@ -103,9 +167,37 @@ def test_benchnet_on_card_matches_cpu(dev):
         got = net.forward_stages(
             TB.make_bench_input(voxels, coors, shape, device=dev))
         torch.cuda.synchronize()
-    assert (TD.dg_pos_launches, TD.dg_fwd_launches) == (7, 14)
+    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 0, "dg_fwd": 14,
+                                "dg_dgrad": 0, "dg_wgrad": 0}
     for r, g in zip(ref, got):
         assert torch.equal(g.indices.cpu(), r.indices)
         scale = r.features.abs().max().item()
         err = (g.features.cpu() - r.features).abs().max().item()
         assert err <= 1e-4 * scale, (err, scale)
+
+
+def test_benchnet_train_step_on_card_matches_cpu(dev):
+    """One f32 training step through every kernel on the card against the
+    same step through the plain versions on the CPU: losses within 1e-4
+    relative and every weight grad within 1e-3*max|ref| (f32 sums in
+    another order; a near-tie in a max pool may route one gradient to
+    another child).  A step launches 7 + 7 B1, 14 B2, 13 dgrad and 14
+    wgrad."""
+    shape = (64, 128, 128)
+    voxels, coors, _ = TB.synthetic_scan(0, shape=shape, n_target=1600)
+    net = TB.BenchNet(shape)
+    ref_loss = TB.train_step(net, TB.make_bench_input(voxels, coors, shape),
+                             0.0)
+    ref = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.to(dev)
+    TD.reset_launch_counts()
+    loss = TB.train_step(
+        net, TB.make_bench_input(voxels, coors, shape, device=dev), 0.0)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 7, "dg_fwd": 14,
+                                "dg_dgrad": 13, "dg_wgrad": 14}
+    assert abs(loss.item() - ref_loss.item()) <= 1e-4 * ref_loss.item()
+    for k, p in net.named_parameters():
+        scale = ref[k].abs().max().item()
+        err = (p.grad.cpu() - ref[k]).abs().max().item()
+        assert scale > 0 and err <= 1e-3 * scale, (k, err, scale)

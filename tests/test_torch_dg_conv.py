@@ -1,6 +1,7 @@
 """The port's DG conv (match table B1 and gather-GEMM B2) against the JAX
 package's Pallas kernels, run in interpret mode on the CPU.  The CUDA
-kernels are held against these plain versions in ``test_torch_cuda.py``.
+kernels are held against these plain versions in ``test_torch_cuda.py``;
+the backward's parity tests are in ``test_torch_dg_bwd.py``.
 
 The JAX match table is ``[n_tiles, round8(kv), 128]``; the port's
 ``[kv, N]`` equals ``pos_jax[:, :kv, :].transpose(1, 0, 2)
@@ -68,10 +69,11 @@ def _port_pos_to_jax(pos_t):
                        .transpose(1, 0, 2))
 
 
-def _port_pos(inds):
+def _port_pos(inds, reverse=False):
     keys, _ = TC.linearize(torch.from_numpy(inds), SHAPE, 1)
     return TD.build_dg_pos(keys, ksize=KSIZE, dilation=DIL,
-                           spatial_shape=SHAPE, batch_size=1)
+                           spatial_shape=SHAPE, batch_size=1,
+                           reverse=reverse)
 
 
 def test_subm_key_deltas_match_jax():
@@ -191,17 +193,25 @@ def test_subm_conv_epilogue_matches_jax(act):
 
 
 def test_wrappers_refuse_grad_and_bad_inputs():
+    """A gradient through the conv without the reversed table is refused,
+    as are inputs the kernels do not take."""
     feats, inds = _sorted_input(4, 100, 4, 128)
     pos = _port_pos(inds)
     w = torch.zeros((KV, 4, 8))
     x = torch.from_numpy(feats)
-    with pytest.raises(NotImplementedError, match="backward"):
-        TD.dg_fwd(x.requires_grad_(), w, pos)
+    with pytest.raises(ValueError, match="reversed match table"):
+        TD.dg_subm_conv(x.requires_grad_(), torch.zeros(8, 3, 3, 3, 4), pos)
+    with pytest.raises(ValueError, match="pos_rev is"):
+        TD.dg_subm_conv(x, torch.zeros(8, 3, 3, 3, 4), pos, pos[:, :64])
     x = x.detach()
     with pytest.raises(ValueError, match="dtype"):
         TD.dg_fwd(x, w.double(), pos)
     with pytest.raises(ValueError, match="pos is"):
         TD.dg_fwd(x, w, pos[:, :64])
+    with pytest.raises(ValueError, match="rows"):
+        TD.dg_wgrad(x, torch.zeros((64, 8)), pos)
+    with pytest.raises(ValueError, match="dtype"):
+        TD.dg_dgrad(torch.zeros((128, 8), dtype=torch.bfloat16), w, pos)
     with pytest.raises(ValueError, match="int32"):
         TD.build_dg_pos(torch.zeros(8, dtype=torch.int64), ksize=KSIZE,
                         dilation=DIL, spatial_shape=SHAPE, batch_size=1)

@@ -1,7 +1,9 @@
 """The port's ``pool2_seg`` and ``SparseMaxPool3d`` against the JAX
 package's ``pool2_seg``: outputs, coordinates and counts must be exactly
-equal (a max picks an input value, so no rounding enters)."""
+equal (a max picks an input value, so no rounding enters), and so must the
+gradients up to f32 rounding."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,6 +58,68 @@ def test_pool2_seg_matches_jax(shape, batch, out_bound, dtype):
     assert int(tn) == int(jn) and int(tt) == int(jt)
     if out_bound == 128:
         assert int(tt) > int(tn) == 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("out_bound", [2048, 256])
+def test_pool2_seg_grad_matches_jax(dtype, out_bound):
+    """Autograd through the port's scatter-max against ``jax.grad`` through
+    the JAX package's ``.at[seg].max``.  Features on a grid of 0.5 make
+    exact ties: both split an output's gradient evenly among its tied
+    children.  The -inf fill takes none (each kept output's children carry
+    exactly its gradient), and children of outputs cut by ``out_bound``
+    (256 here, below the output count) or of no output (odd edges,
+    inactive rows) get none.  f32: equal up to f32 rounding (the even split
+    divides by the tie count).  bf16: within one bf16 rounding (rtol
+    2**-7), since JAX multiplies by a bf16-rounded 1/n where torch divides
+    by n."""
+    shape, batch, c = (9, 21, 17), 2, 4
+    feats, inds = _input(2, shape, 1500, c, 3200, batch)
+    feats = np.round(feats * 2) / 2
+    cot = np.random.RandomState(3).randn(out_bound, c).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = getattr(torch, dtype)
+
+    def loss(f):
+        out = jax_pool2_seg(f, jnp.asarray(inds), spatial_shape=shape,
+                            batch_size=batch, out_bound=out_bound)[0]
+        return jnp.sum(out.astype(jnp.float32) * cot)
+
+    ref = np.asarray(jax.grad(loss)(jnp.asarray(feats, jdt))
+                     .astype(jnp.float32))
+    x = torch.from_numpy(feats).to(tdt).requires_grad_()
+    out, _, n_out, n_tot = pool2_seg(x, torch.from_numpy(inds),
+                                     spatial_shape=shape, batch_size=batch,
+                                     out_bound=out_bound)
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    assert x.grad.dtype == tdt
+    got = x.grad.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-6 * np.abs(ref).max())
+    else:
+        np.testing.assert_allclose(got, ref, rtol=2**-7, atol=0)
+
+    # ties were split: some child holds a fraction of its output's gradient
+    oc = inds[:, 1:] // 2
+    inside = (inds[:, 0] >= 0) & (oc < np.array(shape) // 2).all(axis=1)
+    parent = np.where(inside,
+                      ((inds[:, 0] * 4 + oc[:, 0]) * 10 + oc[:, 1]) * 8
+                      + oc[:, 2], -1)
+    keys = np.unique(parent[parent >= 0])
+    slot = np.searchsorted(keys, parent)
+    kept = (parent >= 0) & (slot < out_bound)
+    assert int(n_tot) == len(keys) and int(n_out) == min(len(keys), out_bound)
+    assert not got[~kept].any()
+    mass = np.zeros((out_bound, c), np.float32)
+    np.add.at(mass, slot[kept], got[kept])
+    np.testing.assert_allclose(mass[:int(n_out)], cot[:int(n_out)],
+                               rtol=0, atol=1e-2 if dtype == "bfloat16"
+                               else 1e-5)
+    frac = np.abs(got[kept]) / np.maximum(np.abs(cot[slot[kept]]), 1e-30)
+    assert ((frac > 0.01) & (frac < 0.99)).any()
+    if out_bound == 256:
+        assert int(n_tot) > 256 and (parent >= 0).sum() > kept.sum()
 
 
 def test_max_pool_module_keeps_sorted_and_counts():
