@@ -16,12 +16,21 @@ line is printed):
    three synthetic scans after one warm-up, through the port's kernels, and
    checks launch counts, output sanity, per-stage coordinates against a
    plain-version run on the card, and an f32 run against plain;
+   It also holds the strided conv's kernels (the affine match table and
+   the gather-GEMM on it) and the subm kernels against their plain versions
+   at every layer shape of the CenterPoint encoder on its synthetic scan;
 5. trains: one SGD step of the bf16 net per synthetic scan after a warm-up
    step, with launch counts, finite non-zero grads and step times; the f32
    net's grads through the kernels against the same step through the plain
    versions of the backward; and an ``algo="sk"`` conv pair against
    ``algo="dg"``;
-6. prints a JSON line of the kernels, then the result line.
+6. serves the CenterPoint encoder (``centerpoint_encoder(in_channels=5,
+   bn=False)``, bf16, buffers calibrated on seed 0) to its BEV map on three
+   synthetic 113,000-voxel scans after one warm-up, and checks launch
+   counts, per-stage coordinates against a plain-version run on the card,
+   an f32 run against plain, a finite non-zero BEV map, and an
+   ``algo="sk"`` downsample against ``algo="dg"``;
+7. prints a JSON line of the kernels, then the result line.
 """
 
 import json
@@ -49,6 +58,11 @@ NET_F32_TOL = 1e-4  # whole net forward, f32, kernel vs plain
 # comparison is printed, not gated.)
 GRAD_F32_TOL = 1e-4
 SK_STAGE = 2  # the 96 -> 128 -> 128 pair of the net
+CP_STRIDED = ("down1", "down2", "down3", "out")  # indice_keys, in order
+# per CenterPoint request: 4 subm and 4 affine tables, 17 subm and 4
+# strided gather-GEMMs (models/second.py)
+CP_LAUNCHES = dict(dg_pos=4, dg_pos_rev=0, dg_pos_affine=4, dg_fwd=17,
+                   dg_fwd_strided=4, dg_dgrad=0, dg_wgrad=0)
 
 
 def fail(msg):
@@ -138,6 +152,62 @@ def plain_forward_stages(torch, net, x, train=False, kernel_fwd=False):
     return stages
 
 
+def plain_encoder_stages(torch, net, x):
+    """The ``bn=False`` CenterPoint encoder's ``forward_stages`` with the
+    plain versions of the kernels in place of the kernels, on whatever
+    device ``x`` is on (output discovery is plain tensor code in both)."""
+    import torch.nn.functional as F
+    from spconv_tpu_torch.core import SparseConvTensor
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops.rulebook import build_conv_outputs
+
+    def conv(layer, x, pos, valid):
+        out = D.dg_fwd_plain(x.features, D.weight_krsc_to_kv(layer.weight),
+                             pos) + layer.bias
+        return torch.where(valid[:, None], out, torch.zeros_like(out))
+
+    def subm_pos(x):
+        keys, _ = C.linearize(x.indices, x.spatial_shape, x.batch_size)
+        return D.dg_pos_plain(keys, ksize=KSIZE, dilation=DIL,
+                              spatial_shape=x.spatial_shape,
+                              batch_size=x.batch_size)
+
+    def strided(layer, x):
+        geom = dict(ksize=layer.kernel_size, stride=layer.stride,
+                    padding=layer.padding, dilation=layer.dilation)
+        out_indices, out_keys, num_out, _ = build_conv_outputs(
+            x.indices, spatial_shape=x.spatial_shape,
+            batch_size=x.batch_size, out_bound=layer.out_bound, **geom)
+        out_shape = C.get_conv_output_size(
+            x.spatial_shape, layer.kernel_size, layer.stride, layer.padding,
+            layer.dilation)
+        in_keys, _ = C.linearize(x.indices, x.spatial_shape, x.batch_size)
+        pos = D.dg_pos_affine_plain(
+            in_keys, out_keys, in_shape=x.spatial_shape, out_shape=out_shape,
+            batch_size=x.batch_size, **geom)
+        return SparseConvTensor(conv(layer, x, pos, out_indices[:, 0] >= 0),
+                                out_indices, out_shape, x.batch_size,
+                                num_voxels=num_out, keys_sorted=True)
+
+    pos = subm_pos(x)
+    x = x.replace_feature(F.relu(conv(net.conv_input, x, pos,
+                                      x.valid_mask)))
+    stages = []
+    for si, blocks in enumerate(net.stages):
+        if si:
+            x = strided(net.downs[si - 1], x)
+            pos = subm_pos(x)
+        for block in blocks:
+            h = F.relu(conv(block.conv1, x, pos, x.valid_mask))
+            h = conv(block.conv2, x.replace_feature(h), pos, x.valid_mask)
+            x = x.replace_feature_masked(F.relu(h + x.features))
+        stages.append(x)
+    x = strided(net.conv_out, x)
+    stages.append(x.replace_feature(F.relu(x.features)))
+    return stages
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
@@ -195,8 +265,10 @@ def main():
         geo.append(SparseMaxPool3d(2, 2, out_bound=bounds[s])(geo[-1]))
     gen = torch.Generator(device=dev).manual_seed(0)
     names = ("dg_pos", "dg_pos_rev", "dg_fwd", "dg_dgrad", "dg_wgrad")
-    err = dict.fromkeys(names, 0.0)  # max |kernel - plain| over the checks
-    rel = dict.fromkeys(names, 0.0)  # the same, over max|plain|
+    strided_names = ("dg_pos_affine", "dg_fwd_strided")
+    # max |kernel - plain| over the checks, and the same over max|plain|
+    err = dict.fromkeys(names + strided_names, 0.0)
+    rel = dict.fromkeys(names + strided_names, 0.0)
 
     def note(kern, diff, r):
         err[kern] = max(err[kern], diff)
@@ -332,6 +404,113 @@ def main():
           f" dg_dgrad {tot['dg_dgrad'][0]:.4f} ms (plain "
           f"{tot['dg_dgrad'][1]:.4f}), dg_wgrad {tot['dg_wgrad'][0]:.4f} ms "
           f"(plain {tot['dg_wgrad'][1]:.4f})")
+
+    # the CenterPoint encoder's layer shapes on its synthetic scan: the
+    # calibrated bf16 net (served in phase 6) gives every layer's input
+    from spconv_tpu_torch.benchmark import centerpoint as CPB
+    from spconv_tpu_torch.calibrate import export_out_bounds
+
+    t0 = time.perf_counter()
+    cp_in = {s: CPB.synthetic_centerpoint_input(s, device=dev)[0]
+             for s in REQUEST_SEEDS}
+    print(f"CenterPoint synthetic scans: {time.perf_counter() - t0:.2f} s "
+          f"on the host, {[int(cp_in[s].num_voxels) for s in REQUEST_SEEDS]}"
+          f" voxels in {cp_in[0].indices.shape[0]} rows, grid "
+          f"{cp_in[0].spatial_shape}")
+    t0 = time.perf_counter()
+    cp_net = CPB.build_calibrated_encoder(cp_in[0], dtype=torch.bfloat16)
+    cp_bounds = export_out_bounds(cp_net)
+    print(f"CenterPoint bounds (f32 calibration on seed 0, x1.15, to 512): "
+          f"{[b for b in cp_bounds if b is not None]} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        cp_rec = cp_net(cp_in[0].replace_feature(
+            cp_in[0].features.bfloat16())).indice_dict
+    cp_tot = {k: [0.0, 0.0] for k in ("cp_dg_pos", "cp_dg_fwd")
+              + strided_names}
+    cp_layer_ms = []  # (layer, C, K, times per request, bf16 ms, plain ms)
+
+    def cp_gemm(kern, fn, plain, valid_in, valid_out, pos, c, k, layer,
+                mult):
+        """A gather-GEMM kernel against plain on random features of the
+        active input rows and random [kv, c, k] weights, f32 and bf16;
+        checks the tolerance and zero inactive output rows, times both."""
+        kv = pos.shape[0]
+        xf = (torch.randn((valid_in.shape[0], c), device=dev, generator=gen)
+              * valid_in[:, None])
+        wf = torch.randn((kv, c, k), device=dev, generator=gen) \
+            / float(np.sqrt(kv * c))
+        for dt in DTYPES:
+            dtn = str(dt)[6:]
+            x, w = xf.to(dt).contiguous(), wf.to(dt).contiguous()
+            got = fn(x, w, pos)
+            diff, r = rel_err(torch, got, plain(x, w, pos))
+            check(np.isfinite(r) and r <= TOL[dtn],
+                  f"{kern} {layer} {dtn}: {r:.3e} > {TOL[dtn]}")
+            check(not got[~valid_out].any(),
+                  f"{kern} {layer}: non-zero inactive output rows")
+            note(kern, diff, r)
+            km = cuda_ms(torch, lambda: fn(x, w, pos), 10)
+            pm = cuda_ms(torch, lambda: plain(x, w, pos), 3)
+            print(f"  cp {layer:10s} {kern:14s} {dtn:9s} {c:4d} {k:4d} "
+                  f"N_in {x.shape[0]:6d} N_out {pos.shape[1]:6d}  "
+                  f"{r:12.3e}  {km:9.4f}  {pm:8.4f}")
+            if dt == torch.bfloat16:
+                cp_layer_ms.append((layer, c, k, mult, km, pm))
+                tot_key = "cp_dg_fwd" if kern == "dg_fwd" else kern
+                cp_tot[tot_key][0] += mult * km
+                cp_tot[tot_key][1] += mult * pm
+
+    def cp_table(kern, build, plain, layer):
+        """A match-table kernel against plain (exact), both timed."""
+        got, want = build(), plain()
+        d = (got.long() - want.long()).abs().max().item() if got.numel() \
+            else 0
+        note("dg_pos" if kern == "cp_dg_pos" else kern, float(d), float(d))
+        check(d == 0, f"{kern} {layer} differs from plain")
+        km, pm = cuda_ms(torch, build, 20), cuda_ms(torch, plain, 3)
+        cp_tot[kern][0] += km
+        cp_tot[kern][1] += pm
+        print(f"  cp {layer:10s} {kern:14s} int32     kv {got.shape[0]:3d} "
+              f"N_out {got.shape[1]:6d}  exact  {km:9.4f}  {pm:8.4f}")
+        return got
+
+    print("CenterPoint layers: layer kernel dtype C K N_in N_out "
+          "max|d|/max|ref| kernel_ms plain_ms")
+    widths = (16, 32, 64, 128)
+    for si, c in enumerate(widths):
+        if si:
+            rec = cp_rec[f"__dgreg__down{si}"]
+            inds, shape = rec.out_indices, rec.out_shape
+        else:
+            inds, shape = cp_in[0].indices, cp_in[0].spatial_shape
+        valid = inds[:, 0] >= 0
+        keys, _ = C.linearize(inds, shape, 1)
+        geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=shape,
+                    batch_size=1)
+        pos = cp_table("cp_dg_pos", lambda: D.build_dg_pos(keys, **geom),
+                       lambda: D.dg_pos_plain(keys, **geom), f"subm{si}")
+        if not si:
+            cp_gemm("dg_fwd", D.dg_fwd, D.dg_fwd_plain, valid, valid, pos,
+                    5, c, "conv_input", 1)
+        cp_gemm("dg_fwd", D.dg_fwd, D.dg_fwd_plain, valid, valid, pos, c, c,
+                f"subm{si}", 4)
+    for key, (c, k) in zip(CP_STRIDED, ((16, 32), (32, 64), (64, 128),
+                                       (128, 128))):
+        rec = cp_rec[f"__dgreg__{key}"]
+        geom = dict(ksize=rec.ksize, stride=rec.stride, padding=rec.padding,
+                    dilation=rec.dilation, in_shape=rec.in_shape,
+                    out_shape=rec.out_shape, batch_size=1)
+        pos = cp_table(
+            "dg_pos_affine",
+            lambda: D.build_dg_pos_affine(rec.in_keys, rec.out_keys, **geom),
+            lambda: D.dg_pos_affine_plain(rec.in_keys, rec.out_keys, **geom),
+            key)
+        cp_gemm("dg_fwd_strided", D.dg_fwd_strided, D.dg_fwd_plain,
+                cp_rec[f"__dgreg_in__{key}"][:, 0] >= 0,
+                rec.out_indices[:, 0] >= 0, pos, c, k, key, 1)
+    print("per bf16 CenterPoint request: " + ", ".join(
+        f"{k} {v[0]:.4f} ms (plain {v[1]:.4f})" for k, v in cp_tot.items()))
 
     # ---- 4. serve ----------------------------------------------------
     net = B.BenchNet(SHAPE, dtype=torch.bfloat16, pool_bounds=bounds,
@@ -491,8 +670,10 @@ def main():
 
     sk, sk_counts, sk_fwd_launches = pair_run("sk")
     dg, dg_counts, _ = pair_run("dg")
-    check(sk_counts == dg_counts == dict(dg_pos=1, dg_pos_rev=1, dg_fwd=2,
-                                         dg_dgrad=2, dg_wgrad=2),
+    check(sk_counts == dg_counts == dict(dg_pos=1, dg_pos_rev=1,
+                                         dg_pos_affine=0, dg_fwd=2,
+                                         dg_fwd_strided=0, dg_dgrad=2,
+                                         dg_wgrad=2),
           f"sk pair launches {sk_counts}, dg pair {dg_counts}")
     check(all(torch.equal(a, b) for a, b in zip(sk, dg)),
           "algo='sk' and algo='dg' differ on the stage-2 pair")
@@ -535,7 +716,89 @@ def main():
                    for i in (0, 1)],
     }
 
-    # ---- 6. report ---------------------------------------------------
+    # ---- 6. serve the CenterPoint encoder -----------------------------
+    from spconv_tpu_torch import SparseConv3d
+    from spconv_tpu_torch.calibrate import apply_out_bounds
+    from spconv_tpu_torch.models import centerpoint_encoder
+
+    cp16 = {s: x.replace_feature(x.features.bfloat16())
+            for s, x in cp_in.items()}
+    down = cp_net.downs[0]
+    sk_down = SparseConv3d(16, 32, 3, stride=2, padding=1,
+                           indice_key="down1", algo="sk",
+                           out_bound=down.out_bound, dtype=torch.bfloat16,
+                           device=dev)
+    sk_down.load_state_dict(down.state_dict())
+    with torch.inference_mode():
+        cp_net.bev(cp16[0])  # warm-up
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        cp_ms = []
+        for seed in REQUEST_SEEDS:
+            t0 = time.perf_counter()
+            bev = cp_net.bev(cp16[seed])
+            torch.cuda.synchronize()
+            cp_ms.append((time.perf_counter() - t0) * 1e3)
+            check(tuple(bev.shape) == (1, 512, 128, 128)
+                  and bev.dtype == torch.bfloat16,
+                  f"CenterPoint request {seed}: bev {tuple(bev.shape)} "
+                  f"{bev.dtype}")
+            check(bool(torch.isfinite(bev).all()) and bool(bev.any()),
+                  f"CenterPoint request {seed}: bev not finite or all 0")
+        cp_launches = dict(D.launch_counts)
+        want = {k: len(REQUEST_SEEDS) * v for k, v in CP_LAUNCHES.items()}
+        check(cp_launches == want, f"CenterPoint launches {cp_launches}, "
+              f"expected {want}")
+
+        net32 = apply_out_bounds(centerpoint_encoder(
+            in_channels=5, bn=False, device=dev).eval(), cp_bounds)
+        for seed, ms in zip(REQUEST_SEEDS, cp_ms):
+            stages = cp_net.forward_stages(cp16[seed])
+            ref = plain_encoder_stages(torch, cp_net, cp16[seed])
+            for si, (g, r) in enumerate(zip(stages, ref)):
+                check(torch.equal(g.indices, r.indices),
+                      f"CenterPoint request {seed}: stage {si} coordinates "
+                      "differ from the plain run")
+            _, bf_rel = rel_err(torch, stages[-1].features,
+                                ref[-1].features)
+            _, rel32 = rel_err(torch, net32(cp_in[seed]).features,
+                               plain_encoder_stages(
+                                   torch, net32, cp_in[seed])[-1].features)
+            check(rel32 <= NET_F32_TOL, f"CenterPoint request {seed}: f32 "
+                  f"encoder {rel32:.3e} > {NET_F32_TOL} of max|ref|")
+            recs = stages[-1].indice_dict
+            layers = []
+            for key in CP_STRIDED:
+                rec = recs[f"__dgreg__{key}"]
+                n_in = int((recs[f"__dgreg_in__{key}"][:, 0] >= 0).sum())
+                n_out, total = int(rec.num_out), int(rec.num_out_total)
+                matched = float((rec.pos >= 0).sum()) / max(1, n_out)
+                layers.append(f"{key} {n_in}->{n_out} (total {total}, "
+                              f"bound {rec.out_keys.shape[0]}, matched "
+                              f"offsets {matched:.3f})")
+            print(f"cp request seed={seed} input=synthetic ms={ms:.3f} "
+                  f"active_per_stage={[int(t.num_voxels) for t in stages]} "
+                  f"f32_rel_err={rel32:.3e} bf16_rel_vs_plain={bf_rel:.3e}; "
+                  + "; ".join(layers))
+
+        # algo="sk" on the first downsample: the same table and kernel as
+        # "dg", so bit-equal
+        stage0 = cp_net.forward_stages(cp16[0])[0]
+        D.reset_launch_counts()
+        y_sk = sk_down(stage0)
+        torch.cuda.synchronize()
+        sk_strided_launches = D.launch_counts["dg_fwd_strided"]
+        check(dict(D.launch_counts) == dict(
+            CP_LAUNCHES, dg_pos=0, dg_fwd=0, dg_pos_affine=1,
+            dg_fwd_strided=1), f"sk downsample launches {D.launch_counts}")
+        check(torch.equal(y_sk.features, down(stage0).features)
+              and torch.equal(y_sk.indices, down(stage0).indices),
+              "algo='sk' and algo='dg' differ on the first downsample")
+    print(f"CenterPoint serve: bf16 bev {tuple(bev.shape)}, ms per request "
+          f"{[round(m, 3) for m in cp_ms]}, launches {cp_launches}; "
+          f"algo='sk' downsample bit-equal to 'dg'")
+
+    # ---- 7. report ---------------------------------------------------
     def entry(name, source, replaces, launches, key, **extra):
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
@@ -543,6 +806,7 @@ def main():
                     ms=tot[key][0],
                     plain_ms=tot[key][1], **extra)
 
+    down1_ms = next(r for r in cp_layer_ms if r[0] == "down1")
     pallas = "spconv_tpu/ops/pallas/"
     csrc = "spconv_tpu_torch/csrc/"
     kernels = [
@@ -573,6 +837,28 @@ def main():
              max_abs_err=sk_err["sk_bwd"], max_rel_err=sk_rel["sk_bwd"],
              ms=sk_ms["sk_bwd"][0],
              plain_ms=sk_ms["sk_bwd"][1]),
+        dict(name="dg_pos_affine", route="cuda", source=csrc + "dg_pos.cu",
+             replaces=pallas + "dg_conv.py:302 (_vec_affine_probes of "
+             "_dg_fwd_kernel :339, launched at :1020 by _dg_reg_conv)",
+             launches=cp_launches["dg_pos_affine"],
+             max_abs_err=err["dg_pos_affine"],
+             max_rel_err=rel["dg_pos_affine"],
+             ms=cp_tot["dg_pos_affine"][0],
+             plain_ms=cp_tot["dg_pos_affine"][1]),
+        dict(name="dg_fwd_strided", route="cuda", source=csrc + "dg_fwd.cu",
+             replaces=pallas + "dg_conv.py:339 (affine probes, launched at "
+             ":1020 by _dg_reg_conv :1837)",
+             launches=cp_launches["dg_fwd_strided"],
+             max_abs_err=err["dg_fwd_strided"],
+             max_rel_err=rel["dg_fwd_strided"],
+             ms=cp_tot["dg_fwd_strided"][0],
+             plain_ms=cp_tot["dg_fwd_strided"][1]),
+        dict(name="sk_fwd_strided", route="cuda", source=csrc + "dg_fwd.cu",
+             replaces=pallas + "sorted_conv.py:446 (sk_regular_conv "
+             ":1356)", launches=sk_strided_launches,
+             max_abs_err=err["dg_fwd_strided"],
+             max_rel_err=rel["dg_fwd_strided"],
+             ms=down1_ms[4], plain_ms=down1_ms[5]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on its "

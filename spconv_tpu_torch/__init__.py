@@ -6,32 +6,40 @@ JAX package's public names, static-buffer semantics (a row is active iff
 kernels with CUDA kernels written for ``sm_90a`` (``csrc/``), each with a
 plain PyTorch version that CPU tensors take.  It never imports ``jax``.
 
-Ported so far: the reference benchmark net's forward pass (submanifold
-convs on the dynamic-gather path, the 2x/stride-2 max pool); see ROADMAP.md
-for what is still to come.
+Ported so far: the reference benchmark net (``benchmark.basic``) serving and
+training (submanifold convs on the dynamic-gather path, forward and
+backward; the 2x/stride-2 max pool), and the CenterPoint / SECOND encoder
+(``models``) serving: strided ``SparseConv3d`` forward, ``BatchNorm1d``,
+``SparseConvTensor.dense`` and out-bound calibration (``calibrate``).  See
+ROADMAP.md for what is still to come.
 """
 
 __version__ = "0.1.0"
 
-from . import checkpoint, constants, ops
+from . import calibrate, checkpoint, constants, models, ops
 from .checkpoint import load_jax_state_dict
 from .core import SparseConvTensor, expand_nd
-from .modules import (DGData, SparseConvolution, SparseMaxPool,
-                      SparseMaxPool3d, SparseModule, SparseSequential,
-                      SubMConv3d)
+from .modules import (BatchNorm1d, DGData, DGRegData, SparseConv3d,
+                      SparseConvolution, SparseMaxPool, SparseMaxPool3d,
+                      SparseModule, SparseSequential, SubMConv3d)
 
 __all__ = [
     "SparseConvTensor",
     "expand_nd",
     "SparseConvolution",
     "SubMConv3d",
+    "SparseConv3d",
+    "BatchNorm1d",
     "SparseMaxPool",
     "SparseMaxPool3d",
     "SparseModule",
     "SparseSequential",
     "DGData",
+    "DGRegData",
     "load_jax_state_dict",
+    "calibrate",
     "checkpoint",
     "constants",
+    "models",
     "ops",
 ]

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper).  The library is named by a hash of the
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process
+per source, all started together, and links the objects into one shared
+library with a plain C interface.  The library is named by a hash of the
 sources and flags and lives under ``_build/`` (git-ignored).  The build runs
 at first use, under a file lock, so concurrent processes build it once.
 Importing the package needs neither ``nvcc`` nor a GPU: nothing here runs
@@ -28,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -69,17 +70,30 @@ def build_library() -> tuple:
             if lib.exists():
                 return lib, 0.0, log.read_text() if log.exists() else ""
             tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in _sources()]]
+            nvcc = _nvcc()
+            objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o"
+                    for s in _sources()]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            procs = [subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                for s, o in zip(_sources(), objs)]
+            outs = [(p.args, p.communicate()[0], p.returncode)
+                    for p in procs]
+            link = [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+            if all(rc == 0 for _, _, rc in outs):
+                proc = subprocess.run(link, capture_output=True, text=True)
+                outs.append((link, proc.stdout + proc.stderr,
+                             proc.returncode))
             secs = time.perf_counter() - t0
-            text = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                    f"{text}")
+            for o in objs:
+                o.unlink(missing_ok=True)
+            text = "".join(out for _, out, _ in outs)
+            for cmd, out, rc in outs:
+                if rc != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(
+                        f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
             log.write_text(text)
             os.replace(tmp, lib)
             return lib, secs, text
@@ -99,6 +113,9 @@ def load_library() -> ctypes.CDLL:
         # keys, n, kv, geom, sentinel, reverse, pos, stream
         "dg_pos_launch": [vp, i32, i32, ctypes.POINTER(i32), i32, i32, vp,
                           vp],
+        # out_keys, n_out, in_keys, n_in, kv, geom, sent_out, pos, stream
+        "dg_pos_affine_launch": [vp, i32, vp, i32, i32, ctypes.POINTER(i32),
+                                 i32, vp, vp],
         # x, w, pos, out, n, C, K, kv, stream
         "dg_fwd_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
         "dg_fwd_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],

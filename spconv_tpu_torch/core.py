@@ -79,10 +79,66 @@ class SparseConvTensor:
         """``[N]`` bool: active rows."""
         return self.indices[:, 0] >= 0
 
+    def replace_feature(self, feature: torch.Tensor) -> "SparseConvTensor":
+        """Shallow copy with ``feature`` in place of the features.  The new
+        features must keep inactive rows at 0; use
+        :meth:`replace_feature_masked` for ops where ``f(0) != 0``."""
+        new = self.shadow_copy()
+        new.features = feature
+        return new
+
+    def replace_feature_masked(self, feature: torch.Tensor
+                               ) -> "SparseConvTensor":
+        """:meth:`replace_feature` that sets inactive rows back to 0."""
+        return self.replace_feature(torch.where(
+            self.valid_mask[:, None], feature, torch.zeros_like(feature)))
+
+    @property
+    def overflowed(self) -> Optional[torch.Tensor]:
+        """0-d device bool: the bounded op that made this tensor dropped
+        output sites (``num_out_total > num_voxels``).  None when no
+        bounded discovery made it.  Reading it needs no sync."""
+        if self.num_out_total is None:
+            return None
+        return self.num_out_total > self.num_voxels
+
+    def check_overflow(self, context: str = "") -> None:
+        """Raise ``ValueError`` if the producing op's ``out_bound`` cut the
+        active set.  Reads two counts on the host, so it syncs: call it
+        once on a representative input after choosing bounds, not inside a
+        served forward."""
+        if self.num_out_total is None:
+            return
+        total, got = int(self.num_out_total), int(self.num_voxels)
+        if total > got:
+            raise ValueError(
+                f"sparse op output overflowed its static out_bound"
+                f"{' in ' + context if context else ''}: {total} active "
+                f"sites produced, only {got} kept (buffer "
+                f"{self.indices.shape[0]}). Raise out_bound / "
+                f"out_bound_ratio on the producing layer.")
+
     def find_indice_pair(self, key: Optional[str]):
         if key is None:
             return None
         return self.indice_dict.get(key)
+
+    def dense(self, channels_first: bool = True) -> torch.Tensor:
+        """Densify to ``[B, C, *spatial]`` (``[B, *spatial, C]`` without
+        ``channels_first``); inactive rows are dropped.  Sync-free: every
+        inactive row writes one spare row past the grid, which is cut."""
+        from .ops import coords as C
+
+        keys, sentinel = C.linearize(self.indices, self.spatial_shape,
+                                     self.batch_size)
+        c = self.features.shape[1]
+        flat = self.features.new_zeros((sentinel + 1, c))
+        flat[keys.long()] = self.features
+        res = flat[:sentinel].reshape(self.batch_size, *self.spatial_shape,
+                                      c)
+        if not channels_first:
+            return res
+        return res.permute(0, self.ndim + 1, *range(1, self.ndim + 1))
 
     def sort_by_key(self) -> "SparseConvTensor":
         """Reorder rows by linearized coordinate and set ``keys_sorted``.

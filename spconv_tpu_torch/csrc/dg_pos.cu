@@ -1,5 +1,6 @@
 // B1 `dg_pos`: the match table of a submanifold conv stage on key-sorted
-// input, in the forward direction or reversed (the backward's table).
+// input, in the forward direction or reversed (the backward's table); and
+// in affine mode the table of a regular (strided) conv (see below).
 //
 // Replaces: spconv_tpu/ops/pallas/dg_conv.py::_dg_pos_kernel (launched by
 //   _build_dg_pos, public entry build_dg_pos).  The TPU kernel searches
@@ -30,6 +31,23 @@
 //   writes are coalesced and neighbouring threads search for neighbouring
 //   keys, which share the upper levels of the search path in cache.  Many
 //   independent searches in flight hide the load latency.
+//
+// Affine mode (`dg_pos_affine_launch`): the match table of a regular
+//   (strided) conv, whose output sites differ from its input sites.
+//   Replaces the affine probes of the same Pallas kernels that the strided
+//   conv runs in search mode: spconv_tpu/ops/pallas/dg_conv.py:302
+//   (_vec_affine_probes) inside :339 (_dg_fwd_kernel), launched at :1020
+//   through _dg_reg_conv (:1837-1849), public entry dg_regular_conv.  The
+//   TPU kernel searches windows of the input keys inside its GEMM; here the
+//   search is this table, and B2 (dg_fwd.cu) gathers through it unchanged.
+//   For output row o and kernel offset k, decode o's key with the OUTPUT
+//   dims (batch b first), move each axis to coord * stride + off_k * dil -
+//   pad (the regular conv's displacement: no centring, unlike the subm
+//   mode), bounds-check it against the INPUT dims, relinearize with the
+//   input dims and b, and binary-search in_keys[0, N_in) (about 0.5 MB for
+//   the CenterPoint scan, resident in L2).  Writes the input row or -1 to
+//   pos[k * N_out + o]; sentinel output rows get -1 at every offset.  Bound
+//   and design as the subm mode.
 
 #include <cuda_runtime.h>
 
@@ -43,6 +61,32 @@ struct PosGeom {
   int ksize[kMaxNdim];
   int dil[kMaxNdim];
 };
+
+struct AffineGeom {
+  int ndim;
+  int out_dims[kMaxNdim];
+  int in_dims[kMaxNdim];
+  int stride[kMaxNdim];
+  int ksize[kMaxNdim];
+  int dil[kMaxNdim];
+  int pad[kMaxNdim];
+};
+
+// Row of `probe` in keys[0, n), or -1.
+__device__ __forceinline__ int search_row(const int* __restrict__ keys,
+                                          int n, int probe) {
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(keys + mid) < probe) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return (lo < n && __ldg(keys + lo) == probe) ? lo : -1;
+}
 
 __global__ void dg_pos_kernel(const int* __restrict__ keys, int n, int kv,
                               PosGeom g, int sentinel, int reverse,
@@ -74,20 +118,43 @@ __global__ void dg_pos_kernel(const int* __restrict__ keys, int n, int kv,
         stride *= g.dims[a];
       }
     }
-    if (ok) {
-      const int probe = key + delta;
-      int lo = 0;
-      int hi = n;
-      while (lo < hi) {
-        const int mid = lo + ((hi - lo) >> 1);
-        if (__ldg(keys + mid) < probe) {
-          lo = mid + 1;
-        } else {
-          hi = mid;
-        }
+    if (ok) res = search_row(keys, n, key + delta);
+  }
+  pos[t] = res;
+}
+
+__global__ void dg_pos_affine_kernel(const int* __restrict__ out_keys,
+                                     int n_out,
+                                     const int* __restrict__ in_keys,
+                                     int n_in, int kv, AffineGeom g,
+                                     int sent_out, int* __restrict__ pos) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= kv * n_out) return;
+  const int k = t / n_out;
+  const int o = t - k * n_out;
+  const int key = out_keys[o];
+  int res = -1;
+  if (key != sent_out) {
+    int rem = key;
+    int kr = k;
+    int lin = 0;  // input key without the batch term
+    int vol = 1;  // volume of the input axes done so far
+    bool ok = true;
+#pragma unroll
+    for (int a = kMaxNdim - 1; a >= 0; --a) {
+      if (a < g.ndim) {
+        const int coord = rem % g.out_dims[a];
+        rem /= g.out_dims[a];
+        const int ka = kr % g.ksize[a];
+        kr /= g.ksize[a];
+        const int c = coord * g.stride[a] + ka * g.dil[a] - g.pad[a];
+        ok = ok && c >= 0 && c < g.in_dims[a];
+        if (ok) lin += c * vol;
+        vol *= g.in_dims[a];
       }
-      if (lo < n && __ldg(keys + lo) == probe) res = lo;
     }
+    // rem is now the batch index
+    if (ok) res = search_row(in_keys, n_in, rem * vol + lin);
   }
   pos[t] = res;
 }
@@ -111,6 +178,34 @@ extern "C" int dg_pos_launch(const void* keys, int n, int kv, const int* geom,
   const int blocks = (total + threads - 1) / threads;
   dg_pos_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(keys), n, kv, g, sentinel, reverse != 0,
+      static_cast<int*>(pos));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// geom (host memory): ndim, out_dims[4], in_dims[4], stride[4], ksize[4],
+// dilation[4], padding[4].  The wrapper checks kv * n_out < 2**31 and that
+// both key spaces fit in int32.
+extern "C" int dg_pos_affine_launch(const void* out_keys, int n_out,
+                                    const void* in_keys, int n_in, int kv,
+                                    const int* geom, int sent_out, void* pos,
+                                    void* stream) {
+  AffineGeom g;
+  g.ndim = geom[0];
+  for (int a = 0; a < kMaxNdim; ++a) {
+    g.out_dims[a] = geom[1 + a];
+    g.in_dims[a] = geom[1 + kMaxNdim + a];
+    g.stride[a] = geom[1 + 2 * kMaxNdim + a];
+    g.ksize[a] = geom[1 + 3 * kMaxNdim + a];
+    g.dil[a] = geom[1 + 4 * kMaxNdim + a];
+    g.pad[a] = geom[1 + 5 * kMaxNdim + a];
+  }
+  const int threads = 256;
+  const int total = kv * n_out;
+  const int blocks = (total + threads - 1) / threads;
+  dg_pos_affine_kernel<<<blocks, threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(out_keys), n_out,
+      static_cast<const int*>(in_keys), n_in, kv, g, sent_out,
       static_cast<int*>(pos));
   return static_cast<int>(cudaGetLastError());
 }

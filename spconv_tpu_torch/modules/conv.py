@@ -2,21 +2,29 @@
 ``spconv_tpu/modules/conv.py``).
 
 Ported: the submanifold conv on the dynamic-gather (DG) path, forward and
-backward, and the 1x1 path.  The stage's match table is built once per
-``indice_key``, cached in ``indice_dict`` with the geometry it was built
-for, and reused by every later layer of the stage; its reversed table (the
-backward's) is added to the same record the first time a layer of the
-stage runs with a gradient wanted, and never under ``torch.no_grad()`` or
-``torch.inference_mode()``.
+backward, the regular (strided) conv's forward on the same path, and the
+1x1 path.  The stage's match table is built once per ``indice_key``, cached
+in ``indice_dict`` with the geometry it was built for, and reused by every
+later layer of the stage; its reversed table (the backward's) is added to
+the same record the first time a layer of the stage runs with a gradient
+wanted, and never under ``torch.no_grad()`` or ``torch.inference_mode()``.
+
+A regular conv discovers its output sites (``ops.rulebook.
+build_conv_outputs``, bounded by ``out_bound``), builds its affine match
+table and caches both in a :class:`DGRegData` record under
+``__dgreg__<indice_key>``, with the input indices under
+``__dgreg_in__<indice_key>``, for the inverse conv of a later slice.
 
 ``algo="sk"`` (the JAX package's sorted-key kernels, which compute the DG
 conv's function through a one-hot key join on the TPU) runs the same match
-table through the same kernels.  ``"auto"`` is ``"dg"``.
+tables through the same kernels; its regular-conv record lives under
+``__skreg__``/``__skreg_in__`` as in the JAX package.  ``"auto"`` is
+``"dg"``.
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 computed some other way: the native rulebook path (any other ``algo``, and
-input that is not key-sorted; ROADMAP A4-A5) and strided, transposed and
-inverse convs (ROADMAP A9).
+input that is not key-sorted; ROADMAP A4-A5), transposed and inverse convs
+(B2's divide probes, ROADMAP A9), and the strided conv's backward.
 """
 
 from __future__ import annotations
@@ -28,14 +36,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import calibrate
 from ..constants import DEFAULT_ALGO
 from ..core import SparseConvTensor, expand_nd
 from ..ops import coords as C
-from ..ops.dg_conv import build_dg_pos, dg_subm_conv
+from ..ops.dg_conv import build_dg_pos, dg_regular_conv, dg_subm_conv
 from ..ops.epilogue import bias_add_act
+from ..ops.rulebook import build_conv_outputs
 from .modules import SparseModule
 
-__all__ = ["DGData", "SparseConvolution", "SubMConv3d"]
+__all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv3d",
+           "SparseConv3d"]
 
 IntOrSeq = Union[int, Sequence[int]]
 
@@ -58,6 +69,34 @@ class DGData:
         self.spatial_shape = tuple(spatial_shape)
 
 
+class DGRegData:
+    """Cached state of a regular conv under its ``indice_key`` (the port's
+    ``SKRegData``): the input and output keys, the output sites and their
+    counts, the affine match table ``pos`` ``[kv, N_out]`` and the geometry
+    they were built for."""
+
+    def __init__(self, in_keys: torch.Tensor, out_keys: torch.Tensor,
+                 out_indices: torch.Tensor, num_out: torch.Tensor,
+                 num_out_total: torch.Tensor, pos: torch.Tensor, *,
+                 ksize: Tuple[int, ...], stride: Tuple[int, ...],
+                 padding: Tuple[int, ...], dilation: Tuple[int, ...],
+                 in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
+                 output_padding: Tuple[int, ...]):
+        self.in_keys = in_keys
+        self.out_keys = out_keys
+        self.out_indices = out_indices
+        self.num_out = num_out
+        self.num_out_total = num_out_total
+        self.pos = pos
+        self.ksize = tuple(ksize)
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.dilation = tuple(dilation)
+        self.in_shape = tuple(in_shape)
+        self.out_shape = tuple(out_shape)
+        self.output_padding = tuple(output_padding)
+
+
 class SparseConvolution(SparseModule):
     """Base sparse convolution with a KRSC weight ``[K, *ksize, C]``."""
 
@@ -73,10 +112,13 @@ class SparseConvolution(SparseModule):
         groups: int = 1,
         bias: bool = True,
         subm: bool = False,
+        output_padding: IntOrSeq = 0,
         transposed: bool = False,
         inverse: bool = False,
         indice_key: Optional[str] = None,
         algo: Optional[str] = None,
+        out_bound: Optional[int] = None,
+        out_bound_ratio: float = 2.0,
         act_type: str = "none",
         act_alpha: float = 0.0,
         act_beta: float = 0.0,
@@ -95,12 +137,13 @@ class SparseConvolution(SparseModule):
         self.stride = expand_nd(ndim, stride)
         self.padding = expand_nd(ndim, padding)
         self.dilation = expand_nd(ndim, dilation)
+        self.output_padding = expand_nd(ndim, output_padding)
         kv = int(np.prod(self.kernel_size))
         self.conv1x1 = kv == 1 and (subm or self.stride == (1,) * ndim)
-        if transposed or inverse or not (subm or self.conv1x1):
+        if transposed or inverse:
             raise NotImplementedError(
-                "only submanifold and 1x1 convs are ported; strided, "
-                "transposed and inverse convs wait for ROADMAP A9")
+                "transposed and inverse convs (B2's divide probes) are not "
+                "ported yet; they wait for ROADMAP A9")
         if self.conv1x1 and not subm and self.padding != (0,) * ndim:
             raise ValueError("padding must be zero for a 1x1 conv")
         if subm and any(k % 2 == 0 for k in self.kernel_size):
@@ -108,6 +151,8 @@ class SparseConvolution(SparseModule):
         self.subm = subm
         self.indice_key = indice_key
         self.algo = algo or DEFAULT_ALGO
+        self.out_bound = out_bound
+        self.out_bound_ratio = out_bound_ratio
         self.act_type = act_type
         self.act_alpha = act_alpha
         self.act_beta = act_beta
@@ -132,16 +177,30 @@ class SparseConvolution(SparseModule):
 
     def extra_repr(self) -> str:
         return (f"{self.in_channels}, {self.out_channels}, "
-                f"kernel_size={self.kernel_size}, subm={self.subm}, "
-                f"indice_key={self.indice_key!r}, algo={self.algo!r}")
+                f"kernel_size={self.kernel_size}, stride={self.stride}, "
+                f"padding={self.padding}, subm={self.subm}, "
+                f"indice_key={self.indice_key!r}, algo={self.algo!r}, "
+                f"out_bound={self.out_bound}")
+
+    def _resolve_out_bound(self, n_in: int) -> int:
+        """Static output buffer of a regular conv: ``out_bound`` when
+        given, else ``n_in`` times ``out_bound_ratio`` (at least 2 for a
+        stride-1 conv), rounded up to a multiple of 128."""
+        if self.out_bound is not None:
+            return self.out_bound
+        ratio = self.out_bound_ratio
+        if all(s == 1 for s in self.stride):
+            ratio = max(ratio, 2.0)
+        b = int(n_in * ratio)
+        return max(128, -(-b // 128) * 128)
 
     def forward(self, input: SparseConvTensor,
                 add_input: Optional[SparseConvTensor] = None
                 ) -> SparseConvTensor:
         if self.conv1x1:
             w = self.weight.reshape(self.out_channels, self.in_channels)
-            out_feat = self._epilogue(input.features @ w.t(), input,
-                                      add_input)
+            out_feat = self._epilogue(input.features @ w.t(),
+                                      input.valid_mask, add_input)
             out = input.shadow_copy()
             out.features = out_feat
             return out
@@ -155,14 +214,18 @@ class SparseConvolution(SparseModule):
                 "the DG conv needs key-sorted input (call sort_by_key()); "
                 "unsorted input takes the native rulebook path, which "
                 "waits for ROADMAP A4-A5")
-        return self._call_dg(input, add_input)
+        if self.subm:
+            return self._call_dg(input, add_input)
+        return self._call_dg_regular(input, add_input)
 
-    def _epilogue(self, out_feat, input, add_input):
+    def _epilogue(self, out_feat, valid, add_input):
+        """Bias, residual add and activation, then 0 on the rows that are
+        not ``valid`` (the output sites' mask)."""
         out_feat = bias_add_act(
             out_feat, self.bias, self.act_type, self.act_alpha,
             self.act_beta,
             add_input.features if add_input is not None else None)
-        return torch.where(input.valid_mask[:, None], out_feat,
+        return torch.where(valid[:, None], out_feat,
                            torch.zeros_like(out_feat))
 
     def _stage_pos(self, input: SparseConvTensor, need_rev: bool):
@@ -212,7 +275,7 @@ class SparseConvolution(SparseModule):
         pos, pos_rev, new_rec = self._stage_pos(input, need_rev)
         out_feat = dg_subm_conv(input.features, self.weight, pos, pos_rev)
         out = SparseConvTensor(
-            self._epilogue(out_feat, input, add_input),
+            self._epilogue(out_feat, input.valid_mask, add_input),
             input.indices,
             input.spatial_shape,
             input.batch_size,
@@ -222,6 +285,63 @@ class SparseConvolution(SparseModule):
         )
         if new_rec is not None:
             out.indice_dict[self.indice_key] = new_rec
+        return out
+
+    def _call_dg_regular(self, input: SparseConvTensor,
+                         add_input: Optional[SparseConvTensor]
+                         ) -> SparseConvTensor:
+        """Regular (strided) conv on the DG path: output discovery, the
+        affine match table, B2.  The record under ``__dgreg__<indice_key>``
+        (``__skreg__`` for ``algo="sk"``) is reused only when its geometry
+        matches exactly; otherwise everything is rebuilt and the record is
+        left as it is."""
+        indices = input.indices
+        in_shape = tuple(input.spatial_shape)
+        batch_size = input.batch_size
+        out_shape = tuple(C.get_conv_output_size(
+            in_shape, self.kernel_size, self.stride, self.padding,
+            self.dilation))
+        ns = "__skreg" if self.algo == "sk" else "__dgreg"
+        ck = (f"{ns}__{self.indice_key}" if self.indice_key is not None
+              else None)
+        rec = input.indice_dict.get(ck) if ck else None
+        geom = dict(ksize=self.kernel_size, stride=self.stride,
+                    padding=self.padding, dilation=self.dilation,
+                    in_shape=in_shape, out_shape=out_shape,
+                    output_padding=self.output_padding)
+        if (isinstance(rec, DGRegData)
+                and rec.in_keys.shape[0] == indices.shape[0]
+                and all(getattr(rec, k) == v for k, v in geom.items())):
+            in_keys, out_keys, out_indices = (rec.in_keys, rec.out_keys,
+                                              rec.out_indices)
+            num_out, num_out_total, pos = (rec.num_out, rec.num_out_total,
+                                           rec.pos)
+        else:
+            out_indices, out_keys, num_out, num_out_total = \
+                build_conv_outputs(
+                    indices, spatial_shape=in_shape, batch_size=batch_size,
+                    ksize=self.kernel_size, stride=self.stride,
+                    padding=self.padding, dilation=self.dilation,
+                    out_bound=self._resolve_out_bound(indices.shape[0]))
+            in_keys, _ = C.linearize(indices, in_shape, batch_size)
+            pos = None
+        out_feat, pos = dg_regular_conv(
+            input.features, in_keys, out_keys, self.weight,
+            in_shape=in_shape, out_shape=out_shape, batch_size=batch_size,
+            stride=self.stride, padding=self.padding,
+            dilation=self.dilation, pos=pos)
+        calibrate._maybe_record(self, num_out)
+        out = SparseConvTensor(
+            self._epilogue(out_feat, out_indices[:, 0] >= 0, add_input),
+            out_indices, out_shape, batch_size, num_voxels=num_out,
+            indice_dict=dict(input.indice_dict),
+            # discovery emits ascending unique keys, invalid rows last
+            keys_sorted=True, num_out_total=num_out_total)
+        if ck and not isinstance(rec, DGRegData):
+            out.indice_dict[ck] = DGRegData(
+                in_keys, out_keys, out_indices, num_out, num_out_total, pos,
+                **geom)
+            out.indice_dict[f"{ns}_in__{self.indice_key}"] = indices
         return out
 
 
@@ -234,4 +354,20 @@ class SubMConv3d(SparseConvolution):
                  algo: Optional[str] = None, **kwargs):
         super().__init__(3, in_channels, out_channels, kernel_size, stride,
                          padding, dilation, groups, bias, subm=True,
+                         indice_key=indice_key, algo=algo, **kwargs)
+
+
+class SparseConv3d(SparseConvolution):
+    """Regular 3-d sparse conv (strided downsample).  Its output buffer
+    holds ``out_bound`` rows (default: ``out_bound_ratio`` times the input
+    buffer); see :meth:`SparseConvolution._resolve_out_bound`."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOrSeq = 3, stride: IntOrSeq = 1,
+                 padding: IntOrSeq = 0, dilation: IntOrSeq = 1,
+                 groups: int = 1, bias: bool = True,
+                 indice_key: Optional[str] = None,
+                 algo: Optional[str] = None, **kwargs):
+        super().__init__(3, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, bias, subm=False,
                          indice_key=indice_key, algo=algo, **kwargs)

@@ -1,14 +1,17 @@
-"""Containers (counterpart of ``spconv_tpu/modules/modules.py``; only
-``SparseSequential`` is ported)."""
+"""Containers and normalization (counterpart of
+``spconv_tpu/modules/modules.py``; ``SparseSequential`` and
+``BatchNorm1d`` are ported)."""
 
 from __future__ import annotations
+
+from typing import Union
 
 import torch
 from torch import nn
 
 from ..core import SparseConvTensor
 
-__all__ = ["SparseModule", "SparseSequential"]
+__all__ = ["SparseModule", "SparseSequential", "BatchNorm1d"]
 
 
 class SparseModule(nn.Module):
@@ -45,3 +48,71 @@ class SparseSequential(SparseModule):
                 x.features = torch.where(x.valid_mask[:, None], out,
                                          torch.zeros_like(out))
         return x
+
+
+class BatchNorm1d(SparseModule):
+    """Feature-row batch norm whose statistics cover active rows only (a
+    dense BN over the padded buffer would count the zero padding).
+
+    In training mode (``module.train()``) it normalizes with the masked
+    batch statistics, otherwise with the running ones.  Statistics and the
+    normalization are f32; the result is cast back to the features' dtype
+    and inactive rows are 0.  Its tensors are exactly the JAX module's
+    leaves, ``weight``, ``bias`` (parameters, when ``affine``),
+    ``running_mean`` and ``running_var`` (f32 buffers), so a JAX state
+    dict loads strictly; there is no ``num_batches_tracked``.  The
+    running-stat update (the JAX ``updated``) is not ported yet.
+
+    Takes a :class:`SparseConvTensor` or a plain ``[N, C]`` tensor (all
+    rows active)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.num_features = num_features
+        self.eps = eps
+        self.momentum = momentum
+        if affine:
+            self.weight = nn.Parameter(
+                torch.ones(num_features, dtype=dtype, device=device))
+            self.bias = nn.Parameter(
+                torch.zeros(num_features, dtype=dtype, device=device))
+        else:
+            self.register_parameter("weight", None)
+            self.register_parameter("bias", None)
+        self.register_buffer("running_mean", torch.zeros(
+            num_features, dtype=torch.float32, device=device))
+        self.register_buffer("running_var", torch.ones(
+            num_features, dtype=torch.float32, device=device))
+
+    def extra_repr(self) -> str:
+        return f"{self.num_features}, eps={self.eps}"
+
+    @staticmethod
+    def _batch_stats(feats, mask):
+        m = mask[:, None].float()
+        f32 = feats.float() * m
+        cnt = m.sum().clamp(min=1.0)
+        mean = f32.sum(0) / cnt
+        var = (f32 * f32).sum(0) / cnt - mean * mean
+        return mean, var.clamp(min=0.0)
+
+    def forward(self, x: Union[SparseConvTensor, torch.Tensor]
+                ) -> Union[SparseConvTensor, torch.Tensor]:
+        sparse = isinstance(x, SparseConvTensor)
+        feats = x.features if sparse else x
+        if self.training:
+            mask = (x.valid_mask if sparse else
+                    torch.ones(feats.shape[0], dtype=torch.bool,
+                               device=feats.device))
+            mean, var = self._batch_stats(feats, mask)
+        else:
+            mean, var = self.running_mean, self.running_var
+        out = (feats.float() - mean) * torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            out = out * self.weight + self.bias
+        out = out.to(feats.dtype)
+        if sparse:
+            return x.replace_feature_masked(out)
+        return out

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+from .. import calibrate
 from ..core import SparseConvTensor, expand_nd
 from ..ops import coords as C
 from ..ops.pool import pool2_seg
@@ -82,6 +83,7 @@ class SparseMaxPool(SparseModule):
             batch_size=input.batch_size,
             out_bound=self._resolve_out_bound(input.indices.shape[0]),
         )
+        calibrate._maybe_record(self, num_out)
         return SparseConvTensor(
             out_feat, out_indices, out_shape, input.batch_size,
             num_voxels=num_out,

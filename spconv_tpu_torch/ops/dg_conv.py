@@ -1,16 +1,22 @@
-"""Dynamic-gather (DG) submanifold conv on key-sorted input (counterpart of
-``spconv_tpu/ops/pallas/dg_conv.py`` in posmode), forward and backward.
+"""Dynamic-gather (DG) conv on key-sorted input (counterpart of
+``spconv_tpu/ops/pallas/dg_conv.py`` in posmode): the submanifold conv
+forward and backward, and the regular (strided) conv forward.
 
-Four kernel wrappers, each with its plain PyTorch version beside it:
+The kernel wrappers, each with its plain PyTorch version beside it:
 
 * ``build_dg_pos`` (kernel ``csrc/dg_pos.cu``): the match table.  For each
   output row ``i`` and kernel offset ``k``, the row whose key equals
   ``key[i]`` shifted by offset ``k`` (by its negation with
   ``reverse=True``: the backward's table), or -1.  Built once per
   ``indice_key`` stage; laid out offset-major ``[kv, N]`` int32.
+* ``build_dg_pos_affine`` (the same kernel file, affine mode): the match
+  table ``[kv, N_out]`` of a regular conv, from output sites to the input
+  rows at ``coord * stride + off_k * dil - pad``.
 * ``dg_fwd`` (kernel ``csrc/dg_fwd.cu``): the gather-GEMM
   ``out[i] = sum_k x[pos[k, i]] @ W[k]`` with f32 accumulation, rounded
   once to the input dtype; rows without any match are 0.
+  ``dg_fwd_strided`` is the same kernel on an affine table, where the
+  output has ``N_out`` rows and the input ``N_in``.
 * ``dg_dgrad`` (the same kernel, on the reversed table and ``W[k]^T``):
   ``din[j] = sum_k dout[pos_rev[k, j]] @ W[k]^T``.
 * ``dg_wgrad`` (kernel ``csrc/dg_wgrad.cu``):
@@ -19,7 +25,9 @@ Four kernel wrappers, each with its plain PyTorch version beside it:
 
 ``DGSubmConvFn`` is the autograd Function over them (the VJP
 ``_dg_conv_p_bwd`` of the JAX package); ``dg_subm_conv`` takes it whenever
-a gradient is wanted.
+a gradient is wanted.  ``dg_regular_conv`` is the strided forward; its
+backward (the divide probes of ``_dg_reg_conv_bwd``) is not ported yet, so
+it refuses a call that wants a gradient.
 
 A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
 tensor it launches its kernel or raises; it never falls back.  Each launch
@@ -38,10 +46,15 @@ from . import coords as C
 
 __all__ = [
     "subm_key_deltas",
+    "regular_conv_disp",
     "build_dg_pos",
     "dg_pos_plain",
+    "build_dg_pos_affine",
+    "dg_pos_affine_plain",
     "dg_fwd",
+    "dg_fwd_strided",
     "dg_fwd_plain",
+    "dg_regular_conv",
     "dg_dgrad",
     "dg_dgrad_plain",
     "dg_wgrad",
@@ -55,9 +68,11 @@ __all__ = [
 ]
 
 # launches of each kernel wrapper since the last reset_launch_counts();
-# "dg_pos" counts forward tables, "dg_pos_rev" reversed ones
+# "dg_pos" counts forward subm tables, "dg_pos_rev" reversed ones,
+# "dg_pos_affine" strided tables; "dg_fwd_strided" counts B2 on those
 launch_counts = dict.fromkeys(
-    ("dg_pos", "dg_pos_rev", "dg_fwd", "dg_dgrad", "dg_wgrad"), 0)
+    ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_fwd", "dg_fwd_strided",
+     "dg_dgrad", "dg_wgrad"), 0)
 
 _MAX_NDIM = 4
 
@@ -86,9 +101,36 @@ def subm_key_deltas(
     return deltas.astype(np.int32), disp.astype(np.int32)
 
 
+def regular_conv_disp(ksize: Sequence[int], dilation: Sequence[int],
+                      padding: Sequence[int]) -> np.ndarray:
+    """``[kv, ndim]`` displacements of a regular conv: kernel offset times
+    dilation minus padding, with no centring (the ``disp`` of the JAX
+    package's ``dg_regular_conv``).  Output site ``o`` reads input site
+    ``o * stride + disp_k`` at offset ``k``."""
+    offs = C.kernel_offsets(ksize).astype(np.int64)
+    return (offs * np.array([int(d) for d in dilation])
+            - np.array([int(p) for p in padding])).astype(np.int32)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _check_keys(name, keys):
+    _check(keys.ndim == 1 and keys.dtype == torch.int32,
+           f"{name} must be [N] int32, got {tuple(keys.shape)} {keys.dtype}")
+    _check(keys.is_contiguous(), f"{name} must be contiguous")
+
+
+def _decode(keys: torch.Tensor, dims: Sequence[int]):
+    """Keys -> (batch index, per-axis coordinates), int64."""
+    rem = keys.long()
+    coords = []
+    for s in reversed(dims):
+        coords.append(rem % s)
+        rem = rem // s
+    return rem, coords[::-1]
 
 
 def _stream_ptr(device: torch.device) -> ctypes.c_void_p:
@@ -120,9 +162,7 @@ def build_dg_pos(
     at every offset.  ``reverse`` negates every displacement: row ``j``'s
     entry at offset ``k`` is the row ``i`` whose forward table has ``j`` at
     ``k``, the table the backward gathers ``dout`` through."""
-    _check(keys.ndim == 1 and keys.dtype == torch.int32,
-           f"keys must be [N] int32, got {tuple(keys.shape)} {keys.dtype}")
-    _check(keys.is_contiguous(), "keys must be contiguous")
+    _check_keys("keys", keys)
     ksize = tuple(int(k) for k in ksize)
     dilation = tuple(int(d) for d in dilation)
     dims = tuple(int(s) for s in spatial_shape)
@@ -150,12 +190,7 @@ def dg_pos_plain(keys: torch.Tensor, *, ksize, dilation, spatial_shape,
     n = keys.shape[0]
     k64 = keys.long()
     live = keys != sentinel
-    coords = []
-    rem = k64
-    for s in reversed(dims):
-        coords.append(rem % s)
-        rem = rem // s
-    coords = coords[::-1]
+    _, coords = _decode(keys, dims)
     pos = torch.full((len(deltas), n), -1, dtype=torch.int32,
                      device=keys.device)
     if n == 0:
@@ -201,6 +236,115 @@ def _dg_pos_cuda(keys, ksize, dilation, dims, sentinel, reverse):
     return pos
 
 
+def build_dg_pos_affine(
+    in_keys: torch.Tensor,
+    out_keys: torch.Tensor,
+    *,
+    ksize: Sequence[int],
+    stride: Sequence[int],
+    padding: Sequence[int],
+    dilation: Sequence[int],
+    in_shape: Sequence[int],
+    out_shape: Sequence[int],
+    batch_size: int,
+) -> torch.Tensor:
+    """Match table ``[kv, N_out]`` int32 of a regular conv (-1 = no match).
+
+    Row ``o``, offset ``k`` holds the input row whose key is ``b(o) *
+    vol_in + lin(coord(o) * stride + off_k * dil - pad)``, or -1 where
+    that coordinate leaves the input grid, no input row has it, or ``o``
+    is a sentinel row.  ``in_keys`` ``[N_in]``: ascending keys on the
+    input grid (``in_shape``), sentinel tail; ``out_keys`` ``[N_out]``:
+    the same on the output grid (:func:`rulebook.build_conv_outputs`)."""
+    _check_keys("in_keys", in_keys)
+    _check_keys("out_keys", out_keys)
+    _check(in_keys.device == out_keys.device,
+           "in_keys and out_keys must be on one device")
+    geom = dict(
+        ksize=tuple(int(k) for k in ksize),
+        stride=tuple(int(s) for s in stride),
+        padding=tuple(int(p) for p in padding),
+        dilation=tuple(int(d) for d in dilation),
+        in_shape=tuple(int(s) for s in in_shape),
+        out_shape=tuple(int(s) for s in out_shape),
+        batch_size=int(batch_size))
+    ndim = len(geom["in_shape"])
+    _check(all(len(v) == ndim for v in geom.values()
+               if isinstance(v, tuple)),
+           "ksize, stride, padding, dilation and both shapes must have "
+           "ndim entries")
+    # both key spaces must fit in int32 (raises otherwise)
+    C.grid_sentinel(geom["in_shape"], batch_size)
+    C.grid_sentinel(geom["out_shape"], batch_size)
+    if in_keys.device.type == "cpu":
+        return dg_pos_affine_plain(in_keys, out_keys, **geom)
+    if in_keys.device.type != "cuda":
+        raise NotImplementedError(f"no dg_pos kernel for {in_keys.device}")
+    return _dg_pos_affine_cuda(in_keys, out_keys, **geom)
+
+
+def dg_pos_affine_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
+                        ksize, stride, padding, dilation, in_shape,
+                        out_shape, batch_size) -> torch.Tensor:
+    """Plain version of :func:`build_dg_pos_affine`: per offset, each
+    output site's input key by the host's displacement table
+    (:func:`regular_conv_disp`), ``torch.searchsorted`` and an equality
+    check."""
+    disp = regular_conv_disp(ksize, dilation, padding)
+    sent_out = C.grid_sentinel(out_shape, batch_size)
+    n_in, n_out = in_keys.shape[0], out_keys.shape[0]
+    pos = torch.full((len(disp), n_out), -1, dtype=torch.int32,
+                     device=out_keys.device)
+    if n_in == 0 or n_out == 0:
+        return pos
+    b, coords = _decode(out_keys, out_shape)
+    live = out_keys != sent_out
+    k64 = in_keys.long()
+    for k in range(len(disp)):
+        ok = live.clone()
+        probe = b
+        for a, s in enumerate(in_shape):
+            ca = coords[a] * int(stride[a]) + int(disp[k, a])
+            ok &= (ca >= 0) & (ca < s)
+            probe = probe * s + ca
+        idx = torch.searchsorted(k64, probe).clamp(max=n_in - 1)
+        found = ok & (k64[idx] == probe)
+        pos[k] = torch.where(found, idx, -1).int()
+    return pos
+
+
+def _dg_pos_affine_cuda(in_keys, out_keys, *, ksize, stride, padding,
+                        dilation, in_shape, out_shape, batch_size):
+    from .._build import load_library
+
+    ndim = len(in_shape)
+    if ndim > _MAX_NDIM:
+        raise NotImplementedError(f"dg_pos kernel takes ndim <= {_MAX_NDIM}")
+    kv = int(np.prod(ksize))
+    n_in, n_out = in_keys.shape[0], out_keys.shape[0]
+    _check(kv * n_out < 2**31, f"kv*N_out = {kv * n_out} exceeds the "
+                               "kernel's int32 thread index")
+    pad = [1] * (_MAX_NDIM - ndim)
+    geom = (ctypes.c_int * (1 + 6 * _MAX_NDIM))(
+        ndim,
+        *(list(out_shape) + pad), *(list(in_shape) + pad),
+        *(list(stride) + pad), *(list(ksize) + pad),
+        *(list(dilation) + pad), *(list(padding) + [0] * (_MAX_NDIM - ndim)),
+    )
+    pos = torch.empty((kv, n_out), dtype=torch.int32, device=out_keys.device)
+    if n_out == 0:
+        return pos
+    lib = load_library()
+    err = lib.dg_pos_affine_launch(
+        ctypes.c_void_p(out_keys.data_ptr()), n_out,
+        ctypes.c_void_p(in_keys.data_ptr()), n_in, kv, geom,
+        C.grid_sentinel(out_shape, batch_size),
+        ctypes.c_void_p(pos.data_ptr()), _stream_ptr(out_keys.device))
+    _raise_on(err, "dg_pos_affine")
+    launch_counts["dg_pos_affine"] += 1
+    return pos
+
+
 # ---------------------------------------------------------------------------
 # B2: gather-GEMM forward, and B3's dgrad through the same kernel
 # ---------------------------------------------------------------------------
@@ -229,17 +373,19 @@ def _check_operands(name, x, other, pos):
         raise NotImplementedError(f"no {name} kernel for {x.device}")
 
 
-def _check_gather_gemm(name, x, weight_kv, pos, c_axis):
+def _check_gather_gemm(name, x, weight_kv, pos, c_axis, n_out=None):
     """``x`` ``[N, *]`` whose width is ``weight_kv``'s axis ``c_axis``,
-    ``weight_kv`` ``[kv, C, K]``, ``pos`` ``[kv, N]``."""
+    ``weight_kv`` ``[kv, C, K]``, ``pos`` ``[kv, n_out]`` (``n_out``
+    defaults to ``N``)."""
     _check(x.ndim == 2 and weight_kv.ndim == 3 and pos.ndim == 2,
            f"{name}: x must be [N, C], weight_kv [kv, C, K], pos [kv, N]")
     _check(weight_kv.shape[c_axis] == x.shape[1],
            f"{name}: weight is {tuple(weight_kv.shape)}, features have "
            f"width {x.shape[1]}")
-    _check(tuple(pos.shape) == (weight_kv.shape[0], x.shape[0]),
+    n_out = x.shape[0] if n_out is None else n_out
+    _check(tuple(pos.shape) == (weight_kv.shape[0], n_out),
            f"pos is {tuple(pos.shape)}, expected "
-           f"{(weight_kv.shape[0], x.shape[0])}")
+           f"{(weight_kv.shape[0], n_out)}")
     _check_operands(name, x, weight_kv, pos)
 
 
@@ -258,14 +404,26 @@ def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor,
     return _gather_gemm_cuda(x, weight_kv, pos, "dg_fwd")
 
 
+def dg_fwd_strided(x: torch.Tensor, weight_kv: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
+    """:func:`dg_fwd` of a regular conv -> ``[N_out, K]``: ``x`` is
+    ``[N_in, C]`` and ``pos`` the ``[kv, N_out]`` table of
+    :func:`build_dg_pos_affine`, whose entries lie in ``[-1, N_in)``.  The
+    same kernel, counted under ``"dg_fwd_strided"``."""
+    _check_gather_gemm("dg_fwd_strided", x, weight_kv, pos, 1,
+                       n_out=pos.shape[-1])
+    if x.device.type == "cpu":
+        return dg_fwd_plain(x, weight_kv, pos)
+    return _gather_gemm_cuda(x, weight_kv, pos, "dg_fwd_strided")
+
+
 def dg_fwd_plain(x: torch.Tensor, weight_kv: torch.Tensor,
                  pos: torch.Tensor) -> torch.Tensor:
     """Plain version: per offset, gather the matched rows and accumulate
-    ``x[match].float() @ W[k].float()`` in f32.  Memory stays at ``N x C``
-    per offset, never ``kv x N x C``."""
-    n = x.shape[0]
-    out = torch.zeros((n, weight_kv.shape[2]), dtype=torch.float32,
-                      device=x.device)
+    ``x[match].float() @ W[k].float()`` in f32 into ``[pos.shape[1], K]``.
+    Memory stays at ``N x C`` per offset, never ``kv x N x C``."""
+    out = torch.zeros((pos.shape[1], weight_kv.shape[2]),
+                      dtype=torch.float32, device=x.device)
     for k in range(weight_kv.shape[0]):
         sel = torch.nonzero(pos[k] >= 0).squeeze(1)
         if sel.numel() == 0:
@@ -298,11 +456,13 @@ def dg_dgrad_plain(dout: torch.Tensor, weight_kv: torch.Tensor,
 
 
 def _gather_gemm_cuda(x, weight_kv, pos, counter):
-    """Launches B2's kernel and counts the launch under ``counter``."""
+    """Launches B2's kernel and counts the launch under ``counter``.  The
+    output has ``pos.shape[1]`` rows; ``x`` is read only through ``pos``."""
     from .._build import load_library
 
-    n, c = x.shape
+    c = x.shape[1]
     kv, _, k_out = weight_kv.shape
+    n = pos.shape[1]
     out = torch.empty((n, k_out), dtype=x.dtype, device=x.device)
     if n == 0 or k_out == 0:
         return out
@@ -452,3 +612,47 @@ def dg_subm_conv(features: torch.Tensor, weight: torch.Tensor,
                f"pos_rev is {tuple(pos_rev.shape)}, pos {tuple(pos.shape)}")
         return DGSubmConvFn.apply(features, weight_kv, pos, pos_rev)
     return dg_fwd(features, weight_kv, pos)
+
+
+def dg_regular_conv(
+    features: torch.Tensor,
+    in_keys: torch.Tensor,
+    out_keys: torch.Tensor,
+    weight: torch.Tensor,
+    *,
+    in_shape: Sequence[int],
+    out_shape: Sequence[int],
+    batch_size: int,
+    stride: Sequence[int],
+    padding: Sequence[int],
+    dilation: Sequence[int],
+    pos: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Regular (strided) conv forward of key-sorted ``features``
+    ``[N_in, C]`` onto the output sites ``out_keys`` ``[N_out]``; ``weight``
+    is KRSC ``[K, *ksize, C]``.  Builds the affine match table unless
+    ``pos`` is given (a cached one).  Returns ``(out [N_out, K], pos)``.
+
+    The backward (``_dg_reg_conv_bwd``, divide probes) is not ported yet:
+    with grad mode on and ``features`` or ``weight`` wanting a gradient the
+    call raises ``NotImplementedError``."""
+    if torch.is_grad_enabled() and (features.requires_grad
+                                    or weight.requires_grad):
+        raise NotImplementedError(
+            "the strided conv's backward (divide probes of "
+            "_dg_reg_conv_bwd) is not ported yet (ROADMAP B3, A9); run it "
+            "under torch.no_grad() or torch.inference_mode()")
+    # the kernel trusts the table's rows to index features
+    _check(in_keys.shape[0] == features.shape[0],
+           f"in_keys has {in_keys.shape[0]} rows, features "
+           f"{features.shape[0]}")
+    ksize = tuple(int(k) for k in weight.shape[1:-1])
+    if pos is None:
+        pos = build_dg_pos_affine(
+            in_keys, out_keys, ksize=ksize, stride=stride, padding=padding,
+            dilation=dilation, in_shape=in_shape, out_shape=out_shape,
+            batch_size=batch_size)
+    _check(tuple(pos.shape) == (int(np.prod(ksize)), out_keys.shape[0]),
+           f"pos is {tuple(pos.shape)}, expected "
+           f"{(int(np.prod(ksize)), out_keys.shape[0])}")
+    return dg_fwd_strided(features, weight_krsc_to_kv(weight), pos), pos

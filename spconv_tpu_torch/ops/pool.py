@@ -12,6 +12,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import coords as C
+from .rulebook import unique_sorted_keys
 
 __all__ = ["pool2_seg"]
 
@@ -60,12 +61,9 @@ def pool2_seg(
     keys, sentinel = C.linearize(out_c, out_shape, batch_size, valid)
 
     sk, order = torch.sort(keys, stable=True)
-    not_sent = sk != sentinel
-    is_first = torch.cat([not_sent[:1], (sk[1:] != sk[:-1]) & not_sent[1:]])
-    uniq_pos = torch.cumsum(is_first, 0) - 1
-    num_out_total = is_first.sum(dtype=torch.int32)
-    kept = uniq_pos < out_bound
-    seg = torch.where(not_sent & kept, uniq_pos,
+    out_keys, uniq_pos, num_out_total = unique_sorted_keys(sk, sentinel,
+                                                           out_bound)
+    seg = torch.where((sk != sentinel) & (uniq_pos < out_bound), uniq_pos,
                       torch.full_like(uniq_pos, out_bound))
 
     g = features[order]
@@ -79,14 +77,6 @@ def pool2_seg(
                            torch.zeros((), dtype=features.dtype,
                                        device=features.device))
 
-    slot = torch.where(is_first & kept, uniq_pos,
-                       torch.full_like(uniq_pos, out_bound))
-    out_keys = torch.full((out_bound + 1,), sentinel, dtype=sk.dtype,
-                          device=sk.device)
-    # every kept output is written by exactly one row; the rest collide
-    # on the dropped slot ``out_bound``
-    out_keys[slot] = sk
-    out_keys = out_keys[:out_bound]
     out_indices = C.delinearize(out_keys, out_shape, out_keys != sentinel)
     num_out = torch.clamp(num_out_total, max=out_bound)
     return out_feat, out_indices, num_out, num_out_total

@@ -5,6 +5,7 @@ features within 1e-4 * max|ref| (f32 sums in another order, through 14
 layers)."""
 
 import numpy as np
+import pytest
 import torch
 
 from spconv_tpu.benchmark import basic as JB
@@ -14,6 +15,18 @@ from spconv_tpu_torch.benchmark import basic as TB
 from spconv_tpu_torch.checkpoint import load_jax_state_dict
 
 SHAPE = (64, 128, 128)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain versions run many small torch ops; with one intra-op
+    thread each, parallel test workers do not oversubscribe the CPU (a
+    whole-net test ran ~7x slower beside five busy processes without
+    this)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_stages(net, x):

@@ -132,7 +132,17 @@ def test_unported_paths_raise():
         # the 1x1 path needs no match table, sorted or not
         y = SubMConv3d(3, 4, 1)(x)
         assert not y.features[~x.valid_mask].any()
-    for kw in (dict(subm=False, stride=2), dict(subm=False),
+        # strided and stride-1 regular convs run the DG path, which needs
+        # key-sorted input
+        for kw in (dict(stride=2), dict()):
+            conv = st.SparseConvolution(3, 3, 4, 3, **kw)
+            with pytest.raises(NotImplementedError, match="key-sorted"):
+                conv(x)
+            assert conv(x.sort_by_key()).keys_sorted
+    # ... and no gradient yet (its backward is the next slice)
+    with pytest.raises(NotImplementedError, match="backward"):
+        st.SparseConv3d(3, 4, 3, stride=2)(x.sort_by_key())
+    for kw in (dict(subm=False, transposed=True),
                dict(subm=True, transposed=True),
                dict(subm=True, inverse=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
@@ -155,7 +165,8 @@ def test_sequential_masks_dense_ops():
 
 def test_import_needs_no_jax():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import spconv_tpu_torch, spconv_tpu_torch.benchmark.basic; "
+            "import spconv_tpu_torch, spconv_tpu_torch.benchmark.basic, "
+            "spconv_tpu_torch.benchmark.centerpoint; "
             "assert not any(m == 'jax' or m.startswith(('jax.', 'spconv_tpu.'))"
             " for m in sys.modules if sys.modules[m] is not None)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),

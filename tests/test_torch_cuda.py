@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from spconv_tpu_torch.benchmark import basic as TB
+from spconv_tpu_torch.benchmark import centerpoint as TCP
+from spconv_tpu_torch.models import centerpoint_encoder
 from spconv_tpu_torch.ops import coords as TC
 from spconv_tpu_torch.ops import dg_conv as TD
+from spconv_tpu_torch.ops.rulebook import build_conv_outputs
 
 from utils import generate_sparse_data
 
@@ -167,8 +170,10 @@ def test_benchnet_on_card_matches_cpu(dev):
         got = net.forward_stages(
             TB.make_bench_input(voxels, coors, shape, device=dev))
         torch.cuda.synchronize()
-    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 0, "dg_fwd": 14,
-                                "dg_dgrad": 0, "dg_wgrad": 0}
+    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 0,
+                                "dg_pos_affine": 0, "dg_fwd": 14,
+                                "dg_fwd_strided": 0, "dg_dgrad": 0,
+                                "dg_wgrad": 0}
     for r, g in zip(ref, got):
         assert torch.equal(g.indices.cpu(), r.indices)
         scale = r.features.abs().max().item()
@@ -194,10 +199,120 @@ def test_benchnet_train_step_on_card_matches_cpu(dev):
     loss = TB.train_step(
         net, TB.make_bench_input(voxels, coors, shape, device=dev), 0.0)
     torch.cuda.synchronize()
-    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 7, "dg_fwd": 14,
-                                "dg_dgrad": 13, "dg_wgrad": 14}
+    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 7,
+                                "dg_pos_affine": 0, "dg_fwd": 14,
+                                "dg_fwd_strided": 0, "dg_dgrad": 13,
+                                "dg_wgrad": 14}
     assert abs(loss.item() - ref_loss.item()) <= 1e-4 * ref_loss.item()
     for k, p in net.named_parameters():
         scale = ref[k].abs().max().item()
         err = (p.grad.cpu() - ref[k]).abs().max().item()
         assert scale > 0 and err <= 1e-3 * scale, (k, err, scale)
+
+
+# the strided layers of the CenterPoint encoder (k3 s2 p1 and its
+# (3,1,1)/(2,1,1) conv_out), an even kernel, and two batches
+_STRIDED = [((40, 64, 64), (3, 3, 3), (2, 2, 2), (1, 1, 1), 1),
+            ((10, 16, 16), (3, 1, 1), (2, 1, 1), (0, 0, 0), 1),
+            ((40, 64, 64), (2, 2, 2), (2, 2, 2), (0, 0, 0), 1),
+            ((20, 32, 32), (3, 3, 3), (2, 2, 2), (1, 1, 1), 2)]
+
+
+def _strided_case(shape, ksize, stride, padding, batch, c=5, nbuf=3072):
+    rng = np.random.RandomState(11)
+    feats, inds = generate_sparse_data(shape, 1400, c, batch_size=batch,
+                                       rng=rng)
+    key = inds[:, 0].astype(np.int64)
+    for a, s in enumerate(shape):
+        key = key * s + inds[:, a + 1]
+    order = np.argsort(key, kind="stable")
+    fb = np.zeros((nbuf, c), np.float32)
+    ib = np.full((nbuf, 4), -1, np.int32)
+    fb[:len(inds)], ib[:len(inds)] = feats[order], inds[order]
+    inds_t = torch.from_numpy(ib)
+    _, out_keys, _, _ = build_conv_outputs(
+        inds_t, spatial_shape=shape, batch_size=batch, ksize=ksize,
+        stride=stride, padding=padding, dilation=(1, 1, 1),
+        out_bound=2 * nbuf)
+    in_keys, _ = TC.linearize(inds_t, shape, batch)
+    geom = dict(ksize=ksize, stride=stride, padding=padding,
+                dilation=(1, 1, 1), in_shape=shape,
+                out_shape=tuple(TC.get_conv_output_size(
+                    shape, ksize, stride, padding, (1, 1, 1))),
+                batch_size=batch)
+    return torch.from_numpy(fb), in_keys, out_keys, geom
+
+
+@pytest.mark.parametrize("case", _STRIDED)
+def test_dg_pos_affine_kernel_matches_plain(dev, case):
+    """The affine table on the card equals its plain version exactly."""
+    _, in_keys, out_keys, geom = _strided_case(*case)
+    ref = TD.dg_pos_affine_plain(in_keys, out_keys, **geom)
+    before = dict(TD.launch_counts)
+    got = TD.build_dg_pos_affine(in_keys.to(dev), out_keys.to(dev), **geom)
+    torch.cuda.synchronize()
+    assert TD.launch_counts["dg_pos_affine"] == before["dg_pos_affine"] + 1
+    assert sum(TD.launch_counts.values()) == sum(before.values()) + 1
+    assert (ref >= 0).any() and torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("c,k_out", [(5, 16), (16, 32), (64, 128),
+                                     (128, 128)])
+@pytest.mark.parametrize("case", [_STRIDED[0], _STRIDED[1]])
+def test_dg_fwd_strided_kernel_matches_plain(dev, dtype, tol, c, k_out,
+                                             case):
+    """B2 on an affine table, N_in = 3072 input rows onto 6144 output
+    rows; tolerances as B2's.  Sentinel output rows are 0."""
+    feats, in_keys, out_keys, geom = _strided_case(*case, c=c)
+    pos = TD.dg_pos_affine_plain(in_keys, out_keys, **geom)
+    assert pos.shape[1] != feats.shape[0]
+    g = torch.Generator().manual_seed(12)
+    kv = int(np.prod(geom["ksize"]))
+    w = torch.randn((kv, c, k_out), generator=g) / np.sqrt(kv * c)
+    x, w, pos = feats.to(dev, dtype), w.to(dev, dtype), pos.to(dev)
+    ref = TD.dg_fwd_plain(x, w, pos).float()
+    before = dict(TD.launch_counts)
+    got = TD.dg_fwd_strided(x, w, pos)
+    torch.cuda.synchronize()
+    assert TD.launch_counts["dg_fwd_strided"] == before["dg_fwd_strided"] + 1
+    assert TD.launch_counts["dg_fwd"] == before["dg_fwd"]
+    assert got.dtype == dtype and tuple(got.shape) == (pos.shape[1], k_out)
+    got = got.float()
+    err = (got - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err
+    sentinel = TC.grid_sentinel(geom["out_shape"], geom["batch_size"])
+    assert not got[(out_keys == sentinel).to(dev)].any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1.6e-2)])
+def test_centerpoint_encoder_on_card_matches_cpu(dev, dtype, tol):
+    """The whole encoder through the kernels on the card against the
+    plain versions on the CPU: coordinates equal after every stage, the
+    BEV map within 1e-4*max|ref| (f32) or 1.6e-2*max|ref| (bf16, rounded
+    at every layer).  A forward launches 4 subm and 4 affine tables and
+    17 + 4 gather-GEMMs."""
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                           n_target=1500, dtype=dtype)
+    net = centerpoint_encoder(in_channels=5, bn=False, dtype=dtype).eval()
+    with torch.no_grad():
+        ref = net.forward_stages(x)
+        ref_bev = net.bev(x).float()
+        net.to(dev)
+        xd = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                             n_target=1500, dtype=dtype,
+                                             device=dev)[0]
+        TD.reset_launch_counts()
+        got = net.forward_stages(xd)
+        torch.cuda.synchronize()
+        counts = dict(TD.launch_counts)
+        bev = net.bev(xd).float().cpu()
+    assert counts == {"dg_pos": 4, "dg_pos_rev": 0, "dg_pos_affine": 4,
+                      "dg_fwd": 17, "dg_fwd_strided": 4, "dg_dgrad": 0,
+                      "dg_wgrad": 0}
+    for r, g in zip(ref, got):
+        assert torch.equal(g.indices.cpu(), r.indices)
+    scale = ref_bev.abs().max().item()
+    assert scale > 0 and (bev - ref_bev).abs().max().item() <= tol * scale

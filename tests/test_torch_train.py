@@ -6,6 +6,7 @@ across by ``load_jax_state_dict``."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import spconv_tpu
@@ -17,6 +18,18 @@ from spconv_tpu_torch.checkpoint import load_jax_state_dict
 from spconv_tpu_torch.ops import dg_conv as TD
 
 SHAPE = (64, 128, 128)
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The plain versions run many small torch ops; with one intra-op
+    thread each, parallel test workers do not oversubscribe the CPU (a
+    whole-net test ran ~7x slower beside five busy processes without
+    this)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 LOSS_RTOL = 1e-4  # f32 sums in another order, through 14 layers and back
 GRAD_TOL = 1e-3   # per tensor, of max|ref|; measured ~1e-6
 
