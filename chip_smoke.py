@@ -30,7 +30,19 @@ line is printed):
    counts, per-stage coordinates against a plain-version run on the card,
    an f32 run against plain, a finite non-zero BEV map, and an
    ``algo="sk"`` downsample against ``algo="dg"``;
-7. prints a JSON line of the kernels, then the result line.
+7. the segmentation U-Net (``SparseUNet(in_channels=5, channels=(16, 32,
+   64), num_classes=16)``, bf16, downsample buffers calibrated in f32 on
+   seed 0) on the same three CenterPoint scans: the divide table against
+   its plain version at both U-Net downsamples and all four CenterPoint
+   strided layers, the inverse gather-GEMM and the strided and inverse
+   dgrad and wgrad at every U-Net layer shape; then serves three scans and
+   trains three steps with launch counts, the output's sites against the
+   input's, an f32 run against a plain-version run, the f32 grads against
+   the plain backward, device busy share and peak memory; and an
+   ``algo="sk"`` downsample + inverse pair against ``algo="dg"``;
+8. prints a JSON line of the kernels, each with its bound (the least time
+   the card could take for the same work, from the H100's published peaks),
+   then the result line.
 """
 
 import json
@@ -60,9 +72,31 @@ GRAD_F32_TOL = 1e-4
 SK_STAGE = 2  # the 96 -> 128 -> 128 pair of the net
 CP_STRIDED = ("down1", "down2", "down3", "out")  # indice_keys, in order
 # per CenterPoint request: 4 subm and 4 affine tables, 17 subm and 4
-# strided gather-GEMMs (models/second.py)
-CP_LAUNCHES = dict(dg_pos=4, dg_pos_rev=0, dg_pos_affine=4, dg_fwd=17,
-                   dg_fwd_strided=4, dg_dgrad=0, dg_wgrad=0)
+# strided gather-GEMMs (models/second.py); every other count stays 0
+CP_LAUNCHES = dict(dg_pos=4, dg_pos_affine=4, dg_fwd=17, dg_fwd_strided=4)
+UNET_CHANNELS = (16, 32, 64)  # the JAX SparseUNet's defaults
+UNET_CLASSES = 16  # nuScenes-lidarseg
+# per served U-Net request (models/unet.py): 3 subm tables (the decoder
+# reuses them), 2 affine and 2 divide tables (the inverse convs build
+# those), 5 subm, 2 strided and 2 inverse gather-GEMMs; the head is a 1x1
+# matmul
+UNET_SERVE = dict(dg_pos=3, dg_pos_affine=2, dg_pos_divide=2, dg_fwd=5,
+                  dg_fwd_strided=2, dg_fwd_inverse=2)
+# per training step: those (the strided convs build the divide tables
+# now) and the backward; the first conv's input needs no gradient
+UNET_STEP = dict(UNET_SERVE, dg_pos_rev=3, dg_dgrad=4, dg_wgrad=5,
+                 dg_dgrad_strided=2, dg_wgrad_strided=2, dg_dgrad_inverse=2,
+                 dg_wgrad_inverse=2)
+# the H100 SXM's published dense peaks (NVIDIA data sheet), for each
+# kernel's bound: bf16 tensor cores, f32 FMA outside them, HBM3
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def expected(D, **nonzero):
+    """``launch_counts`` as a run that launched only ``nonzero`` leaves
+    it."""
+    return {**dict.fromkeys(D.launch_counts, 0), **nonzero}
 
 
 def fail(msg):
@@ -76,11 +110,16 @@ def check(cond, msg):
 
 def cuda_ms(torch, fn, reps):
     """Mean ms of ``fn`` over ``reps`` launches on the current stream,
-    after one warm-up (CUDA events)."""
+    after one warm-up (CUDA events).  A device sleep of ~20 ms is queued
+    first, so the host enqueues the launches while the card sleeps and the
+    host time of a wrapper (~0.05-0.1 ms, more than a small kernel takes)
+    does not show as gaps between them; plain versions whose host time
+    exceeds the sleep still count it."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -95,27 +134,132 @@ def rel_err(torch, got, ref):
     return diff, diff / max(ref.float().abs().max().item(), 1e-30)
 
 
+def bound(nbytes, ops=0, dtype="bfloat16"):
+    """``(ms, by)``: the least time the card could take for work that moves
+    ``nbytes`` and does ``ops`` operations of ``dtype``, the larger of the
+    two, and which of "bytes" and "operations" it is."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def table_bound(rows, table_rows, kv):
+    """A match table ``[kv, rows]`` int32: the keys of its rows and the
+    keys it searches read once, the table written once; integer compares
+    only, so bound by bytes."""
+    return bound(4 * (rows + table_rows + kv * rows))
+
+
+def gemm_bound(src, w, pos, width):
+    """A gather-GEMM (forward or dgrad): ``src`` ``[N_src, C]`` and ``w``
+    ``[kv, C, width]`` or its transpose read once, ``pos`` ``[kv, N_dst]``
+    read once, ``[N_dst, width]`` written once; 2 * C * width operations
+    per matched (row, offset) pair of this input."""
+    pairs = int((pos >= 0).sum())
+    esz = src.element_size()
+    nbytes = ((src.numel() + w.numel() + pos.shape[1] * width) * esz
+              + pos.numel() * 4)
+    return bound(nbytes, 2 * pairs * src.shape[1] * width,
+                 str(src.dtype)[6:])
+
+
+def wgrad_bound(x, dout, pos):
+    """wgrad: ``x`` ``[N_src, C]``, ``dout`` ``[N_dst, K]`` and ``pos``
+    ``[kv, N_src]`` read once, ``dW`` ``[kv, C, K]`` written once; 2 * C *
+    K operations per matched pair."""
+    pairs = int((pos >= 0).sum())
+    c, k = x.shape[1], dout.shape[1]
+    nbytes = ((x.numel() + dout.numel() + pos.shape[0] * c * k)
+              * x.element_size() + pos.numel() * 4)
+    return bound(nbytes, 2 * pairs * c * k, str(x.dtype)[6:])
+
+
+class Tally:
+    """Kernel ms, plain ms and bound ms of one kernel summed over a set of
+    calls; ``bound_by`` says whether bytes or operations bound most of the
+    summed bound."""
+
+    def __init__(self):
+        self.ms = self.plain_ms = self.bound_ms = 0.0
+        self._by = {"bytes": 0.0, "operations": 0.0}
+
+    def add(self, km, pm, bnd, mult=1):
+        self.ms += mult * km
+        self.plain_ms += mult * pm
+        self.bound_ms += mult * bnd[0]
+        self._by[bnd[1]] += mult * bnd[0]
+
+    @property
+    def bound_by(self):
+        return max(self._by, key=self._by.get)
+
+    def __str__(self):
+        return (f"{self.ms:.4f} ms (plain {self.plain_ms:.4f}, bound "
+                f"{self.bound_ms:.4f} by {self.bound_by})")
+
+
+def device_busy(torch, fn, reps):
+    """``(window ms, device-busy ms)`` over ``reps`` calls of ``fn`` after
+    one warm-up, in a ``torch.profiler`` window: the host clock around the
+    calls and a final sync, and the summed duration of the device's
+    kernels, copies and fills (one stream, so they do not overlap).  Busy
+    is None where the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return wall, (busy or None)
+
+
+def peak_mib(torch, fn):
+    """``(peak MiB allocated by one call of fn above what was allocated
+    before it, that MiB before it)``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return ((torch.cuda.max_memory_allocated() - base) / 2**20,
+            base / 2**20)
+
+
 def plain_conv_fn(torch, D, fwd):
-    """An autograd Function whose backward takes the plain versions
-    ``dg_dgrad_plain`` and ``dg_wgrad_plain`` the way ``DGSubmConvFn``
-    runs the kernels; its forward is ``fwd`` (``dg_fwd_plain``, or the B2
-    kernel to hold the backward alone against the kernels)."""
+    """An autograd Function ``(x, w, pos, pos_bwd, path)`` whose backward
+    takes the plain versions ``dg_dgrad_plain`` and ``dg_wgrad_plain``
+    through ``pos_bwd`` the way ``DGConvFn`` runs the kernels; its forward
+    is ``fwd(x, w, pos, path)`` (the plain version, or the B2 kernel
+    ``dg_fwd`` to hold the backward alone against the kernels)."""
 
     class PlainConv(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, x, w, pos, pos_rev):
-            ctx.save_for_backward(x, w, pos_rev)
-            return fwd(x, w, pos)
+        def forward(ctx, x, w, pos, pos_bwd, path):
+            ctx.save_for_backward(x, w, pos_bwd)
+            return fwd(x, w, pos, path)
 
         @staticmethod
         def backward(ctx, dout):
-            x, w, pos_rev = ctx.saved_tensors
+            x, w, pos_bwd = ctx.saved_tensors
             dout = dout.to(x.dtype).contiguous()
-            din = (D.dg_dgrad_plain(dout, w, pos_rev)
+            din = (D.dg_dgrad_plain(dout, w, pos_bwd)
                    if ctx.needs_input_grad[0] else None)
-            return din, D.dg_wgrad_plain(x, dout, pos_rev), None, None
+            return din, D.dg_wgrad_plain(x, dout, pos_bwd), None, None, None
 
     return PlainConv
+
+
+def plain_fwd(D):
+    """``dg_fwd_plain`` with ``dg_fwd``'s signature."""
+    return lambda x, w, pos, path: D.dg_fwd_plain(x, w, pos)
 
 
 def plain_forward_stages(torch, net, x, train=False, kernel_fwd=False):
@@ -127,8 +271,7 @@ def plain_forward_stages(torch, net, x, train=False, kernel_fwd=False):
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
 
-    plain = plain_conv_fn(torch, D, D.dg_fwd if kernel_fwd
-                          else D.dg_fwd_plain)
+    plain = plain_conv_fn(torch, D, D.dg_fwd if kernel_fwd else plain_fwd(D))
     stages = []
     for stage in range(7):
         if stage:
@@ -141,7 +284,7 @@ def plain_forward_stages(torch, net, x, train=False, kernel_fwd=False):
         for conv in net.convs[2 * stage:2 * stage + 2]:
             wkv = D.weight_krsc_to_kv(conv.weight)
             if train:
-                out = plain.apply(x.features, wkv, pos, pos_rev)
+                out = plain.apply(x.features, wkv, pos, pos_rev, "subm")
             else:
                 out = D.dg_fwd_plain(x.features, wkv, pos)
             out = torch.where(x.valid_mask[:, None], out,
@@ -208,6 +351,386 @@ def plain_encoder_stages(torch, net, x):
     return stages
 
 
+def plain_unet(torch, net, x, train=False, kernel_fwd=False):
+    """``SparseUNet``'s forward with the plain versions of the kernels in
+    place of the kernels (every table by ``dg_pos_plain``,
+    ``dg_pos_affine_plain`` or ``dg_pos_divide_plain``, every product by
+    ``dg_fwd_plain``), on whatever device ``x`` is on; with ``train``,
+    differentiable through the plain backward, and with ``kernel_fwd`` as
+    well, whose convs' forward runs B2.  Returns the output features."""
+    import torch.nn.functional as F
+    from spconv_tpu_torch.core import SparseConvTensor
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops.rulebook import build_conv_outputs
+
+    fwd = D.dg_fwd if kernel_fwd else plain_fwd(D)
+    plain = plain_conv_fn(torch, D, fwd)
+
+    def conv(layer, feats, pos, pos_bwd, path, valid):
+        wkv = D.weight_krsc_to_kv(layer.weight)
+        out = (plain.apply(feats, wkv, pos, pos_bwd, path) if train
+               else fwd(feats, wkv, pos, path))
+        out = F.relu(out + layer.bias)
+        return torch.where(valid[:, None], out, torch.zeros_like(out))
+
+    skips, stage_pos, downs = [], [], []
+    for i, subm in enumerate(net.enc_subm):
+        keys, _ = C.linearize(x.indices, x.spatial_shape, 1)
+        geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=x.spatial_shape,
+                    batch_size=1)
+        stage_pos.append((D.dg_pos_plain(keys, **geom),
+                          D.dg_pos_plain(keys, reverse=True, **geom)))
+        x = x.replace_feature(conv(subm, x.features, *stage_pos[i], "subm",
+                                   x.valid_mask))
+        skips.append(x)
+        if i == len(net.enc_down):
+            break
+        layer = net.enc_down[i]
+        geom = dict(ksize=layer.kernel_size, stride=layer.stride,
+                    padding=layer.padding, dilation=layer.dilation)
+        out_inds, out_keys, _, _ = build_conv_outputs(
+            x.indices, spatial_shape=x.spatial_shape, batch_size=1,
+            out_bound=layer.out_bound, **geom)
+        geom.update(in_shape=x.spatial_shape, batch_size=1,
+                    out_shape=C.get_conv_output_size(
+                        x.spatial_shape, layer.kernel_size, layer.stride,
+                        layer.padding, layer.dilation))
+        aff = D.dg_pos_affine_plain(keys, out_keys, **geom)
+        div = D.dg_pos_divide_plain(keys, out_keys, **geom)
+        downs.append((aff, div))
+        x = SparseConvTensor(
+            conv(layer, x.features, aff, div, "strided",
+                 out_inds[:, 0] >= 0),
+            out_inds, geom["out_shape"], 1, keys_sorted=True)
+    for j, (up, subm) in enumerate(zip(net.dec_up, net.dec_subm)):
+        i = len(net.enc_down) - 1 - j
+        skip, (aff, div) = skips[i], downs[i]
+        h = conv(up, x.features, div, aff, "inverse", skip.valid_mask)
+        h = torch.cat([h, skip.features], 1)
+        x = skip.replace_feature(conv(subm, h, *stage_pos[i], "subm",
+                                      skip.valid_mask))
+    head = net.head
+    out = x.features @ head.weight.reshape(head.out_channels, -1).t()
+    out = out + head.bias
+    return torch.where(x.valid_mask[:, None], out, torch.zeros_like(out))
+
+
+def unet_phase(torch, dev, gen, scans, cp_rec, note):
+    """Phase 7: the U-Net's kernels against their plain versions at its
+    layer shapes (and the divide table at CenterPoint's strided layers,
+    ``cp_rec``), then serving and training on ``scans`` (f32, on the card)
+    with their checks.  Returns ``(tallies, per_layer, serve_launches,
+    train_launches, sk_launches)``: kernel, plain and bound ms summed over
+    one bf16 request (the forward's kernels) or step (the backward's), and
+    per (layer, kernel)."""
+    import copy
+
+    import numpy as np
+    import torch.nn.functional as F
+    from spconv_tpu_torch import (SparseConv3d, SparseConvTensor,
+                                  SparseInverseConv3d, SparseUNet)
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.calibrate import (calibrate_out_bounds,
+                                            export_out_bounds)
+    from spconv_tpu_torch.ops import dg_conv as D
+
+    bf16 = torch.bfloat16
+    dtypes = (torch.float32, bf16)
+    levels = len(UNET_CHANNELS) - 1
+    t0 = time.perf_counter()
+    net32 = calibrate_out_bounds(
+        SparseUNet(5, UNET_CHANNELS, UNET_CLASSES, device=dev,
+                   seed=0).eval(), None, [scans[0]], margin=1.15, mult=512)
+    net16 = copy.deepcopy(net32).to(bf16)
+    x16 = {s: x.replace_feature(x.features.to(bf16))
+           for s, x in scans.items()}
+    print(f"U-Net: SparseUNet(5, {UNET_CHANNELS}, {UNET_CLASSES}), "
+          f"downsample bounds (f32 calibration on seed 0, x1.15, to 512) "
+          f"{[b for b in export_out_bounds(net32) if b is not None]} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        recs = net16(x16[0]).indice_dict
+    downs = [recs[f"__dgreg__down{i}"] for i in range(levels)]
+    tally = {k: Tally() for k in (
+        "dg_fwd", "dg_pos_divide", "dg_fwd_strided", "dg_fwd_inverse",
+        "dg_dgrad_strided", "dg_wgrad_strided", "dg_dgrad_inverse",
+        "dg_wgrad_inverse")}
+    per_layer = {}
+
+    # the divide table, exact, at the U-Net's and CenterPoint's strided
+    # layers (the U-Net's were built by its inverse convs just now)
+    print("divide tables: layer kv N_in N_out matches kernel_ms plain_ms "
+          "bound_ms")
+    for layer, rec in ([(f"unet down{i}", r) for i, r in enumerate(downs)]
+                       + [(f"cp {k}", cp_rec[f"__dgreg__{k}"])
+                          for k in CP_STRIDED]):
+        geom = dict(ksize=rec.ksize, stride=rec.stride, padding=rec.padding,
+                    dilation=rec.dilation, in_shape=rec.in_shape,
+                    out_shape=rec.out_shape, batch_size=1)
+
+        def build():
+            return D.build_dg_pos_divide(rec.in_keys, rec.out_keys, **geom)
+
+        def plain():
+            return D.dg_pos_divide_plain(rec.in_keys, rec.out_keys, **geom)
+
+        got = build()
+        check(torch.equal(got, plain()),
+              f"dg_pos_divide {layer} differs from plain")
+        # each offset's map is one-to-one: the affine table's matches
+        matches = int((got >= 0).sum())
+        check(matches == int((rec.pos >= 0).sum()),
+              f"dg_pos_divide {layer}: not the affine table's inverse")
+        note("dg_pos_divide", 0.0, 0.0)
+        km, pm = cuda_ms(torch, build, 20), cuda_ms(torch, plain, 3)
+        bnd = table_bound(got.shape[1], rec.out_keys.shape[0], got.shape[0])
+        if layer.startswith("unet"):
+            tally["dg_pos_divide"].add(km, pm, bnd)
+            per_layer[(layer, "dg_pos_divide")] = (km, pm, bnd)
+        print(f"  {layer:11s} {got.shape[0]:3d} {got.shape[1]:6d} "
+              f"{rec.out_keys.shape[0]:6d} {matches:8d}  {km:9.4f}  "
+              f"{pm:8.4f}  {bnd[0]:.4f}")
+
+    def gemm_cases(layer, runs, dt):
+        """Each ``kern: (kernel, plain, valid rows or None, tol, bound)``
+        of ``runs`` against its plain version, then timed; rows outside
+        ``valid`` must be 0, and a wgrad (``valid`` None) must repeat
+        bit-equal."""
+        dtn = str(dt)[6:]
+        for kern, (fn, plain, valid, tol, bnd) in runs.items():
+            got = fn()
+            diff, r = rel_err(torch, got, plain())
+            check(np.isfinite(r) and r <= tol[dtn],
+                  f"{kern} {layer} {dtn}: {r:.3e} > {tol[dtn]}")
+            if valid is None:
+                check(torch.equal(got, fn()), f"{kern} {layer}: two runs "
+                      "differ")
+            else:
+                check(not got[~valid].any(),
+                      f"{kern} {layer}: non-zero rows without a site")
+            note(kern, diff, r)
+            km, pm = cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 2)
+            if dt == bf16:
+                per_layer[(layer, kern)] = (km, pm, bnd)
+                tally["dg_fwd" if kern == "dg_fwd_subm" else kern].add(
+                    km, pm, bnd)
+            print(f"  {layer:11s} {kern:17s} {dtn:9s} {r:12.3e}  "
+                  f"{km:9.4f}  {pm:8.4f}  {bnd[0]:.4f}")
+
+    def randn(rows, width, valid):
+        return (torch.randn((rows, width), device=dev, generator=gen)
+                * valid[:, None])
+
+    print("U-Net layers: layer kernel dtype max|d|/max|ref| kernel_ms "
+          "plain_ms bound_ms")
+    # subm forward at each stage (stage 0: the input's sites)
+    stage_valid = [x16[0].valid_mask] + [
+        r.out_indices[:, 0] >= 0 for r in downs]
+    subm = [(f"enc_subm.{i}", i, ([5] + list(UNET_CHANNELS))[i], c)
+            for i, c in enumerate(UNET_CHANNELS)]
+    subm += [(f"dec_subm.{j}", levels - 1 - j,
+              2 * UNET_CHANNELS[levels - 1 - j], UNET_CHANNELS[levels - 1 - j])
+             for j in range(levels)]
+    for layer, st_, c, k in subm:
+        pos, valid = recs[f"subm{st_}"].pos, stage_valid[st_]
+        xf, wf = randn(valid.shape[0], c, valid), torch.randn(
+            (27, c, k), device=dev, generator=gen) / float(np.sqrt(27 * c))
+        for dt in dtypes:
+            x, w = xf.to(dt), wf.to(dt)
+            gemm_cases(layer, {"dg_fwd_subm": (
+                lambda: D.dg_fwd(x, w, pos), lambda: D.dg_fwd_plain(x, w, pos),
+                valid, TOL, gemm_bound(x, w, pos, k))}, dt)
+    # strided and inverse: forward, dgrad, wgrad
+    for layer, path, i, c, k in (
+            [(f"enc_down.{i}", "strided", i, UNET_CHANNELS[i],
+              UNET_CHANNELS[i + 1]) for i in range(levels)]
+            + [(f"dec_up.{j}", "inverse", levels - 1 - j,
+                UNET_CHANNELS[levels - j], UNET_CHANNELS[levels - 1 - j])
+               for j in range(levels)]):
+        rec = downs[i]
+        valid_in = recs[f"__dgreg_in__down{i}"][:, 0] >= 0
+        valid_out = rec.out_indices[:, 0] >= 0
+        pos, pos_bwd, v_src, v_dst = (
+            (rec.pos, rec.pos_div, valid_in, valid_out) if path == "strided"
+            else (rec.pos_div, rec.pos, valid_out, valid_in))
+        kv = pos.shape[0]
+        xf, df = randn(v_src.shape[0], c, v_src), randn(v_dst.shape[0], k,
+                                                        v_dst)
+        wf = torch.randn((kv, c, k), device=dev, generator=gen) / float(
+            np.sqrt(kv * c))
+        for dt in dtypes:
+            x, w, dout = xf.to(dt), wf.to(dt), df.to(dt)
+            gemm_cases(layer, {
+                f"dg_fwd_{path}": (
+                    lambda: D.dg_fwd(x, w, pos, path),
+                    lambda: D.dg_fwd_plain(x, w, pos), v_dst, TOL,
+                    gemm_bound(x, w, pos, k)),
+                f"dg_dgrad_{path}": (
+                    lambda: D.dg_dgrad(dout, w, pos_bwd, path),
+                    lambda: D.dg_dgrad_plain(dout, w, pos_bwd), v_src, TOL,
+                    gemm_bound(dout, w, pos_bwd, c)),
+                f"dg_wgrad_{path}": (
+                    lambda: D.dg_wgrad(x, dout, pos_bwd, path),
+                    lambda: D.dg_wgrad_plain(x, dout, pos_bwd), None,
+                    WGRAD_TOL, wgrad_bound(x, dout, pos_bwd)),
+            }, dt)
+    print("per bf16 U-Net request or step: " + ", ".join(
+        f"{k} {v}" for k, v in tally.items()))
+
+    # ---- serve: three scans after a warm-up, counted and checked
+    with torch.inference_mode():
+        net16(x16[0])
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        serve_ms = []
+        for seed in REQUEST_SEEDS:
+            x = x16[seed]
+            before = dict(D.launch_counts)
+            t0 = time.perf_counter()
+            out = net16(x)
+            torch.cuda.synchronize()
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+            got = {k: D.launch_counts[k] - v for k, v in before.items()}
+            check(got == expected(D, **UNET_SERVE),
+                  f"U-Net request {seed}: launches {got}")
+            check(torch.equal(out.indices, x.indices),
+                  f"U-Net request {seed}: output sites differ from the "
+                  "input's")
+            check(tuple(out.features.shape) == (x.indices.shape[0],
+                                                UNET_CLASSES)
+                  and out.features.dtype == bf16,
+                  f"U-Net request {seed}: output {out.features.shape}")
+            check(bool(torch.isfinite(out.features).all())
+                  and bool(out.features.any()),
+                  f"U-Net request {seed}: output not finite or all 0")
+        serve_launches = dict(D.launch_counts)
+        for seed, ms in zip(REQUEST_SEEDS, serve_ms):
+            _, rel32 = rel_err(torch, net32(scans[seed]).features,
+                               plain_unet(torch, net32, scans[seed]))
+            check(rel32 <= NET_F32_TOL, f"U-Net request {seed}: f32 "
+                  f"{rel32:.3e} > {NET_F32_TOL} of max|ref|")
+            out = net16(x16[seed])
+            _, bf_rel = rel_err(torch, out.features,
+                                plain_unet(torch, net16, x16[seed]))
+            active = [int(x16[seed].num_voxels)] + [
+                int(out.indice_dict[f"__dgreg__down{i}"].num_out)
+                for i in range(levels)]
+            print(f"unet request seed={seed} input=synthetic ms={ms:.3f} "
+                  f"active_per_level={active} f32_rel_err={rel32:.3e} "
+                  f"bf16_rel_vs_plain={bf_rel:.3e}")
+        wall, busy = device_busy(torch, lambda: net16(x16[0]), 3)
+        peak = peak_mib(torch, lambda: net16(x16[0]))
+    print(f"U-Net serve: bf16, ms per request "
+          f"{[round(m, 3) for m in serve_ms]}, launches {serve_launches}; "
+          f"profiler window of 3: {wall / 3:.3f} ms a request, device busy "
+          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
+             f"{100 - 100 * busy / wall:.1f} %)" if busy else "not measured")
+          + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
+          "MiB held before the request")
+
+    # ---- train: one bf16 step per scan after a warm-up step
+    net = copy.deepcopy(net32).to(bf16)
+    B.train_step(net, x16[0], 0.0)
+    torch.cuda.synchronize()
+    # a step that moves the largest weight by 1 % of the largest weight
+    lr = 1e-2 * max(p.abs().max().item() for p in net.parameters()) / max(
+        p.grad.abs().max().item() for p in net.parameters())
+    D.reset_launch_counts()
+    for seed in REQUEST_SEEDS:
+        w_before = [p.detach().clone() for p in net.parameters()]
+        before = dict(D.launch_counts)
+        t0 = time.perf_counter()
+        loss = B.train_step(net, x16[seed], lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: D.launch_counts[k] - v for k, v in before.items()}
+        check(got == expected(D, **UNET_STEP),
+              f"U-Net train step {seed}: launches {got}")
+        loss = loss.item()
+        check(np.isfinite(loss) and loss > 0, f"U-Net train step {seed}: "
+              f"loss {loss}")
+        for (name, p), w0 in zip(net.named_parameters(), w_before):
+            check(p.grad is not None and p.grad.dtype == bf16
+                  and bool(torch.isfinite(p.grad).all())
+                  and bool(p.grad.any()),
+                  f"U-Net train step {seed}: {name} grad missing, not "
+                  "finite or 0")
+            # the SGD update, exactly (some entries move by less than
+            # their bf16 rounding step, so "changed" is no test)
+            check(torch.equal(p.detach(), w0.add(p.grad, alpha=-lr)),
+                  f"U-Net train step {seed}: {name} was not updated")
+        print(f"unet train step seed={seed} input=synthetic ms={ms:.3f} "
+              f"loss={loss:.6e} lr={lr:.4e}")
+    train_launches = dict(D.launch_counts)
+    wall, busy = device_busy(torch, lambda: B.train_step(net, x16[0], 0.0),
+                             3)
+    peak = peak_mib(torch, lambda: B.train_step(net, x16[0], 0.0))
+    print(f"U-Net train: bf16, launches over 3 steps {train_launches}; "
+          f"profiler window of 3: {wall / 3:.3f} ms a step, device busy "
+          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
+             f"{100 - 100 * busy / wall:.1f} %)" if busy else "not measured")
+          + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
+          "MiB held before the step")
+
+    # the f32 grads through the kernels against the plain backward on the
+    # kernels' forward
+    nets = [copy.deepcopy(net32) for _ in range(2)]
+    loss_k = B.train_step(nets[0], scans[0], 0.0).item()
+    loss_p = (plain_unet(torch, nets[1], scans[0], train=True,
+                         kernel_fwd=True).float() ** 2).sum()
+    loss_p.backward()
+    loss_p = loss_p.item()
+    check(abs(loss_k - loss_p) <= NET_F32_TOL * abs(loss_p),
+          f"U-Net f32 losses {loss_k} vs {loss_p}")
+    worst = max((rel_err(torch, a.grad, b.grad)[1], name) for (name, a), b
+                in zip(nets[0].named_parameters(), nets[1].parameters()))
+    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
+          f"U-Net f32 grad {worst[1]}: kernels vs plain backward "
+          f"{worst[0]:.3e} > {GRAD_F32_TOL}")
+    print(f"unet train f32 seed=0: loss kernels {loss_k:.9e}, plain "
+          f"backward {loss_p:.9e}; worst grad max|d|/max|ref| {worst[0]:.3e}"
+          f" ({worst[1]}, tolerance {GRAD_F32_TOL} per tensor)")
+
+    # algo="sk": a downsample + inverse pair, bit-equal to "dg" (the same
+    # tables and kernels), forward and grads
+    with torch.no_grad():
+        stage0 = net16.enc_subm[0](x16[0])
+    feats = F.relu(stage0.features)
+
+    def pair_run(algo):
+        kw = dict(indice_key="down0", algo=algo, dtype=bf16, device=dev)
+        down = SparseConv3d(UNET_CHANNELS[0], UNET_CHANNELS[1], 3, stride=2,
+                            padding=1, out_bound=net16.enc_down[0].out_bound,
+                            **kw)
+        down.load_state_dict(net16.enc_down[0].state_dict())
+        up = SparseInverseConv3d(UNET_CHANNELS[1], UNET_CHANNELS[0], 3, **kw)
+        up.load_state_dict(net16.dec_up[-1].state_dict())
+        x = SparseConvTensor(feats.clone().requires_grad_(), stage0.indices,
+                             stage0.spatial_shape, 1, keys_sorted=True)
+        D.reset_launch_counts()
+        h = down(x)
+        y = up(h.replace_feature(F.relu(h.features)))
+        (y.features.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        return ([y.features.detach(), x.features.grad, down.weight.grad,
+                 up.weight.grad], dict(D.launch_counts))
+
+    sk, sk_launches = pair_run("sk")
+    dg, dg_launches = pair_run("dg")
+    want = expected(D, dg_pos_affine=1, dg_pos_divide=1, dg_fwd_strided=1,
+                    dg_fwd_inverse=1, dg_dgrad_strided=1,
+                    dg_wgrad_strided=1, dg_dgrad_inverse=1,
+                    dg_wgrad_inverse=1)
+    check(sk_launches == dg_launches == want,
+          f"sk pair launches {sk_launches}, dg pair {dg_launches}")
+    check(all(torch.equal(a, b) for a, b in zip(sk, dg)),
+          "algo='sk' and algo='dg' differ on the down0 + inverse pair")
+    print(f"sk pair (enc_down.0 + dec_up.{levels - 1}, bf16): bit-equal to "
+          f"dg, forward and grads; launches {sk_launches}")
+    return tally, per_layer, serve_launches, train_launches, sk_launches
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
@@ -271,12 +794,12 @@ def main():
     rel = dict.fromkeys(names + strided_names, 0.0)
 
     def note(kern, diff, r):
-        err[kern] = max(err[kern], diff)
-        rel[kern] = max(rel[kern], r)
-    # [kernel ms, plain ms] summed over one bf16 forward (dg_pos, dg_fwd)
-    # or one bf16 training step's backward (the rest)
-    tot = {k: [0.0, 0.0] for k in names}
-    per_layer = {}  # (layer, kernel) -> (bf16 kernel ms, plain ms)
+        err[kern] = max(err.get(kern, 0.0), diff)
+        rel[kern] = max(rel.get(kern, 0.0), r)
+    # kernel, plain and bound ms summed over one bf16 forward (dg_pos,
+    # dg_fwd) or one bf16 training step's backward (the rest)
+    tot = {k: Tally() for k in names}
+    per_layer = {}  # (layer, kernel) -> (bf16 kernel ms, plain ms, bound)
 
     def fwd_cases(g, pos, c, k):
         """B2 kernel against plain on random features of the active rows
@@ -327,23 +850,22 @@ def main():
         times = {
             "dg_dgrad": (cuda_ms(torch, lambda: D.dg_dgrad(dout, w, rev), 10),
                          cuda_ms(torch, lambda: D.dg_dgrad_plain(dout, w, rev),
-                                 2)),
+                                 2), gemm_bound(dout, w, rev, c)),
             "dg_wgrad": (cuda_ms(torch, lambda: D.dg_wgrad(x, dout, rev), 10),
                          cuda_ms(torch, lambda: D.dg_wgrad_plain(x, dout, rev),
-                                 2)),
+                                 2), wgrad_bound(x, dout, rev)),
         }
         if x.dtype == torch.bfloat16:
-            for kern, (km, pm) in times.items():
-                per_layer[(layer, kern)] = (km, pm)
+            for kern, t in times.items():
+                per_layer[(layer, kern)] = t
                 if kern == "dg_dgrad" and layer == 0:
                     continue  # the input features need no gradient
-                tot[kern][0] += km
-                tot[kern][1] += pm
+                tot[kern].add(*t)
         return d_rel, w_rel, times
 
     tables = []
     print("stage  N_buf  active  kernel            dtype      C    K   "
-          "max|d|/max|ref|  kernel_ms  plain_ms")
+          "max|d|/max|ref|  kernel_ms  plain_ms  bound_ms")
     for s, g in enumerate(geo):
         n, act = g.indices.shape[0], int(g.num_voxels)
         keys, _ = C.linearize(g.indices, g.spatial_shape, 1)
@@ -364,10 +886,10 @@ def main():
                                                        **geom), 20)
             pm = cuda_ms(torch, lambda: D.dg_pos_plain(keys, reverse=r,
                                                        **geom), 3)
-            tot[kern][0] += km
-            tot[kern][1] += pm
+            bnd = table_bound(n, n, 27)
+            tot[kern].add(km, pm, bnd)
             print(f"{s:5d} {n:6d} {act:7d}  {kern:17s} int32      -    - "
-                  f"  {float(d):15.3e}  {km:9.4f}  {pm:8.4f}")
+                  f"  {float(d):15.3e}  {km:9.4f}  {pm:8.4f}  {bnd[0]:.4f}")
         check(torch.equal(rev, pk.flip(0)),
               f"stage {s}: the reversed table is not the forward one "
               "flipped on its offset axis")
@@ -377,33 +899,30 @@ def main():
                 km = cuda_ms(torch, lambda: D.dg_fwd(x, w, pk), 10)
                 pm = cuda_ms(torch, lambda: D.dg_fwd_plain(x, w, pk), 3)
                 dtn = str(dt)[6:]
+                bnd = gemm_bound(x, w, pk, k)
                 if dt == torch.bfloat16:
-                    per_layer[(layer, "dg_fwd")] = (km, pm)
-                    tot["dg_fwd"][0] += km
-                    tot["dg_fwd"][1] += pm
+                    per_layer[(layer, "dg_fwd")] = (km, pm, bnd)
+                    tot["dg_fwd"].add(km, pm, bnd)
                 print(f"{s:5d} {n:6d} {act:7d}  dg_fwd   conv{layer:<3d}   "
                       f"{dtn:9s} {c:4d} {k:4d}  {r:15.3e}  "
-                      f"{km:9.4f}  {pm:8.4f}")
+                      f"{km:9.4f}  {pm:8.4f}  {bnd[0]:.4f}")
                 d_rel, w_rel, times = bwd_case(g, rev, x, w, layer)
                 for kern, rel_b in (("dg_dgrad", d_rel), ("dg_wgrad", w_rel)):
-                    km, pm = times[kern]
+                    km, pm, bnd = times[kern]
                     print(f"{s:5d} {n:6d} {act:7d}  {kern} conv{layer:<3d}   "
                           f"{dtn:9s} {c:4d} {k:4d}  {rel_b:15.3e}  "
-                          f"{km:9.4f}  {pm:8.4f}")
+                          f"{km:9.4f}  {pm:8.4f}  {bnd[0]:.4f}")
     # every other width at the stage-0 shape too (checked, not timed)
     for layer in range(2, 14):
         c, k = B.CHANNELS[layer], B.CHANNELS[layer + 1]
         rels = [r for _, _, r in fwd_cases(geo[0], tables[0], c, k)]
         print(f"    0 stage-0 shape  dg_fwd conv{layer} widths C={c} K={k}: "
               f"max|d|/max|ref| f32 {rels[0]:.3e}, bf16 {rels[1]:.3e}")
-    print(f"per bf16 forward: dg_pos {tot['dg_pos'][0]:.4f} ms "
-          f"(plain {tot['dg_pos'][1]:.4f}), dg_fwd {tot['dg_fwd'][0]:.4f} ms "
-          f"(plain {tot['dg_fwd'][1]:.4f})")
+    print(f"per bf16 forward: dg_pos {tot['dg_pos']}, dg_fwd "
+          f"{tot['dg_fwd']}")
     print(f"per bf16 training step, backward: dg_pos_rev "
-          f"{tot['dg_pos_rev'][0]:.4f} ms (plain {tot['dg_pos_rev'][1]:.4f}),"
-          f" dg_dgrad {tot['dg_dgrad'][0]:.4f} ms (plain "
-          f"{tot['dg_dgrad'][1]:.4f}), dg_wgrad {tot['dg_wgrad'][0]:.4f} ms "
-          f"(plain {tot['dg_wgrad'][1]:.4f})")
+          f"{tot['dg_pos_rev']}, dg_dgrad {tot['dg_dgrad']}, dg_wgrad "
+          f"{tot['dg_wgrad']}")
 
     # the CenterPoint encoder's layer shapes on its synthetic scan: the
     # calibrated bf16 net (served in phase 6) gives every layer's input
@@ -426,9 +945,10 @@ def main():
     with torch.inference_mode():
         cp_rec = cp_net(cp_in[0].replace_feature(
             cp_in[0].features.bfloat16())).indice_dict
-    cp_tot = {k: [0.0, 0.0] for k in ("cp_dg_pos", "cp_dg_fwd")
+    cp_tot = {k: Tally() for k in ("cp_dg_pos", "cp_dg_fwd")
               + strided_names}
-    cp_layer_ms = []  # (layer, C, K, times per request, bf16 ms, plain ms)
+    # (layer, C, K, times per request, bf16 ms, plain ms, bound)
+    cp_layer_ms = []
 
     def cp_gemm(kern, fn, plain, valid_in, valid_out, pos, c, k, layer,
                 mult):
@@ -452,16 +972,16 @@ def main():
             note(kern, diff, r)
             km = cuda_ms(torch, lambda: fn(x, w, pos), 10)
             pm = cuda_ms(torch, lambda: plain(x, w, pos), 3)
+            bnd = gemm_bound(x, w, pos, k)
             print(f"  cp {layer:10s} {kern:14s} {dtn:9s} {c:4d} {k:4d} "
                   f"N_in {x.shape[0]:6d} N_out {pos.shape[1]:6d}  "
-                  f"{r:12.3e}  {km:9.4f}  {pm:8.4f}")
+                  f"{r:12.3e}  {km:9.4f}  {pm:8.4f}  {bnd[0]:.4f}")
             if dt == torch.bfloat16:
-                cp_layer_ms.append((layer, c, k, mult, km, pm))
+                cp_layer_ms.append((layer, c, k, mult, km, pm, bnd))
                 tot_key = "cp_dg_fwd" if kern == "dg_fwd" else kern
-                cp_tot[tot_key][0] += mult * km
-                cp_tot[tot_key][1] += mult * pm
+                cp_tot[tot_key].add(km, pm, bnd, mult)
 
-    def cp_table(kern, build, plain, layer):
+    def cp_table(kern, build, plain, layer, table_rows):
         """A match-table kernel against plain (exact), both timed."""
         got, want = build(), plain()
         d = (got.long() - want.long()).abs().max().item() if got.numel() \
@@ -469,14 +989,15 @@ def main():
         note("dg_pos" if kern == "cp_dg_pos" else kern, float(d), float(d))
         check(d == 0, f"{kern} {layer} differs from plain")
         km, pm = cuda_ms(torch, build, 20), cuda_ms(torch, plain, 3)
-        cp_tot[kern][0] += km
-        cp_tot[kern][1] += pm
+        bnd = table_bound(got.shape[1], table_rows, got.shape[0])
+        cp_tot[kern].add(km, pm, bnd)
         print(f"  cp {layer:10s} {kern:14s} int32     kv {got.shape[0]:3d} "
-              f"N_out {got.shape[1]:6d}  exact  {km:9.4f}  {pm:8.4f}")
+              f"N_out {got.shape[1]:6d}  exact  {km:9.4f}  {pm:8.4f}  "
+              f"{bnd[0]:.4f}")
         return got
 
     print("CenterPoint layers: layer kernel dtype C K N_in N_out "
-          "max|d|/max|ref| kernel_ms plain_ms")
+          "max|d|/max|ref| kernel_ms plain_ms bound_ms")
     widths = (16, 32, 64, 128)
     for si, c in enumerate(widths):
         if si:
@@ -489,7 +1010,8 @@ def main():
         geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=shape,
                     batch_size=1)
         pos = cp_table("cp_dg_pos", lambda: D.build_dg_pos(keys, **geom),
-                       lambda: D.dg_pos_plain(keys, **geom), f"subm{si}")
+                       lambda: D.dg_pos_plain(keys, **geom), f"subm{si}",
+                       keys.shape[0])
         if not si:
             cp_gemm("dg_fwd", D.dg_fwd, D.dg_fwd_plain, valid, valid, pos,
                     5, c, "conv_input", 1)
@@ -505,12 +1027,14 @@ def main():
             "dg_pos_affine",
             lambda: D.build_dg_pos_affine(rec.in_keys, rec.out_keys, **geom),
             lambda: D.dg_pos_affine_plain(rec.in_keys, rec.out_keys, **geom),
-            key)
-        cp_gemm("dg_fwd_strided", D.dg_fwd_strided, D.dg_fwd_plain,
+            key, rec.in_keys.shape[0])
+        cp_gemm("dg_fwd_strided",
+                lambda x, w, pos: D.dg_fwd(x, w, pos, "strided"),
+                D.dg_fwd_plain,
                 cp_rec[f"__dgreg_in__{key}"][:, 0] >= 0,
                 rec.out_indices[:, 0] >= 0, pos, c, k, key, 1)
     print("per bf16 CenterPoint request: " + ", ".join(
-        f"{k} {v[0]:.4f} ms (plain {v[1]:.4f})" for k, v in cp_tot.items()))
+        f"{k} {v}" for k, v in cp_tot.items()))
 
     # ---- 4. serve ----------------------------------------------------
     net = B.BenchNet(SHAPE, dtype=torch.bfloat16, pool_bounds=bounds,
@@ -670,10 +1194,9 @@ def main():
 
     sk, sk_counts, sk_fwd_launches = pair_run("sk")
     dg, dg_counts, _ = pair_run("dg")
-    check(sk_counts == dg_counts == dict(dg_pos=1, dg_pos_rev=1,
-                                         dg_pos_affine=0, dg_fwd=2,
-                                         dg_fwd_strided=0, dg_dgrad=2,
-                                         dg_wgrad=2),
+    check(sk_counts == dg_counts == expected(D, dg_pos=1, dg_pos_rev=1,
+                                             dg_fwd=2, dg_dgrad=2,
+                                             dg_wgrad=2),
           f"sk pair launches {sk_counts}, dg pair {dg_counts}")
     check(all(torch.equal(a, b) for a, b in zip(sk, dg)),
           "algo='sk' and algo='dg' differ on the stage-2 pair")
@@ -687,11 +1210,11 @@ def main():
                 batch_size=1)
     pos = D.dg_pos_plain(keys, **geom)
     pos_rev = D.dg_pos_plain(keys, reverse=True, **geom)
-    plain = plain_conv_fn(torch, D, D.dg_fwd_plain)
+    plain = plain_conv_fn(torch, D, plain_fwd(D))
     xp = feats.clone().requires_grad_()
-    h = plain.apply(xp, D.weight_krsc_to_kv(ws[0]), pos, pos_rev)
+    h = plain.apply(xp, D.weight_krsc_to_kv(ws[0]), pos, pos_rev, "subm")
     h = torch.where(g.valid_mask[:, None], h, torch.zeros_like(h))
-    yp = plain.apply(h, D.weight_krsc_to_kv(ws[1]), pos, pos_rev)
+    yp = plain.apply(h, D.weight_krsc_to_kv(ws[1]), pos, pos_rev, "subm")
     yp = torch.where(g.valid_mask[:, None], yp, torch.zeros_like(yp))
     (yp.float() ** 2).sum().backward()
     sk_err, sk_rel = {}, {}
@@ -708,13 +1231,11 @@ def main():
           f"plain fwd {sk_rel['sk_fwd']:.3e} bwd {sk_rel['sk_bwd']:.3e}")
     # its kernel times are phase 3's at the stage-2 shape, layers 4 and 5
     sk_layers = (2 * SK_STAGE, 2 * SK_STAGE + 1)
-    sk_ms = {
-        "sk_fwd": [sum(per_layer[(ly, "dg_fwd")][i] for ly in sk_layers)
-                   for i in (0, 1)],
-        "sk_bwd": [sum(per_layer[(ly, kern)][i] for ly in sk_layers
-                       for kern in ("dg_dgrad", "dg_wgrad"))
-                   for i in (0, 1)],
-    }
+    sk_ms = {"sk_fwd": Tally(), "sk_bwd": Tally()}
+    for ly in sk_layers:
+        sk_ms["sk_fwd"].add(*per_layer[(ly, "dg_fwd")])
+        for kern in ("dg_dgrad", "dg_wgrad"):
+            sk_ms["sk_bwd"].add(*per_layer[(ly, kern)])
 
     # ---- 6. serve the CenterPoint encoder -----------------------------
     from spconv_tpu_torch import SparseConv3d
@@ -746,7 +1267,9 @@ def main():
             check(bool(torch.isfinite(bev).all()) and bool(bev.any()),
                   f"CenterPoint request {seed}: bev not finite or all 0")
         cp_launches = dict(D.launch_counts)
-        want = {k: len(REQUEST_SEEDS) * v for k, v in CP_LAUNCHES.items()}
+        # no divide table: serving has no inverse conv and no gradient
+        want = expected(D, **{k: len(REQUEST_SEEDS) * v
+                              for k, v in CP_LAUNCHES.items()})
         check(cp_launches == want, f"CenterPoint launches {cp_launches}, "
               f"expected {want}")
 
@@ -788,9 +1311,9 @@ def main():
         y_sk = sk_down(stage0)
         torch.cuda.synchronize()
         sk_strided_launches = D.launch_counts["dg_fwd_strided"]
-        check(dict(D.launch_counts) == dict(
-            CP_LAUNCHES, dg_pos=0, dg_fwd=0, dg_pos_affine=1,
-            dg_fwd_strided=1), f"sk downsample launches {D.launch_counts}")
+        check(dict(D.launch_counts) == expected(
+            D, dg_pos_affine=1, dg_fwd_strided=1),
+            f"sk downsample launches {D.launch_counts}")
         check(torch.equal(y_sk.features, down(stage0).features)
               and torch.equal(y_sk.indices, down(stage0).indices),
               "algo='sk' and algo='dg' differ on the first downsample")
@@ -798,67 +1321,113 @@ def main():
           f"{[round(m, 3) for m in cp_ms]}, launches {cp_launches}; "
           f"algo='sk' downsample bit-equal to 'dg'")
 
-    # ---- 7. report ---------------------------------------------------
-    def entry(name, source, replaces, launches, key, **extra):
+    # ---- 7. the U-Net --------------------------------------------------
+    (u_tot, u_layer, u_serve, u_train,
+     u_sk) = unet_phase(torch, dev, gen, cp_in, cp_rec, note)
+
+    # ---- 8. report ---------------------------------------------------
+    def row(name, source, replaces, launches, errs, t, **extra):
+        """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against
+        its plain version, ``t`` its Tally of times and bound."""
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
-                    max_abs_err=err[key], max_rel_err=rel[key],
-                    ms=tot[key][0],
-                    plain_ms=tot[key][1], **extra)
+                    max_abs_err=errs[0], max_rel_err=errs[1], ms=t.ms,
+                    plain_ms=t.plain_ms, bound_ms=t.bound_ms,
+                    bound_by=t.bound_by, library_ms=None, **extra)
 
-    down1_ms = next(r for r in cp_layer_ms if r[0] == "down1")
+    def errs(*keys):
+        return max(err[k] for k in keys), max(rel[k] for k in keys)
+
+    def layers(*keys):
+        """A Tally of the U-Net's (layer, kernel) times in ``keys``."""
+        t = Tally()
+        for key in keys:
+            t.add(*u_layer[key])
+        return t
+
+    down1 = Tally()
+    down1.add(*next(r for r in cp_layer_ms if r[0] == "down1")[4:])
     pallas = "spconv_tpu/ops/pallas/"
     csrc = "spconv_tpu_torch/csrc/"
+    up_last = f"dec_up.{len(UNET_CHANNELS) - 2}"  # the down0 inverse
     kernels = [
-        entry("dg_pos", csrc + "dg_pos.cu", pallas + "dg_conv.py:710",
-              train_launches["dg_pos"], "dg_pos",
-              serve_launches=serve_launches["dg_pos"]),
-        entry("dg_pos_reverse", csrc + "dg_pos.cu",
-              pallas + "dg_conv.py:710 (reverse=True, built at :1707)",
-              train_launches["dg_pos_rev"], "dg_pos_rev"),
-        entry("dg_fwd", csrc + "dg_fwd.cu", pallas + "dg_conv.py:339",
-              train_launches["dg_fwd"], "dg_fwd",
-              serve_launches=serve_launches["dg_fwd"]),
-        entry("dg_dgrad", csrc + "dg_fwd.cu",
-              pallas + "dg_conv.py:1307 (din)",
-              train_launches["dg_dgrad"], "dg_dgrad"),
-        entry("dg_wgrad", csrc + "dg_wgrad.cu",
-              pallas + "dg_conv.py:1307 (dW)",
-              train_launches["dg_wgrad"], "dg_wgrad"),
-        dict(name="sk_fwd", route="cuda", source=csrc + "dg_fwd.cu",
-             replaces=pallas + "sorted_conv.py:446",
-             launches=sk_fwd_launches, max_abs_err=sk_err["sk_fwd"],
-             max_rel_err=sk_rel["sk_fwd"],
-             ms=sk_ms["sk_fwd"][0], plain_ms=sk_ms["sk_fwd"][1]),
-        dict(name="sk_bwd", route="cuda",
-             source=csrc + "dg_fwd.cu + " + csrc + "dg_wgrad.cu",
-             replaces=pallas + "sorted_conv.py:815",
-             launches=sk_counts["dg_dgrad"] + sk_counts["dg_wgrad"],
-             max_abs_err=sk_err["sk_bwd"], max_rel_err=sk_rel["sk_bwd"],
-             ms=sk_ms["sk_bwd"][0],
-             plain_ms=sk_ms["sk_bwd"][1]),
-        dict(name="dg_pos_affine", route="cuda", source=csrc + "dg_pos.cu",
-             replaces=pallas + "dg_conv.py:302 (_vec_affine_probes of "
-             "_dg_fwd_kernel :339, launched at :1020 by _dg_reg_conv)",
-             launches=cp_launches["dg_pos_affine"],
-             max_abs_err=err["dg_pos_affine"],
-             max_rel_err=rel["dg_pos_affine"],
-             ms=cp_tot["dg_pos_affine"][0],
-             plain_ms=cp_tot["dg_pos_affine"][1]),
-        dict(name="dg_fwd_strided", route="cuda", source=csrc + "dg_fwd.cu",
-             replaces=pallas + "dg_conv.py:339 (affine probes, launched at "
-             ":1020 by _dg_reg_conv :1837)",
-             launches=cp_launches["dg_fwd_strided"],
-             max_abs_err=err["dg_fwd_strided"],
-             max_rel_err=rel["dg_fwd_strided"],
-             ms=cp_tot["dg_fwd_strided"][0],
-             plain_ms=cp_tot["dg_fwd_strided"][1]),
-        dict(name="sk_fwd_strided", route="cuda", source=csrc + "dg_fwd.cu",
-             replaces=pallas + "sorted_conv.py:446 (sk_regular_conv "
-             ":1356)", launches=sk_strided_launches,
-             max_abs_err=err["dg_fwd_strided"],
-             max_rel_err=rel["dg_fwd_strided"],
-             ms=down1_ms[4], plain_ms=down1_ms[5]),
+        row("dg_pos", csrc + "dg_pos.cu", pallas + "dg_conv.py:710",
+            train_launches["dg_pos"], errs("dg_pos"), tot["dg_pos"],
+            serve_launches=serve_launches["dg_pos"]),
+        row("dg_pos_reverse", csrc + "dg_pos.cu",
+            pallas + "dg_conv.py:710 (reverse=True, built at :1707)",
+            train_launches["dg_pos_rev"], errs("dg_pos_rev"),
+            tot["dg_pos_rev"]),
+        row("dg_fwd", csrc + "dg_fwd.cu", pallas + "dg_conv.py:339",
+            train_launches["dg_fwd"], errs("dg_fwd"), tot["dg_fwd"],
+            serve_launches=serve_launches["dg_fwd"]),
+        row("dg_dgrad", csrc + "dg_fwd.cu", pallas + "dg_conv.py:1307 (din)",
+            train_launches["dg_dgrad"], errs("dg_dgrad"), tot["dg_dgrad"]),
+        row("dg_wgrad", csrc + "dg_wgrad.cu",
+            pallas + "dg_conv.py:1307 (dW)", train_launches["dg_wgrad"],
+            errs("dg_wgrad"), tot["dg_wgrad"]),
+        row("sk_fwd", csrc + "dg_fwd.cu", pallas + "sorted_conv.py:446",
+            sk_fwd_launches, (sk_err["sk_fwd"], sk_rel["sk_fwd"]),
+            sk_ms["sk_fwd"]),
+        row("sk_bwd", csrc + "dg_fwd.cu + " + csrc + "dg_wgrad.cu",
+            pallas + "sorted_conv.py:815",
+            sk_counts["dg_dgrad"] + sk_counts["dg_wgrad"],
+            (sk_err["sk_bwd"], sk_rel["sk_bwd"]), sk_ms["sk_bwd"]),
+        row("dg_pos_affine", csrc + "dg_pos.cu",
+            pallas + "dg_conv.py:302 (_vec_affine_probes of _dg_fwd_kernel "
+            ":339, launched at :1020 by _dg_reg_conv)",
+            cp_launches["dg_pos_affine"], errs("dg_pos_affine"),
+            cp_tot["dg_pos_affine"]),
+        row("dg_fwd_strided", csrc + "dg_fwd.cu",
+            pallas + "dg_conv.py:339 (affine probes, launched at :1020 by "
+            "_dg_reg_conv :1837)", cp_launches["dg_fwd_strided"],
+            errs("dg_fwd_strided"), cp_tot["dg_fwd_strided"]),
+        row("sk_fwd_strided", csrc + "dg_fwd.cu",
+            pallas + "sorted_conv.py:446 (sk_regular_conv :1356)",
+            sk_strided_launches, errs("dg_fwd_strided"), down1),
+        row("dg_pos_divide", csrc + "dg_pos.cu",
+            pallas + "dg_conv.py:315 (_vec_divide_probes of _dg_fwd_kernel "
+            ":339 and _dg_bwd_kernel :1307, launched at :1020 and :1598)",
+            u_train["dg_pos_divide"], errs("dg_pos_divide"),
+            u_tot["dg_pos_divide"], serve_launches=u_serve["dg_pos_divide"]),
+        row("dg_fwd_inverse", csrc + "dg_fwd.cu",
+            pallas + "dg_conv.py:339 (divide probes, launched at :1020 by "
+            "_dg_reg_conv :1850)", u_train["dg_fwd_inverse"],
+            errs("dg_fwd_inverse"), u_tot["dg_fwd_inverse"],
+            serve_launches=u_serve["dg_fwd_inverse"]),
+        row("dg_dgrad_strided", csrc + "dg_fwd.cu",
+            pallas + "dg_conv.py:1307 (din, divide probes, launched at "
+            ":1598 by _dg_reg_conv_bwd :1874)", u_train["dg_dgrad_strided"],
+            errs("dg_dgrad_strided"), u_tot["dg_dgrad_strided"]),
+        row("dg_wgrad_strided", csrc + "dg_wgrad.cu",
+            pallas + "dg_conv.py:1307 (dW, divide probes, launched at "
+            ":1598 by _dg_reg_conv_bwd :1874)", u_train["dg_wgrad_strided"],
+            errs("dg_wgrad_strided"), u_tot["dg_wgrad_strided"]),
+        row("dg_dgrad_inverse", csrc + "dg_fwd.cu",
+            pallas + "dg_conv.py:1307 (din, affine probes, launched at "
+            ":1598 by _dg_reg_conv_bwd :1882)", u_train["dg_dgrad_inverse"],
+            errs("dg_dgrad_inverse"), u_tot["dg_dgrad_inverse"]),
+        row("dg_wgrad_inverse", csrc + "dg_wgrad.cu",
+            pallas + "dg_conv.py:1307 (dW, affine probes, launched at "
+            ":1598 by _dg_reg_conv_bwd :1882)", u_train["dg_wgrad_inverse"],
+            errs("dg_wgrad_inverse"), u_tot["dg_wgrad_inverse"]),
+        row("sk_fwd_inverse", csrc + "dg_pos.cu + " + csrc + "dg_fwd.cu",
+            pallas + "sorted_conv.py:446 (sk_regular_conv :1356, "
+            "inverse=True)", u_sk["dg_fwd_inverse"], errs("dg_fwd_inverse"),
+            layers((up_last, "dg_fwd_inverse"))),
+        row("sk_bwd_strided", csrc + "dg_fwd.cu + " + csrc + "dg_wgrad.cu",
+            pallas + "sorted_conv.py:815 (_sk_reg_conv_bwd :1320)",
+            u_sk["dg_dgrad_strided"] + u_sk["dg_wgrad_strided"],
+            errs("dg_dgrad_strided", "dg_wgrad_strided"),
+            layers(("enc_down.0", "dg_dgrad_strided"),
+                   ("enc_down.0", "dg_wgrad_strided"))),
+        row("sk_bwd_inverse", csrc + "dg_fwd.cu + " + csrc + "dg_wgrad.cu",
+            pallas + "sorted_conv.py:815 (_sk_reg_conv_bwd :1320, "
+            "inverse=True)",
+            u_sk["dg_dgrad_inverse"] + u_sk["dg_wgrad_inverse"],
+            errs("dg_dgrad_inverse", "dg_wgrad_inverse"),
+            layers((up_last, "dg_dgrad_inverse"),
+                   (up_last, "dg_wgrad_inverse"))),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on its "

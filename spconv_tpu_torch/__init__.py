@@ -8,27 +8,39 @@ plain PyTorch version that CPU tensors take.  It never imports ``jax``.
 
 Ported so far: the reference benchmark net (``benchmark.basic``) serving and
 training (submanifold convs on the dynamic-gather path, forward and
-backward; the 2x/stride-2 max pool), and the CenterPoint / SECOND encoder
-(``models``) serving: strided ``SparseConv3d`` forward, ``BatchNorm1d``,
-``SparseConvTensor.dense`` and out-bound calibration (``calibrate``).  See
-ROADMAP.md for what is still to come.
+backward; the 2x/stride-2 max pool); the CenterPoint / SECOND encoder
+(``models``: strided ``SparseConv3d``, ``BatchNorm1d``,
+``SparseConvTensor.dense`` and out-bound calibration, ``calibrate``); and
+the segmentation ``SparseUNet`` serving and training, through
+``SparseInverseConv3d`` and ``JoinTable``.  The strided and the inverse
+conv run forward and backward.  Constructors and input builders put their
+tensors on the CUDA card unless given ``device``.  See ROADMAP.md for what
+is still to come.
 """
 
 __version__ = "0.1.0"
 
 from . import calibrate, checkpoint, constants, models, ops
 from .checkpoint import load_jax_state_dict
-from .core import SparseConvTensor, expand_nd
-from .modules import (BatchNorm1d, DGData, DGRegData, SparseConv3d,
-                      SparseConvolution, SparseMaxPool, SparseMaxPool3d,
+from .core import SparseConvTensor, default_device, expand_nd
+from .models import SparseUNet
+from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
+                      JoinTable, SparseConv3d, SparseConvolution,
+                      SparseInverseConv3d, SparseMaxPool, SparseMaxPool3d,
                       SparseModule, SparseSequential, SubMConv3d)
 
 __all__ = [
     "SparseConvTensor",
+    "default_device",
     "expand_nd",
     "SparseConvolution",
     "SubMConv3d",
     "SparseConv3d",
+    "SparseInverseConv3d",
+    "AddTable",
+    "ConcatTable",
+    "JoinTable",
+    "SparseUNet",
     "BatchNorm1d",
     "SparseMaxPool",
     "SparseMaxPool3d",

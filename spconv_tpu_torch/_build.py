@@ -116,6 +116,9 @@ def load_library() -> ctypes.CDLL:
         # out_keys, n_out, in_keys, n_in, kv, geom, sent_out, pos, stream
         "dg_pos_affine_launch": [vp, i32, vp, i32, i32, ctypes.POINTER(i32),
                                  i32, vp, vp],
+        # in_keys, n_in, out_keys, n_out, kv, geom, sent_in, pos, stream
+        "dg_pos_divide_launch": [vp, i32, vp, i32, i32, ctypes.POINTER(i32),
+                                 i32, vp, vp],
         # x, w, pos, out, n, C, K, kv, stream
         "dg_fwd_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
         "dg_fwd_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],

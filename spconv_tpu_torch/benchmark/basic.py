@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core import SparseConvTensor
+from ..core import SparseConvTensor, default_device
 from ..modules import SparseMaxPool3d, SubMConv3d
 
 __all__ = [
@@ -44,7 +44,8 @@ class BenchNet(nn.Module):
     """The benchmark net with per-stage static pool buffers
     (``pool_bounds``; None sizes each pool's buffer to its input's).
     Attribute names (``convs``, ``pools``) match the JAX package's, so its
-    state dict loads one to one.  Weights are drawn from ``seed``."""
+    state dict loads one to one.  Weights are drawn from ``seed``;
+    ``device`` None is the CUDA card."""
 
     def __init__(self, shape: Sequence[int], dtype: torch.dtype = torch.float32,
                  pool_bounds: Optional[Sequence[int]] = None,
@@ -52,6 +53,7 @@ class BenchNet(nn.Module):
                  device: Optional[torch.device] = None, seed: int = 0):
         super().__init__()
         self.shape = tuple(int(s) for s in shape)
+        device = default_device(device)
         gen = torch.Generator().manual_seed(seed)
         self.convs = nn.ModuleList(
             SubMConv3d(CHANNELS[i], CHANNELS[i + 1], 3, bias=False,
@@ -105,7 +107,9 @@ def make_bench_input(voxels: np.ndarray, coors: np.ndarray,
                      device: Optional[torch.device] = None
                      ) -> SparseConvTensor:
     """Sort the voxels by key, pad to a multiple of ``bucket`` rows and
-    flag the tensor ``keys_sorted``."""
+    flag the tensor ``keys_sorted``, on ``device`` (None: the CUDA
+    card)."""
+    device = default_device(device)
     n = voxels.shape[0]
     nbuf = _round_bucket(n, bucket)
     shape = [int(s) for s in spatial_shape]

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..calibrate import apply_out_bounds, calibrate_out_bounds
-from ..core import SparseConvTensor
+from ..core import SparseConvTensor, default_device
 from ..models import SparseEncoder, centerpoint_encoder
 from .basic import synthetic_scan
 
@@ -39,7 +39,9 @@ def synthetic_centerpoint_input(
     features of ``synthetic_scan(seed, shape, n_target)``, intensity 1.0
     and timestamp 0.0, padded to a multiple of ``bucket`` rows (113,664
     at the default size).  ``batch`` > 1 repeats the scan at every batch
-    index (batch-major rows stay key-sorted), as the JAX loader does."""
+    index (batch-major rows stay key-sorted), as the JAX loader does.
+    ``device`` None is the CUDA card."""
+    device = default_device(device)
     voxels, coors, grid = synthetic_scan(seed, shape, n_target)
     nv = voxels.shape[0]
     nbuf = max(bucket, -(-(nv * batch) // bucket) * bucket)

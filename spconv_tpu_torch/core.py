@@ -16,7 +16,23 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["SparseConvTensor", "expand_nd"]
+__all__ = ["SparseConvTensor", "default_device", "expand_nd"]
+
+
+def default_device(device: Union[None, str, torch.device] = None
+                   ) -> torch.device:
+    """The device of a constructor or input builder: ``device`` when given,
+    else the CUDA card.  With no device given and no CUDA available it
+    raises ``RuntimeError``: the port's entry points run on the card unless
+    the caller asks for the CPU (``device="cpu"``), and never fall back to
+    it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless the caller "
+            "passes device='cpu'")
+    return torch.device("cuda")
 
 
 def expand_nd(ndim: int, val: Union[int, Sequence[int]]) -> Tuple[int, ...]:

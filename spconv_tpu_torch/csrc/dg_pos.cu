@@ -1,6 +1,8 @@
 // B1 `dg_pos`: the match table of a submanifold conv stage on key-sorted
-// input, in the forward direction or reversed (the backward's table); and
-// in affine mode the table of a regular (strided) conv (see below).
+// input, in the forward direction or reversed (the backward's table); in
+// affine mode the table of a regular (strided) conv, and in divide mode its
+// inverse, the table of the inverse conv and of the strided backward (see
+// below).
 //
 // Replaces: spconv_tpu/ops/pallas/dg_conv.py::_dg_pos_kernel (launched by
 //   _build_dg_pos, public entry build_dg_pos).  The TPU kernel searches
@@ -48,6 +50,28 @@
 //   the CenterPoint scan, resident in L2).  Writes the input row or -1 to
 //   pos[k * N_out + o]; sentinel output rows get -1 at every offset.  Bound
 //   and design as the subm mode.
+//
+// Divide mode (`dg_pos_divide_launch`): the exact inverse of the affine
+//   table, [kv, N_in].  Replaces the divide probes of the same Pallas
+//   kernels: spconv_tpu/ops/pallas/dg_conv.py:315 (_vec_divide_probes)
+//   inside :339 (_dg_fwd_kernel, the inverse conv's forward) and :1307
+//   (_dg_bwd_kernel, the strided conv's backward, probes from
+//   sorted_conv.py:392 _probe_divide_fn), launched at :1020 and :1598 from
+//   _dg_reg_conv (:1850-1860) and _dg_reg_conv_bwd (:1874-1881).  For input
+//   row i and kernel offset k, decode i's key with the INPUT dims (batch b
+//   first); per axis t = coord - (off_k * dil - pad) must be >= 0 and
+//   divisible by the stride, and c = t / stride must lie inside the OUTPUT
+//   dims; relinearize c with the output dims and b, and binary-search
+//   out_keys[0, N_out) (~0.45 MB at the U-Net's first downsample, resident
+//   in L2).  Writes the output row or -1 to pos[k * N_in + i]; sentinel
+//   input rows get -1.  Row i holds o at offset k iff the affine table
+//   holds i at (k, o): each offset's map is one-to-one.
+//   Bound: latency of the dependent L2 loads of the search, as the other
+//   modes; the bytes are N_in * 4 read and kv * N_in * 4 written.  Design:
+//   as the other modes, one thread per (row, offset), offset-major, so many
+//   independent searches are in flight and the writes are coalesced; most
+//   probes fail the divisibility test (7 of 8 offsets of a k3 s2 input row)
+//   and never search.
 
 #include <cuda_runtime.h>
 
@@ -159,6 +183,60 @@ __global__ void dg_pos_affine_kernel(const int* __restrict__ out_keys,
   pos[t] = res;
 }
 
+// Same geometry record as the affine mode; here the row decodes with
+// in_dims and the probe relinearizes with out_dims.
+__global__ void dg_pos_divide_kernel(const int* __restrict__ in_keys,
+                                     int n_in,
+                                     const int* __restrict__ out_keys,
+                                     int n_out, int kv, AffineGeom g,
+                                     int sent_in, int* __restrict__ pos) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= kv * n_in) return;
+  const int k = t / n_in;
+  const int i = t - k * n_in;
+  const int key = in_keys[i];
+  int res = -1;
+  if (key != sent_in) {
+    int rem = key;
+    int kr = k;
+    int lin = 0;  // output key without the batch term
+    int vol = 1;  // volume of the output axes done so far
+    bool ok = true;
+#pragma unroll
+    for (int a = kMaxNdim - 1; a >= 0; --a) {
+      if (a < g.ndim) {
+        const int coord = rem % g.in_dims[a];
+        rem /= g.in_dims[a];
+        const int ka = kr % g.ksize[a];
+        kr /= g.ksize[a];
+        const int tt = coord - (ka * g.dil[a] - g.pad[a]);
+        // tt >= 0 is checked first: C's % and / truncate toward zero
+        ok = ok && tt >= 0 && tt % g.stride[a] == 0 &&
+             tt / g.stride[a] < g.out_dims[a];
+        if (ok) lin += (tt / g.stride[a]) * vol;
+        vol *= g.out_dims[a];
+      }
+    }
+    // rem is now the batch index
+    if (ok) res = search_row(out_keys, n_out, rem * vol + lin);
+  }
+  pos[t] = res;
+}
+
+AffineGeom affine_geom(const int* geom) {
+  AffineGeom g;
+  g.ndim = geom[0];
+  for (int a = 0; a < kMaxNdim; ++a) {
+    g.out_dims[a] = geom[1 + a];
+    g.in_dims[a] = geom[1 + kMaxNdim + a];
+    g.stride[a] = geom[1 + 2 * kMaxNdim + a];
+    g.ksize[a] = geom[1 + 3 * kMaxNdim + a];
+    g.dil[a] = geom[1 + 4 * kMaxNdim + a];
+    g.pad[a] = geom[1 + 5 * kMaxNdim + a];
+  }
+  return g;
+}
+
 }  // namespace
 
 // geom (host memory): ndim, dims[4], ksize[4], dilation[4].  reverse != 0
@@ -189,23 +267,29 @@ extern "C" int dg_pos_affine_launch(const void* out_keys, int n_out,
                                     const void* in_keys, int n_in, int kv,
                                     const int* geom, int sent_out, void* pos,
                                     void* stream) {
-  AffineGeom g;
-  g.ndim = geom[0];
-  for (int a = 0; a < kMaxNdim; ++a) {
-    g.out_dims[a] = geom[1 + a];
-    g.in_dims[a] = geom[1 + kMaxNdim + a];
-    g.stride[a] = geom[1 + 2 * kMaxNdim + a];
-    g.ksize[a] = geom[1 + 3 * kMaxNdim + a];
-    g.dil[a] = geom[1 + 4 * kMaxNdim + a];
-    g.pad[a] = geom[1 + 5 * kMaxNdim + a];
-  }
   const int threads = 256;
   const int total = kv * n_out;
   const int blocks = (total + threads - 1) / threads;
   dg_pos_affine_kernel<<<blocks, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(out_keys), n_out,
-      static_cast<const int*>(in_keys), n_in, kv, g, sent_out,
-      static_cast<int*>(pos));
+      static_cast<const int*>(in_keys), n_in, kv, affine_geom(geom),
+      sent_out, static_cast<int*>(pos));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// geom: as dg_pos_affine_launch's.  The wrapper checks kv * n_in < 2**31.
+extern "C" int dg_pos_divide_launch(const void* in_keys, int n_in,
+                                    const void* out_keys, int n_out, int kv,
+                                    const int* geom, int sent_in, void* pos,
+                                    void* stream) {
+  const int threads = 256;
+  const int total = kv * n_in;
+  const int blocks = (total + threads - 1) / threads;
+  dg_pos_divide_kernel<<<blocks, threads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(in_keys), n_in,
+      static_cast<const int*>(out_keys), n_out, kv, affine_geom(geom),
+      sent_in, static_cast<int*>(pos));
   return static_cast<int>(cudaGetLastError());
 }

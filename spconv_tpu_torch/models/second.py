@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core import SparseConvTensor
+from ..core import SparseConvTensor, default_device
 from ..modules import BatchNorm1d, SparseConv3d, SubMConv3d
 
 __all__ = [
@@ -41,6 +41,7 @@ class SparseBasicBlock(nn.Module):
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        device = default_device(device)
         kw = dict(bias=not bn, indice_key=indice_key, algo=algo, dtype=dtype,
                   device=device, generator=generator)
         self.conv1 = SubMConv3d(channels, channels, 3, **kw)
@@ -67,7 +68,7 @@ class SparseEncoder(nn.Module):
     their input buffer); ``conv_out`` keeps its input buffer size unless
     calibrated (``calibrate.calibrate_out_bounds``).  Weights are drawn
     from ``seed`` on the CPU in f32, so a seed gives the same weights on
-    any device and dtype."""
+    any device and dtype; ``device`` None is the CUDA card."""
 
     def __init__(
         self,
@@ -84,6 +85,7 @@ class SparseEncoder(nn.Module):
         seed: int = 0,
     ):
         super().__init__()
+        device = default_device(device)
         gen = torch.Generator().manual_seed(seed)
         kw = dict(algo=algo, dtype=dtype, device=device, generator=gen)
         self.bn = bn

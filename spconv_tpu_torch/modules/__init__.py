@@ -1,7 +1,9 @@
 from .conv import (DGData, DGRegData, SparseConv3d, SparseConvolution,
-                   SubMConv3d)
+                   SparseInverseConv1d, SparseInverseConv2d,
+                   SparseInverseConv3d, SparseInverseConv4d, SubMConv3d)
 from .modules import BatchNorm1d, SparseModule, SparseSequential
 from .pool import SparseMaxPool, SparseMaxPool3d
+from .tables import AddTable, ConcatTable, JoinTable
 
 __all__ = [
     "DGData",
@@ -9,9 +11,16 @@ __all__ = [
     "SparseConvolution",
     "SubMConv3d",
     "SparseConv3d",
+    "SparseInverseConv1d",
+    "SparseInverseConv2d",
+    "SparseInverseConv3d",
+    "SparseInverseConv4d",
     "BatchNorm1d",
     "SparseModule",
     "SparseSequential",
     "SparseMaxPool",
     "SparseMaxPool3d",
+    "AddTable",
+    "ConcatTable",
+    "JoinTable",
 ]

@@ -1,19 +1,25 @@
 """Sparse convolution modules (counterpart of
 ``spconv_tpu/modules/conv.py``).
 
-Ported: the submanifold conv on the dynamic-gather (DG) path, forward and
-backward, the regular (strided) conv's forward on the same path, and the
-1x1 path.  The stage's match table is built once per ``indice_key``, cached
-in ``indice_dict`` with the geometry it was built for, and reused by every
-later layer of the stage; its reversed table (the backward's) is added to
-the same record the first time a layer of the stage runs with a gradient
-wanted, and never under ``torch.no_grad()`` or ``torch.inference_mode()``.
+Ported: the submanifold conv, the regular (strided) conv and the inverse
+conv on the dynamic-gather (DG) path, each forward and backward, and the
+1x1 path.  A subm stage's match table is built once per ``indice_key``,
+cached in ``indice_dict`` with the geometry it was built for, and reused by
+every later layer of the stage; its reversed table (the backward's) is
+added to the same record the first time a layer of the stage runs with a
+gradient wanted, and never under ``torch.no_grad()`` or
+``torch.inference_mode()``.
 
 A regular conv discovers its output sites (``ops.rulebook.
 build_conv_outputs``, bounded by ``out_bound``), builds its affine match
 table and caches both in a :class:`DGRegData` record under
 ``__dgreg__<indice_key>``, with the input indices under
-``__dgreg_in__<indice_key>``, for the inverse conv of a later slice.
+``__dgreg_in__<indice_key>``.  The divide table, the affine one's inverse,
+joins the record once per key: built by the regular conv when a gradient
+is wanted (its backward gathers through it), else by the paired inverse
+conv (``SparseInverseConv3d`` with the same ``indice_key``), whose forward
+gathers through it to map the features back onto the regular conv's input
+sites.
 
 ``algo="sk"`` (the JAX package's sorted-key kernels, which compute the DG
 conv's function through a one-hot key join on the TPU) runs the same match
@@ -23,8 +29,8 @@ tables through the same kernels; its regular-conv record lives under
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 computed some other way: the native rulebook path (any other ``algo``, and
-input that is not key-sorted; ROADMAP A4-A5), transposed and inverse convs
-(B2's divide probes, ROADMAP A9), and the strided conv's backward.
+input that is not key-sorted; ROADMAP A4-A5) and transposed convs (their
+output discovery ``build_deconv_outputs``, ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from torch import nn
 
 from .. import calibrate
 from ..constants import DEFAULT_ALGO
-from ..core import SparseConvTensor, expand_nd
+from ..core import SparseConvTensor, default_device, expand_nd
 from ..ops import coords as C
 from ..ops.dg_conv import build_dg_pos, dg_regular_conv, dg_subm_conv
 from ..ops.epilogue import bias_add_act
@@ -46,7 +52,8 @@ from ..ops.rulebook import build_conv_outputs
 from .modules import SparseModule
 
 __all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv3d",
-           "SparseConv3d"]
+           "SparseConv3d", "SparseInverseConv1d", "SparseInverseConv2d",
+           "SparseInverseConv3d", "SparseInverseConv4d"]
 
 IntOrSeq = Union[int, Sequence[int]]
 
@@ -72,7 +79,9 @@ class DGData:
 class DGRegData:
     """Cached state of a regular conv under its ``indice_key`` (the port's
     ``SKRegData``): the input and output keys, the output sites and their
-    counts, the affine match table ``pos`` ``[kv, N_out]`` and the geometry
+    counts, the affine match table ``pos`` ``[kv, N_out]``, its inverse
+    the divide table ``pos_div`` ``[kv, N_in]`` (None until a gradient of
+    the regular conv or the paired inverse conv needs it) and the geometry
     they were built for."""
 
     def __init__(self, in_keys: torch.Tensor, out_keys: torch.Tensor,
@@ -81,13 +90,15 @@ class DGRegData:
                  ksize: Tuple[int, ...], stride: Tuple[int, ...],
                  padding: Tuple[int, ...], dilation: Tuple[int, ...],
                  in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
-                 output_padding: Tuple[int, ...]):
+                 output_padding: Tuple[int, ...],
+                 pos_div: Optional[torch.Tensor] = None):
         self.in_keys = in_keys
         self.out_keys = out_keys
         self.out_indices = out_indices
         self.num_out = num_out
         self.num_out_total = num_out_total
         self.pos = pos
+        self.pos_div = pos_div
         self.ksize = tuple(ksize)
         self.stride = tuple(stride)
         self.padding = tuple(padding)
@@ -139,16 +150,21 @@ class SparseConvolution(SparseModule):
         self.dilation = expand_nd(ndim, dilation)
         self.output_padding = expand_nd(ndim, output_padding)
         kv = int(np.prod(self.kernel_size))
-        self.conv1x1 = kv == 1 and (subm or self.stride == (1,) * ndim)
-        if transposed or inverse:
+        self.conv1x1 = (kv == 1 and not inverse
+                        and (subm or self.stride == (1,) * ndim))
+        if transposed:
             raise NotImplementedError(
-                "transposed and inverse convs (B2's divide probes) are not "
-                "ported yet; they wait for ROADMAP A9")
+                "transposed convs are not ported yet: their output "
+                "discovery (build_deconv_outputs) waits for ROADMAP A4")
+        if inverse and indice_key is None:
+            raise ValueError("an inverse conv requires the indice_key of "
+                             "the regular conv it inverts")
         if self.conv1x1 and not subm and self.padding != (0,) * ndim:
             raise ValueError("padding must be zero for a 1x1 conv")
         if subm and any(k % 2 == 0 for k in self.kernel_size):
             raise ValueError("subm conv requires an odd kernel size")
         self.subm = subm
+        self.inverse = inverse
         self.indice_key = indice_key
         self.algo = algo or DEFAULT_ALGO
         self.out_bound = out_bound
@@ -162,6 +178,7 @@ class SparseConvolution(SparseModule):
         # reference's KRSC init, the same bounds as torch's Conv default);
         # drawn in f32 on the CPU so a seed gives the same weights on any
         # device and dtype
+        device = default_device(device)
         fan_in = in_channels * kv
         bound = math.sqrt(3.0) * math.sqrt(2.0 / 6.0) / math.sqrt(fan_in)
         w = torch.empty((out_channels, *self.kernel_size, in_channels))
@@ -179,6 +196,7 @@ class SparseConvolution(SparseModule):
         return (f"{self.in_channels}, {self.out_channels}, "
                 f"kernel_size={self.kernel_size}, stride={self.stride}, "
                 f"padding={self.padding}, subm={self.subm}, "
+                f"inverse={self.inverse}, "
                 f"indice_key={self.indice_key!r}, algo={self.algo!r}, "
                 f"out_bound={self.out_bound}")
 
@@ -216,6 +234,8 @@ class SparseConvolution(SparseModule):
                 "waits for ROADMAP A4-A5")
         if self.subm:
             return self._call_dg(input, add_input)
+        if self.inverse:
+            return self._call_inverse(input, add_input)
         return self._call_dg_regular(input, add_input)
 
     def _epilogue(self, out_feat, valid, add_input):
@@ -291,10 +311,11 @@ class SparseConvolution(SparseModule):
                          add_input: Optional[SparseConvTensor]
                          ) -> SparseConvTensor:
         """Regular (strided) conv on the DG path: output discovery, the
-        affine match table, B2.  The record under ``__dgreg__<indice_key>``
-        (``__skreg__`` for ``algo="sk"``) is reused only when its geometry
-        matches exactly; otherwise everything is rebuilt and the record is
-        left as it is."""
+        affine match table, B2; with a gradient wanted also the divide
+        table, which the backward gathers through.  The record under
+        ``__dgreg__<indice_key>`` (``__skreg__`` for ``algo="sk"``) is
+        reused only when its geometry matches exactly; otherwise everything
+        is rebuilt and the record is left as it is."""
         indices = input.indices
         in_shape = tuple(input.spatial_shape)
         batch_size = input.batch_size
@@ -309,13 +330,14 @@ class SparseConvolution(SparseModule):
                     padding=self.padding, dilation=self.dilation,
                     in_shape=in_shape, out_shape=out_shape,
                     output_padding=self.output_padding)
-        if (isinstance(rec, DGRegData)
-                and rec.in_keys.shape[0] == indices.shape[0]
-                and all(getattr(rec, k) == v for k, v in geom.items())):
+        reuse = (isinstance(rec, DGRegData)
+                 and rec.in_keys.shape[0] == indices.shape[0]
+                 and all(getattr(rec, k) == v for k, v in geom.items()))
+        if reuse:
             in_keys, out_keys, out_indices = (rec.in_keys, rec.out_keys,
                                               rec.out_indices)
-            num_out, num_out_total, pos = (rec.num_out, rec.num_out_total,
-                                           rec.pos)
+            num_out, num_out_total, pos, pos_div = (
+                rec.num_out, rec.num_out_total, rec.pos, rec.pos_div)
         else:
             out_indices, out_keys, num_out, num_out_total = \
                 build_conv_outputs(
@@ -324,12 +346,12 @@ class SparseConvolution(SparseModule):
                     padding=self.padding, dilation=self.dilation,
                     out_bound=self._resolve_out_bound(indices.shape[0]))
             in_keys, _ = C.linearize(indices, in_shape, batch_size)
-            pos = None
-        out_feat, pos = dg_regular_conv(
+            pos = pos_div = None
+        out_feat, pos, pos_div = dg_regular_conv(
             input.features, in_keys, out_keys, self.weight,
             in_shape=in_shape, out_shape=out_shape, batch_size=batch_size,
             stride=self.stride, padding=self.padding,
-            dilation=self.dilation, pos=pos)
+            dilation=self.dilation, pos=pos, pos_bwd=pos_div)
         calibrate._maybe_record(self, num_out)
         out = SparseConvTensor(
             self._epilogue(out_feat, out_indices[:, 0] >= 0, add_input),
@@ -337,12 +359,56 @@ class SparseConvolution(SparseModule):
             indice_dict=dict(input.indice_dict),
             # discovery emits ascending unique keys, invalid rows last
             keys_sorted=True, num_out_total=num_out_total)
-        if ck and not isinstance(rec, DGRegData):
+        if reuse:
+            rec.pos_div = pos_div
+        elif ck and not isinstance(rec, DGRegData):
             out.indice_dict[ck] = DGRegData(
                 in_keys, out_keys, out_indices, num_out, num_out_total, pos,
-                **geom)
+                pos_div=pos_div, **geom)
             out.indice_dict[f"{ns}_in__{self.indice_key}"] = indices
         return out
+
+    def _call_inverse(self, input: SparseConvTensor,
+                      add_input: Optional[SparseConvTensor]
+                      ) -> SparseConvTensor:
+        """Inverse conv on the DG path: maps the features on a regular
+        conv's output sites back onto its input sites, read from that
+        conv's record under ``__dgreg__<indice_key>`` (``__skreg__`` for
+        ``algo="sk"``) and ``__dgreg_in__<indice_key>``, through the divide
+        table and B2.  The divide table is cached on the record; its
+        backward gathers through the record's affine table."""
+        ns = "__skreg" if self.algo == "sk" else "__dgreg"
+        ck = f"{ns}__{self.indice_key}"
+        rec = input.indice_dict.get(ck)
+        enc_in = input.indice_dict.get(f"{ns}_in__{self.indice_key}")
+        if not isinstance(rec, DGRegData) or enc_in is None:
+            raise ValueError(
+                f"an inverse conv reads the record of the regular conv "
+                f"under indice_key={self.indice_key!r} ({ck} and its input "
+                "indices), and the input carries none")
+        mismatch = [
+            (what, got, want) for what, got, want in (
+                ("kernel size", self.kernel_size, rec.ksize),
+                ("input spatial shape", tuple(input.spatial_shape),
+                 rec.out_shape),
+                ("input buffer N", input.indices.shape[0],
+                 rec.out_keys.shape[0]),
+            ) if got != want]
+        if mismatch:
+            raise ValueError(
+                f"inverse conv mismatch with the regular conv under "
+                f"indice_key={self.indice_key!r}: " + ", ".join(
+                    f"{w} {g} vs {x}" for w, g, x in mismatch))
+        out_feat, rec.pos_div, _ = dg_regular_conv(
+            input.features, rec.in_keys, rec.out_keys, self.weight,
+            in_shape=rec.in_shape, out_shape=rec.out_shape,
+            batch_size=input.batch_size, stride=rec.stride,
+            padding=rec.padding, dilation=rec.dilation, inverse=True,
+            pos=rec.pos_div, pos_bwd=rec.pos)
+        return SparseConvTensor(
+            self._epilogue(out_feat, enc_in[:, 0] >= 0, add_input), enc_in,
+            rec.in_shape, input.batch_size,
+            indice_dict=dict(input.indice_dict), keys_sorted=True)
 
 
 class SubMConv3d(SparseConvolution):
@@ -371,3 +437,34 @@ class SparseConv3d(SparseConvolution):
         super().__init__(3, in_channels, out_channels, kernel_size, stride,
                          padding, dilation, groups, bias, subm=False,
                          indice_key=indice_key, algo=algo, **kwargs)
+
+
+def _make_inverse(ndim: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOrSeq = 3, indice_key: Optional[str] = None,
+                 algo: Optional[str] = None, **kwargs):
+        SparseConvolution.__init__(
+            self, ndim, in_channels, out_channels, kernel_size,
+            inverse=True, indice_key=indice_key, algo=algo, **kwargs)
+
+    return __init__
+
+
+class SparseInverseConv1d(SparseConvolution):
+    __init__ = _make_inverse(1)
+
+
+class SparseInverseConv2d(SparseConvolution):
+    __init__ = _make_inverse(2)
+
+
+class SparseInverseConv3d(SparseConvolution):
+    """Inverse of the regular conv under the same ``indice_key``: its
+    output sites are that conv's input sites, its output spatial shape that
+    conv's input shape.  Its own stride, padding and dilation are not read:
+    the record's are."""
+    __init__ = _make_inverse(3)
+
+
+class SparseInverseConv4d(SparseConvolution):
+    __init__ = _make_inverse(4)

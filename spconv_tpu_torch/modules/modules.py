@@ -9,7 +9,7 @@ from typing import Union
 import torch
 from torch import nn
 
-from ..core import SparseConvTensor
+from ..core import SparseConvTensor, default_device
 
 __all__ = ["SparseModule", "SparseSequential", "BatchNorm1d"]
 
@@ -64,7 +64,7 @@ class BatchNorm1d(SparseModule):
     running-stat update (the JAX ``updated``) is not ported yet.
 
     Takes a :class:`SparseConvTensor` or a plain ``[N, C]`` tensor (all
-    rows active)."""
+    rows active).  ``device`` None is the CUDA card."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -73,6 +73,7 @@ class BatchNorm1d(SparseModule):
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
+        device = default_device(device)
         if affine:
             self.weight = nn.Parameter(
                 torch.ones(num_features, dtype=dtype, device=device))

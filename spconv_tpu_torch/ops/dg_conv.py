@@ -1,6 +1,6 @@
 """Dynamic-gather (DG) conv on key-sorted input (counterpart of
-``spconv_tpu/ops/pallas/dg_conv.py`` in posmode): the submanifold conv
-forward and backward, and the regular (strided) conv forward.
+``spconv_tpu/ops/pallas/dg_conv.py`` in posmode): the submanifold, regular
+(strided) and inverse convs, forward and backward.
 
 The kernel wrappers, each with its plain PyTorch version beside it:
 
@@ -12,26 +12,34 @@ The kernel wrappers, each with its plain PyTorch version beside it:
 * ``build_dg_pos_affine`` (the same kernel file, affine mode): the match
   table ``[kv, N_out]`` of a regular conv, from output sites to the input
   rows at ``coord * stride + off_k * dil - pad``.
+* ``build_dg_pos_divide`` (the same file, divide mode): its exact inverse
+  ``[kv, N_in]``, from input sites to the output rows at ``(coord - off_k *
+  dil + pad) / stride``.  The strided conv's backward and the inverse
+  conv's forward gather through it.
 * ``dg_fwd`` (kernel ``csrc/dg_fwd.cu``): the gather-GEMM
   ``out[i] = sum_k x[pos[k, i]] @ W[k]`` with f32 accumulation, rounded
-  once to the input dtype; rows without any match are 0.
-  ``dg_fwd_strided`` is the same kernel on an affine table, where the
-  output has ``N_out`` rows and the input ``N_in``.
-* ``dg_dgrad`` (the same kernel, on the reversed table and ``W[k]^T``):
-  ``din[j] = sum_k dout[pos_rev[k, j]] @ W[k]^T``.
+  once to the input dtype; rows without any match are 0.  The output has
+  ``pos.shape[1]`` rows: on an affine table (the strided conv) ``N_out``
+  from ``N_in``, on a divide table (the inverse conv) ``N_in`` from
+  ``N_out``.
+* ``dg_dgrad`` (the same kernel, on the backward's table and ``W[k]^T``):
+  ``din[j] = sum_k dout[pos_bwd[k, j]] @ W[k]^T``.
 * ``dg_wgrad`` (kernel ``csrc/dg_wgrad.cu``):
-  ``dW[k] = sum_j x[j]^T dout[pos_rev[k, j]]``, split over rows into f32
+  ``dW[k] = sum_j x[j]^T dout[pos_bwd[k, j]]``, split over rows into f32
   partials that a second kernel adds in a fixed order.
 
-``DGSubmConvFn`` is the autograd Function over them (the VJP
-``_dg_conv_p_bwd`` of the JAX package); ``dg_subm_conv`` takes it whenever
-a gradient is wanted.  ``dg_regular_conv`` is the strided forward; its
-backward (the divide probes of ``_dg_reg_conv_bwd``) is not ported yet, so
-it refuses a call that wants a gradient.
+Each conv is a pair of tables (the forward's ``[kv, N_dst]``, the
+backward's ``[kv, N_src]``): (pos, reversed pos) for the subm conv,
+(affine, divide) for the strided conv and (divide, affine) for the inverse
+conv.  ``DGConvFn`` is the autograd Function over the pair (the VJPs
+``_dg_conv_p_bwd`` and ``_dg_reg_conv_bwd`` of the JAX package);
+``dg_subm_conv`` and ``dg_regular_conv`` take it whenever a gradient is
+wanted.
 
 A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
 tensor it launches its kernel or raises; it never falls back.  Each launch
-adds one to its entry of ``launch_counts``.
+adds one to its entry of ``launch_counts``, one entry per kernel and conv
+path.
 """
 
 from __future__ import annotations
@@ -51,8 +59,10 @@ __all__ = [
     "dg_pos_plain",
     "build_dg_pos_affine",
     "dg_pos_affine_plain",
+    "build_dg_pos_divide",
+    "dg_pos_divide_plain",
+    "PATHS",
     "dg_fwd",
-    "dg_fwd_strided",
     "dg_fwd_plain",
     "dg_regular_conv",
     "dg_dgrad",
@@ -60,19 +70,25 @@ __all__ = [
     "dg_wgrad",
     "dg_wgrad_plain",
     "wgrad_splits",
-    "DGSubmConvFn",
+    "DGConvFn",
     "dg_subm_conv",
     "weight_krsc_to_kv",
     "launch_counts",
     "reset_launch_counts",
 ]
 
+# the convs whose gather-GEMM launches count apart: "dg_fwd" counts the
+# subm path, "dg_fwd_strided" and "dg_fwd_inverse" the others, and so on
+PATHS = ("subm", "strided", "inverse")
+
 # launches of each kernel wrapper since the last reset_launch_counts();
 # "dg_pos" counts forward subm tables, "dg_pos_rev" reversed ones,
-# "dg_pos_affine" strided tables; "dg_fwd_strided" counts B2 on those
+# "dg_pos_affine" and "dg_pos_divide" a regular conv's two tables
 launch_counts = dict.fromkeys(
-    ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_fwd", "dg_fwd_strided",
-     "dg_dgrad", "dg_wgrad"), 0)
+    ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_pos_divide",
+     "dg_fwd", "dg_fwd_strided", "dg_fwd_inverse",
+     "dg_dgrad", "dg_dgrad_strided", "dg_dgrad_inverse",
+     "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse"), 0)
 
 _MAX_NDIM = 4
 
@@ -256,31 +272,35 @@ def build_dg_pos_affine(
     is a sentinel row.  ``in_keys`` ``[N_in]``: ascending keys on the
     input grid (``in_shape``), sentinel tail; ``out_keys`` ``[N_out]``:
     the same on the output grid (:func:`rulebook.build_conv_outputs`)."""
+    geom = _regular_geom(in_keys, out_keys, ksize=ksize, stride=stride,
+                         padding=padding, dilation=dilation,
+                         in_shape=in_shape, out_shape=out_shape,
+                         batch_size=batch_size)
+    if in_keys.device.type == "cpu":
+        return dg_pos_affine_plain(in_keys, out_keys, **geom)
+    return _regular_pos_cuda("dg_pos_affine", in_keys, out_keys, **geom)
+
+
+def _regular_geom(in_keys, out_keys, **geom):
+    """Checks the keys of a regular conv's two grids and returns its
+    geometry as tuples of ints; raises unless both key spaces fit in
+    int32."""
     _check_keys("in_keys", in_keys)
     _check_keys("out_keys", out_keys)
     _check(in_keys.device == out_keys.device,
            "in_keys and out_keys must be on one device")
-    geom = dict(
-        ksize=tuple(int(k) for k in ksize),
-        stride=tuple(int(s) for s in stride),
-        padding=tuple(int(p) for p in padding),
-        dilation=tuple(int(d) for d in dilation),
-        in_shape=tuple(int(s) for s in in_shape),
-        out_shape=tuple(int(s) for s in out_shape),
-        batch_size=int(batch_size))
+    if in_keys.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no dg_pos kernel for {in_keys.device}")
+    geom = {k: int(v) if k == "batch_size" else tuple(int(x) for x in v)
+            for k, v in geom.items()}
     ndim = len(geom["in_shape"])
     _check(all(len(v) == ndim for v in geom.values()
                if isinstance(v, tuple)),
            "ksize, stride, padding, dilation and both shapes must have "
            "ndim entries")
-    # both key spaces must fit in int32 (raises otherwise)
-    C.grid_sentinel(geom["in_shape"], batch_size)
-    C.grid_sentinel(geom["out_shape"], batch_size)
-    if in_keys.device.type == "cpu":
-        return dg_pos_affine_plain(in_keys, out_keys, **geom)
-    if in_keys.device.type != "cuda":
-        raise NotImplementedError(f"no dg_pos kernel for {in_keys.device}")
-    return _dg_pos_affine_cuda(in_keys, out_keys, **geom)
+    C.grid_sentinel(geom["in_shape"], geom["batch_size"])
+    C.grid_sentinel(geom["out_shape"], geom["batch_size"])
+    return geom
 
 
 def dg_pos_affine_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
@@ -313,17 +333,84 @@ def dg_pos_affine_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
     return pos
 
 
-def _dg_pos_affine_cuda(in_keys, out_keys, *, ksize, stride, padding,
-                        dilation, in_shape, out_shape, batch_size):
+def build_dg_pos_divide(
+    in_keys: torch.Tensor,
+    out_keys: torch.Tensor,
+    *,
+    ksize: Sequence[int],
+    stride: Sequence[int],
+    padding: Sequence[int],
+    dilation: Sequence[int],
+    in_shape: Sequence[int],
+    out_shape: Sequence[int],
+    batch_size: int,
+) -> torch.Tensor:
+    """Divide table ``[kv, N_in]`` int32 of a regular conv (-1 = no match):
+    the exact inverse of :func:`build_dg_pos_affine` on the same keys.
+
+    Row ``i``, offset ``k`` holds the output row whose key is ``b(i) *
+    vol_out + lin(c)``, where per axis ``t = coord(i) - (off_k * dil -
+    pad)``, ``t >= 0``, ``t % stride == 0`` and ``c = t / stride`` lies
+    inside ``out_shape``; -1 otherwise, where no output row has that key
+    (a cut output set), or where ``i`` is a sentinel row.  So it holds
+    ``o`` iff the affine table holds ``i`` at ``(k, o)``.  Arguments as
+    :func:`build_dg_pos_affine`'s."""
+    geom = _regular_geom(in_keys, out_keys, ksize=ksize, stride=stride,
+                         padding=padding, dilation=dilation,
+                         in_shape=in_shape, out_shape=out_shape,
+                         batch_size=batch_size)
+    if in_keys.device.type == "cpu":
+        return dg_pos_divide_plain(in_keys, out_keys, **geom)
+    return _regular_pos_cuda("dg_pos_divide", in_keys, out_keys, **geom)
+
+
+def dg_pos_divide_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
+                        ksize, stride, padding, dilation, in_shape,
+                        out_shape, batch_size) -> torch.Tensor:
+    """Plain version of :func:`build_dg_pos_divide`, searching as the
+    divide probes define it: per offset, each input site's output key,
+    ``torch.searchsorted`` and an equality check."""
+    disp = regular_conv_disp(ksize, dilation, padding)
+    sent_in = C.grid_sentinel(in_shape, batch_size)
+    n_in, n_out = in_keys.shape[0], out_keys.shape[0]
+    pos = torch.full((len(disp), n_in), -1, dtype=torch.int32,
+                     device=in_keys.device)
+    if n_in == 0 or n_out == 0:
+        return pos
+    b, coords = _decode(in_keys, in_shape)
+    live = in_keys != sent_in
+    k64 = out_keys.long()
+    for k in range(len(disp)):
+        ok = live.clone()
+        probe = b
+        for a, s in enumerate(out_shape):
+            t = coords[a] - int(disp[k, a])
+            ok &= (t >= 0) & (t % int(stride[a]) == 0)
+            ca = t // int(stride[a])
+            ok &= ca < s
+            probe = probe * s + ca
+        idx = torch.searchsorted(k64, probe).clamp(max=n_out - 1)
+        found = ok & (k64[idx] == probe)
+        pos[k] = torch.where(found, idx, -1).int()
+    return pos
+
+
+def _regular_pos_cuda(name, in_keys, out_keys, *, ksize, stride, padding,
+                      dilation, in_shape, out_shape, batch_size):
+    """Launches B1 in affine (``name == "dg_pos_affine"``: a table over
+    the output rows) or divide mode (over the input rows)."""
     from .._build import load_library
 
     ndim = len(in_shape)
     if ndim > _MAX_NDIM:
         raise NotImplementedError(f"dg_pos kernel takes ndim <= {_MAX_NDIM}")
     kv = int(np.prod(ksize))
-    n_in, n_out = in_keys.shape[0], out_keys.shape[0]
-    _check(kv * n_out < 2**31, f"kv*N_out = {kv * n_out} exceeds the "
-                               "kernel's int32 thread index")
+    affine = name == "dg_pos_affine"
+    # the rows the table is over, and the keys it searches
+    rows, table = (out_keys, in_keys) if affine else (in_keys, out_keys)
+    n = rows.shape[0]
+    _check(kv * n < 2**31, f"{name}: kv*N = {kv * n} exceeds the kernel's "
+                           "int32 thread index")
     pad = [1] * (_MAX_NDIM - ndim)
     geom = (ctypes.c_int * (1 + 6 * _MAX_NDIM))(
         ndim,
@@ -331,17 +418,18 @@ def _dg_pos_affine_cuda(in_keys, out_keys, *, ksize, stride, padding,
         *(list(stride) + pad), *(list(ksize) + pad),
         *(list(dilation) + pad), *(list(padding) + [0] * (_MAX_NDIM - ndim)),
     )
-    pos = torch.empty((kv, n_out), dtype=torch.int32, device=out_keys.device)
-    if n_out == 0:
+    pos = torch.empty((kv, n), dtype=torch.int32, device=rows.device)
+    if n == 0:
         return pos
     lib = load_library()
-    err = lib.dg_pos_affine_launch(
-        ctypes.c_void_p(out_keys.data_ptr()), n_out,
-        ctypes.c_void_p(in_keys.data_ptr()), n_in, kv, geom,
-        C.grid_sentinel(out_shape, batch_size),
-        ctypes.c_void_p(pos.data_ptr()), _stream_ptr(out_keys.device))
-    _raise_on(err, "dg_pos_affine")
-    launch_counts["dg_pos_affine"] += 1
+    launch = lib.dg_pos_affine_launch if affine else lib.dg_pos_divide_launch
+    sentinel = C.grid_sentinel(out_shape if affine else in_shape, batch_size)
+    err = launch(
+        ctypes.c_void_p(rows.data_ptr()), n,
+        ctypes.c_void_p(table.data_ptr()), table.shape[0], kv, geom,
+        sentinel, ctypes.c_void_p(pos.data_ptr()), _stream_ptr(rows.device))
+    _raise_on(err, name)
+    launch_counts[name] += 1
     return pos
 
 
@@ -389,32 +477,30 @@ def _check_gather_gemm(name, x, weight_kv, pos, c_axis, n_out=None):
     _check_operands(name, x, weight_kv, pos)
 
 
-def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor,
-           pos: torch.Tensor) -> torch.Tensor:
-    """``out[i] = sum_k x[pos[k, i]] @ weight_kv[k]`` -> ``[N, K]`` in
-    ``x.dtype`` (f32 accumulation, one rounding; rows without a match
-    are 0).  ``x``: ``[N, C]`` f32 or bf16; ``weight_kv``: ``[kv, C, K]``
-    of the same dtype; ``pos``: ``[kv, N]`` int32 from
-    :func:`build_dg_pos`, whose entries lie in ``[-1, N)`` (the kernel
-    trusts them: checking would cost a device sync per call).  Records no
-    autograd graph on CUDA: :func:`dg_subm_conv` differentiates."""
-    _check_gather_gemm("dg_fwd", x, weight_kv, pos, 1)
-    if x.device.type == "cpu":
-        return dg_fwd_plain(x, weight_kv, pos)
-    return _gather_gemm_cuda(x, weight_kv, pos, "dg_fwd")
+def _count_name(base: str, path: str) -> str:
+    """The ``launch_counts`` entry of kernel ``base`` on conv ``path``."""
+    _check(path in PATHS, f"path must be one of {PATHS}, got {path!r}")
+    return base if path == "subm" else f"{base}_{path}"
 
 
-def dg_fwd_strided(x: torch.Tensor, weight_kv: torch.Tensor,
-                   pos: torch.Tensor) -> torch.Tensor:
-    """:func:`dg_fwd` of a regular conv -> ``[N_out, K]``: ``x`` is
-    ``[N_in, C]`` and ``pos`` the ``[kv, N_out]`` table of
-    :func:`build_dg_pos_affine`, whose entries lie in ``[-1, N_in)``.  The
-    same kernel, counted under ``"dg_fwd_strided"``."""
-    _check_gather_gemm("dg_fwd_strided", x, weight_kv, pos, 1,
-                       n_out=pos.shape[-1])
+def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
+           path: str = "subm") -> torch.Tensor:
+    """``out[i] = sum_k x[pos[k, i]] @ weight_kv[k]`` -> ``[pos.shape[1],
+    K]`` in ``x.dtype`` (f32 accumulation, one rounding; rows without a
+    match are 0).  ``x``: ``[N_src, C]`` f32 or bf16; ``weight_kv``:
+    ``[kv, C, K]`` of the same dtype; ``pos``: ``[kv, N_dst]`` int32 whose
+    entries lie in ``[-1, N_src)`` (the kernel trusts them: checking would
+    cost a device sync per call).  ``path`` names the conv and so the
+    launch count: ``"subm"`` (the table of :func:`build_dg_pos`, N_dst =
+    N_src), ``"strided"`` (an affine table) or ``"inverse"`` (a divide
+    table).  Records no autograd graph on CUDA: :class:`DGConvFn`
+    differentiates."""
+    name = _count_name("dg_fwd", path)
+    _check_gather_gemm(name, x, weight_kv, pos, 1,
+                       n_out=None if path == "subm" else pos.shape[-1])
     if x.device.type == "cpu":
         return dg_fwd_plain(x, weight_kv, pos)
-    return _gather_gemm_cuda(x, weight_kv, pos, "dg_fwd_strided")
+    return _gather_gemm_cuda(x, weight_kv, pos, name)
 
 
 def dg_fwd_plain(x: torch.Tensor, weight_kv: torch.Tensor,
@@ -434,18 +520,23 @@ def dg_fwd_plain(x: torch.Tensor, weight_kv: torch.Tensor,
 
 
 def dg_dgrad(dout: torch.Tensor, weight_kv: torch.Tensor,
-             pos_rev: torch.Tensor) -> torch.Tensor:
-    """Input gradient ``din[j] = sum_k dout[pos_rev[k, j]] @ W[k]^T`` ->
-    ``[N, C]`` in ``dout.dtype`` (f32 accumulation, one rounding).
-    ``dout``: ``[N, K]``; ``weight_kv``: ``[kv, C, K]``; ``pos_rev``: the
-    reversed table (``build_dg_pos(..., reverse=True)``).  It is B2's
+             pos_bwd: torch.Tensor, path: str = "subm") -> torch.Tensor:
+    """Input gradient ``din[j] = sum_k dout[pos_bwd[k, j]] @ W[k]^T`` ->
+    ``[pos_bwd.shape[1], C]`` in ``dout.dtype`` (f32 accumulation, one
+    rounding).  ``dout``: ``[N_dst, K]``; ``weight_kv``: ``[kv, C, K]``;
+    ``pos_bwd``: the backward's table ``[kv, N_src]`` of conv ``path``
+    (:func:`dg_fwd`): the reversed table (``build_dg_pos(...,
+    reverse=True)``, N_src = N_dst) for ``"subm"``, the divide table for
+    ``"strided"``, the affine table for ``"inverse"``.  It is B2's
     function with ``W[k]^T``, so it launches B2's kernel; rows without a
-    reversed match (every invalid row) are 0."""
-    _check_gather_gemm("dg_dgrad", dout, weight_kv, pos_rev, 2)
+    match (every invalid row) are 0."""
+    name = _count_name("dg_dgrad", path)
+    _check_gather_gemm(name, dout, weight_kv, pos_bwd, 2,
+                       n_out=None if path == "subm" else pos_bwd.shape[-1])
     if dout.device.type == "cpu":
-        return dg_dgrad_plain(dout, weight_kv, pos_rev)
+        return dg_dgrad_plain(dout, weight_kv, pos_bwd)
     return _gather_gemm_cuda(
-        dout, weight_kv.transpose(1, 2).contiguous(), pos_rev, "dg_dgrad")
+        dout, weight_kv.transpose(1, 2).contiguous(), pos_bwd, name)
 
 
 def dg_dgrad_plain(dout: torch.Tensor, weight_kv: torch.Tensor,
@@ -502,40 +593,45 @@ def wgrad_splits(n: int, kv: int, c: int, k_out: int) -> int:
     return max(1, s)
 
 
-def dg_wgrad(x: torch.Tensor, dout: torch.Tensor,
-             pos_rev: torch.Tensor) -> torch.Tensor:
-    """Weight gradient ``dW[k] = sum_j x[j]^T dout[pos_rev[k, j]]`` ->
+def dg_wgrad(x: torch.Tensor, dout: torch.Tensor, pos_bwd: torch.Tensor,
+             path: str = "subm") -> torch.Tensor:
+    """Weight gradient ``dW[k] = sum_j x[j]^T dout[pos_bwd[k, j]]`` ->
     ``[kv, C, K]`` in ``x.dtype``, summed in f32 and rounded once.  ``x``:
-    ``[N, C]``; ``dout``: ``[N, K]`` of the same dtype; ``pos_rev``: the
-    reversed table.  The kernel sums row splits into f32 partials and adds
-    them in a fixed order, so two runs give bit-equal results."""
-    _check(x.ndim == 2 and dout.ndim == 2 and pos_rev.ndim == 2,
-           "dg_wgrad: x must be [N, C], dout [N, K], pos_rev [kv, N]")
-    _check(dout.shape[0] == x.shape[0] == pos_rev.shape[1],
-           f"dg_wgrad: x has {x.shape[0]} rows, dout {dout.shape[0]}, "
-           f"pos_rev {pos_rev.shape[1]}")
-    _check_operands("dg_wgrad", x, dout, pos_rev)
+    ``[N_src, C]``; ``dout``: ``[N_dst, K]`` of the same dtype (N_dst =
+    N_src for ``"subm"``), read only through ``pos_bwd``, the backward's
+    ``[kv, N_src]`` table of conv ``path`` (see :func:`dg_dgrad`).  The
+    kernel sums row splits into f32
+    partials and adds them in a fixed order, so two runs give bit-equal
+    results."""
+    name = _count_name("dg_wgrad", path)
+    _check(x.ndim == 2 and dout.ndim == 2 and pos_bwd.ndim == 2,
+           f"{name}: x must be [N, C], dout [N_dst, K], pos_bwd [kv, N]")
+    _check(x.shape[0] == pos_bwd.shape[1]
+           and (path != "subm" or dout.shape[0] == x.shape[0]),
+           f"{name}: x has {x.shape[0]} rows, dout {dout.shape[0]}, "
+           f"pos_bwd {pos_bwd.shape[1]}")
+    _check_operands(name, x, dout, pos_bwd)
     if x.device.type == "cpu":
-        return dg_wgrad_plain(x, dout, pos_rev)
-    return _dg_wgrad_cuda(x, dout, pos_rev)
+        return dg_wgrad_plain(x, dout, pos_bwd)
+    return _dg_wgrad_cuda(x, dout, pos_bwd, name)
 
 
 def dg_wgrad_plain(x: torch.Tensor, dout: torch.Tensor,
-                   pos_rev: torch.Tensor) -> torch.Tensor:
+                   pos_bwd: torch.Tensor) -> torch.Tensor:
     """Plain version: per offset, ``x[sel].float()^T @
-    dout[pos_rev[k, sel]].float()`` over the rows ``sel`` that match."""
-    kv = pos_rev.shape[0]
+    dout[pos_bwd[k, sel]].float()`` over the rows ``sel`` that match."""
+    kv = pos_bwd.shape[0]
     dw = torch.zeros((kv, x.shape[1], dout.shape[1]), dtype=torch.float32,
                      device=x.device)
     for k in range(kv):
-        sel = torch.nonzero(pos_rev[k] >= 0).squeeze(1)
+        sel = torch.nonzero(pos_bwd[k] >= 0).squeeze(1)
         if sel.numel() == 0:
             continue
-        dw[k] = x[sel].float().t() @ dout[pos_rev[k, sel].long()].float()
+        dw[k] = x[sel].float().t() @ dout[pos_bwd[k, sel].long()].float()
     return dw.to(x.dtype)
 
 
-def _dg_wgrad_cuda(x, dout, pos_rev):
+def _dg_wgrad_cuda(x, dout, pos_rev, counter):
     from .._build import load_library
 
     n, c = x.shape
@@ -557,38 +653,46 @@ def _dg_wgrad_cuda(x, dout, pos_rev):
         ctypes.c_void_p(pos_rev.data_ptr()), ctypes.c_void_p(part.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), n, c, k_out, kv, splits,
         _stream_ptr(x.device))
-    _raise_on(err, "dg_wgrad")
-    launch_counts["dg_wgrad"] += 1
+    _raise_on(err, counter)
+    launch_counts[counter] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# the conv, with its backward
+# the convs, with their backward
 # ---------------------------------------------------------------------------
 
-class DGSubmConvFn(torch.autograd.Function):
-    """``dg_fwd`` with the backward of ``_dg_conv_p`` (JAX package's
-    ``dg_conv.py``): ``dout`` is cast to the features' dtype, ``din``
-    comes from :func:`dg_dgrad` and ``dW`` from :func:`dg_wgrad`, both
-    through the reversed table.  ``din`` is skipped when the features need
-    no gradient (the JAX package computes it and drops it)."""
+class DGConvFn(torch.autograd.Function):
+    """:func:`dg_fwd` on conv ``path``'s forward table ``pos`` ``[kv,
+    N_dst]``, with the backward of the JAX package's ``_dg_conv_p`` (subm)
+    and ``_dg_reg_conv`` (strided, inverse): ``dout`` is cast to the
+    features' dtype, ``din`` comes from :func:`dg_dgrad` and ``dW`` from
+    :func:`dg_wgrad`, both through the backward's table ``pos_bwd`` ``[kv,
+    N_src]``.  ``din`` is skipped when the features need no gradient (the
+    JAX package computes it and drops it)."""
 
     @staticmethod
-    def forward(ctx, x, weight_kv, pos, pos_rev):
-        ctx.save_for_backward(x, weight_kv, pos_rev)
-        return dg_fwd(x, weight_kv, pos)
+    def forward(ctx, x, weight_kv, pos, pos_bwd, path):
+        ctx.save_for_backward(x, weight_kv, pos_bwd)
+        ctx.path = path
+        return dg_fwd(x, weight_kv, pos, path=path)
 
     @staticmethod
     def backward(ctx, dout):
-        x, weight_kv, pos_rev = ctx.saved_tensors
+        x, weight_kv, pos_bwd = ctx.saved_tensors
         dout = dout.to(x.dtype).contiguous()
         din = dw = None
         if ctx.needs_input_grad[0]:
-            din = dg_dgrad(dout, weight_kv, pos_rev)
+            din = dg_dgrad(dout, weight_kv, pos_bwd, path=ctx.path)
         if ctx.needs_input_grad[1]:
             # in x's dtype, which dg_fwd checked is the weight's
-            dw = dg_wgrad(x, dout, pos_rev)
-        return din, dw, None, None
+            dw = dg_wgrad(x, dout, pos_bwd, path=ctx.path)
+        return din, dw, None, None, None
+
+
+def _wants_grad(features: torch.Tensor, weight: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (features.requires_grad
+                                        or weight.requires_grad)
 
 
 def dg_subm_conv(features: torch.Tensor, weight: torch.Tensor,
@@ -597,20 +701,19 @@ def dg_subm_conv(features: torch.Tensor, weight: torch.Tensor,
     """Subm conv of key-sorted features through a cached match table.
     ``weight`` is KRSC ``[K, *ksize, C]``; returns ``[N, K]``.  When grad
     mode is on and ``features`` or ``weight`` needs a gradient, the call is
-    recorded through :class:`DGSubmConvFn`, which needs the reversed table
+    recorded through :class:`DGConvFn`, which needs the reversed table
     ``pos_rev``."""
     kv = int(np.prod(weight.shape[1:-1]))
     _check(pos.shape[0] == kv,
            f"pos has {pos.shape[0]} offsets, weight has {kv}")
     weight_kv = weight_krsc_to_kv(weight)
-    if torch.is_grad_enabled() and (features.requires_grad
-                                    or weight.requires_grad):
+    if _wants_grad(features, weight):
         _check(pos_rev is not None,
                "a gradient through the DG conv needs the reversed match "
                "table (build_dg_pos(..., reverse=True)) as pos_rev")
         _check(pos_rev.shape == pos.shape,
                f"pos_rev is {tuple(pos_rev.shape)}, pos {tuple(pos.shape)}")
-        return DGSubmConvFn.apply(features, weight_kv, pos, pos_rev)
+        return DGConvFn.apply(features, weight_kv, pos, pos_rev, "subm")
     return dg_fwd(features, weight_kv, pos)
 
 
@@ -626,33 +729,52 @@ def dg_regular_conv(
     stride: Sequence[int],
     padding: Sequence[int],
     dilation: Sequence[int],
+    inverse: bool = False,
     pos: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Regular (strided) conv forward of key-sorted ``features``
-    ``[N_in, C]`` onto the output sites ``out_keys`` ``[N_out]``; ``weight``
-    is KRSC ``[K, *ksize, C]``.  Builds the affine match table unless
-    ``pos`` is given (a cached one).  Returns ``(out [N_out, K], pos)``.
+    pos_bwd: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Regular (strided) or inverse conv of key-sorted features (the JAX
+    package's ``dg_regular_conv``).  ``in_keys`` ``[N_in]`` and ``out_keys``
+    ``[N_out]`` are the ascending keys of the regular conv's input and
+    output sites on ``in_shape`` and ``out_shape``; ``weight`` is KRSC ``[K,
+    *ksize, C]``.  The regular conv maps ``features`` ``[N_in, C]`` onto
+    the output sites through the affine table; the inverse conv maps
+    ``features`` ``[N_out, C]`` back onto the input sites through the
+    divide table, with ``W[k]`` as it is.
 
-    The backward (``_dg_reg_conv_bwd``, divide probes) is not ported yet:
-    with grad mode on and ``features`` or ``weight`` wanting a gradient the
-    call raises ``NotImplementedError``."""
-    if torch.is_grad_enabled() and (features.requires_grad
-                                    or weight.requires_grad):
-        raise NotImplementedError(
-            "the strided conv's backward (divide probes of "
-            "_dg_reg_conv_bwd) is not ported yet (ROADMAP B3, A9); run it "
-            "under torch.no_grad() or torch.inference_mode()")
-    # the kernel trusts the table's rows to index features
-    _check(in_keys.shape[0] == features.shape[0],
-           f"in_keys has {in_keys.shape[0]} rows, features "
-           f"{features.shape[0]}")
+    ``pos`` is the forward's table (affine, or divide when ``inverse``) and
+    ``pos_bwd`` the other one, which only a gradient needs; each is built
+    when it is needed and not given (a cached one).  When grad mode is on
+    and ``features`` or ``weight`` needs a gradient, the call is recorded
+    through :class:`DGConvFn`.  Returns ``(out, pos, pos_bwd)``: ``out``
+    ``[N_out, K]`` (``[N_in, K]`` when ``inverse``), and ``pos_bwd`` None
+    when it was neither needed nor given."""
     ksize = tuple(int(k) for k in weight.shape[1:-1])
+    kv = int(np.prod(ksize))
+    geom = dict(ksize=ksize, stride=stride, padding=padding,
+                dilation=dilation, in_shape=in_shape, out_shape=out_shape,
+                batch_size=batch_size)
+    n_in, n_out = in_keys.shape[0], out_keys.shape[0]
+    # the rows the features live on, and the rows the output gets
+    n_src, n_dst = (n_out, n_in) if inverse else (n_in, n_out)
+    build_fwd, build_bwd = ((build_dg_pos_divide, build_dg_pos_affine)
+                            if inverse else
+                            (build_dg_pos_affine, build_dg_pos_divide))
+    # the kernel trusts the table's rows to index features
+    _check(features.shape[0] == n_src,
+           f"{'out' if inverse else 'in'}_keys has {n_src} rows, features "
+           f"{features.shape[0]}")
     if pos is None:
-        pos = build_dg_pos_affine(
-            in_keys, out_keys, ksize=ksize, stride=stride, padding=padding,
-            dilation=dilation, in_shape=in_shape, out_shape=out_shape,
-            batch_size=batch_size)
-    _check(tuple(pos.shape) == (int(np.prod(ksize)), out_keys.shape[0]),
-           f"pos is {tuple(pos.shape)}, expected "
-           f"{(int(np.prod(ksize)), out_keys.shape[0])}")
-    return dg_fwd_strided(features, weight_krsc_to_kv(weight), pos), pos
+        pos = build_fwd(in_keys, out_keys, **geom)
+    _check(tuple(pos.shape) == (kv, n_dst),
+           f"pos is {tuple(pos.shape)}, expected {(kv, n_dst)}")
+    path = "inverse" if inverse else "strided"
+    weight_kv = weight_krsc_to_kv(weight)
+    if not _wants_grad(features, weight):
+        return dg_fwd(features, weight_kv, pos, path=path), pos, pos_bwd
+    if pos_bwd is None:
+        pos_bwd = build_bwd(in_keys, out_keys, **geom)
+    _check(tuple(pos_bwd.shape) == (kv, n_src),
+           f"pos_bwd is {tuple(pos_bwd.shape)}, expected {(kv, n_src)}")
+    return (DGConvFn.apply(features, weight_kv, pos, pos_bwd, path), pos,
+            pos_bwd)

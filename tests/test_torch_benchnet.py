@@ -43,12 +43,12 @@ def test_benchnet_matches_jax():
     voxels, coors, shape = TB.synthetic_scan(0, shape=SHAPE, n_target=1600)
     assert voxels.shape == (1600, 3) and list(shape) == list(SHAPE)
     jnet = JB.BenchNet(SHAPE)
-    tnet = TB.BenchNet(SHAPE)
+    tnet = TB.BenchNet(SHAPE, device="cpu")
     load_jax_state_dict(tnet, state_dict(jnet))
     j_stages = _jax_stages(jnet, JB.make_bench_input(voxels, coors, SHAPE))
     with torch.no_grad():
         t_stages = tnet.forward_stages(
-            TB.make_bench_input(voxels, coors, SHAPE))
+            TB.make_bench_input(voxels, coors, SHAPE, device="cpu"))
 
     counts = []
     for j, t in zip(j_stages, t_stages):
@@ -71,10 +71,11 @@ def test_benchnet_matches_jax():
 
     # the calibrated pool buffers hold every stage without truncation
     bounds = TB.measure_pool_bounds(SHAPE, TB.make_bench_input(
-        voxels, coors, SHAPE))
+        voxels, coors, SHAPE, device="cpu"))
     assert all(b >= n for b, n in zip(bounds, counts[1:]))
     with torch.no_grad():
-        bounded = TB.BenchNet(SHAPE, pool_bounds=bounds).forward_stages(
-            TB.make_bench_input(voxels, coors, SHAPE))
+        bounded = TB.BenchNet(SHAPE, pool_bounds=bounds,
+                              device="cpu").forward_stages(
+            TB.make_bench_input(voxels, coors, SHAPE, device="cpu"))
     for t, b in zip(bounded, t_stages):
         assert int(t.num_voxels) == int(b.num_voxels)

@@ -80,7 +80,7 @@ def test_batchnorm_matches_jax(training):
                           1)
     sd = {k[3:]: v for k, v in sd.items()}
     jbn = load_state_dict(jbn, sd)
-    tbn = load_jax_state_dict(st.BatchNorm1d(6), sd)
+    tbn = load_jax_state_dict(st.BatchNorm1d(6, device="cpu"), sd)
     assert set(tbn.state_dict()) == set(sd)
     tbn.train(training)
     jx = spconv_tpu.SparseConvTensor(jnp.asarray(feats), jnp.asarray(inds),
@@ -153,7 +153,8 @@ def _jax_stages(net, x):
 
 @pytest.fixture(scope="module")
 def scan():
-    x, n = CP.synthetic_centerpoint_input(0, shape=SHAPE, n_target=N_VOX)
+    x, n = CP.synthetic_centerpoint_input(0, shape=SHAPE, n_target=N_VOX,
+                                          device="cpu")
     assert n == N_VOX and tuple(x.features.shape) == (2048, 5)
     return x
 
@@ -169,8 +170,8 @@ def test_centerpoint_encoder_matches_jax(scan, bn):
     if bn:
         sd = _seeded_bn_state(sd, 3)
         jnet = load_state_dict(jnet, sd)
-    tnet = load_jax_state_dict(centerpoint_encoder(in_channels=5, bn=bn),
-                               sd).eval()
+    tnet = load_jax_state_dict(
+        centerpoint_encoder(in_channels=5, bn=bn, device="cpu"), sd).eval()
     assert set(tnet.state_dict()) == set(sd)
     jx = _jax_tensor(scan)
     j_stages = _jax_stages(jnet, jx)
@@ -201,8 +202,9 @@ def test_calibrated_bounds_match_jax(scan):
     every site.  The f32 net is deep-copied: the original keeps its
     bounds."""
     jnet = jax_encoder(in_channels=5, bn=False)
-    tnet = load_jax_state_dict(centerpoint_encoder(in_channels=5, bn=False),
-                               state_dict(jnet)).eval()
+    tnet = load_jax_state_dict(
+        centerpoint_encoder(in_channels=5, bn=False, device="cpu"),
+        state_dict(jnet)).eval()
     jcal = jax_calibrate(jnet, lambda m, t: m.bev(t), [_jax_tensor(scan)],
                          margin=1.15, mult=8)
     tcal = calibrate_out_bounds(tnet, lambda m, t: m.bev(t), [scan],
@@ -237,7 +239,8 @@ def test_calibration_records_clamped_count():
     jconv = spconv_tpu.SparseConv3d(4, 8, 3, stride=2, padding=1,
                                     out_bound=100)
     tconv = load_jax_state_dict(
-        st.SparseConv3d(4, 8, 3, stride=2, padding=1, out_bound=100),
+        st.SparseConv3d(4, 8, 3, stride=2, padding=1, out_bound=100,
+                        device="cpu"),
         state_dict(jconv))
     jx = spconv_tpu.SparseConvTensor(jnp.asarray(feats), jnp.asarray(inds),
                                      shape, 1, keys_sorted=True)
@@ -249,3 +252,33 @@ def test_calibration_records_clamped_count():
     got = export_out_bounds(calibrate_out_bounds(tconv, None, [tx],
                                                  margin=1.0, mult=8))
     assert got == want == [104]
+
+
+def test_centerpoint_encoder_grads_match_jax(scan):
+    """Every parameter's gradient of ``sum(bev ** 2)`` through the
+    ``bn=False`` encoder against ``jax.grad`` of the JAX encoder's CPU
+    route, within 5e-5*max|ref| per tensor (ROADMAP C1): the strided
+    backward at the k3 s2 p1 downsamples and at ``conv_out``'s (3,1,1) /
+    (2,1,1), through the divide table."""
+    jnet = jax_encoder(in_channels=5, bn=False)
+    tnet = load_jax_state_dict(
+        centerpoint_encoder(in_channels=5, bn=False, device="cpu"),
+        state_dict(jnet))
+
+    def loss(m, t):
+        return jnp.sum(m.bev(t).astype(jnp.float32) ** 2)
+
+    loss_j, grads = spconv_tpu.filter_value_and_grad(loss)(
+        jnet, _jax_tensor(scan))
+    g_ref = state_dict(grads)
+    loss_t = (tnet.bev(scan).float() ** 2).sum()
+    loss_t.backward()
+    assert abs(float(loss_t) - float(loss_j)) <= 1e-4 * float(loss_j)
+    recs = [k for k in g_ref if k.startswith(("downs.", "conv_out."))]
+    assert len(recs) == 8
+    for name, p in tnet.named_parameters():
+        ref = g_ref[name]
+        assert p.grad is not None and np.abs(ref).max() > 0, name
+        np.testing.assert_allclose(p.grad.numpy(), ref, rtol=0,
+                                   atol=5e-5 * np.abs(ref).max(),
+                                   err_msg=name)

@@ -94,9 +94,9 @@ def test_load_jax_state_dict_carries_weights_and_is_strict():
     sd = state_dict(spconv_tpu.SparseSequential(
         spconv_tpu.SubMConv3d(3, 8, 3, indice_key="a"),
         spconv_tpu.SubMConv3d(8, 4, 3, bias=False, indice_key="a")))
-    tnet = st.SparseSequential(SubMConv3d(3, 8, 3, indice_key="a"),
-                               SubMConv3d(8, 4, 3, bias=False,
-                                          indice_key="a"))
+    tnet = st.SparseSequential(
+        SubMConv3d(3, 8, 3, indice_key="a", device="cpu"),
+        SubMConv3d(8, 4, 3, bias=False, indice_key="a", device="cpu"))
     # the JAX container names its layers "layers.i"; the port keeps the
     # key set of its own module, so map the prefix once
     sd = {k.replace("layers.", ""): v for k, v in sd.items()}
@@ -123,30 +123,31 @@ def test_unported_paths_raise():
                          shape, 1)
     with torch.no_grad():
         with pytest.raises(NotImplementedError, match="key-sorted"):
-            SubMConv3d(3, 4, 3)(x)
+            SubMConv3d(3, 4, 3, device="cpu")(x)
         with pytest.raises(NotImplementedError, match="ROADMAP A4-A5"):
-            SubMConv3d(3, 4, 3, algo="native")(x.sort_by_key())
+            SubMConv3d(3, 4, 3, algo="native",
+                       device="cpu")(x.sort_by_key())
         # "sk" runs the DG tables and kernels, so it needs sorted input too
         with pytest.raises(NotImplementedError, match="key-sorted"):
-            SubMConv3d(3, 4, 3, algo="sk")(x)
+            SubMConv3d(3, 4, 3, algo="sk", device="cpu")(x)
         # the 1x1 path needs no match table, sorted or not
-        y = SubMConv3d(3, 4, 1)(x)
+        y = SubMConv3d(3, 4, 1, device="cpu")(x)
         assert not y.features[~x.valid_mask].any()
         # strided and stride-1 regular convs run the DG path, which needs
         # key-sorted input
         for kw in (dict(stride=2), dict()):
-            conv = st.SparseConvolution(3, 3, 4, 3, **kw)
+            conv = st.SparseConvolution(3, 3, 4, 3, device="cpu", **kw)
             with pytest.raises(NotImplementedError, match="key-sorted"):
                 conv(x)
             assert conv(x.sort_by_key()).keys_sorted
-    # ... and no gradient yet (its backward is the next slice)
-    with pytest.raises(NotImplementedError, match="backward"):
-        st.SparseConv3d(3, 4, 3, stride=2)(x.sort_by_key())
+    # transposed convs wait for their output discovery; an inverse conv
+    # needs the key of the regular conv it inverts
     for kw in (dict(subm=False, transposed=True),
-               dict(subm=True, transposed=True),
-               dict(subm=True, inverse=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            st.SparseConvolution(3, 3, 4, 3, **kw)
+               dict(subm=True, transposed=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+            st.SparseConvolution(3, 3, 4, 3, device="cpu", **kw)
+    with pytest.raises(ValueError, match="indice_key"):
+        st.SparseConvolution(3, 3, 4, 3, inverse=True, device="cpu")
 
 
 def test_sequential_masks_dense_ops():
@@ -154,8 +155,8 @@ def test_sequential_masks_dense_ops():
     feats, inds = _rows(3, shape, 100, 1, 128)
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          shape, 1).sort_by_key()
-    net = st.SparseSequential(SubMConv3d(3, 4, 3, indice_key="a"),
-                              torch.nn.Sigmoid())
+    net = st.SparseSequential(
+        SubMConv3d(3, 4, 3, indice_key="a", device="cpu"), torch.nn.Sigmoid())
     with torch.no_grad():
         y = net(x)
     assert len(net) == 2 and isinstance(net[1], torch.nn.Sigmoid)
@@ -172,3 +173,52 @@ def test_import_needs_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _entry_points():
+    from spconv_tpu_torch.benchmark import basic as TB
+    from spconv_tpu_torch.benchmark import centerpoint as CP
+    from spconv_tpu_torch.models import (SparseBasicBlock, SparseEncoder,
+                                         centerpoint_encoder, second_encoder)
+
+    voxels = np.zeros((3, 3), np.float32)
+    coors = np.array([[0, 0, 0, i] for i in range(3)], np.int32)
+    return {
+        "SubMConv3d": lambda **kw: SubMConv3d(3, 4, 3, **kw),
+        "SparseConv3d": lambda **kw: st.SparseConv3d(3, 4, 3, stride=2,
+                                                     **kw),
+        "SparseInverseConv3d": lambda **kw: st.SparseInverseConv3d(
+            4, 3, 3, indice_key="d", **kw),
+        "BatchNorm1d": lambda **kw: st.BatchNorm1d(4, **kw),
+        "SparseBasicBlock": lambda **kw: SparseBasicBlock(4, "s", **kw),
+        "SparseEncoder": lambda **kw: SparseEncoder(in_channels=5, **kw),
+        "second_encoder": lambda **kw: second_encoder(**kw),
+        "centerpoint_encoder": lambda **kw: centerpoint_encoder(**kw),
+        "SparseUNet": lambda **kw: st.SparseUNet(5, (4, 8), 3, **kw),
+        "BenchNet": lambda **kw: TB.BenchNet((8, 8, 8), **kw),
+        "make_bench_input": lambda **kw: TB.make_bench_input(
+            voxels, coors, (8, 8, 8), **kw),
+        "synthetic_centerpoint_input": lambda **kw:
+            CP.synthetic_centerpoint_input(0, shape=(8, 16, 16),
+                                           n_target=20, **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name, monkeypatch):
+    """With no device given, a constructor or input builder puts its
+    tensors on CUDA, and raises where there is no CUDA: it never carries
+    on on the CPU.  ``device="cpu"`` asks for the CPU."""
+    make = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make()
+    out = make(device="cpu")
+    if isinstance(out, tuple):
+        out = out[0]
+    tensors = (list(out.parameters()) + list(out.buffers())
+               if isinstance(out, torch.nn.Module)
+               else [out.features, out.indices])
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert st.default_device() == torch.device("cuda")

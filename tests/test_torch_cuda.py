@@ -13,7 +13,7 @@ import torch
 
 from spconv_tpu_torch.benchmark import basic as TB
 from spconv_tpu_torch.benchmark import centerpoint as TCP
-from spconv_tpu_torch.models import centerpoint_encoder
+from spconv_tpu_torch.models import SparseUNet, centerpoint_encoder
 from spconv_tpu_torch.ops import coords as TC
 from spconv_tpu_torch.ops import dg_conv as TD
 from spconv_tpu_torch.ops.rulebook import build_conv_outputs
@@ -26,6 +26,12 @@ SHAPE = (9, 40, 40)
 KSIZE = (3, 3, 3)
 DIL = (1, 1, 1)
 KV = 27
+
+
+def _counts(**nonzero):
+    """``launch_counts`` as a run that launched only ``nonzero`` leaves
+    it."""
+    return {**dict.fromkeys(TD.launch_counts, 0), **nonzero}
 
 
 @pytest.fixture
@@ -162,18 +168,16 @@ def test_benchnet_on_card_matches_cpu(dev):
     versions on the CPU, f32."""
     shape = (64, 128, 128)
     voxels, coors, _ = TB.synthetic_scan(0, shape=shape, n_target=1600)
-    net = TB.BenchNet(shape)
+    net = TB.BenchNet(shape, device="cpu")
     with torch.no_grad():
-        ref = net.forward_stages(TB.make_bench_input(voxels, coors, shape))
+        ref = net.forward_stages(TB.make_bench_input(voxels, coors, shape,
+                                                     device="cpu"))
         net.to(dev)
         TD.reset_launch_counts()
         got = net.forward_stages(
             TB.make_bench_input(voxels, coors, shape, device=dev))
         torch.cuda.synchronize()
-    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 0,
-                                "dg_pos_affine": 0, "dg_fwd": 14,
-                                "dg_fwd_strided": 0, "dg_dgrad": 0,
-                                "dg_wgrad": 0}
+    assert TD.launch_counts == _counts(dg_pos=7, dg_fwd=14)
     for r, g in zip(ref, got):
         assert torch.equal(g.indices.cpu(), r.indices)
         scale = r.features.abs().max().item()
@@ -190,19 +194,17 @@ def test_benchnet_train_step_on_card_matches_cpu(dev):
     wgrad."""
     shape = (64, 128, 128)
     voxels, coors, _ = TB.synthetic_scan(0, shape=shape, n_target=1600)
-    net = TB.BenchNet(shape)
-    ref_loss = TB.train_step(net, TB.make_bench_input(voxels, coors, shape),
-                             0.0)
+    net = TB.BenchNet(shape, device="cpu")
+    ref_loss = TB.train_step(
+        net, TB.make_bench_input(voxels, coors, shape, device="cpu"), 0.0)
     ref = {k: p.grad.clone() for k, p in net.named_parameters()}
     net.to(dev)
     TD.reset_launch_counts()
     loss = TB.train_step(
         net, TB.make_bench_input(voxels, coors, shape, device=dev), 0.0)
     torch.cuda.synchronize()
-    assert TD.launch_counts == {"dg_pos": 7, "dg_pos_rev": 7,
-                                "dg_pos_affine": 0, "dg_fwd": 14,
-                                "dg_fwd_strided": 0, "dg_dgrad": 13,
-                                "dg_wgrad": 14}
+    assert TD.launch_counts == _counts(dg_pos=7, dg_pos_rev=7, dg_fwd=14,
+                                       dg_dgrad=13, dg_wgrad=14)
     assert abs(loss.item() - ref_loss.item()) <= 1e-4 * ref_loss.item()
     for k, p in net.named_parameters():
         scale = ref[k].abs().max().item()
@@ -274,7 +276,7 @@ def test_dg_fwd_strided_kernel_matches_plain(dev, dtype, tol, c, k_out,
     x, w, pos = feats.to(dev, dtype), w.to(dev, dtype), pos.to(dev)
     ref = TD.dg_fwd_plain(x, w, pos).float()
     before = dict(TD.launch_counts)
-    got = TD.dg_fwd_strided(x, w, pos)
+    got = TD.dg_fwd(x, w, pos, path="strided")
     torch.cuda.synchronize()
     assert TD.launch_counts["dg_fwd_strided"] == before["dg_fwd_strided"] + 1
     assert TD.launch_counts["dg_fwd"] == before["dg_fwd"]
@@ -295,8 +297,10 @@ def test_centerpoint_encoder_on_card_matches_cpu(dev, dtype, tol):
     at every layer).  A forward launches 4 subm and 4 affine tables and
     17 + 4 gather-GEMMs."""
     x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
-                                           n_target=1500, dtype=dtype)
-    net = centerpoint_encoder(in_channels=5, bn=False, dtype=dtype).eval()
+                                           n_target=1500, dtype=dtype,
+                                           device="cpu")
+    net = centerpoint_encoder(in_channels=5, bn=False, dtype=dtype,
+                              device="cpu").eval()
     with torch.no_grad():
         ref = net.forward_stages(x)
         ref_bev = net.bev(x).float()
@@ -309,10 +313,134 @@ def test_centerpoint_encoder_on_card_matches_cpu(dev, dtype, tol):
         torch.cuda.synchronize()
         counts = dict(TD.launch_counts)
         bev = net.bev(xd).float().cpu()
-    assert counts == {"dg_pos": 4, "dg_pos_rev": 0, "dg_pos_affine": 4,
-                      "dg_fwd": 17, "dg_fwd_strided": 4, "dg_dgrad": 0,
-                      "dg_wgrad": 0}
+    assert counts == _counts(dg_pos=4, dg_pos_affine=4, dg_fwd=17,
+                             dg_fwd_strided=4)
     for r, g in zip(ref, got):
         assert torch.equal(g.indices.cpu(), r.indices)
     scale = ref_bev.abs().max().item()
     assert scale > 0 and (bev - ref_bev).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("case", _STRIDED)
+def test_dg_pos_divide_kernel_matches_plain(dev, case):
+    """The divide table on the card equals its plain version exactly."""
+    _, in_keys, out_keys, geom = _strided_case(*case)
+    ref = TD.dg_pos_divide_plain(in_keys, out_keys, **geom)
+    before = dict(TD.launch_counts)
+    got = TD.build_dg_pos_divide(in_keys.to(dev), out_keys.to(dev), **geom)
+    torch.cuda.synchronize()
+    assert TD.launch_counts["dg_pos_divide"] == before["dg_pos_divide"] + 1
+    assert sum(TD.launch_counts.values()) == sum(before.values()) + 1
+    assert (ref >= 0).any() and torch.equal(got.cpu(), ref)
+
+
+def _regular_operands(case, path, c, k_out, dtype, dev, seed):
+    """For conv ``path`` ("strided" or "inverse") at ``case``: the source
+    features ``x`` [N_src, c] (0 on sentinel rows), a ``dout`` [N_dst,
+    k_out] (the same), ``w`` [kv, c, k_out] and the forward's and the
+    backward's tables, on ``dev``."""
+    _, in_keys, out_keys, geom = _strided_case(*case)
+    aff = TD.dg_pos_affine_plain(in_keys, out_keys, **geom)
+    div = TD.dg_pos_divide_plain(in_keys, out_keys, **geom)
+    sent_in = TC.grid_sentinel(geom["in_shape"], geom["batch_size"])
+    sent_out = TC.grid_sentinel(geom["out_shape"], geom["batch_size"])
+    live_in, live_out = in_keys != sent_in, out_keys != sent_out
+    if path == "strided":
+        pos, pos_bwd, live_src, live_dst = aff, div, live_in, live_out
+    else:
+        pos, pos_bwd, live_src, live_dst = div, aff, live_out, live_in
+    g = torch.Generator().manual_seed(seed)
+    kv = int(np.prod(geom["ksize"]))
+    x = torch.randn((live_src.shape[0], c), generator=g) * live_src[:, None]
+    dout = (torch.randn((live_dst.shape[0], k_out), generator=g)
+            * live_dst[:, None])
+    w = torch.randn((kv, c, k_out), generator=g) / np.sqrt(kv * c)
+    return (x.to(dev, dtype), dout.to(dev, dtype), w.to(dev, dtype),
+            pos.to(dev), pos_bwd.to(dev), live_src.to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("c,k_out", [(32, 16), (64, 32), (128, 128)])
+@pytest.mark.parametrize("case", [_STRIDED[0], _STRIDED[1]])
+def test_dg_fwd_inverse_kernel_matches_plain(dev, dtype, tol, c, k_out,
+                                             case):
+    """B2 on a divide table (the inverse conv), N_out = 6144 source rows
+    onto N_in = 3072 output rows; tolerances as B2's."""
+    x, _, w, pos, _, _ = _regular_operands(case, "inverse", c, k_out, dtype,
+                                           dev, 13)
+    ref = TD.dg_fwd_plain(x, w, pos).float()
+    before = dict(TD.launch_counts)
+    got = TD.dg_fwd(x, w, pos, path="inverse")
+    torch.cuda.synchronize()
+    assert TD.launch_counts == dict(
+        before, dg_fwd_inverse=before["dg_fwd_inverse"] + 1)
+    assert got.dtype == dtype and tuple(got.shape) == (pos.shape[1], k_out)
+    err = (got.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float32, 2e-5, 1e-4),
+                                            (torch.bfloat16, 1.6e-2,
+                                             1.6e-2)])
+@pytest.mark.parametrize("path", ["strided", "inverse"])
+@pytest.mark.parametrize("c,k_out", [(16, 32), (64, 32), (128, 128)])
+def test_regular_bwd_kernels_match_plain(dev, dtype, tol, wtol, path, c,
+                                         k_out):
+    """dgrad and wgrad of the strided conv (through the divide table) and
+    of the inverse conv (through the affine table), N_in != N_out, against
+    their plain versions; tolerances as the subm ones'.  Rows without a
+    match get a zero din; two wgrad runs are bit-equal."""
+    x, dout, w, _, pos_bwd, live_src = _regular_operands(
+        _STRIDED[0], path, c, k_out, dtype, dev, 14)
+    before = dict(TD.launch_counts)
+    din = TD.dg_dgrad(dout, w, pos_bwd, path=path)
+    dw = TD.dg_wgrad(x, dout, pos_bwd, path=path)
+    again = TD.dg_wgrad(x, dout, pos_bwd, path=path)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == dict(
+        before, **{f"dg_dgrad_{path}": before[f"dg_dgrad_{path}"] + 1,
+                   f"dg_wgrad_{path}": before[f"dg_wgrad_{path}"] + 2})
+    assert tuple(din.shape) == tuple(x.shape) and torch.equal(dw, again)
+    ref = TD.dg_dgrad_plain(dout, w, pos_bwd).float()
+    err = (din.float() - ref).abs().max().item()
+    assert err <= tol * ref.abs().max().item(), err
+    assert not din[~live_src].any()
+    ref = TD.dg_wgrad_plain(x, dout, pos_bwd).float()
+    err = (dw.float() - ref).abs().max().item()
+    assert err <= wtol * ref.abs().max().item(), err
+
+
+def test_unet_train_step_on_card_matches_cpu(dev):
+    """One f32 training step of a small ``SparseUNet`` through every kernel
+    on the card against the same step through the plain versions on the
+    CPU: coordinates equal, the loss within 1e-4 relative, every grad
+    within 1e-4*max|ref| (f32 sums in another order).  A step launches 3 +
+    3 subm, 2 affine and 2 divide tables, 5 + 2 + 2 B2, 4 + 2 + 2 dgrad
+    and 5 + 2 + 2 wgrad."""
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                           n_target=1500, device="cpu")
+    net = SparseUNet(5, (16, 32, 64), 16, device="cpu")
+    with torch.no_grad():
+        ref_out = net(x)
+    ref_loss = TB.train_step(net, x, 0.0)
+    ref = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.to(dev)
+    xd = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                         n_target=1500, device=dev)[0]
+    with torch.no_grad():
+        out = net(xd)
+    assert torch.equal(out.indices.cpu(), ref_out.indices)
+    TD.reset_launch_counts()
+    loss = TB.train_step(net, xd, 0.0)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(
+        dg_pos=3, dg_pos_rev=3, dg_pos_affine=2, dg_pos_divide=2, dg_fwd=5,
+        dg_fwd_strided=2, dg_fwd_inverse=2, dg_dgrad=4, dg_dgrad_strided=2,
+        dg_dgrad_inverse=2, dg_wgrad=5, dg_wgrad_strided=2,
+        dg_wgrad_inverse=2)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-4 * ref_loss.item()
+    for k, p in net.named_parameters():
+        scale = ref[k].abs().max().item()
+        err = (p.grad.cpu() - ref[k]).abs().max().item()
+        assert scale > 0 and err <= 1e-4 * scale, (k, err, scale)

@@ -69,7 +69,7 @@ def test_dg_pos_reverse_inverts_forward(ksize, dilation):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("c", [3, 12])
 def test_dg_conv_grads_match_jax(c, dtype):
-    """The conv's autograd (``DGSubmConvFn``: dgrad and wgrad through the
+    """The conv's autograd (``DGConvFn``: dgrad and wgrad through the
     reversed table) against ``jax.grad`` of the posmode Pallas conv, whose
     VJP runs ``_dg_bwd_kernel`` in interpret mode on its own reversed table.
     f32 within 5e-5*max|ref| (sums in another order); bf16 within

@@ -148,8 +148,8 @@ def test_stage_reuses_match_table():
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          SHAPE, 1, keys_sorted=True)
     g = torch.Generator().manual_seed(0)
-    a = SubMConv3d(4, 8, 3, indice_key="s", generator=g)
-    b = SubMConv3d(8, 8, 3, indice_key="s", generator=g)
+    a = SubMConv3d(4, 8, 3, indice_key="s", generator=g, device="cpu")
+    b = SubMConv3d(8, 8, 3, indice_key="s", generator=g, device="cpu")
     with torch.no_grad():
         y = a(x)
         rec = y.indice_dict["s"]
@@ -157,9 +157,11 @@ def test_stage_reuses_match_table():
         assert z.indice_dict["s"] is rec
         np.testing.assert_array_equal(rec.pos.numpy(), _port_pos(inds).numpy())
         with pytest.raises(ValueError, match="reuse mismatch"):
-            SubMConv3d(8, 8, 5, indice_key="s", generator=g)(z)
+            SubMConv3d(8, 8, 5, indice_key="s", generator=g,
+                       device="cpu")(z)
         with pytest.raises(ValueError, match="reuse mismatch"):
-            SubMConv3d(8, 8, 3, dilation=2, indice_key="s", generator=g)(z)
+            SubMConv3d(8, 8, 3, dilation=2, indice_key="s", generator=g,
+                       device="cpu")(z)
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])
@@ -176,7 +178,7 @@ def test_subm_conv_epilogue_matches_jax(act):
     add[400:] = 0
     kw = dict(act_type=act, act_alpha=0.1, indice_key="e")
     jconv = spconv_tpu.SubMConv3d(5, 6, 3, **kw)
-    tconv = SubMConv3d(5, 6, 3, **kw)
+    tconv = SubMConv3d(5, 6, 3, device="cpu", **kw)
     load_jax_state_dict(tconv, state_dict(jconv))
     jx = spconv_tpu.SparseConvTensor(jnp.asarray(feats), jnp.asarray(inds),
                                      SHAPE, 1, keys_sorted=True)

@@ -35,7 +35,7 @@ def _sorted_input(seed, shape, n, c, nbuf, batch):
 
 def _port_conv(c, k_out, ksize, dilation, w, algo):
     conv = SubMConv3d(c, k_out, ksize, dilation=dilation, bias=False,
-                      indice_key="s", algo=algo)
+                      indice_key="s", algo=algo, device="cpu")
     with torch.no_grad():
         conv.weight.copy_(torch.from_numpy(w))
     return conv

@@ -150,7 +150,7 @@ def _port_layer(c, k_out, geom, bound, w, algo, dtype):
     conv = SparseConv3d(c, k_out, geom["ksize"], stride=geom["stride"],
                         padding=geom["padding"], dilation=geom["dilation"],
                         bias=False, indice_key="d", algo=algo,
-                        out_bound=bound, dtype=dtype)
+                        out_bound=bound, dtype=dtype, device="cpu")
     with torch.no_grad():
         conv.weight.copy_(torch.from_numpy(w).to(dtype))
     return conv
@@ -227,14 +227,15 @@ def test_strided_sk_conv_matches_jax_sk_regular(name):
 def test_regular_record_reuse_and_refusals():
     """A second layer under the same key reuses the record only on equal
     geometry and leaves it as it is otherwise; the cached encoder input is
-    there for an inverse conv; a gradient and unsorted input are
-    refused."""
+    there for an inverse conv; unsorted input is refused.  With a
+    gradient wanted the layer also caches the divide table, the exact
+    inverse of the affine one, and its backward runs through it."""
     feats, inds, geom, bound, _ = _case("k3s2p1", c=4, seed=5)
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          geom["spatial_shape"], 1, keys_sorted=True)
     g = torch.Generator().manual_seed(0)
     a = SparseConv3d(4, 8, 3, stride=2, padding=1, indice_key="d",
-                     generator=g)
+                     generator=g, device="cpu")
     with torch.no_grad():
         y = a(x)
         rec = y.indice_dict["__dgreg__d"]
@@ -246,9 +247,11 @@ def test_regular_record_reuse_and_refusals():
         assert z.indice_dict["__dgreg__d"] is rec
         assert torch.equal(z.features, y.features)
         # other geometry under the same key: rebuilt, record untouched
-        b = SparseConv3d(4, 8, 2, stride=2, indice_key="d", generator=g)
+        b = SparseConv3d(4, 8, 2, stride=2, indice_key="d", generator=g,
+                         device="cpu")
         w = b(x_rec)
         assert w.indice_dict["__dgreg__d"] is rec
+        assert rec.pos_div is None  # no gradient was wanted
         assert w.spatial_shape == (6, 7, 7)
         # the table's rows must index the features
         with pytest.raises(ValueError, match="in_keys has"):
@@ -257,8 +260,22 @@ def test_regular_record_reuse_and_refusals():
                 in_shape=rec.in_shape, out_shape=rec.out_shape,
                 batch_size=1, stride=rec.stride, padding=rec.padding,
                 dilation=rec.dilation)
-    with pytest.raises(NotImplementedError, match="backward"):
-        a(x)
+    xg = x.replace_feature(x.features.clone().requires_grad_())
+    yg = a(xg)
+    rec_g = yg.indice_dict["__dgreg__d"]
+    assert torch.equal(yg.features, y.features)
+    div = rec_g.pos_div.numpy()
+    aff = rec_g.pos.numpy()
+    assert div.shape == (27, x.indices.shape[0])
+    for k in range(27):
+        inv = np.full(div.shape[1], -1, np.int32)
+        hit = aff[k] >= 0
+        inv[aff[k, hit]] = np.nonzero(hit)[0]
+        np.testing.assert_array_equal(div[k], inv)
+    (yg.features ** 2).sum().backward()
+    assert a.weight.grad.abs().max() > 0
+    assert xg.features.grad.abs().max() > 0
+    assert not xg.features.grad[~x.valid_mask].any()
     unsorted = SparseConvTensor(x.features, x.indices, x.spatial_shape, 1)
     with torch.no_grad(), pytest.raises(NotImplementedError,
                                         match="key-sorted"):

@@ -44,7 +44,7 @@ def _jax_loss(net, x):
 def test_benchnet_train_step_matches_jax():
     voxels, coors, _ = TB.synthetic_scan(0, shape=SHAPE, n_target=1600)
     jnet = JB.BenchNet(SHAPE)
-    tnet = TB.BenchNet(SHAPE)
+    tnet = TB.BenchNet(SHAPE, device="cpu")
     load_jax_state_dict(tnet, state_dict(jnet))
     jx = JB.make_bench_input(voxels, coors, SHAPE)
     loss_j, grads = spconv_tpu.filter_value_and_grad(_jax_loss)(jnet, jx)
@@ -57,7 +57,7 @@ def test_benchnet_train_step_matches_jax():
         jnet, {k: w_ref[k] - lr * g_ref[k] for k in w_ref})
     loss2_j = float(_jax_loss(jnet2, jx))
 
-    x = TB.make_bench_input(voxels, coors, SHAPE)
+    x = TB.make_bench_input(voxels, coors, SHAPE, device="cpu")
     TD.reset_launch_counts()
     loss = TB.train_step(tnet, x, lr)
     grads_t = {k: p.grad.clone() for k, p in tnet.named_parameters()}
@@ -85,8 +85,8 @@ def test_stage_tables_under_grad_and_inference():
     training forward every stage's record does, and both convs of a stage
     share it."""
     voxels, coors, _ = TB.synthetic_scan(1, shape=SHAPE, n_target=800)
-    net = TB.BenchNet(SHAPE)
-    x = TB.make_bench_input(voxels, coors, SHAPE)
+    net = TB.BenchNet(SHAPE, device="cpu")
+    x = TB.make_bench_input(voxels, coors, SHAPE, device="cpu")
     with torch.inference_mode():
         stages = net.forward_stages(x)
     recs = stages[-1].indice_dict
