@@ -40,7 +40,16 @@ line is printed):
    input's, an f32 run against a plain-version run, the f32 grads against
    the plain backward, device busy share and peak memory; and an
    ``algo="sk"`` downsample + inverse pair against ``algo="dg"``;
-8. prints a JSON line of the kernels, each with its bound (the least time
+8. the int8 (PTQ) CenterPoint encoder: the f32 encoder with phase 6's
+   buffers, its scales observed on seed 0 on the card, quantized
+   (``quantize_encoder``); B7 (``dg_fwd_q``) bit-equal to its plain version
+   at every layer shape (subm with and without the residual, strided) and
+   at an inverse layer; three int8 requests to their BEV maps with launch
+   counts, every layer's coordinates and int8 features against a plain run
+   on the card, and the BEV against the f32 encoder's; host ms, device
+   busy share and peak memory beside the bf16 request's; an int8
+   downsample + inverse pair against plain;
+9. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -87,9 +96,17 @@ UNET_SERVE = dict(dg_pos=3, dg_pos_affine=2, dg_pos_divide=2, dg_fwd=5,
 UNET_STEP = dict(UNET_SERVE, dg_pos_rev=3, dg_dgrad=4, dg_wgrad=5,
                  dg_dgrad_strided=2, dg_wgrad_strided=2, dg_dgrad_inverse=2,
                  dg_wgrad_inverse=2)
+# per int8 CenterPoint request: the same tables, 17 subm and 4 strided B7
+# launches, no B2
+CP_INT8_LAUNCHES = dict(dg_pos=4, dg_pos_affine=4, dg_fwd_q=17,
+                        dg_fwd_q_strided=4)
+# the dequantized int8 BEV against the f32 encoder's, as the JAX package's
+# test_quantize_encoder_end_to_end bounds it: max error over max|ref|, L2
+INT8_MAX_ERR = 0.25
+INT8_L2_ERR = 0.1
 # the H100 SXM's published dense peaks (NVIDIA data sheet), for each
-# kernel's bound: bf16 tensor cores, f32 FMA outside them, HBM3
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# kernel's bound: bf16 and int8 tensor cores, f32 FMA outside them, HBM3
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -199,11 +216,12 @@ class Tally:
 
 
 def device_busy(torch, fn, reps):
-    """``(window ms, device-busy ms)`` over ``reps`` calls of ``fn`` after
-    one warm-up, in a ``torch.profiler`` window: the host clock around the
-    calls and a final sync, and the summed duration of the device's
-    kernels, copies and fills (one stream, so they do not overlap).  Busy
-    is None where the profiler saw no device time."""
+    """``(window ms, device-busy ms, device ops)`` over ``reps`` calls of
+    ``fn`` after one warm-up, in a ``torch.profiler`` window: the host
+    clock around the calls and a final sync, the summed duration of the
+    device's kernels, copies and fills (one stream, so they do not
+    overlap), and their number.  Busy is None where the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -216,9 +234,9 @@ def device_busy(torch, fn, reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
-    return wall, (busy or None)
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    return wall, (busy or None), len(ops)
 
 
 def peak_mib(torch, fn):
@@ -619,7 +637,7 @@ def unet_phase(torch, dev, gen, scans, cp_rec, note):
             print(f"unet request seed={seed} input=synthetic ms={ms:.3f} "
                   f"active_per_level={active} f32_rel_err={rel32:.3e} "
                   f"bf16_rel_vs_plain={bf_rel:.3e}")
-        wall, busy = device_busy(torch, lambda: net16(x16[0]), 3)
+        wall, busy, _ = device_busy(torch, lambda: net16(x16[0]), 3)
         peak = peak_mib(torch, lambda: net16(x16[0]))
     print(f"U-Net serve: bf16, ms per request "
           f"{[round(m, 3) for m in serve_ms]}, launches {serve_launches}; "
@@ -663,8 +681,8 @@ def unet_phase(torch, dev, gen, scans, cp_rec, note):
         print(f"unet train step seed={seed} input=synthetic ms={ms:.3f} "
               f"loss={loss:.6e} lr={lr:.4e}")
     train_launches = dict(D.launch_counts)
-    wall, busy = device_busy(torch, lambda: B.train_step(net, x16[0], 0.0),
-                             3)
+    wall, busy, _ = device_busy(
+        torch, lambda: B.train_step(net, x16[0], 0.0), 3)
     peak = peak_mib(torch, lambda: B.train_step(net, x16[0], 0.0))
     print(f"U-Net train: bf16, launches over 3 steps {train_launches}; "
           f"profiler window of 3: {wall / 3:.3f} ms a step, device busy "
@@ -729,6 +747,327 @@ def unet_phase(torch, dev, gen, scans, cp_rec, note):
     print(f"sk pair (enc_down.0 + dec_up.{levels - 1}, bf16): bit-equal to "
           f"dg, forward and grads; launches {sk_launches}")
     return tally, per_layer, serve_launches, train_launches, sk_launches
+
+
+def q_bound(x, w, pos, k_out, add):
+    """B7: ``x`` ``[N_src, C]`` int8, ``w`` ``[kv, C, K]`` int8, ``pos``
+    ``[kv, N_dst]`` int32, the f32 scale and bias and the int8 residual
+    read once, ``[N_dst, K]`` int8 written once; 2 * C * K int8 operations
+    per matched pair of this input."""
+    pairs = int((pos >= 0).sum())
+    n_dst = pos.shape[1]
+    nbytes = (x.numel() + w.numel() + pos.numel() * 4 + 8 * k_out
+              + n_dst * k_out * (2 if add else 1))
+    return bound(nbytes, 2 * pairs * x.shape[1] * k_out, "int8")
+
+
+def q_layers(qnet, x):
+    """The int8 encoder's forward through its own modules, returning the
+    int8 output of every top-level layer (conv or residual block)."""
+    from spconv_tpu_torch.quantization import quantize_tensor
+
+    cur = x.replace_feature(quantize_tensor(x.features, qnet.input_scale))
+    outs = []
+    for layer in qnet.layers:
+        cur = layer(cur)
+        outs.append(cur)
+    return outs
+
+
+def plain_q_layers(torch, qnet, x):
+    """:func:`q_layers` with the plain versions of the kernels in place of
+    the kernels (every table by ``dg_pos_plain`` or ``dg_pos_affine_plain``,
+    every product by ``dg_fwd_q_plain``), on whatever device ``x`` is on,
+    with the layers' own int8 weights and folded scales."""
+    from spconv_tpu_torch.core import SparseConvTensor
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops.rulebook import build_conv_outputs
+    from spconv_tpu_torch.quantization import (QuantizedSparseBasicBlock,
+                                               quantize_tensor)
+
+    tables = {}
+
+    def conv(layer, t, add=None, add_scale=1.0):
+        cfg = layer.base
+        kw = dict(act=layer.act_type, add=None if add is None
+                  else add.features, add_scale=add_scale / layer.output_scale)
+        keys, _ = C.linearize(t.indices, t.spatial_shape, t.batch_size)
+        if cfg.subm:
+            if cfg.indice_key not in tables:
+                tables[cfg.indice_key] = D.dg_pos_plain(
+                    keys, ksize=cfg.kernel_size, dilation=cfg.dilation,
+                    spatial_shape=t.spatial_shape, batch_size=t.batch_size)
+            q = D.dg_fwd_q_plain(t.features, layer.weight_kv,
+                                 tables[cfg.indice_key], layer.scale_q,
+                                 layer.bias_q, **kw)
+            inds, shape = t.indices, t.spatial_shape
+        else:
+            geom = dict(ksize=cfg.kernel_size, stride=cfg.stride,
+                        padding=cfg.padding, dilation=cfg.dilation)
+            inds, out_keys, _, _ = build_conv_outputs(
+                t.indices, spatial_shape=t.spatial_shape,
+                batch_size=t.batch_size,
+                out_bound=cfg._resolve_out_bound(t.indices.shape[0]), **geom)
+            shape = tuple(C.get_conv_output_size(
+                t.spatial_shape, cfg.kernel_size, cfg.stride, cfg.padding,
+                cfg.dilation))
+            pos = D.dg_pos_affine_plain(
+                keys, out_keys, in_shape=t.spatial_shape, out_shape=shape,
+                batch_size=t.batch_size, **geom)
+            q = D.dg_fwd_q_plain(t.features, layer.weight_kv, pos,
+                                 layer.scale_q, layer.bias_q, **kw)
+        valid = inds[:, 0] >= 0
+        return SparseConvTensor(torch.where(valid[:, None], q,
+                                            torch.zeros_like(q)),
+                                inds, shape, t.batch_size, keys_sorted=True)
+
+    cur = x.replace_feature(quantize_tensor(x.features, qnet.input_scale))
+    outs = []
+    for layer in qnet.layers:
+        if isinstance(layer, QuantizedSparseBasicBlock):
+            cur = conv(layer.q2, conv(layer.q1, cur), add=cur,
+                       add_scale=layer.q2.add_scale)
+        else:
+            cur = conv(layer, cur)
+        outs.append(cur)
+    return outs
+
+
+def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
+    """Phase 8: the int8 (PTQ) CenterPoint encoder.  Observes the scales of
+    the f32 encoder ``net32`` (phase 6's buffers) on seed 0 on the card,
+    quantizes it, holds B7 bit-equal to its plain version at every layer
+    shape (``cp_rec``: phase 3's tables) and at an inverse layer, serves the
+    three scans in int8 with their checks, times the int8 requests beside
+    the bf16 net ``cp_net``, and runs an int8 downsample + inverse pair.
+    Returns ``(tallies, serve_launches, pair_launches)``: B7's kernel,
+    plain and bound ms summed over one int8 request (subm, strided) or the
+    inverse layer."""
+    import numpy as np
+    from spconv_tpu_torch import SparseConv3d, SparseInverseConv3d
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.quantization import (
+        MinMaxObserver, PerChannelMinMaxObserver, QuantizedSparseConv,
+        dequantize, observe_encoder_scales, quantize_encoder)
+
+    t0 = time.perf_counter()
+    scales = observe_encoder_scales(net32, [cp_in[0]])
+    qnet = quantize_encoder(net32, scales=scales)
+    print(f"int8: scales observed on seed 0 (f32 on the card) and "
+          f"quantized in {time.perf_counter() - t0:.2f} s: "
+          f"{json.dumps(scales)}")
+
+    # ---- B7 against its plain version at every layer shape
+    tally = {k: Tally() for k in ("dg_fwd_q", "dg_fwd_q_strided",
+                                  "dg_fwd_q_inverse")}
+
+    def randq(shape, valid=None):
+        q = torch.randint(-127, 128, shape, device=dev, generator=gen,
+                          dtype=torch.int32).to(torch.int8)
+        return q if valid is None else q * valid[:, None]
+
+    def q_case(layer, path, pos, valid_src, c, k, add, mult):
+        kv = pos.shape[0]
+        x, w = randq((valid_src.shape[0], c), valid_src), randq((kv, c, k))
+        matched = max(1.0, float((pos >= 0).sum()) / float(
+            (pos >= 0).any(0).sum().clamp(min=1)))
+        u = torch.rand((2, k), device=dev, generator=gen)
+        scale = (0.5 + u[0]) * 60 / (5300 * float(np.sqrt(matched * c)))
+        bias = (u[1] - 0.5) * 40
+        res = randq((pos.shape[1], k)) if add else None
+        kw = dict(act="relu", add=res, add_scale=0.37)
+
+        def fn():
+            return D.dg_fwd_q(x, w, pos, scale, bias, path=path, **kw)
+
+        def plain():
+            return D.dg_fwd_q_plain(x, w, pos, scale, bias, **kw)
+
+        name = "dg_fwd_q" if path == "subm" else f"dg_fwd_q_{path}"
+        got, ref = fn(), plain()
+        diff = (got.int() - ref.int()).abs().max().item()
+        check(diff == 0 and torch.equal(got, fn()),
+              f"{name} {layer}: differs from plain by {diff} or between "
+              "runs")
+        note(name, float(diff), 0.0)
+        km, pm = cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 2)
+        bnd = q_bound(x, w, pos, k, add)
+        tally[name].add(km, pm, bnd, mult)
+        sat = float((ref.abs() == 127).float().mean())
+        print(f"  {layer:14s} {name:16s} {c:4d} {k:4d} N_src "
+              f"{x.shape[0]:6d} N_dst {pos.shape[1]:6d} x{mult}  exact  "
+              f"(+-127: {100 * sat:.1f} %)  {km:9.4f}  {pm:8.4f}  "
+              f"{bnd[0]:.4f}")
+
+    print("int8 layers: layer kernel C K rows times-per-request kernel_ms "
+          "plain_ms bound_ms")
+    widths = (16, 32, 64, 128)
+    for si, c in enumerate(widths):
+        pos = cp_rec[f"subm{si}"].pos
+        valid = (cp_rec[f"__dgreg__down{si}"].out_indices[:, 0] >= 0 if si
+                 else cp_in[0].valid_mask)
+        if not si:
+            q_case("conv_input", "subm", pos, valid, 5, c, False, 1)
+        q_case(f"subm{si} conv1", "subm", pos, valid, c, c, False, 2)
+        q_case(f"subm{si} conv2+add", "subm", pos, valid, c, c, True, 2)
+    for key, (c, k) in zip(CP_STRIDED, ((16, 32), (32, 64), (64, 128),
+                                       (128, 128))):
+        rec = cp_rec[f"__dgreg__{key}"]
+        q_case(key, "strided", rec.pos,
+               cp_rec[f"__dgreg_in__{key}"][:, 0] >= 0, c, k, False, 1)
+    # the inverse of down1 (k3 s2 p1 off the 113,664-row input, bound
+    # 112,128: also the U-Net's enc_down.0 in phase 7) at dec_up.1's widths
+    rec = cp_rec["__dgreg__down1"]
+    div = D.build_dg_pos_divide(
+        rec.in_keys, rec.out_keys, ksize=rec.ksize, stride=rec.stride,
+        padding=rec.padding, dilation=rec.dilation, in_shape=rec.in_shape,
+        out_shape=rec.out_shape, batch_size=1)
+    q_case("inverse down1", "inverse", div, rec.out_indices[:, 0] >= 0,
+           32, 16, False, 1)
+    print("per int8 CenterPoint request: " + ", ".join(
+        f"{k} {v}" for k, v in tally.items()))
+
+    # ---- serve three scans in int8, counted and checked
+    with torch.inference_mode():
+        qnet.bev(cp_in[0])  # warm-up
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        served = []
+        for seed in REQUEST_SEEDS:
+            before = dict(D.launch_counts)
+            t0 = time.perf_counter()
+            bev = qnet.bev(cp_in[seed])
+            torch.cuda.synchronize()
+            served.append(((time.perf_counter() - t0) * 1e3, bev))
+            got = {k: D.launch_counts[k] - v for k, v in before.items()}
+            check(got == expected(D, **CP_INT8_LAUNCHES),
+                  f"int8 request {seed}: launches {got}")
+        serve_launches = dict(D.launch_counts)
+
+        for seed, (ms, bev) in zip(REQUEST_SEEDS, served):
+            check(tuple(bev.shape) == (1, 512, 128, 128)
+                  and bev.dtype == torch.float32,
+                  f"int8 request {seed}: bev {tuple(bev.shape)} {bev.dtype}")
+            outs = q_layers(qnet, cp_in[seed])
+            ref = plain_q_layers(torch, qnet, cp_in[seed])
+            for i, (g, r) in enumerate(zip(outs, ref)):
+                check(torch.equal(g.indices, r.indices),
+                      f"int8 request {seed}: layer {i} coordinates differ "
+                      "from the plain run")
+                check(g.features.dtype == torch.int8
+                      and torch.equal(g.features, r.features),
+                      f"int8 request {seed}: layer {i} int8 features differ "
+                      "from the plain run")
+            last = outs[-1]
+            check(torch.equal(bev, last.replace_feature(dequantize(
+                last.features, qnet.out_scale)).dense().reshape(bev.shape)),
+                  f"int8 request {seed}: served BEV differs from its layers")
+            ref32 = net32.bev(cp_in[seed])
+            scale = ref32.abs().max().item()
+            err = (bev - ref32).abs().max().item() / max(scale, 1e-30)
+            l2 = ((bev - ref32).norm() / ref32.norm().clamp(min=1e-30)).item()
+            check(np.isfinite(err) and err <= INT8_MAX_ERR
+                  and l2 <= INT8_L2_ERR,
+                  f"int8 request {seed}: BEV vs f32 max err {err:.4f} "
+                  f"(<= {INT8_MAX_ERR}), L2 {l2:.4f} (<= {INT8_L2_ERR})")
+            sat = float((last.features.abs() == 127).float().mean())
+            print(f"int8 request seed={seed} input=synthetic ms={ms:.3f} "
+                  f"active_per_layer={[int(t.num_voxels) for t in outs]} "
+                  f"bev_vs_f32 max_err/max|ref|={err:.4f} L2={l2:.4f} "
+                  f"(+-127 at the output: {100 * sat:.2f} %); int8 equal to "
+                  "the plain run at every layer")
+
+        # host ms of the bf16 and the int8 request, in turns; device busy
+        # and peak memory of each in profiler windows
+        runs = {"bf16": lambda s: cp_net.bev(cp16[s]),
+                "int8": lambda s: qnet.bev(cp_in[s])}
+        host = {k: [] for k in runs}
+        for order in (("bf16", "int8"), ("int8", "bf16")):
+            for seed in REQUEST_SEEDS:
+                for name in order:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    runs[name](seed)
+                    torch.cuda.synchronize()
+                    host[name].append((time.perf_counter() - t0) * 1e3)
+        windows = {}
+        for name in ("bf16", "int8", "int8", "bf16"):
+            windows.setdefault(name, []).append(
+                device_busy(torch, lambda: runs[name](0), 3))
+        peaks = {k: peak_mib(torch, lambda: fn(0)) for k, fn in runs.items()}
+    for name in runs:
+        busy = [b / w for w, b, _ in windows[name] if b]
+        print(f"CenterPoint {name} request: host ms "
+              f"{[round(m, 3) for m in host[name]]} (median "
+              f"{float(np.median(host[name])):.3f}); profiler windows of 3: "
+              + "; ".join(
+                  f"{w / 3:.3f} ms a request, {n / 3:.0f} device ops, "
+                  "device busy "
+                  + (f"{b / 3:.3f} ms ({100 * b / w:.1f} %, idle "
+                     f"{100 - 100 * b / w:.1f} %)" if b else "not measured")
+                  for w, b, n in windows[name])
+              + f"; peak allocated {peaks[name][0]:.1f} MiB above the "
+              f"{peaks[name][1]:.1f} MiB held before the request"
+              + (f"; busy share {min(busy):.3f}-{max(busy):.3f}" if busy
+                 else ""))
+
+    # ---- an int8 downsample + inverse pair at the U-Net's enc_down.0 /
+    # dec_up.1 geometry, on the int8 stage-0 output of seed 0
+    wgen = torch.Generator().manual_seed(3)
+    kw = dict(indice_key="down0", device=dev, generator=wgen)
+    down = SparseConv3d(16, 32, 3, stride=2, padding=1,
+                        out_bound=cp_net.downs[0].out_bound, **kw)
+    up = SparseInverseConv3d(32, 16, 3, **kw)
+    with torch.inference_mode():
+        x8 = q_layers(qnet, cp_in[0])[2]
+        s0 = scales["blocks"][0][-1][1]
+        obs = [MinMaxObserver(), MinMaxObserver()]
+        h = down(x8.replace_feature(dequantize(x8.features, s0)))
+        h = h.replace_feature(torch.relu(h.features))
+        obs[0].observe(h)
+        obs[1].observe(torch.relu(up(h).features))
+
+        def qconv(conv, s_in, s_out):
+            wobs = PerChannelMinMaxObserver()
+            wobs.observe(conv.weight)
+            return QuantizedSparseConv(conv, wobs.scale, s_in, s_out,
+                                       act_type="relu")
+
+        qd, qu = qconv(down, s0, obs[0].scale), qconv(up, obs[0].scale,
+                                                      obs[1].scale)
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        y = qd(x8)
+        z = qu(y)
+        torch.cuda.synchronize()
+        pair_launches = dict(D.launch_counts)
+        check(pair_launches == expected(
+            D, dg_pos_affine=1, dg_pos_divide=1, dg_fwd_q_strided=1,
+            dg_fwd_q_inverse=1), f"int8 pair launches {pair_launches}")
+        rec = y.indice_dict["__dgreg__down0"]
+        geom = dict(ksize=rec.ksize, stride=rec.stride, padding=rec.padding,
+                    dilation=rec.dilation, in_shape=rec.in_shape,
+                    out_shape=rec.out_shape, batch_size=1)
+        aff = D.dg_pos_affine_plain(rec.in_keys, rec.out_keys, **geom)
+        div = D.dg_pos_divide_plain(rec.in_keys, rec.out_keys, **geom)
+        y_ref = D.dg_fwd_q_plain(x8.features, qd.weight_kv, aff, qd.scale_q,
+                                 qd.bias_q, act="relu")
+        y_ref = y_ref * (rec.out_indices[:, :1] >= 0)
+        z_ref = D.dg_fwd_q_plain(y.features, qu.weight_kv, div, qu.scale_q,
+                                 qu.bias_q, act="relu")
+        z_ref = z_ref * x8.valid_mask[:, None]
+        check(torch.equal(rec.pos, aff) and torch.equal(rec.pos_div, div),
+              "int8 pair: tables differ from plain")
+        check(torch.equal(y.features, y_ref) and torch.equal(z.features,
+                                                             z_ref),
+              "int8 pair: int8 features differ from plain")
+        check(torch.equal(z.indices, x8.indices)
+              and bool(z.features.any()),
+              "int8 pair: the inverse's sites are not the input's, or 0")
+    print(f"int8 pair (down0 16->32 + inverse 32->16 on seed 0's int8 stage "
+          f"0): bit-equal to plain; launches {pair_launches}")
+    return tally, serve_launches, pair_launches
 
 
 def main():
@@ -1325,7 +1664,11 @@ def main():
     (u_tot, u_layer, u_serve, u_train,
      u_sk) = unet_phase(torch, dev, gen, cp_in, cp_rec, note)
 
-    # ---- 8. report ---------------------------------------------------
+    # ---- 8. the int8 CenterPoint encoder -------------------------------
+    q_tot, q_serve, q_pair = int8_phase(torch, dev, gen, cp_in, cp16, cp_net,
+                                        net32, cp_rec, note)
+
+    # ---- 9. report ---------------------------------------------------
     def row(name, source, replaces, launches, errs, t, **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against
         its plain version, ``t`` its Tally of times and bound."""
@@ -1428,6 +1771,26 @@ def main():
             errs("dg_dgrad_inverse", "dg_wgrad_inverse"),
             layers((up_last, "dg_dgrad_inverse"),
                    (up_last, "dg_wgrad_inverse"))),
+        row("dg_fwd_q", csrc + "dg_fwd_q.cu",
+            pallas + "dg_conv.py:339 (packmode q4, shift probes, posmode; "
+            "launched at :1152 by dg_subm_conv_q :1162)",
+            q_serve["dg_fwd_q"], errs("dg_fwd_q"), q_tot["dg_fwd_q"]),
+        row("dg_fwd_q_strided", csrc + "dg_fwd_q.cu",
+            pallas + "dg_conv.py:339 (packmode q4, affine probes; launched "
+            "at :1152 by dg_regular_conv_q :1219)",
+            q_serve["dg_fwd_q_strided"], errs("dg_fwd_q_strided"),
+            q_tot["dg_fwd_q_strided"]),
+        row("dg_fwd_q_inverse", csrc + "dg_fwd_q.cu",
+            pallas + "dg_conv.py:339 (packmode q4, divide probes; launched "
+            "at :1152 by dg_regular_conv_q :1219, inverse=True)",
+            q_pair["dg_fwd_q_inverse"], errs("dg_fwd_q_inverse"),
+            q_tot["dg_fwd_q_inverse"]),
+        # B8 computes B7's subm function; its launches and times are B7's
+        # subm path's
+        row("sk_fwd_q", csrc + "dg_pos.cu + " + csrc + "dg_fwd_q.cu",
+            pallas + "sorted_conv.py:573 (sk_subm_conv_q :704, launched at "
+            ":805)", q_serve["dg_fwd_q"], errs("dg_fwd_q"),
+            q_tot["dg_fwd_q"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on its "

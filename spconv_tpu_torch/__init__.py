@@ -13,21 +13,25 @@ backward; the 2x/stride-2 max pool); the CenterPoint / SECOND encoder
 ``SparseConvTensor.dense`` and out-bound calibration, ``calibrate``); and
 the segmentation ``SparseUNet`` serving and training, through
 ``SparseInverseConv3d`` and ``JoinTable``.  The strided and the inverse
-conv run forward and backward.  Constructors and input builders put their
+conv run forward and backward.  Int8 post-training quantization
+(``quantization``: ``quantize_encoder`` and friends) serves the encoder
+through an int8 kernel.  Constructors and input builders put their
 tensors on the CUDA card unless given ``device``.  See ROADMAP.md for what
 is still to come.
 """
 
 __version__ = "0.1.0"
 
-from . import calibrate, checkpoint, constants, models, ops
+from . import (calibrate, checkpoint, constants, models, ops,
+               quantization)
 from .checkpoint import load_jax_state_dict
 from .core import SparseConvTensor, default_device, expand_nd
 from .models import SparseUNet
 from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
                       JoinTable, SparseConv3d, SparseConvolution,
                       SparseInverseConv3d, SparseMaxPool, SparseMaxPool3d,
-                      SparseModule, SparseSequential, SubMConv3d)
+                      SparseModule, SparseReLU, SparseSequential,
+                      SubMConv3d)
 
 __all__ = [
     "SparseConvTensor",
@@ -45,6 +49,7 @@ __all__ = [
     "SparseMaxPool",
     "SparseMaxPool3d",
     "SparseModule",
+    "SparseReLU",
     "SparseSequential",
     "DGData",
     "DGRegData",
@@ -54,4 +59,5 @@ __all__ = [
     "constants",
     "models",
     "ops",
+    "quantization",
 ]

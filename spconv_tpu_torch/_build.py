@@ -105,7 +105,8 @@ def build_library() -> tuple:
 def load_library() -> ctypes.CDLL:
     """The kernels' library, built on first call, with every entry's
     ``argtypes`` set (pointers and the stream as ``c_void_p``, sizes as
-    ``c_int``) so that no pointer is cut to 32 bits."""
+    ``c_int``, a float scale as ``c_float``) so that no pointer is cut to
+    32 bits."""
     path, _, _ = build_library()
     lib = ctypes.CDLL(str(path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -122,6 +123,10 @@ def load_library() -> ctypes.CDLL:
         # x, w, pos, out, n, C, K, kv, stream
         "dg_fwd_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
         "dg_fwd_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        # x, w, pos, scale, bias, add, add_scale, relu, out, n, C, K, kv,
+        # stream
+        "dg_fwd_q_launch": [vp, vp, vp, vp, vp, vp, ctypes.c_float, i32, vp,
+                            i32, i32, i32, i32, vp],
         # x, dout, pos_rev, part, out, n, C, K, kv, splits, stream
         "dg_wgrad_f32_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                 vp],

@@ -1,7 +1,8 @@
 from .conv import (DGData, DGRegData, SparseConv3d, SparseConvolution,
                    SparseInverseConv1d, SparseInverseConv2d,
                    SparseInverseConv3d, SparseInverseConv4d, SubMConv3d)
-from .modules import BatchNorm1d, SparseModule, SparseSequential
+from .modules import (BatchNorm1d, SparseModule, SparseReLU,
+                      SparseSequential)
 from .pool import SparseMaxPool, SparseMaxPool3d
 from .tables import AddTable, ConcatTable, JoinTable
 
@@ -17,6 +18,7 @@ __all__ = [
     "SparseInverseConv4d",
     "BatchNorm1d",
     "SparseModule",
+    "SparseReLU",
     "SparseSequential",
     "SparseMaxPool",
     "SparseMaxPool3d",

@@ -79,14 +79,16 @@ class DGData:
 class DGRegData:
     """Cached state of a regular conv under its ``indice_key`` (the port's
     ``SKRegData``): the input and output keys, the output sites and their
-    counts, the affine match table ``pos`` ``[kv, N_out]``, its inverse
+    counts, the affine match table ``pos`` ``[kv, N_out]`` (None until a
+    conv of the record gathers through it), its inverse
     the divide table ``pos_div`` ``[kv, N_in]`` (None until a gradient of
     the regular conv or the paired inverse conv needs it) and the geometry
     they were built for."""
 
     def __init__(self, in_keys: torch.Tensor, out_keys: torch.Tensor,
                  out_indices: torch.Tensor, num_out: torch.Tensor,
-                 num_out_total: torch.Tensor, pos: torch.Tensor, *,
+                 num_out_total: torch.Tensor, pos: Optional[torch.Tensor],
+                 *,
                  ksize: Tuple[int, ...], stride: Tuple[int, ...],
                  padding: Tuple[int, ...], dilation: Tuple[int, ...],
                  in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
@@ -307,80 +309,85 @@ class SparseConvolution(SparseModule):
             out.indice_dict[self.indice_key] = new_rec
         return out
 
+    def _regular_record(self, input: SparseConvTensor) -> DGRegData:
+        """This regular conv's record: the one under ``__dgreg__
+        <indice_key>`` (``__skreg__`` for ``algo="sk"``) when its geometry
+        matches exactly, else a new one from output discovery, with no
+        table yet, which :meth:`_cache_record` caches."""
+        indices = input.indices
+        in_shape = tuple(input.spatial_shape)
+        geom = dict(ksize=self.kernel_size, stride=self.stride,
+                    padding=self.padding, dilation=self.dilation,
+                    in_shape=in_shape,
+                    out_shape=tuple(C.get_conv_output_size(
+                        in_shape, self.kernel_size, self.stride,
+                        self.padding, self.dilation)),
+                    output_padding=self.output_padding)
+        rec = (input.indice_dict.get(self._record_keys()[0])
+               if self.indice_key is not None else None)
+        if (isinstance(rec, DGRegData)
+                and rec.in_keys.shape[0] == indices.shape[0]
+                and all(getattr(rec, k) == v for k, v in geom.items())):
+            return rec
+        out_indices, out_keys, num_out, num_out_total = build_conv_outputs(
+            indices, spatial_shape=in_shape, batch_size=input.batch_size,
+            ksize=self.kernel_size, stride=self.stride,
+            padding=self.padding, dilation=self.dilation,
+            out_bound=self._resolve_out_bound(indices.shape[0]))
+        in_keys, _ = C.linearize(indices, in_shape, input.batch_size)
+        return DGRegData(in_keys, out_keys, out_indices, num_out,
+                         num_out_total, None, **geom)
+
+    def _record_keys(self) -> Tuple[str, str]:
+        """The ``indice_dict`` keys of the regular conv's record under
+        ``indice_key`` and of its input indices."""
+        ns = "__skreg" if self.algo == "sk" else "__dgreg"
+        return f"{ns}__{self.indice_key}", f"{ns}_in__{self.indice_key}"
+
+    def _cache_record(self, input: SparseConvTensor,
+                      out: SparseConvTensor, rec: DGRegData) -> None:
+        """Caches a new record in ``out`` with the input indices beside it,
+        unless ``indice_key`` is None or already holds a record (one whose
+        geometry did not match stays as it is)."""
+        if self.indice_key is None:
+            return
+        ck, ck_in = self._record_keys()
+        if not isinstance(input.indice_dict.get(ck), DGRegData):
+            out.indice_dict[ck] = rec
+            out.indice_dict[ck_in] = input.indices
+
     def _call_dg_regular(self, input: SparseConvTensor,
                          add_input: Optional[SparseConvTensor]
                          ) -> SparseConvTensor:
         """Regular (strided) conv on the DG path: output discovery, the
         affine match table, B2; with a gradient wanted also the divide
-        table, which the backward gathers through.  The record under
-        ``__dgreg__<indice_key>`` (``__skreg__`` for ``algo="sk"``) is
-        reused only when its geometry matches exactly; otherwise everything
-        is rebuilt and the record is left as it is."""
-        indices = input.indices
-        in_shape = tuple(input.spatial_shape)
-        batch_size = input.batch_size
-        out_shape = tuple(C.get_conv_output_size(
-            in_shape, self.kernel_size, self.stride, self.padding,
-            self.dilation))
-        ns = "__skreg" if self.algo == "sk" else "__dgreg"
-        ck = (f"{ns}__{self.indice_key}" if self.indice_key is not None
-              else None)
-        rec = input.indice_dict.get(ck) if ck else None
-        geom = dict(ksize=self.kernel_size, stride=self.stride,
-                    padding=self.padding, dilation=self.dilation,
-                    in_shape=in_shape, out_shape=out_shape,
-                    output_padding=self.output_padding)
-        reuse = (isinstance(rec, DGRegData)
-                 and rec.in_keys.shape[0] == indices.shape[0]
-                 and all(getattr(rec, k) == v for k, v in geom.items()))
-        if reuse:
-            in_keys, out_keys, out_indices = (rec.in_keys, rec.out_keys,
-                                              rec.out_indices)
-            num_out, num_out_total, pos, pos_div = (
-                rec.num_out, rec.num_out_total, rec.pos, rec.pos_div)
-        else:
-            out_indices, out_keys, num_out, num_out_total = \
-                build_conv_outputs(
-                    indices, spatial_shape=in_shape, batch_size=batch_size,
-                    ksize=self.kernel_size, stride=self.stride,
-                    padding=self.padding, dilation=self.dilation,
-                    out_bound=self._resolve_out_bound(indices.shape[0]))
-            in_keys, _ = C.linearize(indices, in_shape, batch_size)
-            pos = pos_div = None
-        out_feat, pos, pos_div = dg_regular_conv(
-            input.features, in_keys, out_keys, self.weight,
-            in_shape=in_shape, out_shape=out_shape, batch_size=batch_size,
-            stride=self.stride, padding=self.padding,
-            dilation=self.dilation, pos=pos, pos_bwd=pos_div)
-        calibrate._maybe_record(self, num_out)
+        table, which the backward gathers through.  The tables join the
+        record (:meth:`_regular_record`)."""
+        rec = self._regular_record(input)
+        out_feat, rec.pos, rec.pos_div = dg_regular_conv(
+            input.features, rec.in_keys, rec.out_keys, self.weight,
+            in_shape=rec.in_shape, out_shape=rec.out_shape,
+            batch_size=input.batch_size, stride=self.stride,
+            padding=self.padding, dilation=self.dilation, pos=rec.pos,
+            pos_bwd=rec.pos_div)
+        calibrate._maybe_record(self, rec.num_out)
         out = SparseConvTensor(
-            self._epilogue(out_feat, out_indices[:, 0] >= 0, add_input),
-            out_indices, out_shape, batch_size, num_voxels=num_out,
-            indice_dict=dict(input.indice_dict),
+            self._epilogue(out_feat, rec.out_indices[:, 0] >= 0, add_input),
+            rec.out_indices, rec.out_shape, input.batch_size,
+            num_voxels=rec.num_out, indice_dict=dict(input.indice_dict),
             # discovery emits ascending unique keys, invalid rows last
-            keys_sorted=True, num_out_total=num_out_total)
-        if reuse:
-            rec.pos_div = pos_div
-        elif ck and not isinstance(rec, DGRegData):
-            out.indice_dict[ck] = DGRegData(
-                in_keys, out_keys, out_indices, num_out, num_out_total, pos,
-                pos_div=pos_div, **geom)
-            out.indice_dict[f"{ns}_in__{self.indice_key}"] = indices
+            keys_sorted=True, num_out_total=rec.num_out_total)
+        self._cache_record(input, out, rec)
         return out
 
-    def _call_inverse(self, input: SparseConvTensor,
-                      add_input: Optional[SparseConvTensor]
-                      ) -> SparseConvTensor:
-        """Inverse conv on the DG path: maps the features on a regular
-        conv's output sites back onto its input sites, read from that
-        conv's record under ``__dgreg__<indice_key>`` (``__skreg__`` for
-        ``algo="sk"``) and ``__dgreg_in__<indice_key>``, through the divide
-        table and B2.  The divide table is cached on the record; its
-        backward gathers through the record's affine table."""
-        ns = "__skreg" if self.algo == "sk" else "__dgreg"
-        ck = f"{ns}__{self.indice_key}"
+    def _inverse_record(self, input: SparseConvTensor
+                        ) -> Tuple[DGRegData, torch.Tensor]:
+        """The record of the regular conv this inverse conv inverts and
+        that conv's input indices (the inverse's output sites), checked
+        against this conv and ``input``."""
+        ck, ck_in = self._record_keys()
         rec = input.indice_dict.get(ck)
-        enc_in = input.indice_dict.get(f"{ns}_in__{self.indice_key}")
+        enc_in = input.indice_dict.get(ck_in)
         if not isinstance(rec, DGRegData) or enc_in is None:
             raise ValueError(
                 f"an inverse conv reads the record of the regular conv "
@@ -399,6 +406,17 @@ class SparseConvolution(SparseModule):
                 f"inverse conv mismatch with the regular conv under "
                 f"indice_key={self.indice_key!r}: " + ", ".join(
                     f"{w} {g} vs {x}" for w, g, x in mismatch))
+        return rec, enc_in
+
+    def _call_inverse(self, input: SparseConvTensor,
+                      add_input: Optional[SparseConvTensor]
+                      ) -> SparseConvTensor:
+        """Inverse conv on the DG path: maps the features on a regular
+        conv's output sites back onto its input sites, read from that
+        conv's record (:meth:`_inverse_record`), through the divide table
+        and B2.  The divide table is cached on the record; its backward
+        gathers through the record's affine table."""
+        rec, enc_in = self._inverse_record(input)
         out_feat, rec.pos_div, _ = dg_regular_conv(
             input.features, rec.in_keys, rec.out_keys, self.weight,
             in_shape=rec.in_shape, out_shape=rec.out_shape,

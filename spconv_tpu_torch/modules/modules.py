@@ -1,6 +1,6 @@
 """Containers and normalization (counterpart of
-``spconv_tpu/modules/modules.py``; ``SparseSequential`` and
-``BatchNorm1d`` are ported)."""
+``spconv_tpu/modules/modules.py``; ``SparseSequential``, ``BatchNorm1d``
+and ``SparseReLU`` are ported)."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from torch import nn
 
 from ..core import SparseConvTensor, default_device
 
-__all__ = ["SparseModule", "SparseSequential", "BatchNorm1d"]
+__all__ = ["SparseModule", "SparseSequential", "BatchNorm1d", "SparseReLU"]
 
 
 class SparseModule(nn.Module):
@@ -117,3 +117,11 @@ class BatchNorm1d(SparseModule):
         if sparse:
             return x.replace_feature_masked(out)
         return out
+
+
+class SparseReLU(SparseModule):
+    """ReLU of the features (any dtype, int8 included); inactive rows stay
+    0."""
+
+    def forward(self, x: SparseConvTensor) -> SparseConvTensor:
+        return x.replace_feature(torch.relu(x.features))

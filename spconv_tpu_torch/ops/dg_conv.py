@@ -27,6 +27,9 @@ The kernel wrappers, each with its plain PyTorch version beside it:
 * ``dg_wgrad`` (kernel ``csrc/dg_wgrad.cu``):
   ``dW[k] = sum_j x[j]^T dout[pos_bwd[k, j]]``, split over rows into f32
   partials that a second kernel adds in a fixed order.
+* ``dg_fwd_q`` (kernel ``csrc/dg_fwd_q.cu``): the int8 gather-GEMM of the
+  quantized convs, int32 accumulation and the fused scale / bias / residual
+  / ReLU / requant epilogue, on any of the three forward tables.
 
 Each conv is a pair of tables (the forward's ``[kv, N_dst]``, the
 backward's ``[kv, N_src]``): (pos, reversed pos) for the subm conv,
@@ -64,6 +67,8 @@ __all__ = [
     "PATHS",
     "dg_fwd",
     "dg_fwd_plain",
+    "dg_fwd_q",
+    "dg_fwd_q_plain",
     "dg_regular_conv",
     "dg_dgrad",
     "dg_dgrad_plain",
@@ -87,6 +92,7 @@ PATHS = ("subm", "strided", "inverse")
 launch_counts = dict.fromkeys(
     ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_pos_divide",
      "dg_fwd", "dg_fwd_strided", "dg_fwd_inverse",
+     "dg_fwd_q", "dg_fwd_q_strided", "dg_fwd_q_inverse",
      "dg_dgrad", "dg_dgrad_strided", "dg_dgrad_inverse",
      "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse"), 0)
 
@@ -566,6 +572,122 @@ def _gather_gemm_cuda(x, weight_kv, pos, counter):
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(weight_kv.data_ptr()),
         ctypes.c_void_p(pos.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         n, c, k_out, kv, _stream_ptr(x.device))
+    _raise_on(err, counter)
+    launch_counts[counter] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B7: int8 gather-GEMM with the fused requant epilogue
+# ---------------------------------------------------------------------------
+
+_ACTS_Q = ("none", "relu")
+
+
+def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
+             scale: torch.Tensor, bias: Optional[torch.Tensor], *,
+             act: str = "none", add: Optional[torch.Tensor] = None,
+             add_scale: float = 1.0, path: str = "subm") -> torch.Tensor:
+    """int8 conv through a match table (the JAX package's ``dg_subm_conv_q``
+    and ``dg_regular_conv_q`` kernels) -> ``[pos.shape[1], K]`` int8.
+
+    ``acc[i] = sum_k x[pos[k, i]] @ weight_kv[k]`` in int32, then per channel
+    ``y = f32(acc) * scale + bias + f32(add) * add_scale``, ``act`` ("none"
+    or "relu"), rounded half to even and clipped to [-127, 127], each float
+    step rounded on its own as the TPU kernel does.  ``x``: ``[N_src, C]``
+    int8; ``weight_kv``: ``[kv, C, K]`` int8; ``pos``: ``[kv, N_dst]``
+    int32 in ``[-1, N_src)`` (trusted, as :func:`dg_fwd`'s); ``scale`` and
+    ``bias`` (or None): ``[K]`` f32, already divided by the output scale;
+    ``add``: ``[N_dst, K]`` int8 residual, subm path only; ``add_scale``:
+    a Python float, rounded to f32 once.  Rows without a match get the
+    epilogue of a zero sum.  ``path`` names the table and so the launch
+    count, as :func:`dg_fwd`'s."""
+    name = _count_name("dg_fwd_q", path)
+    _check(x.dtype == weight_kv.dtype == torch.int8,
+           f"{name} takes int8 features and weights, got {x.dtype} and "
+           f"{weight_kv.dtype}")
+    _check(x.ndim == 2 and weight_kv.ndim == 3 and pos.ndim == 2,
+           f"{name}: x must be [N, C], weight_kv [kv, C, K], pos [kv, N]")
+    _check(weight_kv.shape[1] == x.shape[1],
+           f"{name}: weight is {tuple(weight_kv.shape)}, features have width "
+           f"{x.shape[1]}")
+    kv, _, k_out = weight_kv.shape
+    n = pos.shape[1]
+    _check(pos.shape[0] == kv and (path != "subm" or n == x.shape[0]),
+           f"{name}: pos is {tuple(pos.shape)} for {kv} offsets and "
+           f"{x.shape[0]} rows")
+    _check(pos.dtype == torch.int32, f"{name}: pos must be int32")
+    _check(act in _ACTS_Q, f"{name}: act must be one of {_ACTS_Q}, got "
+                           f"{act!r}")
+    vecs = [v for v in (scale, bias) if v is not None]
+    _check(all(v.dtype == torch.float32 and tuple(v.shape) == (k_out,)
+               for v in vecs), f"{name}: scale and bias must be [{k_out}] "
+                               "float32")
+    if add is not None:
+        _check(path == "subm", f"{name}: the residual add is subm-only")
+        _check(add.dtype == torch.int8 and tuple(add.shape) == (n, k_out),
+               f"{name}: add must be [{n}, {k_out}] int8, got "
+               f"{tuple(add.shape)} {add.dtype}")
+        vecs.append(add)
+    tensors = [x, weight_kv, pos] + vecs
+    _check(all(t.device == x.device for t in tensors),
+           f"{name}: operands must be on one device")
+    _check(all(t.is_contiguous() for t in tensors),
+           f"{name} needs contiguous tensors")
+    if x.device.type == "cpu":
+        return dg_fwd_q_plain(x, weight_kv, pos, scale, bias, act=act,
+                              add=add, add_scale=add_scale)
+    if x.device.type != "cuda":
+        raise NotImplementedError(f"no {name} kernel for {x.device}")
+    return _dg_fwd_q_cuda(x, weight_kv, pos, scale, bias, act, add,
+                          add_scale, name)
+
+
+def dg_fwd_q_plain(x: torch.Tensor, weight_kv: torch.Tensor,
+                   pos: torch.Tensor, scale: torch.Tensor,
+                   bias: Optional[torch.Tensor], *, act: str = "none",
+                   add: Optional[torch.Tensor] = None,
+                   add_scale: float = 1.0) -> torch.Tensor:
+    """Plain version of :func:`dg_fwd_q`: per offset, the matched rows'
+    products summed in float64 (exact: every partial sum of int8 products
+    stays far below 2^53, and torch has no integer matmul on CUDA), then the
+    epilogue as separate f32 ops in the kernel's order."""
+    acc = torch.zeros((pos.shape[1], weight_kv.shape[2]),
+                      dtype=torch.float64, device=x.device)
+    for k in range(weight_kv.shape[0]):
+        sel = torch.nonzero(pos[k] >= 0).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        rows = x[pos[k, sel].long()].double()
+        acc.index_add_(0, sel, rows @ weight_kv[k].double())
+    y = acc.float() * scale
+    if bias is not None:
+        y = y + bias
+    if add is not None:
+        y = y + add.float() * float(np.float32(add_scale))
+    if act == "relu":
+        y = torch.clamp_min(y, 0.0)
+    return torch.round(y).clamp_(-127.0, 127.0).to(torch.int8)
+
+
+def _dg_fwd_q_cuda(x, weight_kv, pos, scale, bias, act, add, add_scale,
+                   counter):
+    from .._build import load_library
+
+    c = x.shape[1]
+    kv, _, k_out = weight_kv.shape
+    n = pos.shape[1]
+    out = torch.empty((n, k_out), dtype=torch.int8, device=x.device)
+    if n == 0 or k_out == 0:
+        return out
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    err = load_library().dg_fwd_q_launch(
+        ptr(x), ptr(weight_kv), ptr(pos), ptr(scale), ptr(bias), ptr(add),
+        float(add_scale), int(act == "relu"), ptr(out), n, c, k_out, kv,
+        _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out

@@ -444,3 +444,101 @@ def test_unet_train_step_on_card_matches_cpu(dev):
         scale = ref[k].abs().max().item()
         err = (p.grad.cpu() - ref[k]).abs().max().item()
         assert scale > 0 and err <= 1e-4 * scale, (k, err, scale)
+
+
+def _q_operands(case, path, c, k_out, seed):
+    """int8 operands of B7 on conv ``path`` at ``case`` (a ``_STRIDED``
+    geometry; "subm" takes its input grid): features on the source rows (0
+    on inactive ones), weights, a requant scale that puts the outputs in
+    and past +-127, a bias, a residual and the forward's table, all on the
+    CPU."""
+    feats, in_keys, out_keys, geom = _strided_case(*case)
+    rng = np.random.RandomState(seed)
+    kv = int(np.prod(geom["ksize"]))
+    if path == "subm":
+        kv = KV
+        pos = TD.dg_pos_plain(in_keys, ksize=KSIZE, dilation=DIL,
+                              spatial_shape=geom["in_shape"],
+                              batch_size=geom["batch_size"])
+        n_src = in_keys.shape[0]
+        live = in_keys != TC.grid_sentinel(geom["in_shape"],
+                                           geom["batch_size"])
+    else:
+        build = (TD.dg_pos_affine_plain if path == "strided"
+                 else TD.dg_pos_divide_plain)
+        pos = build(in_keys, out_keys, **geom)
+        src_keys, shape = ((in_keys, geom["in_shape"]) if path == "strided"
+                           else (out_keys, geom["out_shape"]))
+        n_src = src_keys.shape[0]
+        live = src_keys != TC.grid_sentinel(shape, geom["batch_size"])
+    x = torch.from_numpy(rng.randint(-127, 128, (n_src, c)).astype(np.int8))
+    x[~live] = 0
+    w = torch.from_numpy(rng.randint(-127, 128, (kv, c, k_out))
+                         .astype(np.int8))
+    matched = max(1.0, float((pos >= 0).sum()) / pos.shape[1])
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, k_out) * 60
+                              / (5300 * np.sqrt(matched * c)))
+                             .astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-20, 20, k_out).astype(np.float32))
+    add = torch.from_numpy(rng.randint(-127, 128, (pos.shape[1], k_out))
+                           .astype(np.int8))
+    return x, w, pos, scale, bias, add
+
+
+@pytest.mark.parametrize("path,c,k_out,mode", [
+    ("subm", 5, 16, "relu+bias"), ("subm", 16, 16, "relu+bias"),
+    ("subm", 64, 64, "none"), ("subm", 128, 128, "relu+bias"),
+    ("subm", 12, 20, "none+bias"), ("subm", 16, 16, "relu+add"),
+    ("subm", 128, 128, "relu+bias+add"), ("strided", 16, 32, "relu+bias"),
+    ("strided", 128, 128, "none"), ("inverse", 32, 16, "relu+bias"),
+    ("inverse", 64, 32, "none")])
+def test_dg_fwd_q_kernel_matches_plain(dev, path, c, k_out, mode):
+    """B7 on the card bit-equal to its plain version (run on the CPU) on
+    every path and epilogue mode, and two runs bit-equal; one launch under
+    the path's counter."""
+    x, w, pos, scale, bias, add = _q_operands(_STRIDED[0], path, c, k_out,
+                                              15)
+    kw = dict(act="relu" if "relu" in mode else "none",
+              add=add if "add" in mode else None, add_scale=0.37)
+    bias = bias if "bias" in mode else None
+    ref = TD.dg_fwd_q_plain(x, w, pos, scale, bias, **kw)
+    assert (ref.abs() == 127).any() and (ref != 0).any()
+    on = [t.to(dev) if t is not None else None
+          for t in (x, w, pos, scale, bias, kw["add"])]
+    kw["add"] = on[5]
+    name = "dg_fwd_q" if path == "subm" else f"dg_fwd_q_{path}"
+    before = dict(TD.launch_counts)
+    got = TD.dg_fwd_q(*on[:5], path=path, **kw)
+    again = TD.dg_fwd_q(*on[:5], path=path, **kw)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == dict(before, **{name: before[name] + 2})
+    assert got.dtype == torch.int8 and tuple(got.shape) == tuple(ref.shape)
+    assert torch.equal(got, again)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_int8_encoder_on_card_matches_cpu(dev):
+    """A small int8 CenterPoint encoder (quantized on the CPU from scales
+    observed there) served on the card against its plain run on the CPU:
+    coordinates and int8 outputs equal, bit for bit.  A request launches 4
+    subm and 4 affine tables, 17 subm and 4 strided B7 and no B2."""
+    from spconv_tpu_torch.quantization import (observe_encoder_scales,
+                                               quantize_encoder)
+
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                           n_target=1500, device="cpu")
+    net = centerpoint_encoder(in_channels=5, bn=False, device="cpu").eval()
+    qnet = quantize_encoder(net, scales=observe_encoder_scales(net, [x]))
+    with torch.no_grad():
+        ref = qnet(x)
+        qnet.to(dev)
+        xd = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                             n_target=1500, device=dev)[0]
+        TD.reset_launch_counts()
+        got = qnet(xd)
+        torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_pos=4, dg_pos_affine=4,
+                                       dg_fwd_q=17, dg_fwd_q_strided=4)
+    assert torch.equal(got.indices.cpu(), ref.indices)
+    assert ref.features.abs().max() > 0
+    assert torch.equal(got.features.cpu(), ref.features)
