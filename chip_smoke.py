@@ -49,7 +49,19 @@ line is printed):
    on the card, and the BEV against the f32 encoder's; host ms, device
    busy share and peak memory beside the bf16 request's; an int8
    downsample + inverse pair against plain;
-9. prints a JSON line of the kernels, each with its bound (the least time
+9. the sorted-key pool (B6, ``csrc/sk_pool.cu``): the kernel bit-equal to
+   its plain version (max; mean within 1e-6 of max|ref|) at the six
+   BenchNet pool shapes, f32 and bf16, with CUDA-event ms of the kernel,
+   the plain version and the seg route (``pool2_seg``) and its bound; NaN
+   and +-inf inputs; the backward on the card against the CPU's.  Then the
+   bf16 BenchNet with its six pools on ``SparseMaxPool3d(2, 2,
+   algo="sk")``: three served requests (7 ``dg_pos``, 14 ``dg_fwd``, 6
+   ``sk_pool`` launches each) bit-equal at every stage to phase 4's
+   seg-pool net, host ms and device busy beside the seg-pool net's; three
+   training steps with launch counts and finite grads; the f32 grads
+   against the plain conv backward; and a ``SparseAvgPool3d(algo="sk")``
+   net against the seg mean route, stage by stage;
+10. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -108,6 +120,10 @@ INT8_L2_ERR = 0.1
 # kernel's bound: bf16 and int8 tensor cores, f32 FMA outside them, HBM3
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES = 3.35e12
+# B6's mean against its plain version (and its backward on the card
+# against the CPU's), of max|ref|: both sum in f32 in child order and
+# divide once, so they should agree exactly
+SK_MEAN_TOL = 1e-6
 
 
 def expected(D, **nonzero):
@@ -1070,6 +1086,255 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
     return tally, serve_launches, pair_launches
 
 
+def pool_bound(n_act, n_buf, m, c, esz):
+    """B6: the features of the ``n_act`` active input rows read once (the
+    only rows a child can match), the ``[m, c]`` output written once and
+    both key arrays read once; a compare or an add per element, so bound
+    by bytes."""
+    return bound((n_act + m) * c * esz + 4 * (n_buf + m))
+
+
+def sk_pool_phase(torch, dev, gen, scans, geo, bounds, served):
+    """Phase 9: the sorted-key pool (B6).  The kernel against its plain
+    version at the six BenchNet pool shapes (``geo``: each pool's input,
+    ``bounds``: its output buffer), max and mean, f32 and bf16, timed with
+    the seg route (``pool2_seg``) beside it; NaN and +-inf on the card; the
+    backward on the card against the CPU's.  Then the bf16 BenchNet with
+    its six pools on ``algo="sk"``: served on the three scans (bit-equal to
+    phase 4's seg-pool outputs in ``served``), trained three steps, the f32
+    grads against the plain backward; and an ``algo="sk"``
+    ``SparseAvgPool3d`` net against the seg mean route.  Returns ``(tally
+    by mode, seg-route ms by mode, (max|d|, max|d|/max|ref|) by mode,
+    serve launches, train launches, avg-net launches)``."""
+    import numpy as np
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.modules import SparseAvgPool3d, SparseMaxPool3d
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops import sorted_pool as SKP
+    from spconv_tpu_torch.ops.pool import pool2_seg
+    from spconv_tpu_torch.ops.rulebook import build_pool2_outputs
+
+    modes = ("max", "mean")
+    tally = {m: Tally() for m in modes}
+    seg_ms = dict.fromkeys(modes, 0.0)
+    errs = {m: (0.0, 0.0) for m in modes}
+    print("sk_pool: pool rows_in active C rows_out(bound) dtype mode "
+          "max|d|/max|ref| kernel_ms plain_ms seg_route_ms bound_ms")
+    for s in range(6):
+        g = geo[s]
+        c = B.CHANNELS[2 * s + 2]
+        n, n_act = g.indices.shape[0], int(g.num_voxels)
+        _, out_keys, n_out, _ = build_pool2_outputs(
+            g.indices, spatial_shape=g.spatial_shape, batch_size=1,
+            out_bound=bounds[s])
+        in_keys, _ = C.linearize(g.indices, g.spatial_shape, 1)
+        kw = dict(in_shape=g.spatial_shape, out_shape=geo[s + 1].spatial_shape,
+                  batch_size=1)
+        xf = torch.randn((n, c), device=dev, generator=gen) \
+            * g.valid_mask[:, None]
+        for dt in (torch.float32, torch.bfloat16):
+            x = xf.to(dt).contiguous()
+            dtn = str(dt)[6:]
+            for mode in modes:
+                got = SKP.sk_pool2(x, in_keys, out_keys, mode=mode, **kw)
+                ref = SKP.sk_pool2_plain(x, in_keys, out_keys, mode=mode,
+                                         **kw)
+                seg = pool2_seg(x, g.indices, spatial_shape=g.spatial_shape,
+                                batch_size=1, out_bound=bounds[s],
+                                mode=mode)[0]
+                diff, r = rel_err(torch, got, ref)
+                if mode == "max":
+                    check(torch.equal(got, ref), f"sk_pool max pool {s} "
+                          f"{dtn}: differs from plain ({diff:.3e})")
+                    check(torch.equal(got, seg), f"sk_pool max pool {s} "
+                          f"{dtn}: differs from the seg route")
+                else:
+                    check(r <= SK_MEAN_TOL, f"sk_pool mean pool {s} {dtn}: "
+                          f"{r:.3e} > {SK_MEAN_TOL} of max|ref|")
+                    _, r_seg = rel_err(torch, got, seg)
+                    check(r_seg <= TOL[dtn], f"sk_pool mean pool {s} {dtn}: "
+                          f"{r_seg:.3e} from the seg route")
+                errs[mode] = (max(errs[mode][0], diff),
+                              max(errs[mode][1], r))
+                km = cuda_ms(torch, lambda: SKP.sk_pool2(
+                    x, in_keys, out_keys, mode=mode, **kw), 20)
+                pm = cuda_ms(torch, lambda: SKP.sk_pool2_plain(
+                    x, in_keys, out_keys, mode=mode, **kw), 3)
+                sm = cuda_ms(torch, lambda: pool2_seg(
+                    x, g.indices, spatial_shape=g.spatial_shape,
+                    batch_size=1, out_bound=bounds[s], mode=mode), 5)
+                bnd = pool_bound(n_act, n, bounds[s], c, x.element_size())
+                if dt == torch.bfloat16:
+                    tally[mode].add(km, pm, bnd)
+                    seg_ms[mode] += sm
+                print(f"  pool{s} {n:6d} {n_act:6d} {c:4d} {int(n_out):6d}"
+                      f"({bounds[s]}) {dtn:9s} {mode:4s} {r:12.3e}  "
+                      f"{km:9.4f}  {pm:8.4f}  {sm:8.4f}  {bnd[0]:.4f}")
+        if s == 0:
+            # non-finite features, and the backward on the card vs the CPU
+            bad = xf.clone()
+            rows = torch.nonzero(g.valid_mask).squeeze(1)
+            bad[rows[5], 1] = float("nan")
+            bad[rows[50], 2] = float("inf")
+            bad[rows[80], 3] = float("-inf")
+            dout = torch.randn((bounds[s], c), device=dev, generator=gen)
+            for dt in (torch.float32, torch.bfloat16):
+                for mode in modes:
+                    xb = bad.to(dt).contiguous()
+                    got = SKP.sk_pool2(xb, in_keys, out_keys, mode=mode, **kw)
+                    ref = SKP.sk_pool2_plain(xb, in_keys, out_keys,
+                                             mode=mode, **kw)
+                    same = torch.equal(got.isnan(), ref.isnan()) and \
+                        torch.equal(torch.nan_to_num(got),
+                                    torch.nan_to_num(ref))
+                    check(same and (mode == "mean"
+                                    or bool(torch.isfinite(got).all())),
+                          f"sk_pool {mode} {dt} with NaN/inf differs from "
+                          "plain")
+                    # a grid of 0.5, so that children tie
+                    xg = (xf * 2).round().div(2).to(dt)
+                    args = (in_keys, out_keys, (kw["in_shape"],
+                                                kw["out_shape"], 1, mode))
+                    cuda_x = xg.clone().requires_grad_()
+                    out = SKP.SKPool2Fn.apply(cuda_x, *args)
+                    out.backward(dout.to(dt))
+                    cpu_x = xg.cpu().requires_grad_()
+                    out_c = SKP.SKPool2Fn.apply(
+                        cpu_x, in_keys.cpu(), out_keys.cpu(), args[2])
+                    out_c.backward(dout.to(dt).cpu())
+                    _, r = rel_err(torch, cuda_x.grad.cpu(), cpu_x.grad)
+                    check(r <= SK_MEAN_TOL, f"sk_pool {mode} {dt} backward "
+                          f"on the card vs the CPU: {r:.3e}")
+            print("  pool0: NaN/+-inf inputs equal to plain (max finite); "
+                  "the backward on the card equal to the CPU's")
+    print(f"per bf16 forward (6 pools): max {tally['max']}, seg route "
+          f"{seg_ms['max']:.4f} ms; mean {tally['mean']}, seg route "
+          f"{seg_ms['mean']:.4f} ms")
+
+    def sk_net(dtype, cls=SparseMaxPool3d, algo="sk", train=False):
+        net = B.BenchNet(SHAPE, dtype=dtype, pool_bounds=bounds, device=dev,
+                         seed=0)
+        for i in range(6):
+            net.pools[i] = cls(2, 2, algo=algo, out_bound=bounds[i])
+        return net if train else net.eval()
+
+    # serve: 3 requests, each bit-equal to phase 4's seg-pool net
+    net = sk_net(torch.bfloat16)
+    seg_net = B.BenchNet(SHAPE, dtype=torch.bfloat16, pool_bounds=bounds,
+                         device=dev, seed=0).eval()
+    per_request = expected(D, dg_pos=7, dg_fwd=14, sk_pool=6)
+    with torch.inference_mode():
+        net(served[0][1])  # warm-up
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        for seed, x, stages, seg_ms_req in served:
+            before = dict(D.launch_counts)
+            t0 = time.perf_counter()
+            got = net.forward_stages(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            delta = {k: D.launch_counts[k] - before[k] for k in before}
+            check(delta == per_request, f"sk-pool request {seed}: launches "
+                  f"{delta}, expected {per_request}")
+            for i, (a, b) in enumerate(zip(got, stages)):
+                check(torch.equal(a.indices, b.indices)
+                      and torch.equal(a.features, b.features),
+                      f"sk-pool request {seed}: stage {i} differs from the "
+                      "seg-pool net's")
+            print(f"sk-pool request seed={seed} ms={ms:.3f} (seg-pool "
+                  f"phase 4: {seg_ms_req:.3f}); output bit-equal to the "
+                  "seg-pool net's at every stage")
+        serve_launches = dict(D.launch_counts)
+        x0 = served[0][1]
+        busy = [(name, device_busy(torch, lambda: m(x0), 3))
+                for name, m in (("seg", seg_net), ("sk", net), ("sk", net),
+                                ("seg", seg_net))]
+    print("sk-pool vs seg-pool BenchNet, 3 bf16 requests of seed 0 a "
+          "window, in turns: " + "; ".join(
+              f"{name} host {w:.3f} ms busy "
+              f"{'none' if b is None else f'{b:.3f}'} ms {k} ops"
+              for name, (w, b, k) in busy))
+
+    # train: 3 bf16 steps
+    step = dict(dg_pos=7, dg_pos_rev=7, dg_fwd=14, dg_dgrad=13, dg_wgrad=14,
+                sk_pool=6)
+    net = sk_net(torch.bfloat16, train=True)
+    # phase 4's inputs are inference tensors, which autograd cannot save
+    xs = [B.make_bench_input(*scans[s], dtype=torch.bfloat16, device=dev)
+          for s in REQUEST_SEEDS]
+    B.train_step(net, xs[0], 0.0)  # warm-up, no update
+    torch.cuda.synchronize()
+    lr = 1e-2 * max(p.abs().max().item() for p in net.parameters()) / max(
+        p.grad.abs().max().item() for p in net.parameters())
+    D.reset_launch_counts()
+    for seed, x in zip(REQUEST_SEEDS, xs):
+        before = dict(D.launch_counts)
+        t0 = time.perf_counter()
+        loss = B.train_step(net, x, lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: D.launch_counts[k] - before[k] for k in before}
+        check(delta == expected(D, **step), f"sk-pool train step {seed}: "
+              f"launches {delta}")
+        loss = loss.item()
+        check(np.isfinite(loss) and loss > 0, f"sk-pool step {seed}: loss "
+              f"{loss}")
+        for name, p in net.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  and bool(p.grad.any()),
+                  f"sk-pool step {seed}: {name} grad missing, 0 or not "
+                  "finite")
+        print(f"sk-pool train step seed={seed} ms={ms:.3f} loss={loss:.6e}")
+    train_launches = dict(D.launch_counts)
+
+    # the f32 net: grads through the kernels vs the plain conv backward,
+    # both with the sk pools' forward on B6 and their torch-ops backward
+    nets = [sk_net(torch.float32, train=True) for _ in range(2)]
+    x32 = B.make_bench_input(*scans[0], device=dev)
+    losses = [B.train_step(nets[0], x32, 0.0).item()]
+    loss_p = (plain_forward_stages(torch, nets[1], x32, train=True,
+                                   kernel_fwd=True)[-1]
+              .features.float() ** 2).sum()
+    loss_p.backward()
+    losses.append(loss_p.item())
+    check(abs(losses[0] - losses[1]) <= NET_F32_TOL * abs(losses[1]),
+          f"sk-pool f32 losses {losses}")
+    worst = max((rel_err(torch, a.grad, b.grad)[1], name)
+                for (name, a), (_, b) in zip(nets[0].named_parameters(),
+                                             nets[1].named_parameters()))
+    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
+          f"sk-pool f32 grad {worst[1]}: {worst[0]:.3e} > {GRAD_F32_TOL}")
+    print(f"sk-pool train f32 seed=0: loss kernels {losses[0]:.9e}, plain "
+          f"conv backward {losses[1]:.9e}; worst weight grad "
+          f"max|d|/max|ref| {worst[0]:.3e} ({worst[1]}, tolerance "
+          f"{GRAD_F32_TOL})")
+
+    # SparseAvgPool3d on algo="sk" against the seg mean route
+    avg_sk = sk_net(torch.bfloat16, SparseAvgPool3d)
+    avg_seg = sk_net(torch.bfloat16, SparseAvgPool3d, algo="seg")
+    with torch.inference_mode():
+        D.reset_launch_counts()
+        a_st = avg_sk.forward_stages(x0)
+        torch.cuda.synchronize()
+        avg_launches = dict(D.launch_counts)
+        check(avg_launches == per_request,
+              f"avg sk-pool launches {avg_launches}")
+        b_st = avg_seg.forward_stages(x0)
+        rels = []
+        for i, (a, b) in enumerate(zip(a_st, b_st)):
+            check(torch.equal(a.indices, b.indices),
+                  f"avg nets: stage {i} coordinates differ")
+            rels.append(rel_err(torch, a.features, b.features)[1])
+            check(rels[-1] <= TOL["bfloat16"], f"avg nets: stage {i} "
+                  f"{rels[-1]:.3e} > {TOL['bfloat16']}")
+    print(f"avg-pool BenchNet (bf16, seed 0), algo='sk' vs the seg mean "
+          f"route: max|d|/max|ref| per stage {[f'{r:.2e}' for r in rels]}; "
+          f"launches {avg_launches}")
+    return (tally, seg_ms, errs, serve_launches, train_launches,
+            avg_launches)
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
@@ -1668,7 +1933,11 @@ def main():
     q_tot, q_serve, q_pair = int8_phase(torch, dev, gen, cp_in, cp16, cp_net,
                                         net32, cp_rec, note)
 
-    # ---- 9. report ---------------------------------------------------
+    # ---- 9. the sorted-key pool (B6) ----------------------------------
+    (sk_pool, sk_seg_ms, sk_pool_err, sk_serve, sk_train,
+     sk_avg) = sk_pool_phase(torch, dev, gen, scans, geo, bounds, served)
+
+    # ---- 10. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against
         its plain version, ``t`` its Tally of times and bound."""
@@ -1791,6 +2060,19 @@ def main():
             pallas + "sorted_conv.py:573 (sk_subm_conv_q :704, launched at "
             ":805)", q_serve["dg_fwd_q"], errs("dg_fwd_q"),
             q_tot["dg_fwd_q"]),
+        # no single PyTorch call searches the children: the yardstick is
+        # the port's seg route (pool2_seg: a sort and a scatter) at the
+        # same shapes, with its own output discovery
+        row("sk_pool", csrc + "sk_pool.cu",
+            pallas + "sorted_pool.py:92 (_sk_pool_kernel, mode max; "
+            "launched at :309 by sk_pool2 :226, wrapped by sk_pool2_ad "
+            ":320)", sk_train["sk_pool"], sk_pool_err["max"],
+            sk_pool["max"], serve_launches=sk_serve["sk_pool"],
+            seg_route_ms=sk_seg_ms["max"]),
+        row("sk_pool_mean", csrc + "sk_pool.cu",
+            pallas + "sorted_pool.py:92 (_sk_pool_kernel, mode mean; "
+            "launched at :309)", sk_avg["sk_pool"], sk_pool_err["mean"],
+            sk_pool["mean"], seg_route_ms=sk_seg_ms["mean"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on its "

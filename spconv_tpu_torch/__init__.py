@@ -8,7 +8,9 @@ plain PyTorch version that CPU tensors take.  It never imports ``jax``.
 
 Ported so far: the reference benchmark net (``benchmark.basic``) serving and
 training (submanifold convs on the dynamic-gather path, forward and
-backward; the 2x/stride-2 max pool); the CenterPoint / SECOND encoder
+backward; the 2x/stride-2 max and average pools on the segment route and
+on the sorted-key route, whose kernel is B6, and the global pools); the
+CenterPoint / SECOND encoder
 (``models``: strided ``SparseConv3d``, ``BatchNorm1d``,
 ``SparseConvTensor.dense`` and out-bound calibration, ``calibrate``); and
 the segmentation ``SparseUNet`` serving and training, through
@@ -22,16 +24,19 @@ is still to come.
 
 __version__ = "0.1.0"
 
-from . import (calibrate, checkpoint, constants, models, ops,
+from . import (calibrate, checkpoint, constants, debug_utils, models, ops,
                quantization)
 from .checkpoint import load_jax_state_dict
 from .core import SparseConvTensor, default_device, expand_nd
 from .models import SparseUNet
 from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
-                      JoinTable, SparseConv3d, SparseConvolution,
-                      SparseInverseConv3d, SparseMaxPool, SparseMaxPool3d,
-                      SparseModule, SparseReLU, SparseSequential,
-                      SubMConv3d)
+                      JoinTable, SparseAvgPool, SparseAvgPool1d,
+                      SparseAvgPool2d, SparseAvgPool3d, SparseConv3d,
+                      SparseConvolution, SparseGlobalAvgPool,
+                      SparseGlobalMaxPool, SparseInverseConv3d, SparseMaxPool,
+                      SparseMaxPool1d, SparseMaxPool2d, SparseMaxPool3d,
+                      SparseMaxPool4d, SparseModule, SparseReLU,
+                      SparseSequential, SubMConv3d)
 
 __all__ = [
     "SparseConvTensor",
@@ -47,7 +52,16 @@ __all__ = [
     "SparseUNet",
     "BatchNorm1d",
     "SparseMaxPool",
+    "SparseMaxPool1d",
+    "SparseMaxPool2d",
     "SparseMaxPool3d",
+    "SparseMaxPool4d",
+    "SparseAvgPool",
+    "SparseAvgPool1d",
+    "SparseAvgPool2d",
+    "SparseAvgPool3d",
+    "SparseGlobalMaxPool",
+    "SparseGlobalAvgPool",
     "SparseModule",
     "SparseReLU",
     "SparseSequential",
@@ -57,6 +71,7 @@ __all__ = [
     "calibrate",
     "checkpoint",
     "constants",
+    "debug_utils",
     "models",
     "ops",
     "quantization",

@@ -132,6 +132,10 @@ def load_library() -> ctypes.CDLL:
                                 vp],
         "dg_wgrad_bf16_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                  i32, vp],
+        # feat, bf16, in_keys, n, out_keys, m, C, geom, sent_out, mean,
+        # out, stream
+        "sk_pool_launch": [vp, i32, vp, i32, vp, i32, i32,
+                           ctypes.POINTER(i32), i32, i32, vp, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

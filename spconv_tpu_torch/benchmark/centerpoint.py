@@ -4,7 +4,7 @@
 The JAX package voxelizes the reference's real LiDAR scan
 (``benchmark-pc.npz``) at 0.1 m over ``[-51.2, 51.2]^2 x [-5, 3]`` into an
 ``[80, 1024, 1024]`` grid.  That file is not in the repository, and the
-voxelizer (``PointToVoxel``) is not ported yet (ROADMAP A10), so
+voxelizer (``PointToVoxel``) is not ported yet, so
 :func:`synthetic_centerpoint_input` stands in: a seeded
 ``basic.synthetic_scan`` on the same grid with 113,000 voxels and the
 nuScenes intensity and timestamp columns added, as the JAX loader adds

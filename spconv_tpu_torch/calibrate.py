@@ -9,7 +9,7 @@ the host, so it syncs once per layer; served forwards never record.
 
 As in the JAX package the recorded count is the clamped ``num_out``: a
 layer whose output was already cut by its bound calibrates to the cut
-size (ROADMAP C).
+size (a reference behaviour, listed in ROADMAP.md).
 """
 
 from __future__ import annotations

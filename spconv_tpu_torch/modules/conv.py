@@ -3,11 +3,15 @@
 
 Ported: the submanifold conv, the regular (strided) conv and the inverse
 conv on the dynamic-gather (DG) path, each forward and backward, and the
-1x1 path.  A subm stage's match table is built once per ``indice_key``,
-cached in ``indice_dict`` with the geometry it was built for, and reused by
-every later layer of the stage; its reversed table (the backward's) is
-added to the same record the first time a layer of the stage runs with a
-gradient wanted, and never under ``torch.no_grad()`` or
+1x1 path (kernel 1 with a subm or stride-1 geometry, the inverse conv's
+included: a plain matmul on the input's own sites).  A subm stage's match
+table is built once per ``indice_key`` and geometry (kernel size and
+dilation), cached in ``indice_dict`` with the geometry it was built for,
+and reused by every later layer of the stage that has that geometry: the
+stage's first geometry under ``indice_key`` itself, another one under
+``DGData.cache_key(indice_key, ksize, dilation)``.  Its reversed table (the
+backward's) is added to the same record the first time a layer of the
+stage runs with a gradient wanted, and never under ``torch.no_grad()`` or
 ``torch.inference_mode()``.
 
 A regular conv discovers its output sites (``ops.rulebook.
@@ -29,8 +33,8 @@ tables through the same kernels; its regular-conv record lives under
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 computed some other way: the native rulebook path (any other ``algo``, and
-input that is not key-sorted; ROADMAP A4-A5) and transposed convs (their
-output discovery ``build_deconv_outputs``, ROADMAP A4).
+input that is not key-sorted) and transposed convs (their output discovery
+``build_deconv_outputs``).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from torch import nn
 from .. import calibrate
 from ..constants import DEFAULT_ALGO
 from ..core import SparseConvTensor, default_device, expand_nd
+from ..debug_utils import maybe_assert_overflow
 from ..ops import coords as C
 from ..ops.dg_conv import build_dg_pos, dg_regular_conv, dg_subm_conv
 from ..ops.epilogue import bias_add_act
@@ -74,6 +79,16 @@ class DGData:
         self.ksize = tuple(ksize)
         self.dilation = tuple(dilation)
         self.spatial_shape = tuple(spatial_shape)
+
+    @staticmethod
+    def cache_key(indice_key: str, ksize: Sequence[int],
+                  dilation: Sequence[int]) -> str:
+        """The ``indice_dict`` key of a stage's record for a kernel size or
+        dilation other than that of the record under ``indice_key`` (the
+        JAX package's ``DGData.cache_key`` without its TPU window and row
+        terms)."""
+        return (f"__dg__{indice_key}/{tuple(int(k) for k in ksize)}"
+                f"/{tuple(int(d) for d in dilation)}")
 
 
 class DGRegData:
@@ -152,12 +167,13 @@ class SparseConvolution(SparseModule):
         self.dilation = expand_nd(ndim, dilation)
         self.output_padding = expand_nd(ndim, output_padding)
         kv = int(np.prod(self.kernel_size))
-        self.conv1x1 = (kv == 1 and not inverse
-                        and (subm or self.stride == (1,) * ndim))
+        # as the JAX package: kernel 1 with a subm or stride-1 geometry is
+        # a plain matmul on the input's sites, an inverse conv's too
+        self.conv1x1 = kv == 1 and (subm or self.stride == (1,) * ndim)
         if transposed:
             raise NotImplementedError(
                 "transposed convs are not ported yet: their output "
-                "discovery (build_deconv_outputs) waits for ROADMAP A4")
+                "discovery (build_deconv_outputs) is still to come")
         if inverse and indice_key is None:
             raise ValueError("an inverse conv requires the indice_key of "
                              "the regular conv it inverts")
@@ -228,12 +244,12 @@ class SparseConvolution(SparseModule):
             raise NotImplementedError(
                 f"algo={self.algo!r}: only the dynamic-gather path (and "
                 "\"sk\", which shares its kernels) is ported; the native "
-                "rulebook path waits for ROADMAP A4-A5")
+                "rulebook path is not ported yet")
         if not input.keys_sorted:
             raise NotImplementedError(
                 "the DG conv needs key-sorted input (call sort_by_key()); "
-                "unsorted input takes the native rulebook path, which "
-                "waits for ROADMAP A4-A5")
+                "unsorted input takes the native rulebook path, which is "
+                "not ported yet")
         if self.subm:
             return self._call_dg(input, add_input)
         if self.inverse:
@@ -250,25 +266,41 @@ class SparseConvolution(SparseModule):
         return torch.where(valid[:, None], out_feat,
                            torch.zeros_like(out_feat))
 
+    def _stage_key(self, input: SparseConvTensor) -> Optional[str]:
+        """The ``indice_dict`` key of this layer's subm record:
+        ``indice_key`` unless that holds a record of another kernel size or
+        dilation, then :meth:`DGData.cache_key`.  None without an
+        ``indice_key``.  A key that holds a record of another kind
+        raises."""
+        if self.indice_key is None:
+            return None
+        rec = input.indice_dict.get(self.indice_key)
+        if rec is not None and not isinstance(rec, DGData):
+            raise ValueError(
+                f"indice_key={self.indice_key!r} holds a "
+                f"{type(rec).__name__}, not a subm match table")
+        if rec is None or (rec.ksize, rec.dilation) == (self.kernel_size,
+                                                        self.dilation):
+            return self.indice_key
+        return DGData.cache_key(self.indice_key, self.kernel_size,
+                                self.dilation)
+
     def _stage_pos(self, input: SparseConvTensor, need_rev: bool):
-        """The stage's match tables ``(pos, pos_rev, new_rec)``: reused
-        from ``indice_dict`` when this ``indice_key`` already built them,
-        else built (``new_rec`` is then the record to cache).  ``pos_rev``
-        is built only when ``need_rev``, once per stage: it is added to a
-        cached record that lacks it."""
+        """The stage's match tables ``(pos, pos_rev, new)``: reused from
+        ``indice_dict`` when a layer of this ``indice_key`` and geometry
+        already built them, else built (``new`` is then the pair ``(key,
+        record)`` to cache).  ``pos_rev`` is built only when ``need_rev``,
+        once per stage: it is added to a cached record that lacks it.  A
+        record whose spatial shape or buffer size differs from ``input``'s
+        raises."""
         shape = tuple(input.spatial_shape)
         geom = dict(ksize=self.kernel_size, dilation=self.dilation,
                     spatial_shape=shape, batch_size=input.batch_size)
-        rec = input.find_indice_pair(self.indice_key)
+        key = self._stage_key(input)
+        rec = input.find_indice_pair(key)
         if rec is not None:
-            if not isinstance(rec, DGData):
-                raise ValueError(
-                    f"indice_key={self.indice_key!r} holds a "
-                    f"{type(rec).__name__}, not a subm match table")
             mismatch = [
                 (what, got, want) for what, got, want in (
-                    ("ksize", rec.ksize, self.kernel_size),
-                    ("dilation", rec.dilation, self.dilation),
                     ("spatial shape", rec.spatial_shape, shape),
                     ("buffer N", rec.pos.shape[1], input.indices.shape[0]),
                 ) if got != want]
@@ -284,17 +316,17 @@ class SparseConvolution(SparseModule):
         pos = build_dg_pos(keys, **geom)
         pos_rev = (build_dg_pos(keys, reverse=True, **geom) if need_rev
                    else None)
-        if self.indice_key is None:
+        if key is None:
             return pos, pos_rev, None
-        return pos, pos_rev, DGData(keys, pos, ksize=self.kernel_size,
-                                    dilation=self.dilation,
-                                    spatial_shape=shape, pos_rev=pos_rev)
+        return pos, pos_rev, (key, DGData(
+            keys, pos, ksize=self.kernel_size, dilation=self.dilation,
+            spatial_shape=shape, pos_rev=pos_rev))
 
     def _call_dg(self, input: SparseConvTensor,
                  add_input: Optional[SparseConvTensor]) -> SparseConvTensor:
         need_rev = torch.is_grad_enabled() and (
             input.features.requires_grad or self.weight.requires_grad)
-        pos, pos_rev, new_rec = self._stage_pos(input, need_rev)
+        pos, pos_rev, new = self._stage_pos(input, need_rev)
         out_feat = dg_subm_conv(input.features, self.weight, pos, pos_rev)
         out = SparseConvTensor(
             self._epilogue(out_feat, input.valid_mask, add_input),
@@ -305,8 +337,8 @@ class SparseConvolution(SparseModule):
             indice_dict=dict(input.indice_dict),
             keys_sorted=True,
         )
-        if new_rec is not None:
-            out.indice_dict[self.indice_key] = new_rec
+        if new is not None:
+            out.indice_dict[new[0]] = new[1]
         return out
 
     def _regular_record(self, input: SparseConvTensor) -> DGRegData:
@@ -334,6 +366,8 @@ class SparseConvolution(SparseModule):
             ksize=self.kernel_size, stride=self.stride,
             padding=self.padding, dilation=self.dilation,
             out_bound=self._resolve_out_bound(indices.shape[0]))
+        maybe_assert_overflow(num_out_total, out_keys.shape[0],
+                              self.name or type(self).__name__)
         in_keys, _ = C.linearize(indices, in_shape, input.batch_size)
         return DGRegData(in_keys, out_keys, out_indices, num_out,
                          num_out_total, None, **geom)

@@ -57,7 +57,7 @@ def grid_sentinel(spatial_shape: Sequence[int], batch_size: int) -> int:
     if vol >= _KEY32_LIMIT:
         raise NotImplementedError(
             f"grid batch*{tuple(spatial_shape)} needs two-word keys, which "
-            "the port does not have yet (ROADMAP A3: one int64 key)")
+            "the port does not have yet (one int64 key is still to come)")
     return vol
 
 

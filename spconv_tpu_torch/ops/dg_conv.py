@@ -86,15 +86,16 @@ __all__ = [
 # subm path, "dg_fwd_strided" and "dg_fwd_inverse" the others, and so on
 PATHS = ("subm", "strided", "inverse")
 
-# launches of each kernel wrapper since the last reset_launch_counts();
-# "dg_pos" counts forward subm tables, "dg_pos_rev" reversed ones,
-# "dg_pos_affine" and "dg_pos_divide" a regular conv's two tables
+# launches of each kernel wrapper of the port since the last
+# reset_launch_counts(); "dg_pos" counts forward subm tables, "dg_pos_rev"
+# reversed ones, "dg_pos_affine" and "dg_pos_divide" a regular conv's two
+# tables, "sk_pool" the sorted-key pool (ops/sorted_pool.py)
 launch_counts = dict.fromkeys(
     ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_pos_divide",
      "dg_fwd", "dg_fwd_strided", "dg_fwd_inverse",
      "dg_fwd_q", "dg_fwd_q_strided", "dg_fwd_q_inverse",
      "dg_dgrad", "dg_dgrad_strided", "dg_dgrad_inverse",
-     "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse"), 0)
+     "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse", "sk_pool"), 0)
 
 _MAX_NDIM = 4
 

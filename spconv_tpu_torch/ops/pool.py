@@ -1,8 +1,12 @@
 """Sparse pooling compute (counterpart of ``spconv_tpu/ops/pool.py``).
 
-Only ``pool2_seg`` is ported: the kernel-2 / stride-2 / pad-0 max pool that
-the benchmark net runs.  It is plain tensor code in the JAX package too (no
-Pallas kernel), so it stays torch ops here.
+Ported: ``pool2_seg``, the kernel-2 / stride-2 / pad-0 max or mean pool of
+the segment route, and ``global_pool``.  Both are plain tensor code in the
+JAX package too (no Pallas kernel), so they stay torch ops here and
+differentiate through autograd.  The sorted-key route of the same pool,
+which runs kernel B6, is ``ops/sorted_pool.py``.  ``indice_maxpool`` and
+``indice_avgpool`` belong to the native rulebook path, which is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -12,9 +16,16 @@ from typing import Sequence, Tuple
 import torch
 
 from . import coords as C
-from .rulebook import unique_sorted_keys
+from .rulebook import pool2_parent_keys, unique_sorted_keys
 
-__all__ = ["pool2_seg"]
+__all__ = ["pool2_seg", "global_pool"]
+
+_MODES = ("max", "mean")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _MODES:
+        raise ValueError(f"pool mode must be one of {_MODES}, got {mode!r}")
 
 
 def pool2_seg(
@@ -26,57 +37,86 @@ def pool2_seg(
     out_bound: int,
     mode: str = "max",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Output discovery and max reduction for the 2x/stride-2 pool.
+    """Output discovery and reduction for the 2x/stride-2 pool.
 
     One stable sort of the parent keys puts every output's children next to
-    each other; a scatter-max over the (non-decreasing) segment ids reduces
+    each other; a scatter over the (non-decreasing) segment ids reduces
     them.  Semantics kept from the JAX package:
 
     * inputs on an odd edge fall outside the last full window and are
       dropped (VALID pooling);
     * at most ``out_bound`` outputs are kept, those with the smallest parent
       keys, and ``num_out_total`` counts the outputs before that cut;
-    * the max stays in the feature dtype; output rows that have no input
+    * ``"max"`` stays in the feature dtype; output rows that have no input
       are masked by presence (a genuine -inf or NaN feature survives);
+    * ``"mean"`` sums in f32, divides by the number of children (at least
+      1) and rounds once to the feature dtype;
     * outputs come in ascending key order, so the result is key-sorted.
 
     Returns ``(features [out_bound, C], indices [out_bound, ndim+1],
     num_out, num_out_total)``, the counts as 0-d int32 tensors.
     """
-    if mode != "max":
-        raise NotImplementedError(
-            f"pool2_seg mode {mode!r}: only max pooling is ported "
-            "(ROADMAP A7)")
+    _check_mode(mode)
     c = features.shape[1]
-    ndim = indices.shape[1] - 1
-    out_shape = C.get_conv_output_size(
-        spatial_shape, (2,) * ndim, (2,) * ndim, (0,) * ndim, (1,) * ndim)
-    oc = torch.div(indices[:, 1:], 2, rounding_mode="floor")
-    # per-axis compares against Python ints: a device tensor made from a
-    # list would cost a blocking host-to-device copy per call
-    valid = indices[:, 0] >= 0
-    for a, s in enumerate(out_shape):
-        valid &= oc[:, a] < s
-    out_c = torch.cat([indices[:, :1], oc], dim=-1)
-    keys, sentinel = C.linearize(out_c, out_shape, batch_size, valid)
-
+    keys, sentinel, out_shape = pool2_parent_keys(indices, spatial_shape,
+                                                  batch_size)
     sk, order = torch.sort(keys, stable=True)
     out_keys, uniq_pos, num_out_total = unique_sorted_keys(sk, sentinel,
                                                            out_bound)
-    seg = torch.where((sk != sentinel) & (uniq_pos < out_bound), uniq_pos,
+    not_sent = sk != sentinel
+    seg = torch.where(not_sent & (uniq_pos < out_bound), uniq_pos,
                       torch.full_like(uniq_pos, out_bound))
 
     g = features[order]
-    acc = torch.full((out_bound + 1, c), float("-inf"), dtype=features.dtype,
-                     device=features.device)
-    acc.scatter_reduce_(0, seg[:, None].expand(-1, c), g, "amax",
-                        include_self=True)
-    present = (torch.arange(out_bound, device=features.device)
-               < num_out_total)[:, None]
-    out_feat = torch.where(present, acc[:out_bound],
-                           torch.zeros((), dtype=features.dtype,
-                                       device=features.device))
+    if mode == "max":
+        acc = torch.full((out_bound + 1, c), float("-inf"),
+                         dtype=features.dtype, device=features.device)
+        acc = acc.scatter_reduce(0, seg[:, None].expand(-1, c), g, "amax",
+                                 include_self=True)
+        present = (torch.arange(out_bound, device=features.device)
+                   < num_out_total)[:, None]
+        out_feat = torch.where(present, acc[:out_bound],
+                               torch.zeros((), dtype=features.dtype,
+                                           device=features.device))
+    else:
+        acc = torch.zeros((out_bound + 1, c), dtype=torch.float32,
+                          device=features.device).index_add(0, seg, g.float())
+        cnt = torch.zeros((out_bound + 1,), dtype=torch.float32,
+                          device=features.device).index_add(
+                              0, seg, not_sent.float())
+        out_feat = (acc[:out_bound]
+                    / cnt[:out_bound, None].clamp(min=1.0)).to(features.dtype)
 
     out_indices = C.delinearize(out_keys, out_shape, out_keys != sentinel)
     num_out = torch.clamp(num_out_total, max=out_bound)
     return out_feat, out_indices, num_out, num_out_total
+
+
+def global_pool(features: torch.Tensor, indices: torch.Tensor,
+                batch_size: int, mode: str = "max") -> torch.Tensor:
+    """Max or mean over each batch element's active rows -> dense ``[B,
+    C]`` in the feature dtype, reduced in f32.  A batch element with no
+    active row (or a max that is not finite) gives 0; the mean divides by
+    the active count (at least 1)."""
+    _check_mode(mode)
+    c = features.shape[1]
+    valid = indices[:, 0] >= 0
+    seg = torch.where(valid, indices[:, 0].long(),
+                      torch.full_like(indices[:, 0], batch_size).long())
+    f = features.float()
+    if mode == "max":
+        src = torch.where(valid[:, None], f, float("-inf"))
+        acc = torch.full((batch_size + 1, c), float("-inf"),
+                         dtype=torch.float32, device=features.device)
+        acc = acc.scatter_reduce(0, seg[:, None].expand(-1, c), src, "amax",
+                                 include_self=True)[:batch_size]
+        out = torch.where(torch.isfinite(acc), acc, 0.0)
+    else:
+        zeros = torch.zeros((batch_size + 1, c), dtype=torch.float32,
+                            device=features.device)
+        s = zeros.index_add(0, seg, torch.where(valid[:, None], f, 0.0))
+        cnt = torch.zeros((batch_size + 1,), dtype=torch.float32,
+                          device=features.device).index_add(0, seg,
+                                                            valid.float())
+        out = s[:batch_size] / cnt[:batch_size, None].clamp(min=1.0)
+    return out.to(features.dtype)

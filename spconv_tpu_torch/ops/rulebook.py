@@ -1,10 +1,11 @@
 """Output-site discovery (counterpart of ``spconv_tpu/ops/rulebook.py``).
 
-Only ``build_conv_outputs`` is ported: the output sites of a regular
-(strided) conv, which the dynamic-gather path needs.  The pair rulebooks of
-the native path (``build_subm_rulebook``, ``build_conv_rulebook``,
-``build_pool2_rulebook``) and ``build_deconv_outputs`` wait for ROADMAP
-A4-A5 and A9.
+Ported: ``build_conv_outputs``, the output sites of a regular (strided)
+conv, which the dynamic-gather path needs, and ``build_pool2_outputs``,
+those of the 2x/stride-2 pool, which the sorted-key pool needs.  The pair
+rulebooks of the native rulebook path (``build_subm_rulebook``,
+``build_conv_rulebook``, ``build_pool2_rulebook``) and the transposed
+conv's ``build_deconv_outputs`` are not ported yet.
 
 Everything here is static-shape tensor code with no host read: the counts
 come back as 0-d device tensors, so a forward never syncs on them.
@@ -12,14 +13,15 @@ come back as 0-d device tensors, so a forward never syncs on them.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import coords as C
 
-__all__ = ["unique_sorted_keys", "build_conv_outputs"]
+__all__ = ["unique_sorted_keys", "pool2_parent_keys", "build_conv_outputs",
+           "build_pool2_outputs"]
 
 
 def unique_sorted_keys(
@@ -113,6 +115,53 @@ def build_conv_outputs(
     sk = torch.sort(torch.where(ok, key, sentinel).reshape(-1)).values
 
     out_keys, _, num_out_total = unique_sorted_keys(sk, sentinel, out_bound)
+    out_indices = C.delinearize(out_keys, out_shape, out_keys != sentinel)
+    return (out_indices, out_keys, torch.clamp(num_out_total, max=out_bound),
+            num_out_total)
+
+
+def pool2_parent_keys(
+    indices: torch.Tensor, spatial_shape: Sequence[int], batch_size: int
+) -> Tuple[torch.Tensor, int, List[int]]:
+    """Key of each row's parent in the 2x/stride-2 pool: ``(keys [N] int32,
+    sentinel, out_shape)``.  A row on an odd edge falls outside the last
+    full window (VALID pooling) and takes the sentinel, as an inactive row
+    does."""
+    ndim = indices.shape[1] - 1
+    out_shape = C.get_conv_output_size(
+        spatial_shape, (2,) * ndim, (2,) * ndim, (0,) * ndim, (1,) * ndim)
+    oc = torch.div(indices[:, 1:], 2, rounding_mode="floor")
+    # per-axis compares against Python ints: a device tensor made from a
+    # list would cost a blocking host-to-device copy per call
+    valid = indices[:, 0] >= 0
+    for a, s in enumerate(out_shape):
+        valid &= oc[:, a] < s
+    keys, sentinel = C.linearize(torch.cat([indices[:, :1], oc], dim=-1),
+                                 out_shape, batch_size, valid)
+    return keys, sentinel, out_shape
+
+
+def build_pool2_outputs(
+    indices: torch.Tensor,
+    *,
+    spatial_shape: Sequence[int],
+    batch_size: int,
+    out_bound: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Output sites of the 2x/stride-2 pool over the active rows of
+    ``indices`` ``[N, ndim+1]``: one sort of the parent keys, the first of
+    each run of equal keys.  At most ``out_bound`` outputs (default ``N``)
+    are kept, those with the smallest keys.
+
+    Returns ``(out_indices [out_bound, ndim+1] int32 (-1 rows at the
+    tail), out_keys [out_bound] int32 ascending and sentinel-padded,
+    num_out, num_out_total)``, the counts as 0-d int32 tensors."""
+    if out_bound is None:
+        out_bound = indices.shape[0]
+    keys, sentinel, out_shape = pool2_parent_keys(indices, spatial_shape,
+                                                  batch_size)
+    out_keys, _, num_out_total = unique_sorted_keys(
+        torch.sort(keys).values, sentinel, out_bound)
     out_indices = C.delinearize(out_keys, out_shape, out_keys != sentinel)
     return (out_indices, out_keys, torch.clamp(num_out_total, max=out_bound),
             num_out_total)

@@ -1,7 +1,7 @@
 """Int8 post-training quantization (counterpart of
 ``spconv_tpu/quantization``): observers, BN folding, the int8 conv on
 kernel B7, ``SparseSequential`` calibration and conversion, and whole-
-encoder PTQ.  The QAT half (``qat.py``) is not ported yet (ROADMAP A12)."""
+encoder PTQ.  The QAT half (``qat.py``) is not ported yet."""
 
 from .encoder import (QuantizedSparseBasicBlock, QuantizedSparseEncoder,
                       observe_encoder_scales, quantize_encoder)

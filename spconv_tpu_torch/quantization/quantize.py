@@ -12,7 +12,8 @@ affine table of the ``DGRegData`` record under ``__dgreg__<indice_key>``,
 inverse through that record's divide table.  That route requantizes as
 ``round(acc * (s_in * s_w / s_out) + b / s_out)``; the JAX package's CPU
 gather route computes ``round((acc * s_in * s_w + b) / s_out)``, which can
-land one step away at a tie (ROADMAP C), and is not a route of the port.
+land one step away at a tie (listed in ROADMAP.md), and is not a route
+of the port.
 """
 
 from __future__ import annotations
@@ -188,7 +189,7 @@ class QuantizedSparseConv(SparseModule):
             raise NotImplementedError(
                 "the int8 conv runs the DG kernels, which need key-sorted "
                 "input (call sort_by_key()); unsorted input takes the "
-                "native rulebook path, which waits for ROADMAP A4-A5")
+                "native rulebook path, which is not ported yet")
         if add_input is not None and not cfg.subm:
             raise ValueError("the int8 residual add is subm-only (its rows "
                              "align with the output's)")
@@ -197,14 +198,14 @@ class QuantizedSparseConv(SparseModule):
                   add=None if add_input is None else add_input.features)
         w, scale, bias = self.weight_kv, self.scale_q, self.bias_q
         if cfg.subm:
-            pos, _, new_rec = cfg._stage_pos(x, need_rev=False)
+            pos, _, new = cfg._stage_pos(x, need_rev=False)
             q = dg_fwd_q(x.features, w, pos, scale, bias, **kw)
             out = SparseConvTensor(
                 _masked(q, x.valid_mask), x.indices, x.spatial_shape,
                 x.batch_size, num_voxels=x.num_voxels,
                 indice_dict=dict(x.indice_dict), keys_sorted=True)
-            if new_rec is not None:
-                out.indice_dict[cfg.indice_key] = new_rec
+            if new is not None:
+                out.indice_dict[new[0]] = new[1]
             return out
         if cfg.inverse:
             rec, enc_in = cfg._inverse_record(x)

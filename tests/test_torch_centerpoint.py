@@ -229,7 +229,7 @@ def test_calibrated_bounds_match_jax(scan):
 def test_calibration_records_clamped_count():
     """A layer whose output its bound already cuts calibrates to the cut
     count, not the true one, in both packages (reference behaviour, kept
-    on both sides: ROADMAP C)."""
+    on both sides, as ROADMAP.md lists it)."""
     shape = (13, 14, 15)
     feats, inds = generate_sparse_data(shape, 400, 4,
                                        rng=np.random.RandomState(6))
@@ -257,9 +257,9 @@ def test_calibration_records_clamped_count():
 def test_centerpoint_encoder_grads_match_jax(scan):
     """Every parameter's gradient of ``sum(bev ** 2)`` through the
     ``bn=False`` encoder against ``jax.grad`` of the JAX encoder's CPU
-    route, within 5e-5*max|ref| per tensor (ROADMAP C1): the strided
-    backward at the k3 s2 p1 downsamples and at ``conv_out``'s (3,1,1) /
-    (2,1,1), through the divide table."""
+    route, within 5e-5*max|ref| per tensor (ROADMAP.md's grad tolerance):
+    the strided backward at the k3 s2 p1 downsamples and at ``conv_out``'s
+    (3,1,1) / (2,1,1), through the divide table."""
     jnet = jax_encoder(in_channels=5, bn=False)
     tnet = load_jax_state_dict(
         centerpoint_encoder(in_channels=5, bn=False, device="cpu"),

@@ -542,3 +542,135 @@ def test_int8_encoder_on_card_matches_cpu(dev):
     assert torch.equal(got.indices.cpu(), ref.indices)
     assert ref.features.abs().max() > 0
     assert torch.equal(got.features.cpu(), ref.features)
+
+
+# B6, the sorted-key pool: 3-d and 4-d grids with odd edges
+_POOL_SHAPES = {3: (9, 41, 40), 4: (11, 13, 12, 13)}
+
+
+def _pool_case(ndim, seed, dev, nonfinite=False):
+    """A key-sorted input with an invalid tail, its keys and the pool's
+    output keys (a bound below the output count), on ``dev``."""
+    from spconv_tpu_torch.ops.rulebook import build_pool2_outputs
+
+    shape = _POOL_SHAPES[ndim]
+    rng = np.random.RandomState(seed)
+    feats, inds = generate_sparse_data(shape, 2500, 24, rng=rng)
+    key = inds[:, 0].astype(np.int64)
+    for a, s in enumerate(shape):
+        key = key * s + inds[:, a + 1]
+    order = np.argsort(key, kind="stable")
+    fb = np.zeros((2600, 24), np.float32)
+    ib = np.full((2600, ndim + 1), -1, np.int32)
+    fb[:2500], ib[:2500] = feats[order], inds[order]
+    if nonfinite:
+        fb[5, 1], fb[50, 2], fb[80, 3] = np.nan, np.inf, -np.inf
+    ti = torch.from_numpy(ib).to(dev)
+    _, out_keys, n_out, n_tot = build_pool2_outputs(
+        ti, spatial_shape=shape, batch_size=1, out_bound=768)
+    assert int(n_tot) > int(n_out)
+    in_keys, _ = TC.linearize(ti, shape, 1)
+    geom = dict(in_shape=shape, out_shape=tuple(s // 2 for s in shape),
+                batch_size=1)
+    return torch.from_numpy(fb).to(dev), in_keys, out_keys, geom
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ndim", [3, 4])
+@pytest.mark.parametrize("mode", ["max", "mean"])
+def test_sk_pool_kernel_matches_plain(dev, dtype, ndim, mode):
+    """B6 against its plain version on the card: max bit-equal, mean within
+    1e-6*max|ref| (both sum in f32 in child order and divide once); one
+    launch counted; sentinel parents 0."""
+    from spconv_tpu_torch.ops import sorted_pool as TS
+
+    x, in_keys, out_keys, geom = _pool_case(ndim, 20 + ndim, dev)
+    x = x.to(dtype)
+    ref = TS.sk_pool2_plain(x, in_keys, out_keys, mode=mode, **geom)
+    before = dict(TD.launch_counts)
+    got = TS.sk_pool2(x, in_keys, out_keys, mode=mode, **geom)
+    torch.cuda.synchronize()
+    assert TD.launch_counts["sk_pool"] == before["sk_pool"] + 1
+    assert sum(TD.launch_counts.values()) == sum(before.values()) + 1
+    assert got.dtype == dtype and got.shape == ref.shape
+    if mode == "max":
+        assert torch.equal(got, ref)
+    else:
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 1e-6 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["max", "mean"])
+def test_sk_pool_kernel_nonfinite_matches_plain(dev, dtype, mode):
+    """NaN and +-inf inputs: the max is written as 0 where not finite (the
+    kernel's fmax-free NaN-propagating max), the mean keeps NaN and inf;
+    equal to the plain version."""
+    from spconv_tpu_torch.ops import sorted_pool as TS
+
+    x, in_keys, out_keys, geom = _pool_case(3, 30, dev, nonfinite=True)
+    x = x.to(dtype)
+    got = TS.sk_pool2(x, in_keys, out_keys, mode=mode, **geom)
+    ref = TS.sk_pool2_plain(x, in_keys, out_keys, mode=mode, **geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), ref.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(ref))
+    if mode == "max":
+        assert torch.isfinite(got).all()
+    else:
+        assert got.isnan().any() and got.isinf().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["max", "mean"])
+def test_sk_pool_backward_on_card_matches_cpu(dev, dtype, mode):
+    """``SKPool2Fn`` on the card (B6 forward, torch-ops backward) against
+    the same on the CPU (plain forward): features on a grid of 0.5, so
+    that tied children each get the full gradient; equal within
+    1e-6*max|ref|."""
+    from spconv_tpu_torch.ops import sorted_pool as TS
+
+    x, in_keys, out_keys, geom = _pool_case(3, 40, dev)
+    x = (x * 2).round().div(2).to(dtype)
+    g = (geom["in_shape"], geom["out_shape"], 1, mode)
+    dout = torch.randn((out_keys.shape[0], x.shape[1]),
+                       generator=torch.Generator().manual_seed(1)).to(dtype)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xd = x.detach().to(d).clone().requires_grad_()
+        TS.SKPool2Fn.apply(xd, in_keys.to(d), out_keys.to(d),
+                           g).backward(dout.to(d))
+        grads.append(xd.grad.float().cpu())
+    scale = grads[1].abs().max().item()
+    assert scale > 0
+    assert (grads[0] - grads[1]).abs().max().item() <= 1e-6 * scale
+
+
+def test_sk_pool_benchnet_on_card_matches_cpu(dev):
+    """The benchmark net with its pools on ``algo="sk"`` (B6) on the card
+    against the CPU's plain versions, f32: a step's loss within 1e-4
+    relative and every weight grad within 1e-3*max|ref| (as the seg-pool
+    step: f32 sums in another order may break a near-tie in a max pool);
+    a step launches 6 B6."""
+    from spconv_tpu_torch.modules import SparseMaxPool3d
+
+    shape = (64, 128, 128)
+    voxels, coors, _ = TB.synthetic_scan(0, shape=shape, n_target=1600)
+    net = TB.BenchNet(shape, device="cpu")
+    for i in range(6):
+        net.pools[i] = SparseMaxPool3d(2, 2, algo="sk")
+    ref_loss = TB.train_step(
+        net, TB.make_bench_input(voxels, coors, shape, device="cpu"), 0.0)
+    ref = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.to(dev)
+    TD.reset_launch_counts()
+    loss = TB.train_step(
+        net, TB.make_bench_input(voxels, coors, shape, device=dev), 0.0)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_pos=7, dg_pos_rev=7, dg_fwd=14,
+                                       dg_dgrad=13, dg_wgrad=14, sk_pool=6)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-4 * ref_loss.item()
+    for k, p in net.named_parameters():
+        scale = ref[k].abs().max().item()
+        err = (p.grad.cpu() - ref[k]).abs().max().item()
+        assert scale > 0 and err <= 1e-3 * scale, (k, err, scale)

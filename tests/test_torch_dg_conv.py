@@ -18,7 +18,8 @@ from spconv_tpu.ops.pallas import sorted_conv as SK
 from spconv_tpu.ops.pallas.dg_conv import build_dg_pos as jax_build_dg_pos
 from spconv_tpu.ops.pallas.dg_conv import dg_subm_conv as jax_dg_subm_conv
 
-from spconv_tpu_torch import SparseConvTensor, SubMConv3d
+import spconv_tpu_torch as st
+from spconv_tpu_torch import DGData, SparseConvTensor, SubMConv3d
 from spconv_tpu_torch.ops import coords as TC
 from spconv_tpu_torch.ops import dg_conv as TD
 
@@ -142,8 +143,11 @@ def test_dg_fwd_plain_matches_jax(c, dtype):
 
 
 def test_stage_reuses_match_table():
-    """The second conv of an indice_key stage reuses the first's table;
-    a layer whose geometry differs under the same key raises."""
+    """The second conv of an indice_key stage reuses the first's table; a
+    layer of another kernel size or dilation under the same key builds and
+    caches its own (``DGData.cache_key``), which later layers of that
+    geometry reuse; a change of spatial shape or buffer size under the key
+    raises."""
     feats, inds = _sorted_input(3, 500, 4, 512)
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          SHAPE, 1, keys_sorted=True)
@@ -156,12 +160,60 @@ def test_stage_reuses_match_table():
         z = b(y)
         assert z.indice_dict["s"] is rec
         np.testing.assert_array_equal(rec.pos.numpy(), _port_pos(inds).numpy())
-        with pytest.raises(ValueError, match="reuse mismatch"):
-            SubMConv3d(8, 8, 5, indice_key="s", generator=g,
-                       device="cpu")(z)
-        with pytest.raises(ValueError, match="reuse mismatch"):
-            SubMConv3d(8, 8, 3, dilation=2, indice_key="s", generator=g,
-                       device="cpu")(z)
+        for kw in (dict(kernel_size=5), dict(kernel_size=3, dilation=2)):
+            conv = SubMConv3d(8, 8, indice_key="s", generator=g, device="cpu",
+                              **kw)
+            w = conv(z)
+            ck = DGData.cache_key("s", conv.kernel_size, conv.dilation)
+            assert w.indice_dict["s"] is rec
+            other = w.indice_dict[ck]
+            assert other.ksize == conv.kernel_size
+            assert other.dilation == conv.dilation
+            assert conv(w).indice_dict[ck] is other
+        moved = SparseConvTensor(z.features, z.indices, (7, 17, 23), 1,
+                                 indice_dict=z.indice_dict, keys_sorted=True)
+        with pytest.raises(ValueError, match="reuse mismatch.*spatial shape"):
+            b(moved)
+        cut = SparseConvTensor(z.features[:256], z.indices[:256], SHAPE, 1,
+                               indice_dict=z.indice_dict, keys_sorted=True)
+        with pytest.raises(ValueError, match="reuse mismatch.*buffer N"):
+            b(cut)
+        z.indice_dict["s"] = "not a record"
+        with pytest.raises(ValueError, match="not a subm match table"):
+            b(z)
+
+
+def test_key_reused_at_another_kernel_matches_jax():
+    """One indice_key reused at kernel 3 and then kernel 5, against the JAX
+    layers on their DG route (``algo="dg"``, which keys its record by the
+    geometry and runs; its native route asserts on such a reuse), f32
+    within 1e-5*max|ref| + 1e-6 (summation order)."""
+    import spconv_tpu
+    from spconv_tpu.checkpoint import state_dict
+
+    from spconv_tpu_torch.checkpoint import load_jax_state_dict
+
+    feats, inds = _sorted_input(9, 400, 4, 512)
+    jnet = spconv_tpu.SparseSequential(
+        spconv_tpu.SubMConv3d(4, 6, 3, indice_key="s", algo="dg"),
+        spconv_tpu.SubMConv3d(6, 5, 5, indice_key="s", algo="dg"))
+    tnet = st.SparseSequential(
+        SubMConv3d(4, 6, 3, indice_key="s", device="cpu"),
+        SubMConv3d(6, 5, 5, indice_key="s", device="cpu"))
+    load_jax_state_dict(tnet, {k.replace("layers.", ""): v
+                               for k, v in state_dict(jnet).items()})
+    jx = spconv_tpu.SparseConvTensor(jnp.asarray(feats), jnp.asarray(inds),
+                                     SHAPE, 1, keys_sorted=True)
+    ref = np.asarray(jnet(jx).features)
+    with torch.no_grad():
+        out = tnet(SparseConvTensor(torch.from_numpy(feats),
+                                    torch.from_numpy(inds), SHAPE, 1,
+                                    keys_sorted=True))
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(out.features.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max() + 1e-6)
+    assert set(k for k in out.indice_dict if "s" in k) == {
+        "s", DGData.cache_key("s", (5, 5, 5), (1, 1, 1))}
 
 
 @pytest.mark.parametrize("act", ["none", "relu", "leaky_relu"])

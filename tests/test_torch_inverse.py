@@ -31,7 +31,7 @@ from test_torch_strided import GEOMS, _case
 
 F32_FWD_TOL = 1e-6   # f32 forward, of max|ref|: sums in another order
 BF16_TOL = 1.6e-2    # one bf16 rounding of the output (2**-7) plus order
-GRAD_TOL = 5e-5      # f32 grads, of max|ref| per tensor (ROADMAP C1)
+GRAD_TOL = 5e-5      # f32 grads, of max|ref| per tensor (ROADMAP.md)
 
 
 def _keys(name, **kw):
@@ -302,3 +302,44 @@ def test_inverse_conv_refusals():
                           device="cpu")
     with pytest.raises(ValueError, match="indice_key"):
         SparseInverseConv3d(8, 4, 3, device="cpu")
+
+
+def test_kernel1_inverse_is_a_1x1_conv_as_in_jax():
+    """A kernel-1 ``SparseInverseConv3d`` is a plain 1x1 conv on its input's
+    own sites in the JAX package (its stride is 1, so ``conv1x1`` holds);
+    the port's is too: after a kernel-1 stride-2 ``SparseConv3d`` under the
+    same key, the output keeps the downsampled sites, spatial shape and
+    count, and its features match the JAX pair's within 1e-6*max|ref|."""
+    import spconv_tpu
+    from spconv_tpu.checkpoint import state_dict
+
+    from spconv_tpu_torch import SparseSequential
+    from spconv_tpu_torch.checkpoint import load_jax_state_dict
+
+    feats, inds, geom, _, _ = _case("k3s2p1", c=4, seed=12)
+    shape = tuple(geom["spatial_shape"])
+    jnet = spconv_tpu.SparseSequential(
+        spconv_tpu.SparseConv3d(4, 6, 1, stride=2, indice_key="k"),
+        spconv_tpu.SparseInverseConv3d(6, 3, 1, indice_key="k"))
+    tnet = SparseSequential(
+        SparseConv3d(4, 6, 1, stride=2, indice_key="k", device="cpu"),
+        SparseInverseConv3d(6, 3, 1, indice_key="k", device="cpu"))
+    load_jax_state_dict(tnet, {k.replace("layers.", ""): v
+                               for k, v in state_dict(jnet).items()})
+    assert tnet[1].conv1x1 and not tnet[0].conv1x1
+    ref = jnet(spconv_tpu.SparseConvTensor(
+        jnp.asarray(feats), jnp.asarray(inds), shape, 1, keys_sorted=True))
+    with torch.no_grad():
+        x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
+                             shape, 1, keys_sorted=True)
+        mid = tnet[0](x)
+        out = tnet[1](mid)
+    np.testing.assert_array_equal(out.indices.numpy(),
+                                  np.asarray(ref.indices))
+    np.testing.assert_array_equal(out.indices.numpy(), mid.indices.numpy())
+    assert out.spatial_shape == tuple(ref.spatial_shape) == mid.spatial_shape
+    assert int(out.num_voxels) == int(ref.num_voxels) == int(mid.num_voxels)
+    want = np.asarray(ref.features)
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(out.features.numpy(), want, rtol=0,
+                               atol=F32_FWD_TOL * np.abs(want).max())

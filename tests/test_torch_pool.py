@@ -1,7 +1,8 @@
-"""The port's ``pool2_seg`` and ``SparseMaxPool3d`` against the JAX
-package's ``pool2_seg``: outputs, coordinates and counts must be exactly
-equal (a max picks an input value, so no rounding enters), and so must the
-gradients up to f32 rounding."""
+"""The port's ``pool2_seg`` (the segment route) and ``SparseMaxPool3d``
+against the JAX package's ``pool2_seg``: max outputs, coordinates and
+counts must be exactly equal (a max picks an input value, so no rounding
+enters), and so must the gradients up to f32 rounding; means within f32
+(or one bf16) rounding."""
 
 import jax
 import jax.numpy as jnp
@@ -142,8 +143,69 @@ def test_max_pool_module_keeps_sorted_and_counts():
 @pytest.mark.parametrize("kwargs", [
     dict(kernel_size=3, stride=2), dict(kernel_size=2, stride=1),
     dict(kernel_size=2, stride=2, indice_key="p"),
-    dict(kernel_size=2, stride=2, algo="sk"),
+    dict(kernel_size=2, stride=2, subm=True),
+    dict(kernel_size=2, stride=2, algo="native"),
 ])
 def test_other_pools_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    """The pools the JAX package sends to its native rulebook path."""
+    with pytest.raises(NotImplementedError, match="native rulebook path"):
         SparseMaxPool3d(**kwargs)
+
+
+@pytest.mark.parametrize(
+    "shape,batch,out_bound,dtype",
+    [
+        ((9, 21, 17), 1, 1024, "float32"),
+        ((9, 21, 17), 2, 128, "float32"),
+        ((8, 16, 16), 2, 1024, "bfloat16"),
+    ],
+)
+def test_pool2_seg_mean_matches_jax(shape, batch, out_bound, dtype):
+    """``pool2_seg(mode="mean")`` against the JAX package's: coordinates and
+    counts exactly; the f32 sums over the children divided by their number
+    within 1e-6*max|ref| (f32) or one bf16 rounding (bf16)."""
+    feats, inds = _input(4, shape, 500, 6, 1100, batch)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jf, ji, jn, jt = jax_pool2_seg(
+        jnp.asarray(feats, jdt), jnp.asarray(inds), spatial_shape=shape,
+        batch_size=batch, out_bound=out_bound, mode="mean")
+    tf, ti, tn, tt = pool2_seg(
+        torch.from_numpy(feats).to(getattr(torch, dtype)),
+        torch.from_numpy(inds), spatial_shape=shape, batch_size=batch,
+        out_bound=out_bound, mode="mean")
+    assert tf.dtype == getattr(torch, dtype)
+    ref = np.asarray(jf.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(tf.numpy(), ref, rtol=0,
+                                   atol=1e-6 * np.abs(ref).max())
+    else:
+        np.testing.assert_allclose(tf.float().numpy(), ref, rtol=2**-7,
+                                   atol=0)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    assert int(tn) == int(jn) and int(tt) == int(jt)
+
+
+@pytest.mark.parametrize("out_bound", [2048, 256])
+def test_pool2_seg_mean_grad_matches_jax(out_bound):
+    """The mean's gradient (each child gets its output's over the number
+    of children; children of no kept output get 0) against ``jax.grad``,
+    f32 within 1e-6*max|ref|."""
+    shape, batch, c = (9, 21, 17), 2, 4
+    feats, inds = _input(5, shape, 1500, c, 3200, batch)
+    cot = np.random.RandomState(6).randn(out_bound, c).astype(np.float32)
+
+    def loss(f):
+        out = jax_pool2_seg(f, jnp.asarray(inds), spatial_shape=shape,
+                            batch_size=batch, out_bound=out_bound,
+                            mode="mean")[0]
+        return jnp.sum(out * cot)
+
+    ref = np.asarray(jax.grad(loss)(jnp.asarray(feats)))
+    x = torch.from_numpy(feats).requires_grad_()
+    out = pool2_seg(x, torch.from_numpy(inds), spatial_shape=shape,
+                    batch_size=batch, out_bound=out_bound, mode="mean")[0]
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert np.abs(ref).max() > 0
+    np.testing.assert_allclose(x.grad.numpy(), ref, rtol=0,
+                               atol=1e-6 * np.abs(ref).max())
+    assert not x.grad[torch.from_numpy(inds[:, 0] < 0)].any()

@@ -387,7 +387,7 @@ def test_quantized_conv_refusals():
         t(tx.replace_feature(tx.features.float()))
     unsorted = tx.replace_feature(tx.features)
     unsorted.keys_sorted = False
-    with pytest.raises(NotImplementedError, match="A4-A5"):
+    with pytest.raises(NotImplementedError, match="native rulebook path"):
         t(unsorted)
     with pytest.raises(ValueError, match="subm-only"):
         td(tx, add_input=tx)

@@ -7,8 +7,8 @@ interpret mode, ~10 s each) on the same int8 input.
 
 The two JAX int8 routes round differently at a tie (the kernel route
 requantizes ``acc * (s_in * s_w / s_out) + b / s_out``, the CPU gather route
-``(acc * s_in * s_w + b) / s_out``; ROADMAP C).  The port follows the
-kernel route, so it is exact against that one layer by layer and held
+``(acc * s_in * s_w + b) / s_out``; listed in ROADMAP.md).  The port follows
+the kernel route, so it is exact against that one layer by layer and held
 against the CPU route's whole-net output within a stated bound."""
 
 import json

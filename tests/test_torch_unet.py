@@ -27,7 +27,7 @@ N_VOX = 1500
 CHANNELS = (8, 16, 24)
 CLASSES = 5
 FWD_TOL = 1e-4   # f32, of max|ref|: sums in another order, through 8 convs
-GRAD_TOL = 5e-5  # f32, of max|ref| per tensor (ROADMAP C1)
+GRAD_TOL = 5e-5  # f32, of max|ref| per tensor (ROADMAP.md)
 
 
 @pytest.fixture(autouse=True)
