@@ -61,7 +61,21 @@ line is printed):
    training steps with launch counts and finite grads; the f32 grads
    against the plain conv backward; and a ``SparseAvgPool3d(algo="sk")``
    net against the seg mean route, stage by stage;
-10. prints a JSON line of the kernels, each with its bound (the least time
+10. the table-free subm conv (S1-S4: the search mode of B2, B3 and B7,
+   ``csrc/dg_search.cuh``): S1, S2 and S3 against their plain versions and
+   bit-equal to B1 followed by the table-mode kernel at every BenchNet
+   layer shape, f32 and bf16, and at kernel 5^3, with CUDA-event ms beside
+   the table path's; S4 the same at ``bench.py``'s ``run_int8`` layers
+   (C = K = 64, 128), with and without the residual, and that section's
+   four ms (bf16 and int8, search mode and cached table).  Then BenchNet
+   with every ``indice_key`` None: three served requests (14
+   ``dg_fwd_search`` launches each, no table) bit-equal at every stage to
+   phase 4's keyed net, host ms, device busy and peak memory in turns with
+   it; three training steps (14 / 13 / 14 search launches each) with
+   finite grads, step ms, busy and peak memory beside the keyed step's,
+   the f32 grads against the plain backward; and an int8 no-key conv
+   bit-equal to the same layer on a key;
+11. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -124,6 +138,11 @@ PEAK_BYTES = 3.35e12
 # against the CPU's), of max|ref|: both sum in f32 in child order and
 # divide once, so they should agree exactly
 SK_MEAN_TOL = 1e-6
+# per no-key BenchNet request: 14 S1 and no table; a step adds 13 S2 (the
+# first conv's input needs no gradient) and 14 S3
+SEARCH_SERVE = dict(dg_fwd_search=14)
+SEARCH_STEP = dict(SEARCH_SERVE, dg_dgrad_search=13, dg_wgrad_search=14)
+SEARCH_Q_WIDTHS = (64, 128)  # bench.py's run_int8 layer: C = K
 
 
 def expected(D, **nonzero):
@@ -183,27 +202,35 @@ def table_bound(rows, table_rows, kv):
     return bound(4 * (rows + table_rows + kv * rows))
 
 
-def gemm_bound(src, w, pos, width):
+def index_bytes(pos, keys):
+    """The bytes of the rows' matches a kernel reads once: the table
+    ``pos``, or in search mode (``keys`` given) the sorted keys it searches
+    in place of the table."""
+    return 4 * (pos.numel() if keys is None else keys.numel())
+
+
+def gemm_bound(src, w, pos, width, keys=None):
     """A gather-GEMM (forward or dgrad): ``src`` ``[N_src, C]`` and ``w``
     ``[kv, C, width]`` or its transpose read once, ``pos`` ``[kv, N_dst]``
-    read once, ``[N_dst, width]`` written once; 2 * C * width operations
-    per matched (row, offset) pair of this input."""
+    (or the ``keys``, :func:`index_bytes`) read once, ``[N_dst, width]``
+    written once; 2 * C * width operations per matched (row, offset) pair
+    of this input."""
     pairs = int((pos >= 0).sum())
     esz = src.element_size()
     nbytes = ((src.numel() + w.numel() + pos.shape[1] * width) * esz
-              + pos.numel() * 4)
+              + index_bytes(pos, keys))
     return bound(nbytes, 2 * pairs * src.shape[1] * width,
                  str(src.dtype)[6:])
 
 
-def wgrad_bound(x, dout, pos):
+def wgrad_bound(x, dout, pos, keys=None):
     """wgrad: ``x`` ``[N_src, C]``, ``dout`` ``[N_dst, K]`` and ``pos``
-    ``[kv, N_src]`` read once, ``dW`` ``[kv, C, K]`` written once; 2 * C *
-    K operations per matched pair."""
+    ``[kv, N_src]`` (or the ``keys``) read once, ``dW`` ``[kv, C, K]``
+    written once; 2 * C * K operations per matched pair."""
     pairs = int((pos >= 0).sum())
     c, k = x.shape[1], dout.shape[1]
     nbytes = ((x.numel() + dout.numel() + pos.shape[0] * c * k)
-              * x.element_size() + pos.numel() * 4)
+              * x.element_size() + index_bytes(pos, keys))
     return bound(nbytes, 2 * pairs * c * k, str(x.dtype)[6:])
 
 
@@ -765,14 +792,14 @@ def unet_phase(torch, dev, gen, scans, cp_rec, note):
     return tally, per_layer, serve_launches, train_launches, sk_launches
 
 
-def q_bound(x, w, pos, k_out, add):
+def q_bound(x, w, pos, k_out, add, keys=None):
     """B7: ``x`` ``[N_src, C]`` int8, ``w`` ``[kv, C, K]`` int8, ``pos``
-    ``[kv, N_dst]`` int32, the f32 scale and bias and the int8 residual
-    read once, ``[N_dst, K]`` int8 written once; 2 * C * K int8 operations
-    per matched pair of this input."""
+    ``[kv, N_dst]`` int32 (or the ``keys``), the f32 scale and bias and the
+    int8 residual read once, ``[N_dst, K]`` int8 written once; 2 * C * K
+    int8 operations per matched pair of this input."""
     pairs = int((pos >= 0).sum())
     n_dst = pos.shape[1]
-    nbytes = (x.numel() + w.numel() + pos.numel() * 4 + 8 * k_out
+    nbytes = (x.numel() + w.numel() + index_bytes(pos, keys) + 8 * k_out
               + n_dst * k_out * (2 if add else 1))
     return bound(nbytes, 2 * pairs * x.shape[1] * k_out, "int8")
 
@@ -1333,6 +1360,340 @@ def sk_pool_phase(torch, dev, gen, scans, geo, bounds, served):
           f"launches {avg_launches}")
     return (tally, seg_ms, errs, serve_launches, train_launches,
             avg_launches)
+
+
+def search_phase(torch, dev, gen, scans, geo, bounds, served, note):
+    """Phase 10: the table-free subm conv, S1-S4 (the search mode of B2, B3
+    and B7).  S1, S2 and S3 against their plain versions and bit-equal to
+    B1 followed by the table-mode kernel at every BenchNet layer shape
+    (``geo``: each stage's input), f32 and bf16, timed beside that table
+    path, and once at kernel 5^3 (four search groups); S4 the same at
+    ``bench.py``'s ``run_int8`` layers, with and without the residual, and
+    that section's four times.  Then BenchNet with no ``indice_key``:
+    served on phase 4's inputs (``served``, bit-equal to its keyed net at
+    every stage), host ms, device busy and peak memory in turns with the
+    keyed net; trained three steps, the f32 grads against the plain
+    backward; and an int8 no-key conv against the same layer on a key.
+    Returns ``(tallies, table-path ms, serve launches, train launches, int8
+    launches, run_int8 ms)``."""
+    import numpy as np
+    from spconv_tpu_torch import SparseConvTensor, SubMConv3d
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.quantization import (PerChannelMinMaxObserver,
+                                               QuantizedSparseConv)
+
+    names = ("dg_fwd_search", "dg_dgrad_search", "dg_wgrad_search",
+             "dg_fwd_q_search")
+    tally = {k: Tally() for k in names}
+    table_ms = dict.fromkeys(names, 0.0)
+    bf16 = torch.bfloat16
+
+    def checked(kern, fn, plain, table, tol, what):
+        """``fn()`` against ``plain()`` (within ``tol`` of max|ref|, or
+        exactly when ``tol`` is 0) and bit-equal to ``table()`` (B1 +
+        the table-mode kernel) and to a second run."""
+        got = fn()
+        diff, r = rel_err(torch, got, plain())
+        check(np.isfinite(r) and r <= tol, f"{kern} {what}: {r:.3e} > "
+              f"{tol} of max|ref| from plain")
+        check(torch.equal(got, table()), f"{kern} {what}: differs from B1 "
+              "+ the table kernel")
+        check(torch.equal(got, fn()), f"{kern} {what}: two runs differ")
+        note(kern, diff, r)
+        return r
+
+    def layer_case(g, geom, c, k, what, timed):
+        """S1-S3 at one layer of input ``g``: random features and dout on
+        its active rows, random weights; checks both dtypes and returns
+        the bf16 ``{kernel: (ms, plain ms, bound, table-path ms)}`` when
+        ``timed``."""
+        keys, _ = C.linearize(g.indices, g.spatial_shape, 1)
+        tab = geom._asdict()
+        kv = int(np.prod(geom.ksize))
+        pos = D.build_dg_pos(keys, **tab)
+        rev = D.build_dg_pos(keys, reverse=True, **tab)
+        n = keys.shape[0]
+        valid = g.valid_mask[:, None]
+        xf = torch.randn((n, c), device=dev, generator=gen) * valid
+        wf = torch.randn((kv, c, k), device=dev, generator=gen) \
+            / float(np.sqrt(kv * c))
+        df = torch.randn((n, k), device=dev, generator=gen) * valid
+        times = {}
+        for dt in (torch.float32, bf16):
+            dtn = str(dt)[6:]
+            x, w, dout = (t.to(dt).contiguous() for t in (xf, wf, df))
+            cases = {
+                "dg_fwd_search": (
+                    lambda: D.dg_fwd_search(x, w, keys, geom),
+                    lambda: D.dg_fwd_search_plain(x, w, keys, geom),
+                    lambda: D.dg_fwd(x, w, D.build_dg_pos(keys, **tab)),
+                    TOL[dtn], gemm_bound(x, w, pos, k, keys=keys)),
+                "dg_dgrad_search": (
+                    lambda: D.dg_dgrad_search(dout, w, keys, geom),
+                    lambda: D.dg_dgrad_search_plain(dout, w, keys, geom),
+                    lambda: D.dg_dgrad(dout, w, D.build_dg_pos(
+                        keys, reverse=True, **tab)),
+                    TOL[dtn], gemm_bound(dout, w, rev, c, keys=keys)),
+                "dg_wgrad_search": (
+                    lambda: D.dg_wgrad_search(x, dout, keys, geom),
+                    lambda: D.dg_wgrad_search_plain(x, dout, keys, geom),
+                    lambda: D.dg_wgrad(x, dout, D.build_dg_pos(
+                        keys, reverse=True, **tab)),
+                    WGRAD_TOL[dtn], wgrad_bound(x, dout, rev, keys=keys)),
+            }
+            for kern, (fn, plain, table, tol, bnd) in cases.items():
+                r = checked(kern, fn, plain, table, tol, f"{what} {dtn}")
+                if not (timed and dt == bf16):
+                    print(f"  {what:22s} {kern:16s} {dtn:9s} {c:4d} {k:4d} "
+                          f"{r:12.3e}  bit-equal to B1 + table")
+                    continue
+                t = (cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 2), bnd,
+                     cuda_ms(torch, table, 10))
+                times[kern] = t
+                print(f"  {what:22s} {kern:16s} {dtn:9s} {c:4d} {k:4d} "
+                      f"{r:12.3e}  bit-equal to B1 + table  {t[0]:9.4f}  "
+                      f"{t[3]:9.4f}  {t[1]:8.4f}  {t[2][0]:.4f}")
+        return times
+
+    print("search mode: layer kernel dtype C K max|d|/max|ref| (vs plain) "
+          "kernel_ms table_path_ms plain_ms bound_ms")
+    for s, g in enumerate(geo):
+        geom = D.SearchGeom.of(KSIZE, DIL, g.spatial_shape, 1)
+        for layer in (2 * s, 2 * s + 1):
+            c, k = B.CHANNELS[layer], B.CHANNELS[layer + 1]
+            times = layer_case(g, geom, c, k,
+                               f"stage {s} conv{layer} N {g.indices.shape[0]}",
+                               True)
+            for kern, (km, pm, bnd, tm) in times.items():
+                if kern == "dg_dgrad_search" and layer == 0:
+                    continue  # the input features need no gradient
+                tally[kern].add(km, pm, bnd)
+                table_ms[kern] += tm
+    layer_case(geo[2], D.SearchGeom.of((5, 5, 5), DIL, geo[2].spatial_shape,
+                                       1), 96, 96, "stage 2 kernel 5^3", False)
+    print("per bf16 forward / step's backward, search mode: " + ", ".join(
+        f"{k} {tally[k]}, B1 + table {table_ms[k]:.4f} ms"
+        for k in names[:3]))
+
+    # ---- S4, and bench.py's run_int8 section: one subm layer at C = K on
+    # the 125k-voxel scan, bf16 and int8 (ReLU, int8 out), in search mode
+    # and on a cached table
+    g0 = geo[0]
+    keys0, _ = C.linearize(g0.indices, g0.spatial_shape, 1)
+    geom0 = D.SearchGeom.of(KSIZE, DIL, g0.spatial_shape, 1)
+    pos0 = D.build_dg_pos(keys0, **geom0._asdict())
+    n0 = keys0.shape[0]
+    run_int8 = {}
+
+    def randq(shape, lim):
+        return torch.randint(-lim, lim, shape, device=dev, generator=gen,
+                             dtype=torch.int32).to(torch.int8)
+
+    print("int8 search mode (S4) and run_int8: C=K, search / table ms, "
+          "bf16 and int8")
+    for c in SEARCH_Q_WIDTHS:
+        x8, w8 = randq((n0, c), 100), randq((27, c, c), 80)
+        scale = torch.rand(c, device=dev, generator=gen) * 0.009 + 0.001
+        res = randq((n0, c), 90)
+        for add in (None, res):
+            kw = dict(act="relu", add=add, add_scale=0.37)
+            checked("dg_fwd_q_search",
+                    lambda: D.dg_fwd_q_search(x8, w8, keys0, scale, None,
+                                              geom0, **kw),
+                    lambda: D.dg_fwd_q_search_plain(x8, w8, keys0, scale,
+                                                    None, geom0, **kw),
+                    lambda: D.dg_fwd_q(x8, w8, D.build_dg_pos(
+                        keys0, **geom0._asdict()), scale, None, **kw),
+                    0.0, f"C=K={c} {'residual' if add is not None else ''}")
+        xb = (torch.randn((n0, c), device=dev, generator=gen) * 0.3).to(bf16)
+        wb = (torch.randn((27, c, c), device=dev, generator=gen)
+              * 0.05).to(bf16)
+
+        def q_search():
+            return D.dg_fwd_q_search(x8, w8, keys0, scale, None, geom0,
+                                     act="relu")
+
+        ms = {"bf16_search": cuda_ms(
+                  torch, lambda: D.dg_fwd_search(xb, wb, keys0, geom0), 10),
+              "bf16_table": cuda_ms(torch, lambda: D.dg_fwd(xb, wb, pos0),
+                                    10),
+              "int8_search": cuda_ms(torch, q_search, 10),
+              "int8_table": cuda_ms(torch, lambda: D.dg_fwd_q(
+                  x8, w8, pos0, scale, None, act="relu"), 10)}
+        run_int8[f"C=K={c}"] = ms
+        if c == SEARCH_Q_WIDTHS[0]:  # the int8 module route's layer below
+            tally["dg_fwd_q_search"].add(
+                ms["int8_search"], cuda_ms(torch, lambda: (
+                    D.dg_fwd_q_search_plain(x8, w8, keys0, scale, None,
+                                            geom0, act="relu")), 2),
+                q_bound(x8, w8, pos0, c, False, keys=keys0))
+            table_ms["dg_fwd_q_search"] += cuda_ms(torch, lambda: D.dg_fwd_q(
+                x8, w8, D.build_dg_pos(keys0, **geom0._asdict()), scale,
+                None, act="relu"), 10)
+        print(f"  C=K={c}: S4 bit-equal to plain and to B1 + dg_fwd_q, with "
+              f"and without the residual; run_int8 ms " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in ms.items()))
+
+    # ---- serve BenchNet with no indice_key: three requests on phase 4's
+    # inputs, each bit-equal to the keyed net's at every stage
+    def no_key(net):
+        for conv in net.convs:
+            conv.indice_key = None
+        return net
+
+    def bench_net(dtype, keyed, train=False):
+        net = B.BenchNet(SHAPE, dtype=dtype, pool_bounds=bounds, device=dev,
+                         seed=0)
+        net = net if keyed else no_key(net)
+        return net if train else net.eval()
+
+    keyed, free = bench_net(bf16, True), bench_net(bf16, False)
+    with torch.inference_mode():
+        free(served[0][1])  # warm-up
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        for seed, x, stages, keyed_ms in served:
+            before = dict(D.launch_counts)
+            t0 = time.perf_counter()
+            got = free.forward_stages(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            delta = {k: D.launch_counts[k] - before[k] for k in before}
+            check(delta == expected(D, **SEARCH_SERVE), f"no-key request "
+                  f"{seed}: launches {delta}")
+            check(not got[-1].indice_dict, f"no-key request {seed}: cached "
+                  f"{sorted(got[-1].indice_dict)}")
+            for i, (a, b) in enumerate(zip(got, stages)):
+                check(torch.equal(a.indices, b.indices)
+                      and torch.equal(a.features, b.features),
+                      f"no-key request {seed}: stage {i} differs from the "
+                      "keyed net's")
+            print(f"no-key request seed={seed} ms={ms:.3f} (keyed, phase 4: "
+                  f"{keyed_ms:.3f}); bit-equal to the keyed net at every "
+                  "stage")
+        serve_launches = dict(D.launch_counts)
+        x0 = served[0][1]
+        busy = [(name, device_busy(torch, lambda: m(x0), 3))
+                for name, m in (("keyed", keyed), ("no-key", free),
+                                ("no-key", free), ("keyed", keyed))]
+        peaks = [(name, peak_mib(torch, lambda: m(x0)))
+                 for name, m in (("keyed", keyed), ("no-key", free))]
+    print("no-key vs keyed BenchNet, 3 bf16 requests of seed 0 a window, in "
+          "turns: " + "; ".join(
+              f"{name} host {w:.3f} ms busy "
+              f"{'none' if b is None else f'{b:.3f}'} ms {k} ops"
+              for name, (w, b, k) in busy)
+          + "; peak allocated in a request: " + ", ".join(
+              f"{name} {p:.1f} MiB above {b:.1f}" for name, (p, b) in peaks))
+
+    # ---- train three bf16 steps
+    net = bench_net(bf16, False, train=True)
+    # phase 4's inputs are inference tensors, which autograd cannot save
+    xs = [B.make_bench_input(*scans[s], dtype=bf16, device=dev)
+          for s in REQUEST_SEEDS]
+    B.train_step(net, xs[0], 0.0)  # warm-up, no update
+    torch.cuda.synchronize()
+    lr = 1e-2 * max(p.abs().max().item() for p in net.parameters()) / max(
+        p.grad.abs().max().item() for p in net.parameters())
+    D.reset_launch_counts()
+    for seed, x in zip(REQUEST_SEEDS, xs):
+        before = dict(D.launch_counts)
+        t0 = time.perf_counter()
+        loss = B.train_step(net, x, lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: D.launch_counts[k] - before[k] for k in before}
+        check(delta == expected(D, **SEARCH_STEP), f"no-key train step "
+              f"{seed}: launches {delta}")
+        loss = loss.item()
+        check(np.isfinite(loss) and loss > 0, f"no-key step {seed}: loss "
+              f"{loss}")
+        for name, p in net.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  and bool(p.grad.any()), f"no-key step {seed}: {name} grad "
+                  "missing, 0 or not finite")
+        print(f"no-key train step seed={seed} ms={ms:.3f} loss={loss:.6e}")
+    train_launches = dict(D.launch_counts)
+    keyed_t = bench_net(bf16, True, train=True)
+    steps = (("keyed", keyed_t), ("no-key", net))
+    step_ms = {name: [] for name, _ in steps}
+    for _ in range(3):
+        for name, m in steps:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            B.train_step(m, xs[0], 0.0)
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3)
+    step_busy = [(name, device_busy(torch, lambda: B.train_step(
+        m, xs[0], 0.0), 3)) for name, m in steps + steps[::-1]]
+    step_peaks = [(name, peak_mib(torch, lambda: B.train_step(m, xs[0], 0.0)))
+                  for name, m in steps]
+    print("no-key vs keyed BenchNet step (bf16, seed 0, lr 0), in turns: "
+          "host ms " + "; ".join(f"{k} {[round(v, 3) for v in ms]}"
+                                 for k, ms in step_ms.items())
+          + "; windows of 3: " + "; ".join(
+              f"{name} host {w:.3f} ms busy "
+              f"{'none' if b is None else f'{b:.3f}'} ms {k} ops"
+              for name, (w, b, k) in step_busy)
+          + "; peak allocated in a step: " + ", ".join(
+              f"{name} {p:.1f} MiB above {b:.1f}"
+              for name, (p, b) in step_peaks))
+
+    # the f32 no-key net's grads (S1-S3) against the plain backward on the
+    # kernel forward (B1 + B2, bit-equal to S1), as phase 5
+    nets = [bench_net(torch.float32, False, train=True),
+            bench_net(torch.float32, True, train=True)]
+    x32 = B.make_bench_input(*scans[0], device=dev)
+    losses = [B.train_step(nets[0], x32, 0.0).item()]
+    loss_p = (plain_forward_stages(torch, nets[1], x32, train=True,
+                                   kernel_fwd=True)[-1]
+              .features.float() ** 2).sum()
+    loss_p.backward()
+    losses.append(loss_p.item())
+    check(abs(losses[0] - losses[1]) <= NET_F32_TOL * abs(losses[1]),
+          f"no-key f32 losses {losses}")
+    worst = max((rel_err(torch, a.grad, b.grad)[1], name)
+                for (name, a), (_, b) in zip(nets[0].named_parameters(),
+                                             nets[1].named_parameters()))
+    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
+          f"no-key f32 grad {worst[1]}: {worst[0]:.3e} > {GRAD_F32_TOL}")
+    print(f"no-key train f32 seed=0: loss kernels {losses[0]:.9e}, plain "
+          f"backward {losses[1]:.9e}; worst weight grad max|d|/max|ref| "
+          f"{worst[0]:.3e} ({worst[1]}, tolerance {GRAD_F32_TOL})")
+
+    # ---- the int8 module route: a no-key int8 subm conv at C = K = 64 on
+    # the stage-0 shape, bit-equal to the same layer on a key
+    conv = SubMConv3d(64, 64, 3, device=dev,
+                      generator=torch.Generator().manual_seed(11))
+    obs = PerChannelMinMaxObserver()
+    obs.observe(conv.weight)
+    q_free = QuantizedSparseConv(conv, obs.scale, 0.02, 0.05,
+                                 act_type="relu")
+    conv.indice_key = "q"
+    q_keyed = QuantizedSparseConv(conv, obs.scale, 0.02, 0.05,
+                                  act_type="relu")
+    x8 = SparseConvTensor(randq((n0, 64), 100) * g0.valid_mask[:, None],
+                          g0.indices, g0.spatial_shape, 1, keys_sorted=True)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        y_free = q_free(x8)
+        torch.cuda.synchronize()
+        q_launches = dict(D.launch_counts)
+        check(q_launches == expected(D, dg_fwd_q_search=1),
+              f"int8 no-key conv launches {q_launches}")
+        y_keyed = q_keyed(x8)
+        check(torch.equal(y_free.features, y_keyed.features)
+              and bool(y_free.features.any()) and not y_free.indice_dict,
+              "int8 no-key conv differs from the keyed one, is 0 or cached "
+              "a table")
+    print(f"int8 no-key SubMConv3d(64, 64) on stage 0: bit-equal to the "
+          f"keyed layer; launches "
+          f"{ {k: v for k, v in q_launches.items() if v} }")
+    return (tally, table_ms, serve_launches, train_launches, q_launches,
+            run_int8)
 
 
 def main():
@@ -1937,7 +2298,12 @@ def main():
     (sk_pool, sk_seg_ms, sk_pool_err, sk_serve, sk_train,
      sk_avg) = sk_pool_phase(torch, dev, gen, scans, geo, bounds, served)
 
-    # ---- 10. report --------------------------------------------------
+    # ---- 10. the table-free subm conv (S1-S4) -------------------------
+    (s_tot, s_table, s_serve, s_train, s_q,
+     run_int8) = search_phase(torch, dev, gen, scans, geo, bounds, served,
+                              note)
+
+    # ---- 11. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against
         its plain version, ``t`` its Tally of times and bound."""
@@ -2073,6 +2439,34 @@ def main():
             pallas + "sorted_pool.py:92 (_sk_pool_kernel, mode mean; "
             "launched at :309)", sk_avg["sk_pool"], sk_pool_err["mean"],
             sk_pool["mean"], seg_route_ms=sk_seg_ms["mean"]),
+        # the search mode: each row's table_path_ms is B1 + the table-mode
+        # kernel on the same inputs, its yardstick
+        row("dg_fwd_search", csrc + "dg_fwd.cu + " + csrc + "dg_search.cuh",
+            pallas + "dg_conv.py:339 (_dg_fwd_kernel, posmode=False, shift "
+            "probes; launched at :1020 by _dg_conv :1639)",
+            s_train["dg_fwd_search"], errs("dg_fwd_search"),
+            s_tot["dg_fwd_search"], serve_launches=s_serve["dg_fwd_search"],
+            table_path_ms=s_table["dg_fwd_search"]),
+        row("dg_dgrad_search", csrc + "dg_fwd.cu + " + csrc + "dg_search.cuh",
+            pallas + "dg_conv.py:1307 (_dg_bwd_kernel din, posmode=False; "
+            "launched at :1598 by _dg_conv_bwd :1661)",
+            s_train["dg_dgrad_search"], errs("dg_dgrad_search"),
+            s_tot["dg_dgrad_search"],
+            table_path_ms=s_table["dg_dgrad_search"]),
+        row("dg_wgrad_search", csrc + "dg_wgrad.cu + " + csrc
+            + "dg_search.cuh",
+            pallas + "dg_conv.py:1307 (_dg_bwd_kernel dW, posmode=False; "
+            "launched at :1598 by _dg_conv_bwd :1661)",
+            s_train["dg_wgrad_search"], errs("dg_wgrad_search"),
+            s_tot["dg_wgrad_search"],
+            table_path_ms=s_table["dg_wgrad_search"]),
+        row("dg_fwd_q_search", csrc + "dg_fwd_q.cu + " + csrc
+            + "dg_search.cuh",
+            pallas + "dg_conv.py:339 (packmode q4, posmode=False; launched "
+            "at :1152 by dg_subm_conv_q :1162 with pos=None)",
+            s_q["dg_fwd_q_search"], errs("dg_fwd_q_search"),
+            s_tot["dg_fwd_q_search"],
+            table_path_ms=s_table["dg_fwd_q_search"], run_int8=run_int8),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on its "

@@ -15,7 +15,9 @@ CenterPoint / SECOND encoder
 ``SparseConvTensor.dense`` and out-bound calibration, ``calibrate``); and
 the segmentation ``SparseUNet`` serving and training, through
 ``SparseInverseConv3d`` and ``JoinTable``.  The strided and the inverse
-conv run forward and backward.  Int8 post-training quantization
+conv run forward and backward; the subm and regular convs come in 1 to 4
+dimensions, and a subm conv without an ``indice_key`` runs table-free
+search kernels.  Int8 post-training quantization
 (``quantization``: ``quantize_encoder`` and friends) serves the encoder
 through an int8 kernel.  Constructors and input builders put their
 tensors on the CUDA card unless given ``device``.  See ROADMAP.md for what
@@ -31,21 +33,33 @@ from .core import SparseConvTensor, default_device, expand_nd
 from .models import SparseUNet
 from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
                       JoinTable, SparseAvgPool, SparseAvgPool1d,
-                      SparseAvgPool2d, SparseAvgPool3d, SparseConv3d,
+                      SparseAvgPool2d, SparseAvgPool3d, SparseConv1d,
+                      SparseConv2d, SparseConv3d, SparseConv4d,
                       SparseConvolution, SparseGlobalAvgPool,
-                      SparseGlobalMaxPool, SparseInverseConv3d, SparseMaxPool,
-                      SparseMaxPool1d, SparseMaxPool2d, SparseMaxPool3d,
-                      SparseMaxPool4d, SparseModule, SparseReLU,
-                      SparseSequential, SubMConv3d)
+                      SparseGlobalMaxPool, SparseInverseConv1d,
+                      SparseInverseConv2d, SparseInverseConv3d,
+                      SparseInverseConv4d, SparseMaxPool, SparseMaxPool1d,
+                      SparseMaxPool2d, SparseMaxPool3d, SparseMaxPool4d,
+                      SparseModule, SparseReLU, SparseSequential, SubMConv1d,
+                      SubMConv2d, SubMConv3d, SubMConv4d)
 
 __all__ = [
     "SparseConvTensor",
     "default_device",
     "expand_nd",
     "SparseConvolution",
+    "SubMConv1d",
+    "SubMConv2d",
     "SubMConv3d",
+    "SubMConv4d",
+    "SparseConv1d",
+    "SparseConv2d",
     "SparseConv3d",
+    "SparseConv4d",
+    "SparseInverseConv1d",
+    "SparseInverseConv2d",
     "SparseInverseConv3d",
+    "SparseInverseConv4d",
     "AddTable",
     "ConcatTable",
     "JoinTable",

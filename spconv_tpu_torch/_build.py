@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper), one process
 per source, all started together, and links the objects into one shared
 library with a plain C interface.  The library is named by a hash of the
-sources and flags and lives under ``_build/`` (git-ignored).  The build runs
+sources, the headers they share (``csrc/*.cuh``) and the flags, and lives
+under ``_build/`` (git-ignored).  The build runs
 at first use, under a file lock, so concurrent processes build it once.
 Importing the package needs neither ``nvcc`` nor a GPU: nothing here runs
 until a kernel is first launched.
@@ -52,7 +53,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libspconv_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -123,15 +124,33 @@ def load_library() -> ctypes.CDLL:
         # x, w, pos, out, n, C, K, kv, stream
         "dg_fwd_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
         "dg_fwd_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        # x, w, keys, out, n, C, K, kv, geom, sentinel, reverse, stream
+        "dg_fwd_search_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32,
+                                     ctypes.POINTER(i32), i32, i32, vp],
+        "dg_fwd_search_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32,
+                                      ctypes.POINTER(i32), i32, i32, vp],
         # x, w, pos, scale, bias, add, add_scale, relu, out, n, C, K, kv,
         # stream
         "dg_fwd_q_launch": [vp, vp, vp, vp, vp, vp, ctypes.c_float, i32, vp,
                             i32, i32, i32, i32, vp],
+        # x, w, keys, scale, bias, add, add_scale, relu, out, n, C, K, kv,
+        # geom, sentinel, stream
+        "dg_fwd_q_search_launch": [vp, vp, vp, vp, vp, vp, ctypes.c_float,
+                                   i32, vp, i32, i32, i32, i32,
+                                   ctypes.POINTER(i32), i32, vp],
         # x, dout, pos_rev, part, out, n, C, K, kv, splits, stream
         "dg_wgrad_f32_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                 vp],
         "dg_wgrad_bf16_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32,
                                  i32, vp],
+        # x, dout, keys, part, out, n, C, K, kv, splits, geom, sentinel,
+        # stream
+        "dg_wgrad_search_f32_launch": [vp, vp, vp, vp, vp, i32, i32, i32,
+                                       i32, i32, ctypes.POINTER(i32), i32,
+                                       vp],
+        "dg_wgrad_search_bf16_launch": [vp, vp, vp, vp, vp, i32, i32, i32,
+                                        i32, i32, ctypes.POINTER(i32), i32,
+                                        vp],
         # feat, bf16, in_keys, n, out_keys, m, C, geom, sent_out, mean,
         # out, stream
         "sk_pool_launch": [vp, i32, vp, i32, vp, i32, i32,

@@ -33,10 +33,24 @@
 //   16x16x16 bf16 tensor-core MMAs (WMMA) with f32 accumulators (bf16).  An
 //   offset whose whole row tile misses is skipped, which also makes the
 //   all-invalid tail of a padded buffer cheap.
+//
+// Search mode (`dg_fwd_search_*_launch`, S1 and, with `reverse` and W[k]^T,
+//   S2): the same kernels with the tile's rows from an in-block search of
+//   the sorted keys instead of the table (dg_search.cuh), replacing
+//   _dg_fwd_kernel and the din half of _dg_bwd_kernel with posmode=False
+//   (launched at dg_conv.py:1020 from _dg_conv :1639, and at :1598 from
+//   _dg_conv_bwd :1661).  The mainloop, the tile shapes and the order of
+//   the f32 sums are the table mode's, and the search finds exactly B1's
+//   rows, so the output is bit-equal to B1 followed by the table mode.
+//   Bound as the table mode, plus the searches: kv * BM probes of ~17
+//   dependent L2 loads per block, repeated by each of the K / 64 column
+//   tiles.  It saves B1's launch and the [kv, N] table's write and read.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "dg_search.cuh"
 
 namespace {
 
@@ -47,27 +61,15 @@ constexpr int BK = 32;  // input channels per step
 constexpr int kF32Threads = 256;   // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kBf16Threads = 128;  // 2 x 2 warps, 32 x 32 outputs each
 
-// Loads this block's match rows for offset k into sp; returns whether any
-// row of the tile matches (block-wide, so the whole block skips together).
-__device__ __forceinline__ bool load_tile_pos(const int* __restrict__ pos,
-                                              int* sp, int k, int n,
-                                              int row0) {
-  int p = -1;
-  if (threadIdx.x < BM) {
-    const int r = row0 + threadIdx.x;
-    if (r < n) p = pos[static_cast<size_t>(k) * n + r];
-    sp[threadIdx.x] = p;
-  }
-  return __syncthreads_or(p >= 0);
-}
-
+// Src: where the tile's rows come from (dg::TableTile or dg::SearchTile).
+template <class Src>
 __global__ void __launch_bounds__(kF32Threads)
 dg_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const int* __restrict__ pos, float* __restrict__ out, int n,
-                  int C, int K, int kv) {
+                  Src src, float* __restrict__ out, int n, int C, int K,
+                  int kv) {
   __shared__ float As[BK][BM + 1];  // transposed gather tile, padded
   __shared__ float Bs[BK][BN];
-  __shared__ int sp[BM];
+  __shared__ int rows[Src::kSmem];
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
@@ -76,7 +78,8 @@ dg_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float acc[4][4] = {};
 
   for (int k = 0; k < kv; ++k) {
-    if (!load_tile_pos(pos, sp, k, n, row0)) continue;
+    const int* sp = src.tile(rows, k, row0);
+    if (sp == nullptr) continue;
     for (int c0 = 0; c0 < C; c0 += BK) {
       for (int e = tid; e < BM * BK; e += kF32Threads) {
         const int r = e / BK;
@@ -129,10 +132,10 @@ dg_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+template <class Src>
 __global__ void __launch_bounds__(kBf16Threads)
 dg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w,
-                   const int* __restrict__ pos,
+                   const __nv_bfloat16* __restrict__ w, Src src,
                    __nv_bfloat16* __restrict__ out, int n, int C, int K,
                    int kv) {
   using namespace nvcuda;
@@ -142,7 +145,7 @@ dg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(32) __nv_bfloat16 As[BM][LDA];
   __shared__ __align__(32) __nv_bfloat16 Bs[BK][LDB];
   __shared__ __align__(32) float Cs[BM][LDC];
-  __shared__ int sp[BM];
+  __shared__ int rows[Src::kSmem];
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wr = warp / 2;  // warp's 32-row half of the tile
@@ -159,7 +162,8 @@ dg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 
   for (int k = 0; k < kv; ++k) {
-    if (!load_tile_pos(pos, sp, k, n, row0)) continue;
+    const int* sp = src.tile(rows, k, row0);
+    if (sp == nullptr) continue;
     for (int c0 = 0; c0 < C; c0 += BK) {
       for (int e = tid; e < BM * BK; e += kBf16Threads) {
         const int r = e / BK;
@@ -228,25 +232,64 @@ dg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 
 dim3 tile_grid(int n, int K) { return dim3((n + BM - 1) / BM, (K + BN - 1) / BN); }
 
+template <class Src>
+int launch(const void* x, const void* w, Src src, void* out, int n, int C,
+           int K, int kv, bool f32, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    dg_fwd_f32_kernel<Src><<<tile_grid(n, K), kF32Threads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), src,
+        static_cast<float*>(out), n, C, K, kv);
+  } else {
+    dg_fwd_bf16_kernel<Src><<<tile_grid(n, K), kBf16Threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w), src,
+        static_cast<__nv_bfloat16*>(out), n, C, K, kv);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+dg::TableTile<BM> table_src(const void* pos, int n) {
+  return {static_cast<const int*>(pos), n};
+}
+
+dg::SearchTile<BM> search_src(const void* keys, int n, int kv,
+                              const int* geom, int sentinel, int reverse) {
+  return {static_cast<const int*>(keys), n, kv, dg::subm_geom(geom),
+          sentinel, reverse};
+}
+
 }  // namespace
 
 extern "C" int dg_fwd_f32_launch(const void* x, const void* w, const void* pos,
                                  void* out, int n, int C, int K, int kv,
                                  void* stream) {
-  dg_fwd_f32_kernel<<<tile_grid(n, K), kF32Threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const int*>(pos), static_cast<float*>(out), n, C, K, kv);
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, w, table_src(pos, n), out, n, C, K, kv, true, stream);
 }
 
 extern "C" int dg_fwd_bf16_launch(const void* x, const void* w,
                                   const void* pos, void* out, int n, int C,
                                   int K, int kv, void* stream) {
-  dg_fwd_bf16_kernel<<<tile_grid(n, K), kBf16Threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), n, C, K, kv);
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, w, table_src(pos, n), out, n, C, K, kv, false, stream);
+}
+
+// Search mode: keys [n] ascending with the sentinel tail, geom (host
+// memory) as dg_pos_launch's; reverse != 0 negates every displacement (the
+// input gradient's probes, on W[k]^T).
+extern "C" int dg_fwd_search_f32_launch(const void* x, const void* w,
+                                        const void* keys, void* out, int n,
+                                        int C, int K, int kv,
+                                        const int* geom, int sentinel,
+                                        int reverse, void* stream) {
+  return launch(x, w, search_src(keys, n, kv, geom, sentinel, reverse), out,
+                n, C, K, kv, true, stream);
+}
+
+extern "C" int dg_fwd_search_bf16_launch(const void* x, const void* w,
+                                         const void* keys, void* out, int n,
+                                         int C, int K, int kv,
+                                         const int* geom, int sentinel,
+                                         int reverse, void* stream) {
+  return launch(x, w, search_src(keys, n, kv, geom, sentinel, reverse), out,
+                n, C, K, kv, false, stream);
 }

@@ -43,11 +43,21 @@
 //   planes that hold channels are loaded and multiplied, and a warp whose 32
 //   columns lie past K skips its MMAs.  The epilogue reads the int32 tile
 //   back from shared memory.
+//
+// Search mode (`dg_fwd_q_search_launch`, S4): the same kernel with the
+//   tile's rows from an in-block search of the sorted keys instead of the
+//   table (dg_search.cuh), replacing packmode q4 with posmode=False
+//   (launched at dg_conv.py:1152 from dg_subm_conv_q :1162 with pos=None).
+//   The mainloop and the epilogue are the table mode's and the search finds
+//   exactly B1's rows, so the output is bit-equal to B1 followed by the
+//   table mode.
 
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
+
+#include "dg_search.cuh"
 
 namespace {
 
@@ -59,23 +69,11 @@ constexpr int BK = KP * NP;
 constexpr int LDC = BN + 4;   // int32 tile pitch: a multiple of 4 ints
 constexpr int kThreads = 128; // 2 x 2 warps, 32 x 32 outputs each
 
-// Loads this block's match rows for offset k into sp; returns whether any
-// row of the tile matches (block-wide, so the whole block skips together).
-__device__ __forceinline__ bool load_tile_pos(const int* __restrict__ pos,
-                                              int* sp, int k, int n,
-                                              int row0) {
-  int p = -1;
-  if (threadIdx.x < BM) {
-    const int r = row0 + threadIdx.x;
-    if (r < n) p = pos[static_cast<size_t>(k) * n + r];
-    sp[threadIdx.x] = p;
-  }
-  return __syncthreads_or(p >= 0);
-}
-
+// Src: where the tile's rows come from (dg::TableTile or dg::SearchTile).
+template <class Src>
 __global__ void __launch_bounds__(kThreads)
 dg_fwd_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                const int* __restrict__ pos, const float* __restrict__ scale,
+                Src src, const float* __restrict__ scale,
                 const float* __restrict__ bias,
                 const int8_t* __restrict__ add, float add_scale, int relu,
                 int8_t* __restrict__ out, int n, int C, int K, int kv) {
@@ -83,7 +81,7 @@ dg_fwd_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   __shared__ __align__(32) signed char As[NP][BM][KP];  // plane, row, chan
   __shared__ __align__(32) signed char Bs[NP][BN][KP];  // plane, col, chan
   __shared__ __align__(32) int Cs[BM][LDC];
-  __shared__ int sp[BM];
+  __shared__ int rows[Src::kSmem];
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wr = warp / 2;  // warp's 32-row half of the tile
@@ -100,7 +98,8 @@ dg_fwd_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 
   for (int k = 0; k < kv; ++k) {
-    if (!load_tile_pos(pos, sp, k, n, row0)) continue;
+    const int* sp = src.tile(rows, k, row0);
+    if (sp == nullptr) continue;
     for (int c0 = 0; c0 < C; c0 += BK) {
       const int planes = min(NP, (C - c0 + KP - 1) / KP);
       const int width = planes * KP;
@@ -180,6 +179,20 @@ dg_fwd_q_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+template <class Src>
+int launch(const void* x, const void* w, Src src, const void* scale,
+           const void* bias, const void* add, float add_scale, int relu,
+           void* out, int n, int C, int K, int kv, void* stream) {
+  const dim3 grid((n + BM - 1) / BM, (K + BN - 1) / BN);
+  dg_fwd_q_kernel<Src><<<grid, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), src,
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const int8_t*>(add), add_scale, relu,
+      static_cast<int8_t*>(out), n, C, K, kv);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // bias and add may be null (no bias, no residual)
@@ -188,11 +201,21 @@ extern "C" int dg_fwd_q_launch(const void* x, const void* w, const void* pos,
                                const void* add, float add_scale, int relu,
                                void* out, int n, int C, int K, int kv,
                                void* stream) {
-  const dim3 grid((n + BM - 1) / BM, (K + BN - 1) / BN);
-  dg_fwd_q_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int*>(pos), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<const int8_t*>(add),
-      add_scale, relu, static_cast<int8_t*>(out), n, C, K, kv);
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, w, dg::TableTile<BM>{static_cast<const int*>(pos), n},
+                scale, bias, add, add_scale, relu, out, n, C, K, kv, stream);
+}
+
+// Search mode: keys [n] ascending with the sentinel tail, geom (host
+// memory) as dg_pos_launch's.
+extern "C" int dg_fwd_q_search_launch(const void* x, const void* w,
+                                      const void* keys, const void* scale,
+                                      const void* bias, const void* add,
+                                      float add_scale, int relu, void* out,
+                                      int n, int C, int K, int kv,
+                                      const int* geom, int sentinel,
+                                      void* stream) {
+  return launch(x, w,
+                dg::SearchTile<BM>{static_cast<const int*>(keys), n, kv,
+                                   dg::subm_geom(geom), sentinel, 0},
+                scale, bias, add, add_scale, relu, out, n, C, K, kv, stream);
 }

@@ -75,16 +75,12 @@
 
 #include <cuda_runtime.h>
 
+#include "dg_search.cuh"
+
 namespace {
 
-constexpr int kMaxNdim = 4;
-
-struct PosGeom {
-  int ndim;
-  int dims[kMaxNdim];
-  int ksize[kMaxNdim];
-  int dil[kMaxNdim];
-};
+using dg::kMaxNdim;
+using dg::search_row;
 
 struct AffineGeom {
   int ndim;
@@ -96,55 +92,15 @@ struct AffineGeom {
   int pad[kMaxNdim];
 };
 
-// Row of `probe` in keys[0, n), or -1.
-__device__ __forceinline__ int search_row(const int* __restrict__ keys,
-                                          int n, int probe) {
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (__ldg(keys + mid) < probe) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return (lo < n && __ldg(keys + lo) == probe) ? lo : -1;
-}
-
+// The subm probe is dg_search.cuh's, shared with the search-mode kernels.
 __global__ void dg_pos_kernel(const int* __restrict__ keys, int n, int kv,
-                              PosGeom g, int sentinel, int reverse,
+                              dg::SubmGeom g, int sentinel, int reverse,
                               int* __restrict__ pos) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= kv * n) return;
   const int k = t / n;
   const int i = t - k * n;
-  const int key = keys[i];
-  int res = -1;
-  if (key != sentinel) {
-    int rem = key;
-    int kr = k;
-    int delta = 0;
-    int stride = 1;
-    bool ok = true;
-#pragma unroll
-    for (int a = kMaxNdim - 1; a >= 0; --a) {
-      if (a < g.ndim) {
-        const int coord = rem % g.dims[a];
-        rem /= g.dims[a];
-        const int ka = kr % g.ksize[a];
-        kr /= g.ksize[a];
-        int d = (ka - g.ksize[a] / 2) * g.dil[a];
-        if (reverse) d = -d;
-        const int c = coord + d;
-        ok = ok && c >= 0 && c < g.dims[a];
-        delta += d * stride;
-        stride *= g.dims[a];
-      }
-    }
-    if (ok) res = search_row(keys, n, key + delta);
-  }
-  pos[t] = res;
+  pos[t] = dg::subm_probe(keys, n, keys[i], k, g, sentinel, reverse != 0);
 }
 
 __global__ void dg_pos_affine_kernel(const int* __restrict__ out_keys,
@@ -244,19 +200,12 @@ AffineGeom affine_geom(const int* geom) {
 extern "C" int dg_pos_launch(const void* keys, int n, int kv, const int* geom,
                              int sentinel, int reverse, void* pos,
                              void* stream) {
-  PosGeom g;
-  g.ndim = geom[0];
-  for (int a = 0; a < kMaxNdim; ++a) {
-    g.dims[a] = geom[1 + a];
-    g.ksize[a] = geom[1 + kMaxNdim + a];
-    g.dil[a] = geom[1 + 2 * kMaxNdim + a];
-  }
   const int threads = 256;
   const int total = kv * n;
   const int blocks = (total + threads - 1) / threads;
   dg_pos_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), n, kv, g, sentinel, reverse != 0,
-      static_cast<int*>(pos));
+      static_cast<const int*>(keys), n, kv, dg::subm_geom(geom), sentinel,
+      reverse, static_cast<int*>(pos));
   return static_cast<int>(cudaGetLastError());
 }
 

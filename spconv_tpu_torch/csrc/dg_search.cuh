@@ -1,0 +1,164 @@
+// The subm probe, shared by B1's subm mode (dg_pos.cu) and the search-mode
+// gather-GEMMs (dg_fwd.cu, dg_wgrad.cu, dg_fwd_q.cu), and the two row
+// sources of a gather-GEMM's output tile: a cached match table, or an
+// in-block search of the same rows.
+//
+// The search row sources replace the search mode (posmode=False, shift
+// probes) of spconv_tpu/ops/pallas/dg_conv.py::_dg_fwd_kernel (:339,
+// launched at :1020 and :1152) and ::_dg_bwd_kernel (:1307, launched at
+// :1598).  The TPU kernel streams DMA'd windows of the sorted keys and
+// binary-searches key(i) + delta_k in them inside the GEMM, building no
+// table.  Here each block searches the whole key array (about 0.5 MB at
+// 126k rows, resident in L2, as B1 assumes) for its own rows before it
+// gathers through them, so no [kv, N] table reaches device memory.  A
+// search row source returns exactly the rows B1 writes, so a search-mode
+// kernel is bit-equal to B1 followed by the table-mode kernel.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace dg {
+
+constexpr int kMaxNdim = 4;
+
+// A subm stage's geometry: the grid, the kernel and its dilation.
+struct SubmGeom {
+  int ndim;
+  int dims[kMaxNdim];
+  int ksize[kMaxNdim];
+  int dil[kMaxNdim];
+};
+
+// geom (host memory): ndim, dims[4], ksize[4], dilation[4].
+inline SubmGeom subm_geom(const int* geom) {
+  SubmGeom g;
+  g.ndim = geom[0];
+  for (int a = 0; a < kMaxNdim; ++a) {
+    g.dims[a] = geom[1 + a];
+    g.ksize[a] = geom[1 + kMaxNdim + a];
+    g.dil[a] = geom[1 + 2 * kMaxNdim + a];
+  }
+  return g;
+}
+
+// Row of `probe` in keys[0, n), or -1.
+__device__ __forceinline__ int search_row(const int* __restrict__ keys,
+                                          int n, int probe) {
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (__ldg(keys + mid) < probe) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return (lo < n && __ldg(keys + lo) == probe) ? lo : -1;
+}
+
+// The row of keys[0, n) whose key is `key` moved by kernel offset k
+// (row-major 'ij' order over the kernel dims): decode key's coordinates,
+// add d_k = (offset_k - centre) * dilation (negated with `reverse`: the
+// backward's probe), bounds-check every axis and binary-search the moved
+// key.  -1 where an axis leaves the grid, no row has the key, or `key` is
+// the sentinel.
+__device__ __forceinline__ int subm_probe(const int* __restrict__ keys,
+                                          int n, int key, int k,
+                                          const SubmGeom& g, int sentinel,
+                                          bool reverse) {
+  if (key == sentinel) return -1;
+  int rem = key;
+  int kr = k;
+  int delta = 0;
+  int stride = 1;
+  bool ok = true;
+#pragma unroll
+  for (int a = kMaxNdim - 1; a >= 0; --a) {
+    if (a < g.ndim) {
+      const int coord = rem % g.dims[a];
+      rem /= g.dims[a];
+      const int ka = kr % g.ksize[a];
+      kr /= g.ksize[a];
+      int d = (ka - g.ksize[a] / 2) * g.dil[a];
+      if (reverse) d = -d;
+      const int c = coord + d;
+      ok = ok && c >= 0 && c < g.dims[a];
+      delta += d * stride;
+      stride *= g.dims[a];
+    }
+  }
+  return ok ? search_row(keys, n, key + delta) : -1;
+}
+
+// Row sources of a gather-GEMM block that owns BM output rows from row0.
+// tile(sm, k, row0) returns the BM source rows of offset k (-1 = none), in
+// the shared memory `sm` of kSmem ints, or nullptr when none of them
+// matches, block-wide, so the whole block skips the offset together.  Every
+// thread of the block calls it with the same k, for k = 0, 1, ..., kv - 1.
+
+// The rows from a cached match table pos [kv, n].
+template <int BM>
+struct TableTile {
+  static constexpr int kSmem = BM;
+  const int* pos;
+  int n;
+
+  __device__ __forceinline__ const int* tile(int* sm, int k,
+                                             int row0) const {
+    int p = -1;
+    if (threadIdx.x < BM) {
+      const int r = row0 + threadIdx.x;
+      if (r < n) p = pos[static_cast<size_t>(k) * n + r];
+      sm[threadIdx.x] = p;
+    }
+    return __syncthreads_or(p >= 0) ? sm : nullptr;
+  }
+};
+
+// Offsets searched at once: 32 x 64 rows x 4 B = 8 KB of shared memory.
+// A 3^3 kernel is one group, 5^3 four, 7^3 eleven.
+constexpr int kSearchGroup = 32;
+
+// The rows from an in-block search: at the first offset of each group of
+// kSearchGroup offsets, the block searches every (offset, row) probe of
+// the group at once, offset-major, so neighbouring threads search for
+// neighbouring keys, and flags the offsets that match anywhere in the
+// tile.  The searches are repeated by every column tile of the same rows
+// (K / BN of them).
+template <int BM>
+struct SearchTile {
+  static constexpr int kSmem = kSearchGroup * BM + kSearchGroup;
+  const int* keys;
+  int n;
+  int kv;
+  SubmGeom g;
+  int sentinel;
+  int reverse;
+
+  __device__ __forceinline__ const int* tile(int* sm, int k,
+                                             int row0) const {
+    int* hit = sm + kSearchGroup * BM;
+    const int kk = k % kSearchGroup;
+    if (kk == 0) {
+      const int gk = min(kSearchGroup, kv - k);
+      __syncthreads();  // the previous group's rows and flags are read
+      if (threadIdx.x < kSearchGroup) hit[threadIdx.x] = 0;
+      __syncthreads();
+      for (int e = threadIdx.x; e < gk * BM; e += blockDim.x) {
+        const int r = row0 + e % BM;
+        const int p = r < n ? subm_probe(keys, n, __ldg(keys + r),
+                                         k + e / BM, g, sentinel,
+                                         reverse != 0)
+                            : -1;
+        sm[e] = p;
+        if (p >= 0) hit[e / BM] = 1;
+      }
+      __syncthreads();
+    }
+    return hit[kk] ? sm + kk * BM : nullptr;
+  }
+};
+
+}  // namespace dg

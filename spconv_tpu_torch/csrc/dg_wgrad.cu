@@ -31,10 +31,23 @@
 //   x_chunk^T * dout_chunk: f32 FMAs from registers (f32) or 16x16x16 bf16
 //   WMMA with f32 accumulators (bf16).  Its tile goes to the f32 scratch
 //   part[S, kv, C, K]; the reduce kernel sums over S.
+//
+// Search mode (`dg_wgrad_search_*_launch`, S3): the same kernels with each
+//   chunk's reversed matches from an in-block search of the sorted keys
+//   (dg_search.cuh's subm probe) instead of the table, replacing the dW half
+//   of _dg_bwd_kernel with posmode=False (launched at dg_conv.py:1598 from
+//   _dg_conv_bwd :1661).  The block searches one row per thread, blockDim /
+//   32 chunks at once, for its one offset, and flags each chunk that matches
+//   anywhere (one warp = one chunk).  Chunks, their order, the skip
+//   decisions and the fixed-order reduce are the table mode's, so dW is
+//   bit-equal to B1's reversed table followed by the table mode.  Every
+//   (C-tile, K-tile) block of an offset repeats the searches of its rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "dg_search.cuh"
 
 namespace {
 
@@ -62,29 +75,72 @@ __device__ __forceinline__ TileCoords tile_coords(int n, int K,
   return t;
 }
 
-// Loads the chunk's reversed matches into sp (-1 past j_end); returns
-// whether any row of the chunk matches (block-wide, so the whole block skips
-// together).
-__device__ __forceinline__ bool load_chunk_pos(const int* __restrict__ pos_rev,
-                                               int* sp, int k, int n, int j0,
-                                               int j_end) {
-  int p = -1;
-  if (threadIdx.x < BJ) {
-    const int j = j0 + threadIdx.x;
-    if (j < j_end) p = pos_rev[static_cast<size_t>(k) * n + j];
-    sp[threadIdx.x] = p;
-  }
-  return __syncthreads_or(p >= 0);
-}
+// Row sources of a block's chunks.  chunk(sm, k, j0, j_begin, j_end)
+// returns the reversed matches of rows j0 .. j0 + BJ - 1 at offset k (-1
+// past j_end), in the shared memory `sm` of kSmem ints, or nullptr when none
+// of them matches, block-wide, so the whole block skips the chunk together.
+// Every thread calls it with the same arguments, for j0 = j_begin, j_begin +
+// BJ, ... below j_end.
 
+// The matches from the reversed table pos_rev [kv, n].
+struct TableChunks {
+  static constexpr int kSmem = BJ;
+  const int* pos_rev;
+  int n;
+
+  __device__ __forceinline__ const int* chunk(int* sm, int k, int j0, int,
+                                              int j_end) const {
+    int p = -1;
+    if (threadIdx.x < BJ) {
+      const int j = j0 + threadIdx.x;
+      if (j < j_end) p = pos_rev[static_cast<size_t>(k) * n + j];
+      sm[threadIdx.x] = p;
+    }
+    return __syncthreads_or(p >= 0) ? sm : nullptr;
+  }
+};
+
+// The matches from an in-block search of the reversed probes: at every
+// blockDim-th row from j_begin, each thread searches one row, and each warp
+// flags whether its chunk matches.
+template <int kThreads>
+struct SearchChunks {
+  static_assert(BJ == 32, "a chunk is one warp's rows");
+  static constexpr int kSmem = kThreads + kThreads / BJ;
+  const int* keys;
+  int n;
+  dg::SubmGeom g;
+  int sentinel;
+
+  __device__ __forceinline__ const int* chunk(int* sm, int k, int j0,
+                                              int j_begin, int j_end) const {
+    int* hit = sm + kThreads;
+    const int off = (j0 - j_begin) % kThreads;
+    if (off == 0) {
+      __syncthreads();  // the previous rows and flags are read
+      const int j = j0 + threadIdx.x;
+      const int p = j < j_end ? dg::subm_probe(keys, n, __ldg(keys + j), k,
+                                               g, sentinel, true)
+                              : -1;
+      sm[threadIdx.x] = p;
+      const bool any = __any_sync(0xffffffffu, p >= 0);
+      if (threadIdx.x % 32 == 0) hit[threadIdx.x / 32] = any;
+      __syncthreads();
+    }
+    return hit[off / BJ] ? sm + off : nullptr;
+  }
+};
+
+// Src: where each chunk's matches come from (TableChunks or SearchChunks).
+template <class Src>
 __global__ void __launch_bounds__(kF32Threads)
 dg_wgrad_f32_kernel(const float* __restrict__ x,
-                    const float* __restrict__ dout,
-                    const int* __restrict__ pos_rev, float* __restrict__ part,
-                    int n, int C, int K, int kv, int rows_per_split) {
+                    const float* __restrict__ dout, Src src,
+                    float* __restrict__ part, int n, int C, int K, int kv,
+                    int rows_per_split) {
   __shared__ __align__(16) float Xs[BJ][TM];
   __shared__ __align__(16) float Ds[BJ][TN];
-  __shared__ int sp[BJ];
+  __shared__ int rows[Src::kSmem];
   const TileCoords t = tile_coords(n, K, rows_per_split);
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -92,7 +148,8 @@ dg_wgrad_f32_kernel(const float* __restrict__ x,
   float acc[4][4] = {};
 
   for (int j0 = t.j_begin; j0 < t.j_end; j0 += BJ) {
-    if (!load_chunk_pos(pos_rev, sp, t.k, n, j0, t.j_end)) continue;
+    const int* sp = src.chunk(rows, t.k, j0, t.j_begin, t.j_end);
+    if (sp == nullptr) continue;
     for (int e = tid; e < BJ * TM; e += kF32Threads) {
       const int r = e / TM;
       const int c = e % TM;
@@ -142,10 +199,10 @@ dg_wgrad_f32_kernel(const float* __restrict__ x,
   }
 }
 
+template <class Src>
 __global__ void __launch_bounds__(kBf16Threads)
 dg_wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const int* __restrict__ pos_rev,
+                     const __nv_bfloat16* __restrict__ dout, Src src,
                      float* __restrict__ part, int n, int C, int K, int kv,
                      int rows_per_split) {
   using namespace nvcuda;
@@ -155,7 +212,7 @@ dg_wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(32) __nv_bfloat16 Xs[BJ][LDX];
   __shared__ __align__(32) __nv_bfloat16 Ds[BJ][LDD];
   __shared__ __align__(32) float Cs[TM][LDC];
-  __shared__ int sp[BJ];
+  __shared__ int rows[Src::kSmem];
   const TileCoords t = tile_coords(n, K, rows_per_split);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -171,7 +228,8 @@ dg_wgrad_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 
   for (int j0 = t.j_begin; j0 < t.j_end; j0 += BJ) {
-    if (!load_chunk_pos(pos_rev, sp, t.k, n, j0, t.j_end)) continue;
+    const int* sp = src.chunk(rows, t.k, j0, t.j_begin, t.j_end);
+    if (sp == nullptr) continue;
     for (int e = tid; e < BJ * TM; e += kBf16Threads) {
       const int r = e / TM;
       const int c = e % TM;
@@ -278,6 +336,45 @@ int reduce_launch(const float* part, T* out, int splits, size_t total,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Src, class T>
+int launch(const T* x, const T* dout, Src src, void* part, void* out, int n,
+           int C, int K, int kv, int splits, cudaStream_t s) {
+  float* p = static_cast<float*>(part);
+  if constexpr (sizeof(T) == 4) {
+    dg_wgrad_f32_kernel<Src><<<wgrad_grid(C, K, kv, splits), kF32Threads, 0,
+                               s>>>(x, dout, src, p, n, C, K, kv,
+                                    rows_per_split(n, splits));
+  } else {
+    dg_wgrad_bf16_kernel<Src><<<wgrad_grid(C, K, kv, splits), kBf16Threads,
+                                0, s>>>(x, dout, src, p, n, C, K, kv,
+                                        rows_per_split(n, splits));
+  }
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  return reduce_launch(static_cast<const float*>(p), static_cast<T*>(out),
+                       splits, static_cast<size_t>(kv) * C * K, s);
+}
+
+template <class T>
+int launch_table(const void* x, const void* dout, const void* pos_rev,
+                 void* part, void* out, int n, int C, int K, int kv,
+                 int splits, void* stream) {
+  return launch(static_cast<const T*>(x), static_cast<const T*>(dout),
+                TableChunks{static_cast<const int*>(pos_rev), n}, part, out,
+                n, C, K, kv, splits, static_cast<cudaStream_t>(stream));
+}
+
+template <class T, int kThreads>
+int launch_search(const void* x, const void* dout, const void* keys,
+                  void* part, void* out, int n, int C, int K, int kv,
+                  int splits, const int* geom, int sentinel, void* stream) {
+  return launch(static_cast<const T*>(x), static_cast<const T*>(dout),
+                SearchChunks<kThreads>{static_cast<const int*>(keys), n,
+                                       dg::subm_geom(geom), sentinel},
+                part, out, n, C, K, kv, splits,
+                static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // part: f32 scratch [splits, kv, C, K]; out: [kv, C, K] in the input dtype.
@@ -285,31 +382,37 @@ extern "C" int dg_wgrad_f32_launch(const void* x, const void* dout,
                                    const void* pos_rev, void* part, void* out,
                                    int n, int C, int K, int kv, int splits,
                                    void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dg_wgrad_f32_kernel<<<wgrad_grid(C, K, kv, splits), kF32Threads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dout),
-      static_cast<const int*>(pos_rev), static_cast<float*>(part), n, C, K,
-      kv, rows_per_split(n, splits));
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return reduce_launch(static_cast<const float*>(part),
-                       static_cast<float*>(out), splits,
-                       static_cast<size_t>(kv) * C * K, s);
+  return launch_table<float>(x, dout, pos_rev, part, out, n, C, K, kv, splits,
+                             stream);
 }
 
 extern "C" int dg_wgrad_bf16_launch(const void* x, const void* dout,
                                     const void* pos_rev, void* part,
                                     void* out, int n, int C, int K, int kv,
                                     int splits, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dg_wgrad_bf16_kernel<<<wgrad_grid(C, K, kv, splits), kBf16Threads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const int*>(pos_rev), static_cast<float*>(part), n, C, K,
-      kv, rows_per_split(n, splits));
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  return reduce_launch(static_cast<const float*>(part),
-                       static_cast<__nv_bfloat16*>(out), splits,
-                       static_cast<size_t>(kv) * C * K, s);
+  return launch_table<__nv_bfloat16>(x, dout, pos_rev, part, out, n, C, K,
+                                     kv, splits, stream);
+}
+
+// Search mode: keys [n] ascending with the sentinel tail, geom (host
+// memory) as dg_pos_launch's; the probes are the reversed ones.
+extern "C" int dg_wgrad_search_f32_launch(const void* x, const void* dout,
+                                          const void* keys, void* part,
+                                          void* out, int n, int C, int K,
+                                          int kv, int splits,
+                                          const int* geom, int sentinel,
+                                          void* stream) {
+  return launch_search<float, kF32Threads>(x, dout, keys, part, out, n, C, K,
+                                           kv, splits, geom, sentinel,
+                                           stream);
+}
+
+extern "C" int dg_wgrad_search_bf16_launch(const void* x, const void* dout,
+                                           const void* keys, void* part,
+                                           void* out, int n, int C, int K,
+                                           int kv, int splits,
+                                           const int* geom, int sentinel,
+                                           void* stream) {
+  return launch_search<__nv_bfloat16, kBf16Threads>(
+      x, dout, keys, part, out, n, C, K, kv, splits, geom, sentinel, stream);
 }

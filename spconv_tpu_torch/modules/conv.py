@@ -2,17 +2,20 @@
 ``spconv_tpu/modules/conv.py``).
 
 Ported: the submanifold conv, the regular (strided) conv and the inverse
-conv on the dynamic-gather (DG) path, each forward and backward, and the
-1x1 path (kernel 1 with a subm or stride-1 geometry, the inverse conv's
-included: a plain matmul on the input's own sites).  A subm stage's match
-table is built once per ``indice_key`` and geometry (kernel size and
-dilation), cached in ``indice_dict`` with the geometry it was built for,
-and reused by every later layer of the stage that has that geometry: the
-stage's first geometry under ``indice_key`` itself, another one under
-``DGData.cache_key(indice_key, ksize, dilation)``.  Its reversed table (the
-backward's) is added to the same record the first time a layer of the
-stage runs with a gradient wanted, and never under ``torch.no_grad()`` or
-``torch.inference_mode()``.
+conv on the dynamic-gather (DG) path, each forward and backward, in 1 to 4
+dimensions, and the 1x1 path (kernel 1 with a subm or stride-1 geometry,
+the inverse conv's included: a plain matmul on the input's own sites).  A
+subm stage's match table is built once per ``indice_key`` and geometry
+(kernel size and dilation), cached in ``indice_dict`` with the geometry it
+was built for, and reused by every later layer of the stage that has that
+geometry: the stage's first geometry under ``indice_key`` itself, another
+one under ``DGData.cache_key(indice_key, ksize, dilation)``.  Its reversed
+table (the backward's) is added to the same record the first time a layer
+of the stage runs with a gradient wanted, and never under
+``torch.no_grad()`` or ``torch.inference_mode()``.  A subm conv without an
+``indice_key`` builds no table and caches nothing: its kernels search each
+row's matches themselves (``ops.dg_conv.dg_subm_conv_search``), as the JAX
+package's DG kernels do with ``pos=None``.
 
 A regular conv discovers its output sites (``ops.rulebook.
 build_conv_outputs``, bounded by ``out_bound``), builds its affine match
@@ -51,13 +54,16 @@ from ..constants import DEFAULT_ALGO
 from ..core import SparseConvTensor, default_device, expand_nd
 from ..debug_utils import maybe_assert_overflow
 from ..ops import coords as C
-from ..ops.dg_conv import build_dg_pos, dg_regular_conv, dg_subm_conv
+from ..ops.dg_conv import (build_dg_pos, dg_regular_conv, dg_subm_conv,
+                           dg_subm_conv_search)
 from ..ops.epilogue import bias_add_act
 from ..ops.rulebook import build_conv_outputs
 from .modules import SparseModule
 
-__all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv3d",
-           "SparseConv3d", "SparseInverseConv1d", "SparseInverseConv2d",
+__all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv1d",
+           "SubMConv2d", "SubMConv3d", "SubMConv4d", "SparseConv1d",
+           "SparseConv2d", "SparseConv3d", "SparseConv4d",
+           "SparseInverseConv1d", "SparseInverseConv2d",
            "SparseInverseConv3d", "SparseInverseConv4d"]
 
 IntOrSeq = Union[int, Sequence[int]]
@@ -266,14 +272,11 @@ class SparseConvolution(SparseModule):
         return torch.where(valid[:, None], out_feat,
                            torch.zeros_like(out_feat))
 
-    def _stage_key(self, input: SparseConvTensor) -> Optional[str]:
+    def _stage_key(self, input: SparseConvTensor) -> str:
         """The ``indice_dict`` key of this layer's subm record:
         ``indice_key`` unless that holds a record of another kernel size or
-        dilation, then :meth:`DGData.cache_key`.  None without an
-        ``indice_key``.  A key that holds a record of another kind
-        raises."""
-        if self.indice_key is None:
-            return None
+        dilation, then :meth:`DGData.cache_key`.  A key that holds a record
+        of another kind raises."""
         rec = input.indice_dict.get(self.indice_key)
         if rec is not None and not isinstance(rec, DGData):
             raise ValueError(
@@ -286,13 +289,13 @@ class SparseConvolution(SparseModule):
                                 self.dilation)
 
     def _stage_pos(self, input: SparseConvTensor, need_rev: bool):
-        """The stage's match tables ``(pos, pos_rev, new)``: reused from
-        ``indice_dict`` when a layer of this ``indice_key`` and geometry
-        already built them, else built (``new`` is then the pair ``(key,
-        record)`` to cache).  ``pos_rev`` is built only when ``need_rev``,
-        once per stage: it is added to a cached record that lacks it.  A
-        record whose spatial shape or buffer size differs from ``input``'s
-        raises."""
+        """The match tables ``(pos, pos_rev, new)`` of this layer's
+        ``indice_key`` stage: reused from ``indice_dict`` when a layer of
+        this key and geometry already built them, else built (``new`` is
+        then the pair ``(key, record)`` to cache).  ``pos_rev`` is built
+        only when ``need_rev``, once per stage: it is added to a cached
+        record that lacks it.  A record whose spatial shape or buffer size
+        differs from ``input``'s raises."""
         shape = tuple(input.spatial_shape)
         geom = dict(ksize=self.kernel_size, dilation=self.dilation,
                     spatial_shape=shape, batch_size=input.batch_size)
@@ -316,18 +319,33 @@ class SparseConvolution(SparseModule):
         pos = build_dg_pos(keys, **geom)
         pos_rev = (build_dg_pos(keys, reverse=True, **geom) if need_rev
                    else None)
-        if key is None:
-            return pos, pos_rev, None
         return pos, pos_rev, (key, DGData(
             keys, pos, ksize=self.kernel_size, dilation=self.dilation,
             spatial_shape=shape, pos_rev=pos_rev))
 
+    def _search_keys(self, input: SparseConvTensor) -> torch.Tensor:
+        """The keys a table-free subm conv searches: ``input``'s rows
+        linearized, ascending with the sentinel tail (key-sorted input)."""
+        return C.linearize(input.indices, input.spatial_shape,
+                           input.batch_size)[0]
+
     def _call_dg(self, input: SparseConvTensor,
                  add_input: Optional[SparseConvTensor]) -> SparseConvTensor:
-        need_rev = torch.is_grad_enabled() and (
-            input.features.requires_grad or self.weight.requires_grad)
-        pos, pos_rev, new = self._stage_pos(input, need_rev)
-        out_feat = dg_subm_conv(input.features, self.weight, pos, pos_rev)
+        """Subm conv on the DG path: through the stage's match tables under
+        ``indice_key`` (:meth:`_stage_pos`), or, without a key, through the
+        search-mode kernels, which build no table and cache nothing."""
+        new = None
+        if self.indice_key is None:
+            out_feat = dg_subm_conv_search(
+                input.features, self._search_keys(input), self.weight,
+                spatial_shape=tuple(input.spatial_shape),
+                batch_size=input.batch_size, dilation=self.dilation)
+        else:
+            need_rev = torch.is_grad_enabled() and (
+                input.features.requires_grad or self.weight.requires_grad)
+            pos, pos_rev, new = self._stage_pos(input, need_rev)
+            out_feat = dg_subm_conv(input.features, self.weight, pos,
+                                    pos_rev)
         out = SparseConvTensor(
             self._epilogue(out_feat, input.valid_mask, add_input),
             input.indices,
@@ -463,32 +481,58 @@ class SparseConvolution(SparseModule):
             indice_dict=dict(input.indice_dict), keys_sorted=True)
 
 
-class SubMConv3d(SparseConvolution):
+def _make_conv(ndim: int, subm: bool):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOrSeq = 3, stride: IntOrSeq = 1,
                  padding: IntOrSeq = 0, dilation: IntOrSeq = 1,
                  groups: int = 1, bias: bool = True,
                  indice_key: Optional[str] = None,
                  algo: Optional[str] = None, **kwargs):
-        super().__init__(3, in_channels, out_channels, kernel_size, stride,
-                         padding, dilation, groups, bias, subm=True,
-                         indice_key=indice_key, algo=algo, **kwargs)
+        SparseConvolution.__init__(
+            self, ndim, in_channels, out_channels, kernel_size, stride,
+            padding, dilation, groups, bias, subm=subm,
+            indice_key=indice_key, algo=algo, **kwargs)
+
+    return __init__
+
+
+class SubMConv1d(SparseConvolution):
+    __init__ = _make_conv(1, subm=True)
+
+
+class SubMConv2d(SparseConvolution):
+    __init__ = _make_conv(2, subm=True)
+
+
+class SubMConv3d(SparseConvolution):
+    """Submanifold 3-d conv: its output sites are its input's.  With an
+    ``indice_key`` its stage's match tables are cached and shared; without
+    one its kernels search each row's matches (see the module's
+    docstring)."""
+    __init__ = _make_conv(3, subm=True)
+
+
+class SubMConv4d(SparseConvolution):
+    __init__ = _make_conv(4, subm=True)
+
+
+class SparseConv1d(SparseConvolution):
+    __init__ = _make_conv(1, subm=False)
+
+
+class SparseConv2d(SparseConvolution):
+    __init__ = _make_conv(2, subm=False)
 
 
 class SparseConv3d(SparseConvolution):
     """Regular 3-d sparse conv (strided downsample).  Its output buffer
     holds ``out_bound`` rows (default: ``out_bound_ratio`` times the input
     buffer); see :meth:`SparseConvolution._resolve_out_bound`."""
+    __init__ = _make_conv(3, subm=False)
 
-    def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: IntOrSeq = 3, stride: IntOrSeq = 1,
-                 padding: IntOrSeq = 0, dilation: IntOrSeq = 1,
-                 groups: int = 1, bias: bool = True,
-                 indice_key: Optional[str] = None,
-                 algo: Optional[str] = None, **kwargs):
-        super().__init__(3, in_channels, out_channels, kernel_size, stride,
-                         padding, dilation, groups, bias, subm=False,
-                         indice_key=indice_key, algo=algo, **kwargs)
+
+class SparseConv4d(SparseConvolution):
+    __init__ = _make_conv(4, subm=False)
 
 
 def _make_inverse(ndim: int):

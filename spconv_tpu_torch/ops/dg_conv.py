@@ -1,6 +1,7 @@
 """Dynamic-gather (DG) conv on key-sorted input (counterpart of
-``spconv_tpu/ops/pallas/dg_conv.py`` in posmode): the submanifold, regular
-(strided) and inverse convs, forward and backward.
+``spconv_tpu/ops/pallas/dg_conv.py``): the submanifold, regular (strided)
+and inverse convs, forward and backward, through cached match tables
+(posmode), and the submanifold conv without a table (search mode).
 
 The kernel wrappers, each with its plain PyTorch version beside it:
 
@@ -30,6 +31,13 @@ The kernel wrappers, each with its plain PyTorch version beside it:
 * ``dg_fwd_q`` (kernel ``csrc/dg_fwd_q.cu``): the int8 gather-GEMM of the
   quantized convs, int32 accumulation and the fused scale / bias / residual
   / ReLU / requant epilogue, on any of the three forward tables.
+* the search mode of a subm conv (the JAX package's ``pos=None``), the same
+  kernels with each block searching its own rows' matches in the sorted
+  keys (``csrc/dg_search.cuh``) instead of reading a table: ``dg_fwd_search``
+  (S1), ``dg_dgrad_search`` (S2, on the reversed probes), ``dg_wgrad_search``
+  (S3) and ``dg_fwd_q_search`` (S4).  Each computes exactly B1 followed by
+  its table-mode sibling, and its plain version is just that:
+  ``dg_pos_plain`` followed by the sibling's plain version.
 
 Each conv is a pair of tables (the forward's ``[kv, N_dst]``, the
 backward's ``[kv, N_src]``): (pos, reversed pos) for the subm conv,
@@ -37,7 +45,8 @@ backward's ``[kv, N_src]``): (pos, reversed pos) for the subm conv,
 conv.  ``DGConvFn`` is the autograd Function over the pair (the VJPs
 ``_dg_conv_p_bwd`` and ``_dg_reg_conv_bwd`` of the JAX package);
 ``dg_subm_conv`` and ``dg_regular_conv`` take it whenever a gradient is
-wanted.
+wanted.  ``DGSearchFn`` is the table-free subm conv's (``_dg_conv`` and its
+VJP), and ``dg_subm_conv_search`` its entry.
 
 A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
 tensor it launches its kernel or raises; it never falls back.  Each launch
@@ -48,7 +57,7 @@ path.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +86,17 @@ __all__ = [
     "wgrad_splits",
     "DGConvFn",
     "dg_subm_conv",
+    "SearchGeom",
+    "dg_fwd_search",
+    "dg_fwd_search_plain",
+    "dg_dgrad_search",
+    "dg_dgrad_search_plain",
+    "dg_wgrad_search",
+    "dg_wgrad_search_plain",
+    "dg_fwd_q_search",
+    "dg_fwd_q_search_plain",
+    "DGSearchFn",
+    "dg_subm_conv_search",
     "weight_krsc_to_kv",
     "launch_counts",
     "reset_launch_counts",
@@ -89,13 +109,16 @@ PATHS = ("subm", "strided", "inverse")
 # launches of each kernel wrapper of the port since the last
 # reset_launch_counts(); "dg_pos" counts forward subm tables, "dg_pos_rev"
 # reversed ones, "dg_pos_affine" and "dg_pos_divide" a regular conv's two
-# tables, "sk_pool" the sorted-key pool (ops/sorted_pool.py)
+# tables, "*_search" the table-free subm kernels, "sk_pool" the sorted-key
+# pool (ops/sorted_pool.py)
 launch_counts = dict.fromkeys(
     ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_pos_divide",
      "dg_fwd", "dg_fwd_strided", "dg_fwd_inverse",
      "dg_fwd_q", "dg_fwd_q_strided", "dg_fwd_q_inverse",
      "dg_dgrad", "dg_dgrad_strided", "dg_dgrad_inverse",
-     "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse", "sk_pool"), 0)
+     "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse",
+     "dg_fwd_search", "dg_dgrad_search", "dg_wgrad_search",
+     "dg_fwd_q_search", "sk_pool"), 0)
 
 _MAX_NDIM = 4
 
@@ -553,26 +576,29 @@ def dg_dgrad_plain(dout: torch.Tensor, weight_kv: torch.Tensor,
     return dg_fwd_plain(dout, weight_kv.transpose(1, 2), pos_rev)
 
 
-def _gather_gemm_cuda(x, weight_kv, pos, counter):
-    """Launches B2's kernel and counts the launch under ``counter``.  The
-    output has ``pos.shape[1]`` rows; ``x`` is read only through ``pos``."""
+def _gather_gemm_cuda(x, weight_kv, rows, counter, search=()):
+    """Launches B2's kernel and counts the launch under ``counter``.  Its
+    rows come from ``rows``: the table ``[kv, N_dst]``, or with ``search``
+    (the search mode's extra arguments, :func:`_search_args`) the keys
+    ``[N]``.  The output has ``N_dst`` (``N``) rows; ``x`` is read only
+    through the rows' matches."""
     from .._build import load_library
 
     c = x.shape[1]
     kv, _, k_out = weight_kv.shape
-    n = pos.shape[1]
+    n = rows.shape[-1]
     out = torch.empty((n, k_out), dtype=x.dtype, device=x.device)
     if n == 0 or k_out == 0:
         return out
     if c == 0:
         return out.zero_()
-    lib = load_library()
-    launch = (lib.dg_fwd_f32_launch if x.dtype == torch.float32
-              else lib.dg_fwd_bf16_launch)
+    mode = "search_" if search else ""
+    dtype = "f32" if x.dtype == torch.float32 else "bf16"
+    launch = getattr(load_library(), f"dg_fwd_{mode}{dtype}_launch")
     err = launch(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(weight_kv.data_ptr()),
-        ctypes.c_void_p(pos.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        n, c, k_out, kv, _stream_ptr(x.device))
+        ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        n, c, k_out, kv, *search, _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out
@@ -604,20 +630,38 @@ def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     epilogue of a zero sum.  ``path`` names the table and so the launch
     count, as :func:`dg_fwd`'s."""
     name = _count_name("dg_fwd_q", path)
+    _check(pos.ndim == 2, f"{name}: pos must be [kv, N]")
+    n = pos.shape[1]
+    _check_q(name, x, weight_kv, n, scale, bias, act, add, pos)
+    _check(pos.shape[0] == weight_kv.shape[0]
+           and (path != "subm" or n == x.shape[0]),
+           f"{name}: pos is {tuple(pos.shape)} for {weight_kv.shape[0]} "
+           f"offsets and {x.shape[0]} rows")
+    _check(pos.dtype == torch.int32, f"{name}: pos must be int32")
+    _check(add is None or path == "subm",
+           f"{name}: the residual add is subm-only")
+    if x.device.type == "cpu":
+        return dg_fwd_q_plain(x, weight_kv, pos, scale, bias, act=act,
+                              add=add, add_scale=add_scale)
+    return _dg_fwd_q_cuda(x, weight_kv, pos, scale, bias, act, add,
+                          add_scale, name)
+
+
+def _check_q(name, x, weight_kv, n, scale, bias, act, add, rows):
+    """Checks shared by the int8 wrappers: ``x`` ``[N_src, C]`` and
+    ``weight_kv`` ``[kv, C, K]`` int8, ``scale`` and ``bias`` ``[K]`` f32,
+    ``act`` one of ``_ACTS_Q``, ``add`` ``[n, K]`` int8; every operand and
+    ``rows`` (the table or the keys) contiguous on one device, the CPU or
+    CUDA."""
     _check(x.dtype == weight_kv.dtype == torch.int8,
            f"{name} takes int8 features and weights, got {x.dtype} and "
            f"{weight_kv.dtype}")
-    _check(x.ndim == 2 and weight_kv.ndim == 3 and pos.ndim == 2,
-           f"{name}: x must be [N, C], weight_kv [kv, C, K], pos [kv, N]")
+    _check(x.ndim == 2 and weight_kv.ndim == 3,
+           f"{name}: x must be [N, C], weight_kv [kv, C, K]")
     _check(weight_kv.shape[1] == x.shape[1],
            f"{name}: weight is {tuple(weight_kv.shape)}, features have width "
            f"{x.shape[1]}")
-    kv, _, k_out = weight_kv.shape
-    n = pos.shape[1]
-    _check(pos.shape[0] == kv and (path != "subm" or n == x.shape[0]),
-           f"{name}: pos is {tuple(pos.shape)} for {kv} offsets and "
-           f"{x.shape[0]} rows")
-    _check(pos.dtype == torch.int32, f"{name}: pos must be int32")
+    k_out = weight_kv.shape[2]
     _check(act in _ACTS_Q, f"{name}: act must be one of {_ACTS_Q}, got "
                            f"{act!r}")
     vecs = [v for v in (scale, bias) if v is not None]
@@ -625,23 +669,17 @@ def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
                for v in vecs), f"{name}: scale and bias must be [{k_out}] "
                                "float32")
     if add is not None:
-        _check(path == "subm", f"{name}: the residual add is subm-only")
         _check(add.dtype == torch.int8 and tuple(add.shape) == (n, k_out),
                f"{name}: add must be [{n}, {k_out}] int8, got "
                f"{tuple(add.shape)} {add.dtype}")
         vecs.append(add)
-    tensors = [x, weight_kv, pos] + vecs
+    tensors = [x, weight_kv, rows] + vecs
     _check(all(t.device == x.device for t in tensors),
            f"{name}: operands must be on one device")
     _check(all(t.is_contiguous() for t in tensors),
            f"{name} needs contiguous tensors")
-    if x.device.type == "cpu":
-        return dg_fwd_q_plain(x, weight_kv, pos, scale, bias, act=act,
-                              add=add, add_scale=add_scale)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no {name} kernel for {x.device}")
-    return _dg_fwd_q_cuda(x, weight_kv, pos, scale, bias, act, add,
-                          add_scale, name)
 
 
 def dg_fwd_q_plain(x: torch.Tensor, weight_kv: torch.Tensor,
@@ -671,13 +709,15 @@ def dg_fwd_q_plain(x: torch.Tensor, weight_kv: torch.Tensor,
     return torch.round(y).clamp_(-127.0, 127.0).to(torch.int8)
 
 
-def _dg_fwd_q_cuda(x, weight_kv, pos, scale, bias, act, add, add_scale,
-                   counter):
+def _dg_fwd_q_cuda(x, weight_kv, rows, scale, bias, act, add, add_scale,
+                   counter, search=()):
+    """Launches B7's kernel on ``rows``, the table or (with ``search``)
+    the keys, as :func:`_gather_gemm_cuda`."""
     from .._build import load_library
 
     c = x.shape[1]
     kv, _, k_out = weight_kv.shape
-    n = pos.shape[1]
+    n = rows.shape[-1]
     out = torch.empty((n, k_out), dtype=torch.int8, device=x.device)
     if n == 0 or k_out == 0:
         return out
@@ -685,10 +725,12 @@ def _dg_fwd_q_cuda(x, weight_kv, pos, scale, bias, act, add, add_scale,
     def ptr(t):
         return ctypes.c_void_p(None if t is None else t.data_ptr())
 
-    err = load_library().dg_fwd_q_launch(
-        ptr(x), ptr(weight_kv), ptr(pos), ptr(scale), ptr(bias), ptr(add),
+    lib = load_library()
+    launch = lib.dg_fwd_q_search_launch if search else lib.dg_fwd_q_launch
+    err = launch(
+        ptr(x), ptr(weight_kv), ptr(rows), ptr(scale), ptr(bias), ptr(add),
         float(add_scale), int(act == "relu"), ptr(out), n, c, k_out, kv,
-        _stream_ptr(x.device))
+        *search, _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out
@@ -736,7 +778,7 @@ def dg_wgrad(x: torch.Tensor, dout: torch.Tensor, pos_bwd: torch.Tensor,
     _check_operands(name, x, dout, pos_bwd)
     if x.device.type == "cpu":
         return dg_wgrad_plain(x, dout, pos_bwd)
-    return _dg_wgrad_cuda(x, dout, pos_bwd, name)
+    return _dg_wgrad_cuda(x, dout, pos_bwd, pos_bwd.shape[0], name)
 
 
 def dg_wgrad_plain(x: torch.Tensor, dout: torch.Tensor,
@@ -754,12 +796,14 @@ def dg_wgrad_plain(x: torch.Tensor, dout: torch.Tensor,
     return dw.to(x.dtype)
 
 
-def _dg_wgrad_cuda(x, dout, pos_rev, counter):
+def _dg_wgrad_cuda(x, dout, rows, kv, counter, search=()):
+    """Launches the wgrad kernel for ``kv`` offsets on ``rows``, the
+    backward's table or (with ``search``) the keys, as
+    :func:`_gather_gemm_cuda`."""
     from .._build import load_library
 
     n, c = x.shape
     k_out = dout.shape[1]
-    kv = pos_rev.shape[0]
     out = torch.empty((kv, c, k_out), dtype=x.dtype, device=x.device)
     if kv == 0 or c == 0 or k_out == 0:
         return out
@@ -768,17 +812,171 @@ def _dg_wgrad_cuda(x, dout, pos_rev, counter):
     splits = wgrad_splits(n, kv, c, k_out)
     part = torch.empty((splits, kv, c, k_out), dtype=torch.float32,
                        device=x.device)
-    lib = load_library()
-    launch = (lib.dg_wgrad_f32_launch if x.dtype == torch.float32
-              else lib.dg_wgrad_bf16_launch)
+    mode = "search_" if search else ""
+    dtype = "f32" if x.dtype == torch.float32 else "bf16"
+    launch = getattr(load_library(), f"dg_wgrad_{mode}{dtype}_launch")
     err = launch(
         ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(dout.data_ptr()),
-        ctypes.c_void_p(pos_rev.data_ptr()), ctypes.c_void_p(part.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), n, c, k_out, kv, splits,
+        ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(part.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), n, c, k_out, kv, splits, *search,
         _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# S1-S4: the subm conv's kernels in search mode, no match table
+# ---------------------------------------------------------------------------
+
+class SearchGeom(NamedTuple):
+    """The geometry a search-mode subm kernel decodes its probes with: the
+    kernel size and dilation, the grid and the batch size (the arguments of
+    :func:`build_dg_pos`)."""
+    ksize: Tuple[int, ...]
+    dilation: Tuple[int, ...]
+    spatial_shape: Tuple[int, ...]
+    batch_size: int
+
+    @classmethod
+    def of(cls, ksize, dilation, spatial_shape, batch_size) -> "SearchGeom":
+        """Normalized to tuples of ints; raises unless the three have one
+        entry per axis."""
+        g = cls(tuple(int(k) for k in ksize), tuple(int(d) for d in dilation),
+                tuple(int(s) for s in spatial_shape), int(batch_size))
+        _check(len(g.ksize) == len(g.dilation) == len(g.spatial_shape),
+               "ksize, dilation and spatial_shape must have ndim entries")
+        return g
+
+
+def _check_search(name, geom: SearchGeom, keys, kv, n):
+    """``keys`` ``[n]`` int32 and ``kv`` offsets of ``geom``'s kernel."""
+    _check(isinstance(geom, SearchGeom), f"{name}: geom must be a SearchGeom")
+    _check_keys("keys", keys)
+    _check(keys.shape[0] == n, f"{name}: keys has {keys.shape[0]} rows, the "
+                               f"features {n}")
+    _check(kv == int(np.prod(geom.ksize)),
+           f"{name}: weight has {kv} offsets, the kernel {geom.ksize} "
+           f"{int(np.prod(geom.ksize))}")
+
+
+def _search_args(geom: SearchGeom, name: str):
+    """The search mode's extra launch arguments ``(host geometry,
+    sentinel)``: ``geom`` laid out as ``dg_pos_launch``'s."""
+    ndim = len(geom.spatial_shape)
+    if ndim > _MAX_NDIM:
+        raise NotImplementedError(f"{name} kernel takes ndim <= {_MAX_NDIM}")
+    pad = [1] * (_MAX_NDIM - ndim)
+    host = (ctypes.c_int * (1 + 3 * _MAX_NDIM))(
+        ndim, *(list(geom.spatial_shape) + pad), *(list(geom.ksize) + pad),
+        *(list(geom.dilation) + pad))
+    return host, C.grid_sentinel(geom.spatial_shape, geom.batch_size)
+
+
+def _table(keys, geom: SearchGeom, reverse=False):
+    """B1's plain version on ``geom``: the table the search finds."""
+    return dg_pos_plain(keys, reverse=reverse, **geom._asdict())
+
+
+def dg_fwd_search(x: torch.Tensor, weight_kv: torch.Tensor,
+                  keys: torch.Tensor, geom: SearchGeom) -> torch.Tensor:
+    """S1: ``out[i] = sum_k x[m_k(i)] @ weight_kv[k]`` -> ``[N, K]`` in
+    ``x.dtype``, where ``m_k(i)`` is the row whose key is ``keys[i]`` moved
+    by kernel offset ``k`` of ``geom`` (bounds-checked on every axis), or
+    none: :func:`dg_fwd` on ``build_dg_pos(keys, **geom)``, bit for bit,
+    with no table.  ``x``: ``[N, C]`` f32 or bf16; ``weight_kv``: ``[kv, C,
+    K]``; ``keys``: ``[N]`` int32 ascending with the sentinel tail.  Records
+    no autograd graph on CUDA: :class:`DGSearchFn` differentiates."""
+    name = "dg_fwd_search"
+    _check(x.ndim == 2 and weight_kv.ndim == 3
+           and weight_kv.shape[1] == x.shape[1],
+           f"{name}: x must be [N, C], weight_kv [kv, C, K]")
+    _check_search(name, geom, keys, weight_kv.shape[0], x.shape[0])
+    _check_operands(name, x, weight_kv, keys)
+    if x.device.type == "cpu":
+        return dg_fwd_search_plain(x, weight_kv, keys, geom)
+    return _gather_gemm_cuda(x, weight_kv, keys, name,
+                             (*_search_args(geom, name), 0))
+
+
+def dg_fwd_search_plain(x, weight_kv, keys, geom: SearchGeom):
+    """Plain version of :func:`dg_fwd_search`: :func:`dg_pos_plain`, then
+    :func:`dg_fwd_plain`."""
+    return dg_fwd_plain(x, weight_kv, _table(keys, geom))
+
+
+def dg_dgrad_search(dout: torch.Tensor, weight_kv: torch.Tensor,
+                    keys: torch.Tensor, geom: SearchGeom) -> torch.Tensor:
+    """S2: the input gradient ``din[j] = sum_k dout[m_k^rev(j)] @ W[k]^T``
+    -> ``[N, C]``, where ``m_k^rev`` moves by the negated offset:
+    :func:`dg_dgrad` on ``build_dg_pos(keys, reverse=True, **geom)``, bit
+    for bit, with no table (S1's kernel on ``W[k]^T``)."""
+    name = "dg_dgrad_search"
+    _check(dout.ndim == 2 and weight_kv.ndim == 3
+           and weight_kv.shape[2] == dout.shape[1],
+           f"{name}: dout must be [N, K], weight_kv [kv, C, K]")
+    _check_search(name, geom, keys, weight_kv.shape[0], dout.shape[0])
+    _check_operands(name, dout, weight_kv, keys)
+    if dout.device.type == "cpu":
+        return dg_dgrad_search_plain(dout, weight_kv, keys, geom)
+    return _gather_gemm_cuda(dout, weight_kv.transpose(1, 2).contiguous(),
+                             keys, name, (*_search_args(geom, name), 1))
+
+
+def dg_dgrad_search_plain(dout, weight_kv, keys, geom: SearchGeom):
+    """Plain version of :func:`dg_dgrad_search`: the reversed
+    :func:`dg_pos_plain`, then :func:`dg_dgrad_plain`."""
+    return dg_dgrad_plain(dout, weight_kv, _table(keys, geom, reverse=True))
+
+
+def dg_wgrad_search(x: torch.Tensor, dout: torch.Tensor, keys: torch.Tensor,
+                    geom: SearchGeom) -> torch.Tensor:
+    """S3: the weight gradient ``dW[k] = sum_j x[j]^T dout[m_k^rev(j)]`` ->
+    ``[kv, C, K]`` in ``x.dtype``: :func:`dg_wgrad` on ``build_dg_pos(keys,
+    reverse=True, **geom)``, bit for bit (the same row splits and
+    fixed-order sum), with no table."""
+    name = "dg_wgrad_search"
+    _check(x.ndim == 2 and dout.ndim == 2 and dout.shape[0] == x.shape[0],
+           f"{name}: x must be [N, C] and dout [N, K]")
+    kv = int(np.prod(geom.ksize))
+    _check_search(name, geom, keys, kv, x.shape[0])
+    _check_operands(name, x, dout, keys)
+    if x.device.type == "cpu":
+        return dg_wgrad_search_plain(x, dout, keys, geom)
+    return _dg_wgrad_cuda(x, dout, keys, kv, name, _search_args(geom, name))
+
+
+def dg_wgrad_search_plain(x, dout, keys, geom: SearchGeom):
+    """Plain version of :func:`dg_wgrad_search`: the reversed
+    :func:`dg_pos_plain`, then :func:`dg_wgrad_plain`."""
+    return dg_wgrad_plain(x, dout, _table(keys, geom, reverse=True))
+
+
+def dg_fwd_q_search(x: torch.Tensor, weight_kv: torch.Tensor,
+                    keys: torch.Tensor, scale: torch.Tensor,
+                    bias: Optional[torch.Tensor], geom: SearchGeom, *,
+                    act: str = "none", add: Optional[torch.Tensor] = None,
+                    add_scale: float = 1.0) -> torch.Tensor:
+    """S4: the int8 subm conv with no table -> ``[N, K]`` int8:
+    :func:`dg_fwd_q` on ``build_dg_pos(keys, **geom)``, bit for bit
+    (operands as its, ``keys`` as :func:`dg_fwd_search`'s)."""
+    name = "dg_fwd_q_search"
+    _check_q(name, x, weight_kv, x.shape[0], scale, bias, act, add, keys)
+    _check_search(name, geom, keys, weight_kv.shape[0], x.shape[0])
+    if x.device.type == "cpu":
+        return dg_fwd_q_search_plain(x, weight_kv, keys, scale, bias, geom,
+                                     act=act, add=add, add_scale=add_scale)
+    return _dg_fwd_q_cuda(x, weight_kv, keys, scale, bias, act, add,
+                          add_scale, name, _search_args(geom, name))
+
+
+def dg_fwd_q_search_plain(x, weight_kv, keys, scale, bias,
+                          geom: SearchGeom, *, act="none", add=None,
+                          add_scale=1.0):
+    """Plain version of :func:`dg_fwd_q_search`: :func:`dg_pos_plain`, then
+    :func:`dg_fwd_q_plain`."""
+    return dg_fwd_q_plain(x, weight_kv, _table(keys, geom), scale, bias,
+                          act=act, add=add, add_scale=add_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -901,3 +1099,46 @@ def dg_regular_conv(
            f"pos_bwd is {tuple(pos_bwd.shape)}, expected {(kv, n_src)}")
     return (DGConvFn.apply(features, weight_kv, pos, pos_bwd, path), pos,
             pos_bwd)
+
+
+class DGSearchFn(torch.autograd.Function):
+    """The table-free subm conv (the JAX package's ``_dg_conv`` and its VJP
+    ``_dg_conv_bwd``): :func:`dg_fwd_search` forward; ``dout`` cast to the
+    features' dtype, ``din`` from :func:`dg_dgrad_search` and ``dW`` from
+    :func:`dg_wgrad_search`, both on the reversed probes.  ``din`` is
+    skipped when the features need no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight_kv, keys, geom):
+        ctx.save_for_backward(x, weight_kv, keys)
+        ctx.geom = geom
+        return dg_fwd_search(x, weight_kv, keys, geom)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, weight_kv, keys = ctx.saved_tensors
+        dout = dout.to(x.dtype).contiguous()
+        din = dw = None
+        if ctx.needs_input_grad[0]:
+            din = dg_dgrad_search(dout, weight_kv, keys, ctx.geom)
+        if ctx.needs_input_grad[1]:
+            dw = dg_wgrad_search(x, dout, keys, ctx.geom)
+        return din, dw, None, None
+
+
+def dg_subm_conv_search(features: torch.Tensor, keys: torch.Tensor,
+                        weight: torch.Tensor, *,
+                        spatial_shape: Sequence[int], batch_size: int,
+                        dilation: Sequence[int]) -> torch.Tensor:
+    """Subm conv of key-sorted features with no match table (the JAX
+    package's ``dg_subm_conv(pos=None)``): ``keys`` ``[N]`` are the rows'
+    linearized keys, ascending with the sentinel tail; ``weight`` is KRSC
+    ``[K, *ksize, C]``; returns ``[N, K]``.  When grad mode is on and
+    ``features`` or ``weight`` needs a gradient, the call is recorded
+    through :class:`DGSearchFn`."""
+    geom = SearchGeom.of(weight.shape[1:-1], dilation, spatial_shape,
+                         batch_size)
+    weight_kv = weight_krsc_to_kv(weight)
+    if _wants_grad(features, weight):
+        return DGSearchFn.apply(features, weight_kv, keys, geom)
+    return dg_fwd_search(features, weight_kv, keys, geom)

@@ -27,8 +27,9 @@ import torch
 from ..core import SparseConvTensor
 from ..modules.conv import SparseConvolution
 from ..modules.modules import SparseModule, SparseSequential
-from ..ops.dg_conv import (build_dg_pos_affine, build_dg_pos_divide,
-                           dg_fwd_q, weight_krsc_to_kv)
+from ..ops.dg_conv import (SearchGeom, build_dg_pos_affine,
+                           build_dg_pos_divide, dg_fwd_q, dg_fwd_q_search,
+                           weight_krsc_to_kv)
 
 __all__ = [
     "MinMaxObserver",
@@ -198,8 +199,15 @@ class QuantizedSparseConv(SparseModule):
                   add=None if add_input is None else add_input.features)
         w, scale, bias = self.weight_kv, self.scale_q, self.bias_q
         if cfg.subm:
-            pos, _, new = cfg._stage_pos(x, need_rev=False)
-            q = dg_fwd_q(x.features, w, pos, scale, bias, **kw)
+            new = None
+            if cfg.indice_key is None:
+                geom = SearchGeom.of(cfg.kernel_size, cfg.dilation,
+                                     x.spatial_shape, x.batch_size)
+                q = dg_fwd_q_search(x.features, w, cfg._search_keys(x),
+                                    scale, bias, geom, **kw)
+            else:
+                pos, _, new = cfg._stage_pos(x, need_rev=False)
+                q = dg_fwd_q(x.features, w, pos, scale, bias, **kw)
             out = SparseConvTensor(
                 _masked(q, x.valid_mask), x.indices, x.spatial_shape,
                 x.batch_size, num_voxels=x.num_voxels,

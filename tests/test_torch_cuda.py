@@ -674,3 +674,162 @@ def test_sk_pool_benchnet_on_card_matches_cpu(dev):
         scale = ref[k].abs().max().item()
         err = (p.grad.cpu() - ref[k]).abs().max().item()
         assert scale > 0 and err <= 1e-3 * scale, (k, err, scale)
+
+
+# the search mode (S1-S4): kernel 3, and kernel 5 with a dilation (125
+# offsets: four of the kernels' search groups)
+_SEARCH = {"k3": ((3, 3, 3), (1, 1, 1)), "k5": ((5, 5, 5), (1, 2, 1))}
+
+
+def _search_case(dev, dtype, c, k_out, kernel, seed):
+    """Features and dout on 3000 rows of a 3072-row buffer, weights, the
+    keys and the geometry on the card; the forward and reversed B1 tables
+    on the CPU."""
+    feats, inds = _sorted_input(seed, 3000, c, 3072)
+    ksize, dil = _SEARCH[kernel]
+    keys, _ = TC.linearize(torch.from_numpy(inds), SHAPE, 1)
+    geom = TD.SearchGeom.of(ksize, dil, SHAPE, 1)
+    kv = int(np.prod(ksize))
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((kv, c, k_out), generator=g) / np.sqrt(kv * c)
+    dout = torch.randn((3072, k_out), generator=g)
+    dout[3000:] = 0
+    tabs = [TD.dg_pos_plain(keys, reverse=r, **geom._asdict())
+            for r in (False, True)]
+    return (torch.from_numpy(feats).to(dev, dtype), w.to(dev, dtype),
+            dout.to(dev, dtype), keys.to(dev), geom, tabs)
+
+
+@pytest.mark.parametrize("kernel", sorted(_SEARCH))
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float32, 2e-5, 1e-4),
+                                            (torch.bfloat16, 1.6e-2, 1.6e-2)])
+@pytest.mark.parametrize("c,k_out", [(3, 64), (64, 96), (160, 256), (12, 20)])
+def test_search_kernels_match_plain_and_table(dev, dtype, tol, wtol, c, k_out,
+                                              kernel):
+    """S1, S2 and S3 against their plain versions (tolerances as B2's,
+    dgrad's and wgrad's), bit-equal to B1 followed by the table-mode kernel
+    (``dg_fwd``, ``dg_dgrad``, ``dg_wgrad`` on the card's tables), S3
+    bit-equal across two runs; one launch each under its own counter, no
+    table built; rows past the live ones are 0."""
+    x, w, dout, keys, geom, tabs = _search_case(dev, dtype, c, k_out, kernel,
+                                                10)
+    TD.reset_launch_counts()
+    out = TD.dg_fwd_search(x, w, keys, geom)
+    din = TD.dg_dgrad_search(dout, w, keys, geom)
+    dw = TD.dg_wgrad_search(x, dout, keys, geom)
+    again = TD.dg_wgrad_search(x, dout, keys, geom)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_search=1, dg_dgrad_search=1,
+                                       dg_wgrad_search=2)
+    assert torch.equal(dw, again)
+    refs = (TD.dg_fwd_plain(x.cpu(), w.cpu(), tabs[0]),
+            TD.dg_dgrad_plain(dout.cpu(), w.cpu(), tabs[1]),
+            TD.dg_wgrad_plain(x.cpu(), dout.cpu(), tabs[1]))
+    for got, ref, t in zip((out, din, dw), refs, (tol, tol, wtol)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        err = (got.cpu().float() - ref.float()).abs().max().item()
+        assert err <= t * ref.float().abs().max().item(), err
+    pos = TD.build_dg_pos(keys, **geom._asdict())
+    rev = TD.build_dg_pos(keys, reverse=True, **geom._asdict())
+    assert torch.equal(pos.cpu(), tabs[0]) and torch.equal(rev.cpu(), tabs[1])
+    assert torch.equal(out, TD.dg_fwd(x, w, pos))
+    assert torch.equal(din, TD.dg_dgrad(dout, w, rev))
+    assert torch.equal(dw, TD.dg_wgrad(x, dout, rev))
+    assert not out[3000:].any() and not din[3000:].any()
+
+
+@pytest.mark.parametrize("kernel", sorted(_SEARCH))
+@pytest.mark.parametrize("c,k_out,mode", [
+    (5, 16, "relu+bias"), (16, 16, "relu+add"), (64, 64, "none"),
+    (128, 128, "relu+bias+add"), (12, 20, "none+bias")])
+def test_dg_fwd_q_search_matches_plain_and_table(dev, c, k_out, mode,
+                                                 kernel):
+    """S4 bit-equal to its plain version (run on the CPU) and to B1
+    followed by ``dg_fwd_q`` on the card, in every epilogue mode; one
+    launch under ``dg_fwd_q_search``."""
+    feats, inds = _sorted_input(11, 3000, c, 3072)
+    ksize, dil = _SEARCH[kernel]
+    kv = int(np.prod(ksize))
+    keys, _ = TC.linearize(torch.from_numpy(inds), SHAPE, 1)
+    geom = TD.SearchGeom.of(ksize, dil, SHAPE, 1)
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randint(-127, 128, (3072, c)).astype(np.int8))
+    x[3000:] = 0
+    w = torch.from_numpy(rng.randint(-127, 128, (kv, c, k_out))
+                         .astype(np.int8))
+    scale = torch.from_numpy((rng.uniform(0.5, 1.5, k_out) * 60
+                              / (5300 * np.sqrt(9 * c))).astype(np.float32))
+    bias = (torch.from_numpy(rng.uniform(-20, 20, k_out).astype(np.float32))
+            if "bias" in mode else None)
+    add = torch.from_numpy(rng.randint(-127, 128, (3072, k_out))
+                           .astype(np.int8)) if "add" in mode else None
+    kw = dict(act="relu" if "relu" in mode else "none", add_scale=0.37)
+    ref = TD.dg_fwd_q_search_plain(x, w, keys, scale, bias, geom, add=add,
+                                   **kw)
+    assert (ref != 0).any()
+    on = [None if t is None else t.to(dev)
+          for t in (x, w, keys, scale, bias, add)]
+    TD.reset_launch_counts()
+    got = TD.dg_fwd_q_search(*on[:5], geom, add=on[5], **kw)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_q_search=1)
+    assert torch.equal(got.cpu(), ref)
+    pos = TD.build_dg_pos(on[2], **geom._asdict())
+    assert torch.equal(got, TD.dg_fwd_q(on[0], on[1], pos, on[3], on[4],
+                                        add=on[5], **kw))
+
+
+def _no_key(net):
+    for conv in net.convs:
+        conv.indice_key = None
+    return net
+
+
+def test_no_key_benchnet_on_card_matches_cpu(dev):
+    """BenchNet with no ``indice_key`` through S1 on the card against the
+    plain route on the CPU, f32: 14 ``dg_fwd_search`` launches and no
+    table, coordinates equal, features within 1e-4*max|ref|."""
+    shape = (64, 128, 128)
+    voxels, coors, _ = TB.synthetic_scan(0, shape=shape, n_target=1600)
+    net = _no_key(TB.BenchNet(shape, device="cpu"))
+    with torch.no_grad():
+        ref = net.forward_stages(TB.make_bench_input(voxels, coors, shape,
+                                                     device="cpu"))
+        net.to(dev)
+        TD.reset_launch_counts()
+        got = net.forward_stages(
+            TB.make_bench_input(voxels, coors, shape, device=dev))
+        torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_search=14)
+    assert not got[-1].indice_dict
+    for r, g in zip(ref, got):
+        assert torch.equal(g.indices.cpu(), r.indices)
+        scale = r.features.abs().max().item()
+        err = (g.features.cpu() - r.features).abs().max().item()
+        assert err <= 1e-4 * scale, (err, scale)
+
+
+def test_no_key_benchnet_train_step_on_card_matches_cpu(dev):
+    """One f32 training step of the no-key BenchNet through S1-S3 on the
+    card against the same step through the plain versions on the CPU:
+    losses within 1e-4 relative, every weight grad within 1e-3*max|ref| (as
+    the keyed step's test).  A step launches 14 S1, 13 S2, 14 S3 and no
+    table."""
+    shape = (64, 128, 128)
+    voxels, coors, _ = TB.synthetic_scan(0, shape=shape, n_target=1600)
+    net = _no_key(TB.BenchNet(shape, device="cpu"))
+    ref_loss = TB.train_step(
+        net, TB.make_bench_input(voxels, coors, shape, device="cpu"), 0.0)
+    ref = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.to(dev)
+    TD.reset_launch_counts()
+    loss = TB.train_step(
+        net, TB.make_bench_input(voxels, coors, shape, device=dev), 0.0)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_search=14, dg_dgrad_search=13,
+                                       dg_wgrad_search=14)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-4 * ref_loss.item()
+    for k, p in net.named_parameters():
+        scale = ref[k].abs().max().item()
+        err = (p.grad.cpu() - ref[k]).abs().max().item()
+        assert scale > 0 and err <= 1e-3 * scale, (k, err, scale)
