@@ -75,7 +75,22 @@ line is printed):
    finite grads, step ms, busy and peak memory beside the keyed step's,
    the f32 grads against the plain backward; and an int8 no-key conv
    bit-equal to the same layer on a key;
-11. prints a JSON line of the kernels, each with its bound (the least time
+11. the transposed conv (B1 divide + B2 on swapped spaces) through the
+   decoder chain of ``docs/USAGE.md`` (SubMConv3d(32, 64) ->
+   SparseConv3d(64, 128, s2) -> SparseInverseConv3d(128, 64) ->
+   SparseConvTranspose3d(64, 32, 2, s2)) on the CenterPoint scans with
+   seeded 32-channel features, bf16, buffers calibrated on seed 0: the
+   transposed conv's divide and affine tables, B2, dgrad and wgrad against
+   their plain versions at the chain's shapes, timed; three requests and
+   three training steps with launch counts, host ms, device busy and peak
+   memory; the f32 chain against a plain run and its grads against the
+   plain backward; a k3 s2 p1 op1 transposed conv against plain;
+12. the probe kernels (B9, ``csrc/probes.cu``): every
+   ``spconv_tpu_torch.tools`` probe's ``main()`` with each case OK, then
+   each kernel against its plain version at its probe's shape, timed
+   beside the plain version, the PyTorch call that computes the same
+   function and its bound;
+13. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -1696,6 +1711,545 @@ def search_phase(torch, dev, gen, scans, geo, bounds, served, note):
             run_int8)
 
 
+def plain_chain(torch, net, x, train=False, kernel_fwd=False):
+    """The USAGE.md chain's forward (``chain_net``) with the plain versions
+    of the kernels in place of the kernels (every table by its plain
+    version, every product by ``dg_fwd_plain``), on whatever device ``x`` is
+    on; with ``train``, differentiable through the plain backward, and with
+    ``kernel_fwd`` as well, whose convs' forward runs B2.  Returns ``(output
+    features, output indices)``."""
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops.rulebook import (build_conv_outputs,
+                                               build_deconv_outputs)
+
+    fwd = D.dg_fwd if kernel_fwd else plain_fwd(D)
+    plain = plain_conv_fn(torch, D, fwd)
+
+    def conv(layer, feats, pos, pos_bwd, path, valid):
+        wkv = D.weight_krsc_to_kv(layer.weight)
+        out = (plain.apply(feats, wkv, pos, pos_bwd, path) if train
+               else fwd(feats, wkv, pos, path)) + layer.bias
+        return torch.where(valid[:, None], out, torch.zeros_like(out))
+
+    subm, down, inv, up = net
+    shape = tuple(x.spatial_shape)
+    keys, _ = C.linearize(x.indices, shape, 1)
+    geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=shape, batch_size=1)
+    h = conv(subm, x.features, D.dg_pos_plain(keys, **geom),
+             D.dg_pos_plain(keys, reverse=True, **geom), "subm", x.valid_mask)
+    geom = dict(ksize=down.kernel_size, stride=down.stride,
+                padding=down.padding, dilation=down.dilation)
+    d_inds, d_keys, _, _ = build_conv_outputs(
+        x.indices, spatial_shape=shape, batch_size=1,
+        out_bound=down.out_bound, **geom)
+    geom.update(in_shape=shape, batch_size=1, out_shape=tuple(
+        C.get_conv_output_size(shape, down.kernel_size, down.stride,
+                               down.padding, down.dilation)))
+    aff = D.dg_pos_affine_plain(keys, d_keys, **geom)
+    div = D.dg_pos_divide_plain(keys, d_keys, **geom)
+    h = conv(down, h, aff, div, "strided", d_inds[:, 0] >= 0)
+    h = conv(inv, h, div, aff, "inverse", x.valid_mask)
+    t_inds, t_keys, t_geom = deconv_sites(x, up)
+    out = conv(up, h, D.dg_pos_divide_plain(t_keys, keys, **t_geom),
+               D.dg_pos_affine_plain(t_keys, keys, **t_geom), "transposed",
+               t_inds[:, 0] >= 0)
+    return out, t_inds
+
+
+def deconv_sites(x, layer):
+    """A transposed conv's output sites on ``x`` (``build_deconv_outputs``
+    with ``layer``'s bound) and its geometry on the swapped spaces, as
+    ``dg_regular_conv`` takes it: ``(out indices, out keys, geom)``."""
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops.rulebook import build_deconv_outputs
+
+    shape = tuple(x.spatial_shape)
+    conv = dict(ksize=layer.kernel_size, stride=layer.stride,
+                padding=layer.padding, dilation=layer.dilation)
+    t_inds, t_keys, _, _ = build_deconv_outputs(
+        x.indices, spatial_shape=shape, batch_size=1,
+        out_padding=layer.output_padding,
+        out_bound=layer._resolve_out_bound(x.indices.shape[0]), **conv)
+    out_shape = tuple(C.get_deconv_output_size(
+        shape, layer.kernel_size, layer.stride, layer.padding,
+        layer.dilation, layer.output_padding))
+    return t_inds, t_keys, dict(conv, in_shape=out_shape, out_shape=shape,
+                                batch_size=1)
+
+
+def chain_net(torch, dev, dtype=None):
+    """The decoder chain of ``docs/USAGE.md:34-38`` at its documented
+    widths, weights from a seed."""
+    from spconv_tpu_torch import (SparseConv3d, SparseConvTranspose3d,
+                                  SparseInverseConv3d, SparseSequential,
+                                  SubMConv3d)
+
+    gen = torch.Generator().manual_seed(8)
+    kw = dict(device=dev, generator=gen)
+    net = SparseSequential(
+        SubMConv3d(32, 64, 3, indice_key="c0", **kw),
+        SparseConv3d(64, 128, 3, stride=2, padding=1, indice_key="down1",
+                     **kw),
+        SparseInverseConv3d(128, 64, 3, indice_key="down1", **kw),
+        SparseConvTranspose3d(64, 32, 2, stride=2, **kw))
+    return net if dtype is None else net.to(dtype)
+
+
+def transposed_phase(torch, dev, cp_in, note):
+    """Phase 11: the transposed conv (B1 divide + B2 on swapped spaces)
+    through the USAGE.md decoder chain on the CenterPoint scans ``cp_in``
+    with seeded 32-channel features: every transposed-conv kernel against
+    its plain version at the chain's shapes, timed; three bf16 requests and
+    three training steps with launch counts, the f32 chain against a plain
+    run and its grads against the plain backward, device busy and peak
+    memory; and a k3 s2 p1 op1 transposed conv against plain.  Returns
+    ``(tallies, serve launches, train launches, k3 launches)``."""
+    import copy
+
+    import numpy as np
+    from spconv_tpu_torch import SparseConvTranspose3d
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.calibrate import (calibrate_out_bounds,
+                                            export_out_bounds)
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+
+    bf16 = torch.bfloat16
+    names = ("dg_pos_divide_transposed", "dg_fwd_transposed",
+             "dg_pos_affine_transposed", "dg_dgrad_transposed",
+             "dg_wgrad_transposed")
+    tally = {k: Tally() for k in names}
+
+    def chain_input(seed, dtype=torch.float32):
+        x = cp_in[seed]
+        g = torch.Generator(device=dev).manual_seed(100 + seed)
+        f = torch.randn((x.indices.shape[0], 32), device=dev, generator=g)
+        return x.replace_feature((f * x.valid_mask[:, None]).to(dtype))
+
+    x32 = {s: chain_input(s) for s in REQUEST_SEEDS}
+    x16 = {s: chain_input(s, bf16) for s in REQUEST_SEEDS}
+    t0 = time.perf_counter()
+    raw = chain_net(torch, dev).eval()
+    default = raw[3]._resolve_out_bound(x32[0].indices.shape[0])
+    net32 = calibrate_out_bounds(raw, None, [x32[0]], margin=1.15, mult=128)
+    net16 = copy.deepcopy(net32).to(bf16)
+    up = net32[3]
+    print(f"chain: docs/USAGE.md SubMConv3d(32, 64) -> SparseConv3d(64, 128, "
+          f"s2) -> SparseInverseConv3d(128, 64) -> SparseConvTranspose3d(64, "
+          f"32, 2, s2); bounds (f32 calibration on seed 0, x1.15, to 128) "
+          f"{[b for b in export_out_bounds(net32) if b is not None]} "
+          f"(the transposed conv's default: {default}) in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # ---- each transposed-conv kernel against its plain version at the
+    # chain's shapes: the transposed conv's input is the inverse conv's
+    # output, on the scan's sites
+    x = x32[0]
+    t_inds, t_keys, geom = deconv_sites(x, up)
+    in_keys, _ = C.linearize(x.indices, x.spatial_shape, 1)
+    n_exp, n_in = t_keys.shape[0], in_keys.shape[0]
+    act_exp, act_in = int((t_inds[:, 0] >= 0).sum()), int(x.num_voxels)
+    print(f"transposed conv: {act_in} sites ({n_in} rows) on "
+          f"{tuple(x.spatial_shape)} -> {act_exp} sites ({n_exp} rows) on "
+          f"{geom['in_shape']}, k2 s2, {act_exp / act_in:.3f} a site")
+    print("transposed kernels: kernel dtype max|d|/max|ref| kernel_ms "
+          "plain_ms bound_ms")
+    tables = {}
+    for kern, build, plain, rows, table_rows in (
+            ("dg_pos_divide_transposed", D.build_dg_pos_divide,
+             D.dg_pos_divide_plain, n_exp, n_in),
+            ("dg_pos_affine_transposed", D.build_dg_pos_affine,
+             D.dg_pos_affine_plain, n_in, n_exp)):
+        def fn(build=build):
+            return build(t_keys, in_keys, path="transposed", **geom)
+
+        def ref(plain=plain):
+            return plain(t_keys, in_keys, **geom)
+
+        got = fn()
+        check(torch.equal(got, ref()), f"{kern} differs from plain")
+        note(kern, 0.0, 0.0)
+        km, pm = cuda_ms(torch, fn, 20), cuda_ms(torch, ref, 3)
+        bnd = table_bound(rows, table_rows, got.shape[0])
+        tally[kern].add(km, pm, bnd)
+        tables[kern] = got
+        print(f"  {kern:26s} int32 exact  {km:9.4f}  {pm:8.4f}  "
+              f"{bnd[0]:.4f} (matches {int((got >= 0).sum())} of "
+              f"{got.numel()})")
+    div, aff = (tables["dg_pos_divide_transposed"],
+                tables["dg_pos_affine_transposed"])
+    check(int((div >= 0).sum()) == int((aff >= 0).sum()) == act_exp,
+          "transposed tables: not one match per output site at k2 s2")
+    valid_in, valid_out = x.valid_mask, t_inds[:, 0] >= 0
+    c, k = up.in_channels, up.out_channels
+    g = torch.Generator(device=dev).manual_seed(21)
+    xf = torch.randn((n_in, c), device=dev, generator=g) * valid_in[:, None]
+    df = torch.randn((n_exp, k), device=dev, generator=g) * valid_out[:, None]
+    wf = torch.randn((8, c, k), device=dev, generator=g) / float(
+        np.sqrt(8 * c))
+    for dt in (torch.float32, bf16):
+        dtn = str(dt)[6:]
+        xi, dout, w = xf.to(dt), df.to(dt), wf.to(dt)
+        for kern, fn, plain, valid, tol, bnd in (
+                ("dg_fwd_transposed",
+                 lambda: D.dg_fwd(xi, w, div, "transposed"),
+                 lambda: D.dg_fwd_plain(xi, w, div), valid_out, TOL,
+                 gemm_bound(xi, w, div, k)),
+                ("dg_dgrad_transposed",
+                 lambda: D.dg_dgrad(dout, w, aff, "transposed"),
+                 lambda: D.dg_dgrad_plain(dout, w, aff), valid_in, TOL,
+                 gemm_bound(dout, w, aff, c)),
+                ("dg_wgrad_transposed",
+                 lambda: D.dg_wgrad(xi, dout, aff, "transposed"),
+                 lambda: D.dg_wgrad_plain(xi, dout, aff), None, WGRAD_TOL,
+                 wgrad_bound(xi, dout, aff))):
+            got = fn()
+            diff, r = rel_err(torch, got, plain())
+            check(np.isfinite(r) and r <= tol[dtn],
+                  f"{kern} {dtn}: {r:.3e} > {tol[dtn]}")
+            if valid is None:
+                check(torch.equal(got, fn()), f"{kern}: two runs differ")
+            else:
+                check(not got[~valid].any(),
+                      f"{kern}: non-zero rows without a site")
+            note(kern, diff, r)
+            km, pm = cuda_ms(torch, fn, 10), cuda_ms(torch, plain, 2)
+            if dt == bf16:
+                tally[kern].add(km, pm, bnd)
+            print(f"  {kern:26s} {dtn:9s} {r:10.3e}  {km:9.4f}  {pm:8.4f}  "
+                  f"{bnd[0]:.4f}")
+    print("per bf16 chain step, transposed conv: " + ", ".join(
+        f"{kk} {v}" for kk, v in tally.items()))
+
+    # ---- serve: three requests after a warm-up
+    serve_one = dict(dg_pos=1, dg_pos_affine=1, dg_pos_divide=1, dg_fwd=1,
+                     dg_fwd_strided=1, dg_fwd_inverse=1,
+                     dg_pos_divide_transposed=1, dg_fwd_transposed=1)
+    with torch.inference_mode():
+        net16(x16[0])
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        serve_ms = []
+        for seed in REQUEST_SEEDS:
+            before = dict(D.launch_counts)
+            t0 = time.perf_counter()
+            out = net16(x16[seed])
+            torch.cuda.synchronize()
+            serve_ms.append((time.perf_counter() - t0) * 1e3)
+            got = {kk: D.launch_counts[kk] - v for kk, v in before.items()}
+            check(got == expected(D, **serve_one),
+                  f"chain request {seed}: launches {got}")
+            check(tuple(out.spatial_shape) == geom["in_shape"]
+                  and out.features.dtype == bf16
+                  and tuple(out.features.shape) == (n_exp, k),
+                  f"chain request {seed}: output {out.features.shape} on "
+                  f"{out.spatial_shape}")
+            check(bool(torch.isfinite(out.features).all())
+                  and bool(out.features.any()),
+                  f"chain request {seed}: output not finite or all 0")
+        serve_launches = dict(D.launch_counts)
+        for seed, ms in zip(REQUEST_SEEDS, serve_ms):
+            y32 = net32(x32[seed])
+            ref, ref_inds = plain_chain(torch, net32, x32[seed])
+            check(torch.equal(y32.indices, ref_inds),
+                  f"chain request {seed}: output sites differ from plain")
+            _, rel32 = rel_err(torch, y32.features, ref)
+            check(rel32 <= NET_F32_TOL, f"chain request {seed}: f32 "
+                  f"{rel32:.3e} > {NET_F32_TOL} of max|ref|")
+            y16 = net16(x16[seed])
+            _, bf_rel = rel_err(torch, y16.features,
+                                plain_chain(torch, net16, x16[seed])[0])
+            print(f"chain request seed={seed} input=synthetic ms={ms:.3f} "
+                  f"sites {int(x32[seed].num_voxels)} -> "
+                  f"{int(y16.num_voxels)} (total "
+                  f"{int(y16.num_out_total)}) f32_rel_err={rel32:.3e} "
+                  f"bf16_rel_vs_plain={bf_rel:.3e}")
+        wall, busy, ops = device_busy(torch, lambda: net16(x16[0]), 3)
+        peak = peak_mib(torch, lambda: net16(x16[0]))
+    print(f"chain serve: bf16, ms per request "
+          f"{[round(m, 3) for m in serve_ms]}, launches "
+          f"{ {kk: v for kk, v in serve_launches.items() if v} }; profiler "
+          f"window of 3: {wall / 3:.3f} ms a request, device busy "
+          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
+             f"{100 - 100 * busy / wall:.1f} %), {ops / 3:.0f} device ops"
+             if busy else "not measured")
+          + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
+          "MiB held before the request")
+
+    # ---- train: one bf16 step per seed after a warm-up step
+    step_one = dict(serve_one, dg_pos_rev=1, dg_pos_affine_transposed=1,
+                    dg_dgrad_strided=1, dg_dgrad_inverse=1,
+                    dg_dgrad_transposed=1, dg_wgrad=1, dg_wgrad_strided=1,
+                    dg_wgrad_inverse=1, dg_wgrad_transposed=1)
+    net = copy.deepcopy(net32).to(bf16)
+    B.train_step(net, x16[0], 0.0)
+    torch.cuda.synchronize()
+    lr = 1e-2 * max(p.abs().max().item() for p in net.parameters()) / max(
+        p.grad.abs().max().item() for p in net.parameters())
+    D.reset_launch_counts()
+    for seed in REQUEST_SEEDS:
+        w_before = [p.detach().clone() for p in net.parameters()]
+        before = dict(D.launch_counts)
+        t0 = time.perf_counter()
+        loss = B.train_step(net, x16[seed], lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {kk: D.launch_counts[kk] - v for kk, v in before.items()}
+        check(got == expected(D, **step_one),
+              f"chain train step {seed}: launches {got}")
+        loss = loss.item()
+        check(np.isfinite(loss) and loss > 0,
+              f"chain train step {seed}: loss {loss}")
+        for (name, p), w0 in zip(net.named_parameters(), w_before):
+            check(p.grad is not None and p.grad.dtype == bf16
+                  and bool(torch.isfinite(p.grad).all())
+                  and bool(p.grad.any()),
+                  f"chain train step {seed}: {name} grad missing, not "
+                  "finite or 0")
+            check(torch.equal(p.detach(), w0.add(p.grad, alpha=-lr)),
+                  f"chain train step {seed}: {name} was not updated")
+        print(f"chain train step seed={seed} input=synthetic ms={ms:.3f} "
+              f"loss={loss:.6e} lr={lr:.4e}")
+    train_launches = dict(D.launch_counts)
+    wall, busy, ops = device_busy(
+        torch, lambda: B.train_step(net, x16[0], 0.0), 3)
+    peak = peak_mib(torch, lambda: B.train_step(net, x16[0], 0.0))
+    print(f"chain train: bf16, launches over 3 steps "
+          f"{ {kk: v for kk, v in train_launches.items() if v} }; profiler "
+          f"window of 3: {wall / 3:.3f} ms a step, device busy "
+          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
+             f"{100 - 100 * busy / wall:.1f} %)" if busy else "not measured")
+          + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
+          "MiB held before the step")
+
+    # the f32 grads through the kernels against the plain backward on the
+    # kernels' forward
+    nets = [copy.deepcopy(net32) for _ in range(2)]
+    loss_k = B.train_step(nets[0], x32[0], 0.0).item()
+    loss_p = (plain_chain(torch, nets[1], x32[0], train=True,
+                          kernel_fwd=True)[0].float() ** 2).sum()
+    loss_p.backward()
+    loss_p = loss_p.item()
+    check(abs(loss_k - loss_p) <= NET_F32_TOL * abs(loss_p),
+          f"chain f32 losses {loss_k} vs {loss_p}")
+    worst = max((rel_err(torch, a.grad, b.grad)[1], name) for (name, a), b
+                in zip(nets[0].named_parameters(), nets[1].parameters()))
+    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
+          f"chain f32 grad {worst[1]}: kernels vs plain backward "
+          f"{worst[0]:.3e} > {GRAD_F32_TOL}")
+    print(f"chain train f32 seed=0: loss kernels {loss_k:.9e}, plain "
+          f"backward {loss_p:.9e}; worst grad max|d|/max|ref| {worst[0]:.3e}"
+          f" ({worst[1]}, tolerance {GRAD_F32_TOL} per tensor)")
+
+    # ---- the general case: k3 s2 p1 op1 on the same input, whose offsets
+    # match 1, 2, 4 or 8 times a row by the row's parity
+    k3 = calibrate_out_bounds(
+        SparseConvTranspose3d(32, 32, 3, stride=2, padding=1,
+                              output_padding=1, device=dev,
+                              generator=torch.Generator().manual_seed(9)),
+        None, [x32[0]], margin=1.15, mult=128)
+    with torch.inference_mode():
+        D.reset_launch_counts()
+        y = k3(x32[0])
+        torch.cuda.synchronize()
+        k3_launches = dict(D.launch_counts)
+        check(k3_launches == expected(D, dg_pos_divide_transposed=1,
+                                      dg_fwd_transposed=1),
+              f"k3 transposed launches {k3_launches}")
+        k_inds, k_keys, k_geom = deconv_sites(x32[0], k3)
+        kdiv = D.dg_pos_divide_plain(k_keys, in_keys, **k_geom)
+        check(torch.equal(y.indices, k_inds)
+              and torch.equal(D.build_dg_pos_divide(
+                  k_keys, in_keys, path="transposed", **k_geom), kdiv),
+              "k3 transposed: sites or divide table differ from plain")
+        ref = D.dg_fwd_plain(x32[0].features, D.weight_krsc_to_kv(k3.weight),
+                             kdiv) + k3.bias
+        ref = torch.where((k_inds[:, 0] >= 0)[:, None], ref,
+                          torch.zeros_like(ref))
+        _, r = rel_err(torch, y.features, ref)
+        check(r <= TOL["float32"], f"k3 transposed: {r:.3e} > "
+              f"{TOL['float32']} of max|ref|")
+        hist = torch.bincount((kdiv >= 0).sum(0)[k_inds[:, 0] >= 0],
+                              minlength=9).tolist()
+        xk = x32[0].features.to(bf16)
+        wk = D.weight_krsc_to_kv(k3.weight).to(bf16)
+        km_div = cuda_ms(torch, lambda: D.build_dg_pos_divide(
+            k_keys, in_keys, path="transposed", **k_geom), 20)
+        km_fwd = cuda_ms(torch, lambda: D.dg_fwd(xk, wk, kdiv, "transposed"),
+                         10)
+    print(f"k3 s2 p1 op1 transposed conv (32 -> 32, f32, bound "
+          f"{k3.out_bound}): {int(y.num_voxels)} sites on "
+          f"{tuple(y.spatial_shape)} (total {int(y.num_out_total)}), "
+          f"max|d|/max|ref| vs plain {r:.3e}; matched offsets per output "
+          f"site {dict((i, n) for i, n in enumerate(hist) if n)}; bf16 "
+          f"divide table {km_div:.4f} ms (bound "
+          f"{table_bound(k_keys.shape[0], n_in, 27)[0]:.4f}), B2 "
+          f"{km_fwd:.4f} ms (bound "
+          f"{gemm_bound(xk, wk, kdiv, 32)[0]:.4f})")
+    return tally, serve_launches, train_launches, k3_launches
+
+
+def probe_phase(torch, dev):
+    """Phase 12: every probe script's ``main()`` on the card, each case OK,
+    with the launches of each; then each probe kernel against its plain
+    version at its probe's shape (exact, the bf16 GEMM within 1e-5 of
+    max|ref|), timed beside the plain version, the PyTorch call that
+    computes the same function (where one does) and its bound.  Returns
+    ``{row: dict(launches, errs, tally, library_ms, ...)}``."""
+    import numpy as np
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops import probes as P
+    from spconv_tpu_torch.tools import (probe_cast, probe_dg,
+                                        probe_dma_align, probe_int8,
+                                        probe_sk)
+
+    launches = {}
+    for mod in (probe_int8, probe_dma_align, probe_cast, probe_dg, probe_sk):
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"-- {name}.main()")
+        P.reset_launch_counts()
+        D.reset_launch_counts()
+        results = mod.main()
+        torch.cuda.synchronize()
+        check(results and all(results.values()),
+              f"{name}: cases not OK: "
+              f"{[c for c, ok in results.items() if not ok]}")
+        launches[name] = {k: v for k, v in {**P.launch_counts,
+                                             **D.launch_counts}.items() if v}
+        print(f"   {len(results)} cases OK; launches {launches[name]}")
+
+    rows = {}
+
+    def case(row, fn, plain, library, bnd, source, tol=0.0, **extra):
+        """``fn()`` against ``plain()`` (exactly, or within ``tol`` of
+        max|ref|), then the kernel, plain and library ms (CUDA events)."""
+        got, ref = fn(), plain()
+        check(got.dtype == ref.dtype and got.shape == ref.shape,
+              f"{row}: {got.dtype} {tuple(got.shape)} vs plain {ref.dtype} "
+              f"{tuple(ref.shape)}")
+        diff, r = rel_err(torch, got, ref)
+        check(torch.equal(got, ref) if tol == 0.0 else r <= tol,
+              f"{row}: differs from plain ({diff:.3e}, {r:.3e} of max|ref|)")
+        t = Tally()
+        t.add(cuda_ms(torch, fn, 100), cuda_ms(torch, plain, 20), bnd)
+        lib = cuda_ms(torch, library, 100) if library else None
+        rows[row] = dict(errs=(diff, r), tally=t, library_ms=lib,
+                         launches=launches[source[0]].get(source[1], 0),
+                         extra=extra)
+        print(f"  {row:22s} max|d| {diff:.3e}  {t}, torch call "
+              + (f"{lib:.4f} ms" if lib is not None else "none")
+              + "".join(f", {k} {v:.4f} ms" for k, v in extra.items()
+                        if isinstance(v, float)))
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    print("probe kernels at their probes' shapes: max|d| vs plain, ms "
+          "(CUDA events, 100 launches) beside plain, bound and torch call; "
+          "each is launch-bound")
+    i32 = torch.int32
+    x8 = on((np.arange(4096 * 128).reshape(4096, 128) % 117 - 58)
+            .astype(np.int8))
+    s96 = torch.tensor([96], dtype=i32, device=dev)
+    case("probe_copy_int8", lambda: P.copy_rows(x8, s96, 64),
+         lambda: P.copy_rows_plain(x8, s96, 64),
+         lambda: x8[96:160].to(torch.int32), bound(64 * 128 * 5 + 4),
+         ("probe_int8", "probe_copy"))
+    xb = on(np.arange(4096 * 128).reshape(4096, 128) % 977).to(torch.bfloat16)
+    s384 = torch.tensor([384], dtype=i32, device=dev)
+    case("probe_copy_dma_align", lambda: P.copy_rows(xb, s384, 64),
+         lambda: P.copy_rows_plain(xb, s384, 64),
+         lambda: xb[384:448].to(torch.bfloat16, copy=True),
+         bound(2 * 64 * 128 * 2 + 4), ("probe_dma_align", "probe_copy"))
+    tab = torch.rand((256, 128), device=dev)
+    s5 = torch.tensor([5], dtype=i32, device=dev)
+    case("probe_copy_chunk",
+         lambda: P.copy_rows(tab, s5, 16, scale=16, off=16),
+         lambda: P.copy_rows_plain(tab, s5, 16, scale=16, off=16),
+         lambda: tab[96:112].to(torch.float32, copy=True),
+         bound(2 * 16 * 128 * 4 + 4), ("probe_dg", "probe_copy"))
+    a = torch.rand((128, 128), device=dev)
+    case("probe_transpose", lambda: P.transpose(a),
+         lambda: P.transpose_plain(a), lambda: a.t().contiguous(),
+         bound(2 * 128 * 128 * 4), ("probe_dg", "probe_transpose"))
+    xg = torch.rand((128, 128), device=dev)
+    idx = torch.randint(0, 128, (128, 128), device=dev, dtype=i32)
+    idx64 = idx.long()
+    case("probe_lane_gather", lambda: P.lane_gather(xg, idx),
+         lambda: P.lane_gather_plain(xg, idx),
+         lambda: torch.gather(xg, 1, idx64), bound(3 * 128 * 128 * 4),
+         ("probe_dg", "probe_lane_gather"))
+    xs = torch.rand((8, 128), device=dev)
+    case("probe_row_broadcast", lambda: P.row_broadcast(xs, 3, 4.0, 8),
+         lambda: P.row_broadcast_plain(xs, 3, 4.0, 8), None,
+         bound(9 * 128 * 4), ("probe_dg", "probe_row_broadcast"))
+    for row, (t_n, w_n, c, tdt, src) in {
+            "probe_join_int8": (128, 256, 128, torch.int8, "probe_int8"),
+            "probe_join_f32": (256, 1024, 64, torch.float32, "probe_cast"),
+    }.items():
+        probes = torch.arange(t_n, device=dev, dtype=i32) * 3
+        keys = torch.arange(w_n, device=dev, dtype=i32) // 2 * 2
+        table = (torch.randint(-127, 127, (w_n, c), device=dev).to(tdt)
+                 if tdt == torch.int8 else torch.randn((w_n, c), device=dev))
+        # no one PyTorch call joins; searchsorted is its search half
+        half = cuda_ms(torch, lambda: torch.searchsorted(keys, probes), 100)
+        # the output reads only the table rows some probe matches
+        matched = int(torch.isin(keys, probes).sum())
+        case(row, lambda: P.keyed_sum(probes, keys, table),
+             lambda: P.keyed_sum_plain(probes, keys, table), None,
+             bound(4 * (t_n + w_n + t_n * c)
+                   + matched * c * table.element_size()),
+             (src, "probe_join"), searchsorted_ms=half)
+    keys = torch.sort(torch.randint(0, 10_000, (128,), device=dev,
+                                    dtype=i32)).values
+    pr = torch.randint(0, 10_000, (16, 128), device=dev, dtype=i32)
+    first = pr[:, 0].contiguous()
+    case("probe_rank", lambda: P.lane_rank(keys, pr),
+         lambda: P.lane_rank_plain(keys, pr),
+         lambda: torch.searchsorted(keys, first),
+         bound(4 * (128 + 16 + 16 * 128)), ("probe_dg", "probe_rank"))
+    a8 = torch.randint(-127, 127, (128, 256), device=dev).to(torch.int8)
+    b8 = torch.randint(-127, 127, (256, 128), device=dev).to(torch.int8)
+    try:
+        torch._int_mm(a8, b8)
+        int_mm = lambda: torch._int_mm(a8, b8)  # noqa: E731
+    except RuntimeError as e:  # the yardstick only; the port never calls it
+        print(f"  torch._int_mm refuses [128, 256] @ [256, 128]: {e}")
+        int_mm = None
+    case("probe_gemm_s8", lambda: P.gemm(a8, b8), lambda: P.gemm_plain(a8, b8),
+         int_mm, bound(2 * 128 * 256 + 4 * 128 * 128,
+                       2 * 128 * 256 * 128, "int8"),
+         ("probe_int8", "probe_gemm_s8"))
+    af = torch.rand((128, 432), device=dev)
+    bf = torch.rand((432, 128), device=dev)
+    ab, bb = af.bfloat16(), bf.bfloat16()
+    case("probe_gemm_bf16", lambda: P.gemm(af, bf),
+         lambda: P.gemm_plain(af, bf), lambda: torch.matmul(ab, bb),
+         bound(4 * (128 * 432 * 2 + 128 * 128), 2 * 128 * 432 * 128),
+         ("probe_dg", "probe_gemm_bf16"), tol=1e-5)
+    # probe_sk: S1 at C = K = 64 on the stage-0 scan
+    voxels, coors, shape = B.synthetic_scan(0)
+    xsk = B.make_bench_input(voxels, coors, shape, dtype=torch.bfloat16,
+                             device=dev)
+    skeys, _ = C.linearize(xsk.indices, xsk.spatial_shape, 1)
+    geom = D.SearchGeom.of(KSIZE, DIL, shape, 1)
+    g = torch.Generator(device=dev).manual_seed(31)
+    fs = (torch.randn((skeys.shape[0], 64), device=dev, generator=g)
+          * xsk.valid_mask[:, None]).bfloat16()
+    ws = (torch.randn((27, 64, 64), device=dev, generator=g) / 41.57
+          ).bfloat16()
+    pos = D.build_dg_pos(skeys, **geom._asdict())
+    case("probe_sk_search", lambda: D.dg_fwd_search(fs, ws, skeys, geom),
+         lambda: D.dg_fwd_search_plain(fs, ws, skeys, geom), None,
+         gemm_bound(fs, ws, pos, 64, keys=skeys), ("probe_sk",
+                                                   "dg_fwd_search"),
+         tol=TOL["bfloat16"])
+    return rows
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
@@ -2303,15 +2857,25 @@ def main():
      run_int8) = search_phase(torch, dev, gen, scans, geo, bounds, served,
                               note)
 
-    # ---- 11. report --------------------------------------------------
-    def row(name, source, replaces, launches, errs, t, **extra):
+    # ---- 11. the transposed conv: the USAGE.md decoder chain ----------
+    (t_tot, t_serve, t_train,
+     t_k3) = transposed_phase(torch, dev, cp_in, note)
+
+    # ---- 12. the probe kernels (B9) -----------------------------------
+    probes = probe_phase(torch, dev)
+
+    # ---- 13. report --------------------------------------------------
+    def row(name, source, replaces, launches, errs, t, library_ms=None,
+            **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against
-        its plain version, ``t`` its Tally of times and bound."""
+        its plain version, ``t`` its Tally of times and bound,
+        ``library_ms`` the one PyTorch call that computes the same function
+        (None where none does)."""
         return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches,
                     max_abs_err=errs[0], max_rel_err=errs[1], ms=t.ms,
                     plain_ms=t.plain_ms, bound_ms=t.bound_ms,
-                    bound_by=t.bound_by, library_ms=None, **extra)
+                    bound_by=t.bound_by, library_ms=library_ms, **extra)
 
     def errs(*keys):
         return max(err[k] for k in keys), max(rel[k] for k in keys)
@@ -2467,7 +3031,68 @@ def main():
             s_q["dg_fwd_q_search"], errs("dg_fwd_q_search"),
             s_tot["dg_fwd_q_search"],
             table_path_ms=s_table["dg_fwd_q_search"], run_int8=run_int8),
+        # the transposed conv: the inverse mode on swapped spaces
+        # (spconv_tpu/modules/conv.py:816-826), timed at the chain's shape
+        row("dg_pos_divide_transposed", csrc + "dg_pos.cu",
+            pallas + "dg_conv.py:315 (_vec_divide_probes of _dg_fwd_kernel "
+            ":339 on swapped spaces; launched at :1020 by _dg_reg_conv "
+            ":1850 from modules/conv.py:819)",
+            t_train["dg_pos_divide_transposed"],
+            errs("dg_pos_divide_transposed"),
+            t_tot["dg_pos_divide_transposed"],
+            serve_launches=t_serve["dg_pos_divide_transposed"]),
+        row("dg_fwd_transposed", csrc + "dg_fwd.cu",
+            pallas + "dg_conv.py:339 (divide probes on swapped spaces; "
+            "launched at :1020 by _dg_reg_conv :1850 from "
+            "modules/conv.py:819)", t_train["dg_fwd_transposed"],
+            errs("dg_fwd_transposed"), t_tot["dg_fwd_transposed"],
+            serve_launches=t_serve["dg_fwd_transposed"]),
+        row("dg_pos_affine_transposed", csrc + "dg_pos.cu",
+            pallas + "dg_conv.py:302 (_vec_affine_probes of _dg_bwd_kernel "
+            ":1307 on swapped spaces; launched at :1598 by _dg_reg_conv_bwd "
+            ":1882)", t_train["dg_pos_affine_transposed"],
+            errs("dg_pos_affine_transposed"),
+            t_tot["dg_pos_affine_transposed"]),
+        row("dg_dgrad_transposed", csrc + "dg_fwd.cu",
+            pallas + "dg_conv.py:1307 (din, affine probes on swapped spaces; "
+            "launched at :1598 by _dg_reg_conv_bwd :1882)",
+            t_train["dg_dgrad_transposed"], errs("dg_dgrad_transposed"),
+            t_tot["dg_dgrad_transposed"]),
+        row("dg_wgrad_transposed", csrc + "dg_wgrad.cu",
+            pallas + "dg_conv.py:1307 (dW, affine probes on swapped spaces; "
+            "launched at :1598 by _dg_reg_conv_bwd :1882)",
+            t_train["dg_wgrad_transposed"], errs("dg_wgrad_transposed"),
+            t_tot["dg_wgrad_transposed"]),
     ]
+    # the probe kernels (B9): each at its probe's shape, launch-bound
+    probe_src = {
+        "probe_copy_int8": "tools/probe_int8.py:14 (probe_dma.kern, "
+                           "launched at :28)",
+        "probe_copy_dma_align": "tools/probe_dma_align.py:16 (make.kern, "
+                                "launched at :30)",
+        "probe_copy_chunk": "tools/probe_dg.py:127 (kd, launched at :144)",
+        "probe_transpose": "tools/probe_dg.py:113 (kt, launched at :25)",
+        "probe_lane_gather": "tools/probe_dg.py:43 and :56 (k, ki, launched "
+                             "at :25)",
+        "probe_row_broadcast": "tools/probe_dg.py:83 (ks, launched at :25)",
+        "probe_join_int8": "tools/probe_int8.py:47 (probe_matmul.kern, "
+                           "launched at :66)",
+        "probe_join_f32": "tools/probe_cast.py:48, :57, :64 (k_2d, k_3d, "
+                          "k_2d_bcast, launched at :26)",
+        "probe_rank": "tools/probe_dg.py:69 (kr, launched at :25)",
+        "probe_gemm_s8": "tools/probe_int8.py:87 (probe_plain_matmul.kern, "
+                         "launched at :91)",
+        "probe_gemm_bf16": "tools/probe_dg.py:101 (kg, launched at :25)",
+        "probe_sk_search": "tools/probe_sk_v2.py:47 and tools/probe_sk_v3.py"
+                           ":86 (launched at :208, :347)",
+    }
+    for name, replaces in probe_src.items():
+        r = probes[name]
+        source = (csrc + "dg_fwd.cu + " + csrc + "dg_search.cuh"
+                  if name == "probe_sk_search" else csrc + "probes.cu")
+        kernels.append(row(name, source, replaces, r["launches"], r["errs"],
+                           r["tally"], library_ms=r["library_ms"],
+                           **r["extra"]))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on its "
               "path")

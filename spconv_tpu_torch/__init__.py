@@ -14,14 +14,16 @@ CenterPoint / SECOND encoder
 (``models``: strided ``SparseConv3d``, ``BatchNorm1d``,
 ``SparseConvTensor.dense`` and out-bound calibration, ``calibrate``); and
 the segmentation ``SparseUNet`` serving and training, through
-``SparseInverseConv3d`` and ``JoinTable``.  The strided and the inverse
-conv run forward and backward; the subm and regular convs come in 1 to 4
+``SparseInverseConv3d`` and ``JoinTable``.  The strided, the inverse and
+the transposed conv (``SparseConvTranspose1d``-``4d``) run forward and
+backward; the subm and regular convs come in 1 to 4
 dimensions, and a subm conv without an ``indice_key`` runs table-free
 search kernels.  Int8 post-training quantization
 (``quantization``: ``quantize_encoder`` and friends) serves the encoder
-through an int8 kernel.  Constructors and input builders put their
-tensors on the CUDA card unless given ``device``.  See ROADMAP.md for what
-is still to come.
+through an int8 kernel.  ``tools`` runs the JAX package's ``tools/``
+probe scripts on the card (``ops.probes``).  Constructors, input builders
+and the probes put their tensors on the CUDA card unless given ``device``.
+See ROADMAP.md for what is still to come.
 """
 
 __version__ = "0.1.0"
@@ -35,7 +37,9 @@ from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
                       JoinTable, SparseAvgPool, SparseAvgPool1d,
                       SparseAvgPool2d, SparseAvgPool3d, SparseConv1d,
                       SparseConv2d, SparseConv3d, SparseConv4d,
-                      SparseConvolution, SparseGlobalAvgPool,
+                      SparseConvolution, SparseConvTranspose1d,
+                      SparseConvTranspose2d, SparseConvTranspose3d,
+                      SparseConvTranspose4d, SparseGlobalAvgPool,
                       SparseGlobalMaxPool, SparseInverseConv1d,
                       SparseInverseConv2d, SparseInverseConv3d,
                       SparseInverseConv4d, SparseMaxPool, SparseMaxPool1d,
@@ -60,6 +64,10 @@ __all__ = [
     "SparseInverseConv2d",
     "SparseInverseConv3d",
     "SparseInverseConv4d",
+    "SparseConvTranspose1d",
+    "SparseConvTranspose2d",
+    "SparseConvTranspose3d",
+    "SparseConvTranspose4d",
     "AddTable",
     "ConcatTable",
     "JoinTable",

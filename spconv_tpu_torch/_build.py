@@ -155,6 +155,21 @@ def load_library() -> ctypes.CDLL:
         # out, stream
         "sk_pool_launch": [vp, i32, vp, i32, vp, i32, i32,
                            ctypes.POINTER(i32), i32, i32, vp, vp],
+        # the probe kernels (B9, csrc/probes.cu)
+        # x, n, width, kind, start, scale, off, rows, vec, out, stream
+        "probe_copy_launch": [vp, i32, i32, i32, vp, i32, i32, i32, i32, vp,
+                              vp],
+        # a, m, n, out, stream
+        "probe_transpose_launch": [vp, i32, i32, vp, vp],
+        # x, width, idx, row, scale, is_float, rows, out, stream
+        "probe_gather_launch": [vp, i32, vp, i32, ctypes.c_float, i32, i32,
+                                vp, vp],
+        # probes, t_n, keys, w_n, table, c, is_int8, out, stream
+        "probe_join_launch": [vp, i32, vp, i32, vp, i32, i32, vp, vp],
+        # keys, w_n, probes, rows, lanes, out, stream
+        "probe_rank_launch": [vp, i32, vp, i32, i32, vp, vp],
+        # a, b, m, k, n, is_int8, out, stream
+        "probe_gemm_launch": [vp, vp, i32, i32, i32, i32, vp, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

@@ -3,7 +3,8 @@
 ``spconv_tpu.checkpoint.state_dict`` returns a dict of numpy arrays keyed by
 dotted attribute path (``convs.0.weight``).  The port keeps the JAX
 attribute names and the KRSC weight layout, so the keys and shapes match
-``module.state_dict()`` one to one.  The one exception: a JAX int8 conv
+``module.state_dict()`` one to one; a transposed conv's weight too moves
+across unflipped, as its kernels read ``W[k]`` as it is.  The one exception: a JAX int8 conv
 keeps its fp conv's configuration as ``base`` with a ``(1,)`` placeholder
 weight (``base.weight``), which the port's ``QuantizedSparseConv`` does not
 have; such keys are skipped and named in a warning.

@@ -1,10 +1,11 @@
 """Sparse convolution modules (counterpart of
 ``spconv_tpu/modules/conv.py``).
 
-Ported: the submanifold conv, the regular (strided) conv and the inverse
-conv on the dynamic-gather (DG) path, each forward and backward, in 1 to 4
-dimensions, and the 1x1 path (kernel 1 with a subm or stride-1 geometry,
-the inverse conv's included: a plain matmul on the input's own sites).  A
+Ported: the submanifold conv, the regular (strided) conv, the inverse conv
+and the transposed conv on the dynamic-gather (DG) path, each forward and
+backward, in 1 to 4 dimensions, and the 1x1 path (kernel 1 with a subm or
+stride-1 geometry, the inverse and transposed convs' included: a plain
+matmul on the input's own sites).  A
 subm stage's match table is built once per ``indice_key`` and geometry
 (kernel size and dilation), cached in ``indice_dict`` with the geometry it
 was built for, and reused by every later layer of the stage that has that
@@ -28,6 +29,14 @@ conv (``SparseInverseConv3d`` with the same ``indice_key``), whose forward
 gathers through it to map the features back onto the regular conv's input
 sites.
 
+A transposed conv discovers its output sites (``ops.rulebook.
+build_deconv_outputs``) and runs as the inverse conv with the two spaces
+swapped, as the JAX package does: the divide table over its expanded output
+rows is its forward's table, the affine table over its input rows (built
+only when a gradient is wanted) its backward's.  Its record carries
+``transposed=True``, so a regular conv never reuses it, and an inverse conv
+under its key raises.
+
 ``algo="sk"`` (the JAX package's sorted-key kernels, which compute the DG
 conv's function through a one-hot key join on the TPU) runs the same match
 tables through the same kernels; its regular-conv record lives under
@@ -36,8 +45,7 @@ tables through the same kernels; its regular-conv record lives under
 
 Not ported yet, and refused with ``NotImplementedError`` rather than
 computed some other way: the native rulebook path (any other ``algo``, and
-input that is not key-sorted) and transposed convs (their output discovery
-``build_deconv_outputs``).
+input that is not key-sorted).
 """
 
 from __future__ import annotations
@@ -57,14 +65,16 @@ from ..ops import coords as C
 from ..ops.dg_conv import (build_dg_pos, dg_regular_conv, dg_subm_conv,
                            dg_subm_conv_search)
 from ..ops.epilogue import bias_add_act
-from ..ops.rulebook import build_conv_outputs
+from ..ops.rulebook import build_conv_outputs, build_deconv_outputs
 from .modules import SparseModule
 
 __all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv1d",
            "SubMConv2d", "SubMConv3d", "SubMConv4d", "SparseConv1d",
            "SparseConv2d", "SparseConv3d", "SparseConv4d",
            "SparseInverseConv1d", "SparseInverseConv2d",
-           "SparseInverseConv3d", "SparseInverseConv4d"]
+           "SparseInverseConv3d", "SparseInverseConv4d",
+           "SparseConvTranspose1d", "SparseConvTranspose2d",
+           "SparseConvTranspose3d", "SparseConvTranspose4d"]
 
 IntOrSeq = Union[int, Sequence[int]]
 
@@ -98,13 +108,17 @@ class DGData:
 
 
 class DGRegData:
-    """Cached state of a regular conv under its ``indice_key`` (the port's
-    ``SKRegData``): the input and output keys, the output sites and their
-    counts, the affine match table ``pos`` ``[kv, N_out]`` (None until a
-    conv of the record gathers through it), its inverse
-    the divide table ``pos_div`` ``[kv, N_in]`` (None until a gradient of
-    the regular conv or the paired inverse conv needs it) and the geometry
-    they were built for."""
+    """Cached state of a regular or transposed conv under its
+    ``indice_key`` (the port's ``SKRegData``): the input and output keys,
+    the output sites and their counts, two match tables and the geometry
+    they were built for.  A regular conv's are the affine table ``pos``
+    ``[kv, N_out]`` (None until a conv of the record gathers through it)
+    and its inverse, the divide table ``pos_div`` ``[kv, N_in]`` (None
+    until a gradient of the regular conv or the paired inverse conv needs
+    it).  A transposed conv's (``transposed``) are those of the swapped
+    spaces: ``pos_div`` ``[kv, N_out]``, the divide table over its output
+    rows, is its forward's table, and ``pos`` ``[kv, N_in]`` its
+    backward's."""
 
     def __init__(self, in_keys: torch.Tensor, out_keys: torch.Tensor,
                  out_indices: torch.Tensor, num_out: torch.Tensor,
@@ -114,6 +128,7 @@ class DGRegData:
                  padding: Tuple[int, ...], dilation: Tuple[int, ...],
                  in_shape: Tuple[int, ...], out_shape: Tuple[int, ...],
                  output_padding: Tuple[int, ...],
+                 transposed: bool = False,
                  pos_div: Optional[torch.Tensor] = None):
         self.in_keys = in_keys
         self.out_keys = out_keys
@@ -129,6 +144,7 @@ class DGRegData:
         self.in_shape = tuple(in_shape)
         self.out_shape = tuple(out_shape)
         self.output_padding = tuple(output_padding)
+        self.transposed = bool(transposed)
 
 
 class SparseConvolution(SparseModule):
@@ -176,10 +192,6 @@ class SparseConvolution(SparseModule):
         # as the JAX package: kernel 1 with a subm or stride-1 geometry is
         # a plain matmul on the input's sites, an inverse conv's too
         self.conv1x1 = kv == 1 and (subm or self.stride == (1,) * ndim)
-        if transposed:
-            raise NotImplementedError(
-                "transposed convs are not ported yet: their output "
-                "discovery (build_deconv_outputs) is still to come")
         if inverse and indice_key is None:
             raise ValueError("an inverse conv requires the indice_key of "
                              "the regular conv it inverts")
@@ -188,6 +200,7 @@ class SparseConvolution(SparseModule):
         if subm and any(k % 2 == 0 for k in self.kernel_size):
             raise ValueError("subm conv requires an odd kernel size")
         self.subm = subm
+        self.transposed = transposed
         self.inverse = inverse
         self.indice_key = indice_key
         self.algo = algo or DEFAULT_ALGO
@@ -220,18 +233,22 @@ class SparseConvolution(SparseModule):
         return (f"{self.in_channels}, {self.out_channels}, "
                 f"kernel_size={self.kernel_size}, stride={self.stride}, "
                 f"padding={self.padding}, subm={self.subm}, "
-                f"inverse={self.inverse}, "
+                f"transposed={self.transposed}, inverse={self.inverse}, "
                 f"indice_key={self.indice_key!r}, algo={self.algo!r}, "
                 f"out_bound={self.out_bound}")
 
     def _resolve_out_bound(self, n_in: int) -> int:
-        """Static output buffer of a regular conv: ``out_bound`` when
-        given, else ``n_in`` times ``out_bound_ratio`` (at least 2 for a
-        stride-1 conv), rounded up to a multiple of 128."""
+        """Static output buffer of a regular or transposed conv:
+        ``out_bound`` when given, else ``n_in`` times ``out_bound_ratio`` (at
+        least ``2 * prod(stride)`` for a transposed conv, which expands the
+        active set by up to ``prod(stride)``; at least 2 for a stride-1
+        conv), rounded up to a multiple of 128."""
         if self.out_bound is not None:
             return self.out_bound
         ratio = self.out_bound_ratio
-        if all(s == 1 for s in self.stride):
+        if self.transposed:
+            ratio = max(ratio, 2.0 * float(np.prod(self.stride)))
+        elif all(s == 1 for s in self.stride):
             ratio = max(ratio, 2.0)
         b = int(n_in * ratio)
         return max(128, -(-b // 128) * 128)
@@ -260,6 +277,8 @@ class SparseConvolution(SparseModule):
             return self._call_dg(input, add_input)
         if self.inverse:
             return self._call_inverse(input, add_input)
+        if self.transposed:
+            return self._call_transposed(input, add_input)
         return self._call_dg_regular(input, add_input)
 
     def _epilogue(self, out_feat, valid, add_input):
@@ -360,30 +379,39 @@ class SparseConvolution(SparseModule):
         return out
 
     def _regular_record(self, input: SparseConvTensor) -> DGRegData:
-        """This regular conv's record: the one under ``__dgreg__
-        <indice_key>`` (``__skreg__`` for ``algo="sk"``) when its geometry
-        matches exactly, else a new one from output discovery, with no
-        table yet, which :meth:`_cache_record` caches."""
+        """This regular (or transposed) conv's record: the one under
+        ``__dgreg__<indice_key>`` (``__skreg__`` for ``algo="sk"``) when its
+        geometry, ``transposed`` and ``output_padding`` included, matches
+        exactly, else a new one from output discovery, with no table yet,
+        which :meth:`_cache_record` caches."""
         indices = input.indices
         in_shape = tuple(input.spatial_shape)
+        conv = (self.kernel_size, self.stride, self.padding, self.dilation)
+        out_shape = tuple(
+            C.get_deconv_output_size(in_shape, *conv, self.output_padding)
+            if self.transposed else C.get_conv_output_size(in_shape, *conv))
         geom = dict(ksize=self.kernel_size, stride=self.stride,
                     padding=self.padding, dilation=self.dilation,
-                    in_shape=in_shape,
-                    out_shape=tuple(C.get_conv_output_size(
-                        in_shape, self.kernel_size, self.stride,
-                        self.padding, self.dilation)),
-                    output_padding=self.output_padding)
+                    in_shape=in_shape, out_shape=out_shape,
+                    output_padding=self.output_padding,
+                    transposed=self.transposed)
         rec = (input.indice_dict.get(self._record_keys()[0])
                if self.indice_key is not None else None)
         if (isinstance(rec, DGRegData)
                 and rec.in_keys.shape[0] == indices.shape[0]
                 and all(getattr(rec, k) == v for k, v in geom.items())):
             return rec
-        out_indices, out_keys, num_out, num_out_total = build_conv_outputs(
-            indices, spatial_shape=in_shape, batch_size=input.batch_size,
+        discover = dict(
+            spatial_shape=in_shape, batch_size=input.batch_size,
             ksize=self.kernel_size, stride=self.stride,
             padding=self.padding, dilation=self.dilation,
             out_bound=self._resolve_out_bound(indices.shape[0]))
+        if self.transposed:
+            found = build_deconv_outputs(
+                indices, out_padding=self.output_padding, **discover)
+        else:
+            found = build_conv_outputs(indices, **discover)
+        out_indices, out_keys, num_out, num_out_total = found
         maybe_assert_overflow(num_out_total, out_keys.shape[0],
                               self.name or type(self).__name__)
         in_keys, _ = C.linearize(indices, in_shape, input.batch_size)
@@ -422,6 +450,34 @@ class SparseConvolution(SparseModule):
             batch_size=input.batch_size, stride=self.stride,
             padding=self.padding, dilation=self.dilation, pos=rec.pos,
             pos_bwd=rec.pos_div)
+        return self._regular_output(input, add_input, rec, out_feat)
+
+    def _call_transposed(self, input: SparseConvTensor,
+                         add_input: Optional[SparseConvTensor]
+                         ) -> SparseConvTensor:
+        """Transposed conv on the DG path: output discovery
+        (``build_deconv_outputs``), then the inverse conv's kernels with the
+        spaces swapped (the JAX package's ``conv.py:816-826``): B1 divide
+        over the expanded output rows and B2 through it, with ``W[k]`` as
+        it is; with a gradient wanted also the affine table over the input
+        rows, which the backward gathers through.  The tables join the
+        record (:meth:`_regular_record`)."""
+        rec = self._regular_record(input)
+        out_feat, rec.pos_div, rec.pos = dg_regular_conv(
+            input.features, rec.out_keys, rec.in_keys, self.weight,
+            in_shape=rec.out_shape, out_shape=rec.in_shape,
+            batch_size=input.batch_size, stride=self.stride,
+            padding=self.padding, dilation=self.dilation, path="transposed",
+            pos=rec.pos_div, pos_bwd=rec.pos)
+        return self._regular_output(input, add_input, rec, out_feat)
+
+    def _regular_output(self, input: SparseConvTensor,
+                        add_input: Optional[SparseConvTensor],
+                        rec: DGRegData, out_feat: torch.Tensor
+                        ) -> SparseConvTensor:
+        """The output of a regular or transposed conv on ``rec``'s output
+        sites: the epilogue on their mask, the calibration record, and
+        ``rec`` cached (:meth:`_cache_record`)."""
         calibrate._maybe_record(self, rec.num_out)
         out = SparseConvTensor(
             self._epilogue(out_feat, rec.out_indices[:, 0] >= 0, add_input),
@@ -445,6 +501,10 @@ class SparseConvolution(SparseModule):
                 f"an inverse conv reads the record of the regular conv "
                 f"under indice_key={self.indice_key!r} ({ck} and its input "
                 "indices), and the input carries none")
+        if rec.transposed:
+            raise ValueError(
+                f"an inverse conv cannot reuse the transposed-conv record "
+                f"under indice_key={self.indice_key!r}")
         mismatch = [
             (what, got, want) for what, got, want in (
                 ("kernel size", self.kernel_size, rec.ksize),
@@ -473,7 +533,7 @@ class SparseConvolution(SparseModule):
             input.features, rec.in_keys, rec.out_keys, self.weight,
             in_shape=rec.in_shape, out_shape=rec.out_shape,
             batch_size=input.batch_size, stride=rec.stride,
-            padding=rec.padding, dilation=rec.dilation, inverse=True,
+            padding=rec.padding, dilation=rec.dilation, path="inverse",
             pos=rec.pos_div, pos_bwd=rec.pos)
         return SparseConvTensor(
             self._epilogue(out_feat, enc_in[:, 0] >= 0, add_input), enc_in,
@@ -564,3 +624,42 @@ class SparseInverseConv3d(SparseConvolution):
 
 class SparseInverseConv4d(SparseConvolution):
     __init__ = _make_inverse(4)
+
+
+def _make_transposed(ndim: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOrSeq = 3, stride: IntOrSeq = 1,
+                 padding: IntOrSeq = 0, dilation: IntOrSeq = 1,
+                 groups: int = 1, bias: bool = True,
+                 indice_key: Optional[str] = None,
+                 algo: Optional[str] = None, output_padding: IntOrSeq = 0,
+                 out_bound: Optional[int] = None,
+                 out_bound_ratio: float = 2.0, **kwargs):
+        SparseConvolution.__init__(
+            self, ndim, in_channels, out_channels, kernel_size, stride,
+            padding, dilation, groups, bias, output_padding=output_padding,
+            transposed=True, indice_key=indice_key, algo=algo,
+            out_bound=out_bound, out_bound_ratio=out_bound_ratio, **kwargs)
+
+    return __init__
+
+
+class SparseConvTranspose1d(SparseConvolution):
+    __init__ = _make_transposed(1)
+
+
+class SparseConvTranspose2d(SparseConvolution):
+    __init__ = _make_transposed(2)
+
+
+class SparseConvTranspose3d(SparseConvolution):
+    """Transposed 3-d sparse conv: each input site reaches the output sites
+    ``i * stride + k * dilation - padding`` on the grid of
+    ``coords.get_deconv_output_size``.  Its output buffer holds
+    ``out_bound`` rows (default: ``max(out_bound_ratio, 2 * prod(stride))``
+    times the input buffer)."""
+    __init__ = _make_transposed(3)
+
+
+class SparseConvTranspose4d(SparseConvolution):
+    __init__ = _make_transposed(4)

@@ -15,6 +15,7 @@ import torch
 
 __all__ = [
     "get_conv_output_size",
+    "get_deconv_output_size",
     "kernel_offsets",
     "grid_sentinel",
     "linearize",
@@ -40,6 +41,27 @@ def get_conv_output_size(
             out.append(int((input_size[i] + 2 * padding[i]
                             - dilation[i] * (kernel_size[i] - 1) - 1)
                            // stride[i] + 1))
+    return out
+
+
+def get_deconv_output_size(
+    input_size: Sequence[int],
+    kernel_size: Sequence[int],
+    stride: Sequence[int],
+    padding: Sequence[int],
+    dilation: Sequence[int],
+    output_padding: Sequence[int],
+) -> List[int]:
+    """Transposed-conv output size ``(in - 1) * s - 2p + k +
+    output_padding`` per axis.  Like the JAX package's (and the
+    reference's), it has no dilation term: at dilation > 1 the candidates
+    past the grid are dropped."""
+    out = []
+    for i in range(len(input_size)):
+        if kernel_size[i] == -1:
+            raise ValueError("deconv doesn't support kernel_size < 0")
+        out.append(int((input_size[i] - 1) * stride[i] - 2 * padding[i]
+                       + kernel_size[i] + output_padding[i]))
     return out
 
 

@@ -1,6 +1,6 @@
 """Dynamic-gather (DG) conv on key-sorted input (counterpart of
-``spconv_tpu/ops/pallas/dg_conv.py``): the submanifold, regular (strided)
-and inverse convs, forward and backward, through cached match tables
+``spconv_tpu/ops/pallas/dg_conv.py``): the submanifold, regular (strided),
+inverse and transposed convs, forward and backward, through cached match tables
 (posmode), and the submanifold conv without a table (search mode).
 
 The kernel wrappers, each with its plain PyTorch version beside it:
@@ -15,8 +15,9 @@ The kernel wrappers, each with its plain PyTorch version beside it:
   rows at ``coord * stride + off_k * dil - pad``.
 * ``build_dg_pos_divide`` (the same file, divide mode): its exact inverse
   ``[kv, N_in]``, from input sites to the output rows at ``(coord - off_k *
-  dil + pad) / stride``.  The strided conv's backward and the inverse
-  conv's forward gather through it.
+  dil + pad) / stride``.  The strided conv's backward, the inverse conv's
+  forward and, on swapped spaces, the transposed conv's forward gather
+  through it.
 * ``dg_fwd`` (kernel ``csrc/dg_fwd.cu``): the gather-GEMM
   ``out[i] = sum_k x[pos[k, i]] @ W[k]`` with f32 accumulation, rounded
   once to the input dtype; rows without any match are 0.  The output has
@@ -42,8 +43,9 @@ The kernel wrappers, each with its plain PyTorch version beside it:
 Each conv is a pair of tables (the forward's ``[kv, N_dst]``, the
 backward's ``[kv, N_src]``): (pos, reversed pos) for the subm conv,
 (affine, divide) for the strided conv and (divide, affine) for the inverse
-conv.  ``DGConvFn`` is the autograd Function over the pair (the VJPs
-``_dg_conv_p_bwd`` and ``_dg_reg_conv_bwd`` of the JAX package);
+and the transposed conv.  ``DGConvFn`` is the autograd Function over the
+pair (the VJPs ``_dg_conv_p_bwd`` and ``_dg_reg_conv_bwd`` of the JAX
+package);
 ``dg_subm_conv`` and ``dg_regular_conv`` take it whenever a gradient is
 wanted.  ``DGSearchFn`` is the table-free subm conv's (``_dg_conv`` and its
 VJP), and ``dg_subm_conv_search`` its entry.
@@ -103,20 +105,26 @@ __all__ = [
 ]
 
 # the convs whose gather-GEMM launches count apart: "dg_fwd" counts the
-# subm path, "dg_fwd_strided" and "dg_fwd_inverse" the others, and so on
-PATHS = ("subm", "strided", "inverse")
+# subm path, "dg_fwd_strided", "dg_fwd_inverse" and "dg_fwd_transposed" the
+# others, and so on (the int8 kernel has no transposed path).
+PATHS = ("subm", "strided", "inverse", "transposed")
+_REG_PATHS = PATHS[1:]  # those of dg_regular_conv and its tables
 
 # launches of each kernel wrapper of the port since the last
 # reset_launch_counts(); "dg_pos" counts forward subm tables, "dg_pos_rev"
-# reversed ones, "dg_pos_affine" and "dg_pos_divide" a regular conv's two
-# tables, "*_search" the table-free subm kernels, "sk_pool" the sorted-key
-# pool (ops/sorted_pool.py)
+# reversed ones, "dg_pos_affine" and "dg_pos_divide" a regular or inverse
+# conv's two tables ("*_transposed" a transposed conv's), "*_search" the
+# table-free subm kernels, "sk_pool" the sorted-key pool
+# (ops/sorted_pool.py)
 launch_counts = dict.fromkeys(
     ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_pos_divide",
-     "dg_fwd", "dg_fwd_strided", "dg_fwd_inverse",
+     "dg_pos_affine_transposed", "dg_pos_divide_transposed",
+     "dg_fwd", "dg_fwd_strided", "dg_fwd_inverse", "dg_fwd_transposed",
      "dg_fwd_q", "dg_fwd_q_strided", "dg_fwd_q_inverse",
      "dg_dgrad", "dg_dgrad_strided", "dg_dgrad_inverse",
+     "dg_dgrad_transposed",
      "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse",
+     "dg_wgrad_transposed",
      "dg_fwd_search", "dg_dgrad_search", "dg_wgrad_search",
      "dg_fwd_q_search", "sk_pool"), 0)
 
@@ -293,6 +301,7 @@ def build_dg_pos_affine(
     in_shape: Sequence[int],
     out_shape: Sequence[int],
     batch_size: int,
+    path: str = "strided",
 ) -> torch.Tensor:
     """Match table ``[kv, N_out]`` int32 of a regular conv (-1 = no match).
 
@@ -301,20 +310,29 @@ def build_dg_pos_affine(
     that coordinate leaves the input grid, no input row has it, or ``o``
     is a sentinel row.  ``in_keys`` ``[N_in]``: ascending keys on the
     input grid (``in_shape``), sentinel tail; ``out_keys`` ``[N_out]``:
-    the same on the output grid (:func:`rulebook.build_conv_outputs`)."""
-    geom = _regular_geom(in_keys, out_keys, ksize=ksize, stride=stride,
-                         padding=padding, dilation=dilation,
+    the same on the output grid (:func:`rulebook.build_conv_outputs`).
+    ``path`` names the conv the table is for (:func:`dg_regular_conv`):
+    a ``"transposed"`` conv's launch counts apart."""
+    geom = _regular_geom(in_keys, out_keys, path, ksize=ksize,
+                         stride=stride, padding=padding, dilation=dilation,
                          in_shape=in_shape, out_shape=out_shape,
                          batch_size=batch_size)
     if in_keys.device.type == "cpu":
         return dg_pos_affine_plain(in_keys, out_keys, **geom)
-    return _regular_pos_cuda("dg_pos_affine", in_keys, out_keys, **geom)
+    return _regular_pos_cuda("dg_pos_affine", in_keys, out_keys, path,
+                             **geom)
 
 
-def _regular_geom(in_keys, out_keys, **geom):
-    """Checks the keys of a regular conv's two grids and returns its
-    geometry as tuples of ints; raises unless both key spaces fit in
-    int32."""
+def _check_reg_path(path: str) -> None:
+    _check(path in _REG_PATHS,
+           f"path must be one of {_REG_PATHS}, got {path!r}")
+
+
+def _regular_geom(in_keys, out_keys, path, **geom):
+    """Checks ``path`` and the keys of a regular conv's two grids and
+    returns its geometry as tuples of ints; raises unless both key spaces
+    fit in int32."""
+    _check_reg_path(path)
     _check_keys("in_keys", in_keys)
     _check_keys("out_keys", out_keys)
     _check(in_keys.device == out_keys.device,
@@ -374,6 +392,7 @@ def build_dg_pos_divide(
     in_shape: Sequence[int],
     out_shape: Sequence[int],
     batch_size: int,
+    path: str = "strided",
 ) -> torch.Tensor:
     """Divide table ``[kv, N_in]`` int32 of a regular conv (-1 = no match):
     the exact inverse of :func:`build_dg_pos_affine` on the same keys.
@@ -384,14 +403,15 @@ def build_dg_pos_divide(
     inside ``out_shape``; -1 otherwise, where no output row has that key
     (a cut output set), or where ``i`` is a sentinel row.  So it holds
     ``o`` iff the affine table holds ``i`` at ``(k, o)``.  Arguments as
-    :func:`build_dg_pos_affine`'s."""
-    geom = _regular_geom(in_keys, out_keys, ksize=ksize, stride=stride,
-                         padding=padding, dilation=dilation,
+    :func:`build_dg_pos_affine`'s (a transposed conv's forward table)."""
+    geom = _regular_geom(in_keys, out_keys, path, ksize=ksize,
+                         stride=stride, padding=padding, dilation=dilation,
                          in_shape=in_shape, out_shape=out_shape,
                          batch_size=batch_size)
     if in_keys.device.type == "cpu":
         return dg_pos_divide_plain(in_keys, out_keys, **geom)
-    return _regular_pos_cuda("dg_pos_divide", in_keys, out_keys, **geom)
+    return _regular_pos_cuda("dg_pos_divide", in_keys, out_keys, path,
+                             **geom)
 
 
 def dg_pos_divide_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
@@ -425,10 +445,11 @@ def dg_pos_divide_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
     return pos
 
 
-def _regular_pos_cuda(name, in_keys, out_keys, *, ksize, stride, padding,
-                      dilation, in_shape, out_shape, batch_size):
+def _regular_pos_cuda(name, in_keys, out_keys, path, *, ksize, stride,
+                      padding, dilation, in_shape, out_shape, batch_size):
     """Launches B1 in affine (``name == "dg_pos_affine"``: a table over
-    the output rows) or divide mode (over the input rows)."""
+    the output rows) or divide mode (over the input rows), counted under
+    ``name``, or ``name + "_transposed"`` for a transposed conv."""
     from .._build import load_library
 
     ndim = len(in_shape)
@@ -459,7 +480,7 @@ def _regular_pos_cuda(name, in_keys, out_keys, *, ksize, stride, padding,
         ctypes.c_void_p(table.data_ptr()), table.shape[0], kv, geom,
         sentinel, ctypes.c_void_p(pos.data_ptr()), _stream_ptr(rows.device))
     _raise_on(err, name)
-    launch_counts[name] += 1
+    launch_counts[f"{name}_transposed" if path == "transposed" else name] += 1
     return pos
 
 
@@ -508,7 +529,8 @@ def _check_gather_gemm(name, x, weight_kv, pos, c_axis, n_out=None):
 
 
 def _count_name(base: str, path: str) -> str:
-    """The ``launch_counts`` entry of kernel ``base`` on conv ``path``."""
+    """The ``launch_counts`` entry of kernel ``base`` on conv ``path``, one
+    of :data:`PATHS`."""
     _check(path in PATHS, f"path must be one of {PATHS}, got {path!r}")
     return base if path == "subm" else f"{base}_{path}"
 
@@ -522,9 +544,9 @@ def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     entries lie in ``[-1, N_src)`` (the kernel trusts them: checking would
     cost a device sync per call).  ``path`` names the conv and so the
     launch count: ``"subm"`` (the table of :func:`build_dg_pos`, N_dst =
-    N_src), ``"strided"`` (an affine table) or ``"inverse"`` (a divide
-    table).  Records no autograd graph on CUDA: :class:`DGConvFn`
-    differentiates."""
+    N_src), ``"strided"`` (an affine table), ``"inverse"`` (a divide
+    table) or ``"transposed"`` (a divide table on swapped spaces).  Records
+    no autograd graph on CUDA: :class:`DGConvFn` differentiates."""
     name = _count_name("dg_fwd", path)
     _check_gather_gemm(name, x, weight_kv, pos, 1,
                        n_out=None if path == "subm" else pos.shape[-1])
@@ -557,9 +579,9 @@ def dg_dgrad(dout: torch.Tensor, weight_kv: torch.Tensor,
     ``pos_bwd``: the backward's table ``[kv, N_src]`` of conv ``path``
     (:func:`dg_fwd`): the reversed table (``build_dg_pos(...,
     reverse=True)``, N_src = N_dst) for ``"subm"``, the divide table for
-    ``"strided"``, the affine table for ``"inverse"``.  It is B2's
-    function with ``W[k]^T``, so it launches B2's kernel; rows without a
-    match (every invalid row) are 0."""
+    ``"strided"``, the affine table for ``"inverse"`` and
+    ``"transposed"``.  It is B2's function with ``W[k]^T``, so it launches
+    B2's kernel; rows without a match (every invalid row) are 0."""
     name = _count_name("dg_dgrad", path)
     _check_gather_gemm(name, dout, weight_kv, pos_bwd, 2,
                        n_out=None if path == "subm" else pos_bwd.shape[-1])
@@ -629,6 +651,8 @@ def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     a Python float, rounded to f32 once.  Rows without a match get the
     epilogue of a zero sum.  ``path`` names the table and so the launch
     count, as :func:`dg_fwd`'s."""
+    _check(path != "transposed", "dg_fwd_q has no transposed path: the "
+                                 "int8 transposed conv is not ported")
     name = _count_name("dg_fwd_q", path)
     _check(pos.ndim == 2, f"{name}: pos must be [kv, N]")
     n = pos.shape[1]
@@ -1050,31 +1074,38 @@ def dg_regular_conv(
     stride: Sequence[int],
     padding: Sequence[int],
     dilation: Sequence[int],
-    inverse: bool = False,
+    path: str = "strided",
     pos: Optional[torch.Tensor] = None,
     pos_bwd: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
-    """Regular (strided) or inverse conv of key-sorted features (the JAX
-    package's ``dg_regular_conv``).  ``in_keys`` ``[N_in]`` and ``out_keys``
-    ``[N_out]`` are the ascending keys of the regular conv's input and
-    output sites on ``in_shape`` and ``out_shape``; ``weight`` is KRSC ``[K,
-    *ksize, C]``.  The regular conv maps ``features`` ``[N_in, C]`` onto
+    """Regular (``path="strided"``) or ``"inverse"`` conv of key-sorted
+    features (the JAX package's ``dg_regular_conv``).  ``in_keys``
+    ``[N_in]`` and ``out_keys`` ``[N_out]`` are the ascending keys of the
+    regular conv's input and output sites on ``in_shape`` and
+    ``out_shape``; ``weight`` is KRSC ``[K, *ksize, C]``.  The regular conv
+    maps ``features`` ``[N_in, C]`` onto
     the output sites through the affine table; the inverse conv maps
     ``features`` ``[N_out, C]`` back onto the input sites through the
-    divide table, with ``W[k]`` as it is.
+    divide table, with ``W[k]`` as it is.  A transposed conv is the inverse
+    conv with the spaces swapped (the JAX package's ``conv.py:816-826``):
+    ``in_keys`` / ``in_shape`` are its expanded output sites and grid,
+    ``out_keys`` / ``out_shape`` its input's; its ``path="transposed"``
+    runs the inverse mode and counts its launches apart.
 
-    ``pos`` is the forward's table (affine, or divide when ``inverse``) and
-    ``pos_bwd`` the other one, which only a gradient needs; each is built
-    when it is needed and not given (a cached one).  When grad mode is on
+    ``pos`` is the forward's table (affine, or divide on the inverse mode)
+    and ``pos_bwd`` the other one, which only a gradient needs; each is
+    built when it is needed and not given (a cached one).  When grad mode is on
     and ``features`` or ``weight`` needs a gradient, the call is recorded
     through :class:`DGConvFn`.  Returns ``(out, pos, pos_bwd)``: ``out``
-    ``[N_out, K]`` (``[N_in, K]`` when ``inverse``), and ``pos_bwd`` None
+    ``[N_out, K]`` (``[N_in, K]`` on the inverse mode), and ``pos_bwd`` None
     when it was neither needed nor given."""
     ksize = tuple(int(k) for k in weight.shape[1:-1])
     kv = int(np.prod(ksize))
     geom = dict(ksize=ksize, stride=stride, padding=padding,
                 dilation=dilation, in_shape=in_shape, out_shape=out_shape,
                 batch_size=batch_size)
+    _check_reg_path(path)
+    inverse = path != "strided"
     n_in, n_out = in_keys.shape[0], out_keys.shape[0]
     # the rows the features live on, and the rows the output gets
     n_src, n_dst = (n_out, n_in) if inverse else (n_in, n_out)
@@ -1086,15 +1117,14 @@ def dg_regular_conv(
            f"{'out' if inverse else 'in'}_keys has {n_src} rows, features "
            f"{features.shape[0]}")
     if pos is None:
-        pos = build_fwd(in_keys, out_keys, **geom)
+        pos = build_fwd(in_keys, out_keys, path=path, **geom)
     _check(tuple(pos.shape) == (kv, n_dst),
            f"pos is {tuple(pos.shape)}, expected {(kv, n_dst)}")
-    path = "inverse" if inverse else "strided"
     weight_kv = weight_krsc_to_kv(weight)
     if not _wants_grad(features, weight):
         return dg_fwd(features, weight_kv, pos, path=path), pos, pos_bwd
     if pos_bwd is None:
-        pos_bwd = build_bwd(in_keys, out_keys, **geom)
+        pos_bwd = build_bwd(in_keys, out_keys, path=path, **geom)
     _check(tuple(pos_bwd.shape) == (kv, n_src),
            f"pos_bwd is {tuple(pos_bwd.shape)}, expected {(kv, n_src)}")
     return (DGConvFn.apply(features, weight_kv, pos, pos_bwd, path), pos,

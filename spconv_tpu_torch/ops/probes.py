@@ -1,0 +1,349 @@
+"""The probe kernels (B9, kernels in ``csrc/probes.cu``): counterparts of
+the fixed-shape Pallas kernels of the JAX package's ``tools/probe_*.py``,
+which the scripts of ``spconv_tpu_torch.tools`` run.
+
+The Pallas probes compute seven functions; each is a wrapper here with its
+plain PyTorch version beside it:
+
+* :func:`copy_rows` (copy family): ``out[r] = x[start * scale + off + r]``
+  for ``r < rows``, with ``start`` read on the device (the role of the
+  Pallas kernels' scalar prefetch), int8 widened to int32;
+* :func:`transpose` (copy family): ``a^T`` of an f32 matrix;
+* :func:`lane_gather` and :func:`row_broadcast` (gather family): ``out[r,
+  l] = x[r, idx[r, l]]``, and ``out[r, l] = scale * x[row, l]``;
+* :func:`keyed_sum` (search family): the one-hot join ``out[t] = sum_w
+  [probes[t] == keys[w]] * table[w]``, int8 -> int32 or f32;
+* :func:`lane_rank` (search family): ``out[r, :] = #{keys < probes[r,
+  0]}``;
+* :func:`gemm` (gemm family): ``a @ b`` on the tensor cores, s8 -> s32, or
+  f32 inputs rounded to bf16 with f32 sums.
+
+A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
+tensor it launches its kernel or raises; it never falls back.  Each launch
+adds one to its entry of ``launch_counts``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+__all__ = [
+    "copy_rows",
+    "copy_rows_plain",
+    "transpose",
+    "transpose_plain",
+    "lane_gather",
+    "lane_gather_plain",
+    "row_broadcast",
+    "row_broadcast_plain",
+    "keyed_sum",
+    "keyed_sum_plain",
+    "lane_rank",
+    "lane_rank_plain",
+    "gemm",
+    "gemm_plain",
+    "launch_counts",
+    "reset_launch_counts",
+]
+
+# launches of each probe kernel since the last reset_launch_counts()
+launch_counts = dict.fromkeys(
+    ("probe_copy", "probe_transpose", "probe_lane_gather",
+     "probe_row_broadcast", "probe_join", "probe_rank", "probe_gemm_s8",
+     "probe_gemm_bf16"), 0)
+
+# copy_rows' element kinds, as probe_copy_launch takes them
+_COPY_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.int32: 2,
+              torch.float32: 2}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _operands(name, *tensors):
+    """Every tensor contiguous on one device, the CPU or CUDA; returns
+    whether that is CUDA."""
+    dev = tensors[0].device
+    _check(all(t.device == dev for t in tensors),
+           f"{name}: operands must be on one device")
+    _check(all(t.is_contiguous() for t in tensors),
+           f"{name} needs contiguous tensors")
+    if dev.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"no {name} kernel for {dev}")
+    return dev.type == "cuda"
+
+
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _launch(entry: str, counter: str, *args, device: torch.device) -> None:
+    from .._build import load_library
+
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    err = getattr(load_library(), entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{counter} kernel launch failed: cudaError {err}")
+    launch_counts[counter] += 1
+
+
+def _aligned(t: torch.Tensor, nbytes: int) -> bool:
+    return t.data_ptr() % nbytes == 0
+
+
+# ---------------------------------------------------------------------------
+# copy family
+# ---------------------------------------------------------------------------
+
+def copy_rows(x: torch.Tensor, start: torch.Tensor, rows: int, *,
+              scale: int = 1, off: int = 0) -> torch.Tensor:
+    """``out[r] = x[start[0] * scale + off + r]`` for ``r < rows`` ->
+    ``[rows, W]``; a source row outside ``x`` gives 0.  ``x``: ``[N, W]``
+    int8 (widened to int32, as ``tools/probe_int8.py``'s probe), bf16,
+    int32 or f32; ``start``: ``[1]`` int32 on ``x``'s device, read
+    there (no host sync)."""
+    name = "probe_copy"
+    _check(x.ndim == 2 and x.dtype in _COPY_KIND,
+           f"{name}: x must be [N, W] of {sorted(map(str, _COPY_KIND))}")
+    _check(start.dtype == torch.int32 and start.numel() == 1,
+           f"{name}: start must be one int32")
+    if not _operands(name, x, start):
+        return copy_rows_plain(x, start, rows, scale=scale, off=off)
+    n, width = x.shape
+    out = torch.empty((rows, width), device=x.device,
+                      dtype=torch.int32 if x.dtype == torch.int8 else x.dtype)
+    kind = _COPY_KIND[x.dtype]
+    v = 16 // x.element_size()
+    vec = (width % v == 0 and _aligned(x, 16)
+           and _aligned(out, v * out.element_size()))
+    _launch("probe_copy_launch", name, _ptr(x), n, width, kind, _ptr(start),
+            scale, off, rows, int(vec), _ptr(out), device=x.device)
+    return out
+
+
+def copy_rows_plain(x: torch.Tensor, start: torch.Tensor, rows: int, *,
+                    scale: int = 1, off: int = 0) -> torch.Tensor:
+    """Plain version of :func:`copy_rows`: one index per row, read where
+    it lies in ``x``."""
+    n = x.shape[0]
+    src = (start.reshape(1).long() * scale + off
+           + torch.arange(rows, device=x.device))
+    ok = (src >= 0) & (src < n)
+    out = x[src.clamp(0, max(n - 1, 0))]
+    if x.dtype == torch.int8:
+        out = out.int()
+    return torch.where(ok[:, None], out, torch.zeros_like(out))
+
+
+def transpose(a: torch.Tensor) -> torch.Tensor:
+    """``a^T`` -> ``[N, M]`` of an f32 ``[M, N]`` matrix."""
+    name = "probe_transpose"
+    _check(a.ndim == 2 and a.dtype == torch.float32,
+           f"{name}: a must be [M, N] float32")
+    if not _operands(name, a):
+        return transpose_plain(a)
+    m, n = a.shape
+    out = torch.empty((n, m), device=a.device, dtype=a.dtype)
+    if a.numel():
+        _launch("probe_transpose_launch", name, _ptr(a), m, n, _ptr(out),
+                device=a.device)
+    return out
+
+
+def transpose_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`transpose`: ``out[j, i] = a[i, j]`` as a
+    gather of the flat input."""
+    m, n = a.shape
+    idx = (torch.arange(n, device=a.device)[:, None]
+           + n * torch.arange(m, device=a.device)[None, :])
+    return a.reshape(-1)[idx]
+
+
+# ---------------------------------------------------------------------------
+# gather family
+# ---------------------------------------------------------------------------
+
+def _check_gather(name, x):
+    _check(x.ndim == 2 and x.dtype in (torch.float32, torch.int32),
+           f"{name}: x must be [R, W] float32 or int32")
+
+
+def _gather_cuda(x, idx, row, scale, rows, name):
+    """Launches the gather kernel, counted under ``"probe_" + name``."""
+    width = x.shape[1]
+    _check(width % 4 == 0 and _aligned(x, 16)
+           and (idx is None or _aligned(idx, 16)),
+           f"{name} kernel takes widths that are a multiple of 4, "
+           "16-byte aligned")
+    out = torch.empty((rows, width), device=x.device, dtype=x.dtype)
+    if rows and width:
+        _launch("probe_gather_launch", f"probe_{name}", _ptr(x), width,
+                _ptr(idx), row, ctypes.c_float(scale),
+                int(x.dtype == torch.float32), rows, _ptr(out),
+                device=x.device)
+    return out
+
+
+def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[r, l] = x[r, idx[r, l]]`` -> ``[R, W]``; an index outside
+    ``[0, W)`` gives 0.  ``x``: ``[R, W]`` f32 or int32; ``idx``: ``[R,
+    W]`` int32."""
+    name = "lane_gather"
+    _check_gather(name, x)
+    _check(idx.dtype == torch.int32 and idx.shape == x.shape,
+           f"{name}: idx must be int32 of x's shape")
+    if not _operands(name, x, idx):
+        return lane_gather_plain(x, idx)
+    return _gather_cuda(x, idx, -1, 1.0, x.shape[0], name)
+
+
+def lane_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`lane_gather`: advanced indexing."""
+    width = x.shape[1]
+    ok = (idx >= 0) & (idx < width)
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    out = x[rows, idx.long().clamp(0, max(width - 1, 0))]
+    return torch.where(ok, out, torch.zeros_like(out))
+
+
+def row_broadcast(x: torch.Tensor, row: int, scale: float,
+                  rows: int) -> torch.Tensor:
+    """``out[r, l] = x[row, l] * scale`` (in f32) -> ``[rows, W]``: the
+    stacked rows, one extracted, broadcast of ``tools/probe_dg.py``'s
+    ``ks``.  ``x``: ``[R, W]`` f32."""
+    name = "row_broadcast"
+    _check_gather(name, x)
+    _check(x.dtype == torch.float32, f"{name} takes float32")
+    _check(0 <= row < x.shape[0], f"{name}: row {row} outside x")
+    if not _operands(name, x):
+        return row_broadcast_plain(x, row, scale, rows)
+    return _gather_cuda(x, None, row, scale, rows, name)
+
+
+def row_broadcast_plain(x: torch.Tensor, row: int, scale: float,
+                        rows: int) -> torch.Tensor:
+    """Plain version of :func:`row_broadcast`."""
+    return (x[row] * scale).expand(rows, x.shape[1]).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# search family
+# ---------------------------------------------------------------------------
+
+def keyed_sum(probes: torch.Tensor, keys: torch.Tensor,
+              table: torch.Tensor) -> torch.Tensor:
+    """The one-hot join ``out[t] = sum_w [probes[t] == keys[w]] *
+    table[w]`` -> ``[T, C]``, summed over the matched rows in ascending
+    ``w``: int32 for an int8 table (exact), f32 for an f32 one.
+    ``probes``: ``[T]`` int32; ``keys``: ``[W]`` int32, ascending (the
+    kernel binary-searches them); ``table``: ``[W, C]``."""
+    name = "keyed_sum"
+    _check(probes.ndim == 1 and keys.ndim == 1
+           and probes.dtype == keys.dtype == torch.int32,
+           f"{name}: probes and keys must be 1-d int32")
+    _check(table.ndim == 2 and table.shape[0] == keys.shape[0]
+           and table.dtype in (torch.int8, torch.float32),
+           f"{name}: table must be [W, C] int8 or float32")
+    if not _operands(name, probes, keys, table):
+        return keyed_sum_plain(probes, keys, table)
+    t_n, (w_n, c) = probes.shape[0], table.shape
+    is_int8 = table.dtype == torch.int8
+    out = torch.empty((t_n, c), device=table.device,
+                      dtype=torch.int32 if is_int8 else torch.float32)
+    if t_n and c:
+        _launch("probe_join_launch", "probe_join", _ptr(probes), t_n,
+                _ptr(keys), w_n, _ptr(table), c, int(is_int8), _ptr(out),
+                device=table.device)
+    return out
+
+
+def keyed_sum_plain(probes: torch.Tensor, keys: torch.Tensor,
+                    table: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`keyed_sum`, from the one-hot definition (no
+    search, so the keys need not be sorted): each probe's matched rows in
+    ascending ``w``, added one after another."""
+    w_n = keys.shape[0]
+    acc_dt = torch.int32 if table.dtype == torch.int8 else torch.float32
+    out = torch.zeros((probes.shape[0], table.shape[1]), dtype=acc_dt,
+                      device=table.device)
+    hit = probes[:, None] == keys[None, :]
+    # the matched w of each probe first, in ascending order
+    pos = torch.where(hit, torch.arange(w_n, device=keys.device), w_n)
+    pos = torch.sort(pos, dim=1).values
+    for j in range(int(hit.sum(1).max()) if hit.numel() else 0):
+        w = pos[:, j]
+        rows = table[w.clamp(max=w_n - 1)].to(acc_dt)
+        out = out + torch.where((w < w_n)[:, None], rows,
+                                torch.zeros_like(rows))
+    return out
+
+
+def lane_rank(keys: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
+    """``out[r, :] = #{w : keys[w] < probes[r, 0]}`` -> ``[R, L]`` int32:
+    the rank of each row's first lane, broadcast over the row (``tools/
+    probe_dg.py``'s ``kr``).  ``keys``: ``[W]`` int32, ascending;
+    ``probes``: ``[R, L]`` int32."""
+    name = "lane_rank"
+    _check(keys.ndim == 1 and probes.ndim == 2
+           and keys.dtype == probes.dtype == torch.int32,
+           f"{name}: keys must be [W] and probes [R, L], int32")
+    if not _operands(name, keys, probes):
+        return lane_rank_plain(keys, probes)
+    rows, lanes = probes.shape
+    out = torch.empty_like(probes)
+    if rows and lanes:
+        _launch("probe_rank_launch", "probe_rank", _ptr(keys), keys.shape[0],
+                _ptr(probes), rows, lanes, _ptr(out), device=keys.device)
+    return out
+
+
+def lane_rank_plain(keys: torch.Tensor, probes: torch.Tensor
+                    ) -> torch.Tensor:
+    """Plain version of :func:`lane_rank`: a count of the smaller keys."""
+    rank = (keys[None, :] < probes[:, :1]).sum(1, keepdim=True)
+    return rank.int().expand(probes.shape).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# gemm family
+# ---------------------------------------------------------------------------
+
+def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` -> ``[M, N]`` on the tensor cores: int8 ``[M, K]`` and
+    ``[K, N]`` -> int32 (exact), or f32 inputs rounded to bf16 (round to
+    nearest even), their products summed in f32 -> f32."""
+    _check(a.ndim == 2 and b.ndim == 2 and a.shape[1] == b.shape[0],
+           "gemm: a must be [M, K] and b [K, N]")
+    _check(a.dtype == b.dtype and a.dtype in (torch.int8, torch.float32),
+           "gemm takes two int8 or two float32 matrices")
+    is_int8 = a.dtype == torch.int8
+    name = "probe_gemm_s8" if is_int8 else "probe_gemm_bf16"
+    if not _operands(name, a, b):
+        return gemm_plain(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    out = torch.empty((m, n), device=a.device,
+                      dtype=torch.int32 if is_int8 else torch.float32)
+    if m and n:
+        _launch("probe_gemm_launch", name, _ptr(a), _ptr(b), m, k, n,
+                int(is_int8), _ptr(out), device=a.device)
+    return out
+
+
+def gemm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`gemm`: int8 products summed in float64
+    (exact: every partial sum stays far below 2^53, and torch has no
+    integer matmul on CUDA), or the bf16-rounded inputs multiplied in
+    f32."""
+    if a.dtype == torch.int8:
+        return (a.double() @ b.double()).int()
+    return a.bfloat16().float() @ b.bfloat16().float()

@@ -1,11 +1,11 @@
 """Output-site discovery (counterpart of ``spconv_tpu/ops/rulebook.py``).
 
-Ported: ``build_conv_outputs``, the output sites of a regular (strided)
-conv, which the dynamic-gather path needs, and ``build_pool2_outputs``,
-those of the 2x/stride-2 pool, which the sorted-key pool needs.  The pair
-rulebooks of the native rulebook path (``build_subm_rulebook``,
-``build_conv_rulebook``, ``build_pool2_rulebook``) and the transposed
-conv's ``build_deconv_outputs`` are not ported yet.
+Ported: ``build_conv_outputs`` and ``build_deconv_outputs``, the output
+sites of a regular (strided) and of a transposed conv, which the
+dynamic-gather path needs, and ``build_pool2_outputs``, those of the
+2x/stride-2 pool, which the sorted-key pool needs.  The pair rulebooks of
+the native rulebook path (``build_subm_rulebook``, ``build_conv_rulebook``,
+``build_pool2_rulebook``) are not ported yet.
 
 Everything here is static-shape tensor code with no host read: the counts
 come back as 0-d device tensors, so a forward never syncs on them.
@@ -21,7 +21,7 @@ import torch
 from . import coords as C
 
 __all__ = ["unique_sorted_keys", "pool2_parent_keys", "build_conv_outputs",
-           "build_pool2_outputs"]
+           "build_deconv_outputs", "build_pool2_outputs"]
 
 
 def unique_sorted_keys(
@@ -111,6 +111,68 @@ def build_conv_outputs(
               & (rem <= (ksize[a] - 1) * dilation[a]))
         if dilation[a] > 1:
             ok = ok & (torch.remainder(rem, dilation[a]) == 0)
+        key = key * out_shape[a] + o
+    sk = torch.sort(torch.where(ok, key, sentinel).reshape(-1)).values
+
+    out_keys, _, num_out_total = unique_sorted_keys(sk, sentinel, out_bound)
+    out_indices = C.delinearize(out_keys, out_shape, out_keys != sentinel)
+    return (out_indices, out_keys, torch.clamp(num_out_total, max=out_bound),
+            num_out_total)
+
+
+def build_deconv_outputs(
+    indices: torch.Tensor,
+    *,
+    spatial_shape: Sequence[int],
+    batch_size: int,
+    ksize: Sequence[int],
+    stride: Sequence[int],
+    padding: Sequence[int],
+    dilation: Sequence[int],
+    out_padding: Sequence[int],
+    out_bound: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Output sites of a transposed conv over the active rows of
+    ``indices`` ``[N, ndim+1]``.
+
+    Every input site ``i`` and kernel offset ``k`` give the candidate ``o =
+    i * stride + k * dilation - padding`` (kept where it lies inside the
+    output grid, :func:`coords.get_deconv_output_size`); the candidates are
+    sorted, and the first of each run of equal keys is an output.  At most
+    ``out_bound`` outputs (default ``N * prod(stride)``) are kept, those
+    with the smallest keys, as the JAX package keeps them.
+
+    Returns ``(out_indices, out_keys, num_out, num_out_total)`` as
+    :func:`build_conv_outputs` does."""
+    ksize = tuple(int(k) for k in ksize)
+    stride = tuple(int(s) for s in stride)
+    padding = tuple(int(p) for p in padding)
+    dilation = tuple(int(d) for d in dilation)
+    ndim = indices.shape[1] - 1
+    out_shape = C.get_deconv_output_size(spatial_shape, ksize, stride,
+                                         padding, dilation, out_padding)
+    if any(s <= 0 for s in out_shape):
+        raise ValueError(f"output spatial shape {out_shape} reached zero; "
+                         f"input {tuple(spatial_shape)}")
+    if out_bound is None:
+        out_bound = indices.shape[0] * int(np.prod(stride))
+    sentinel = C.grid_sentinel(out_shape, batch_size)
+
+    # all candidates at once, [kv, N]: offset k's per-axis step comes from
+    # an arange on the device (kernel_offsets' row-major order; the order
+    # does not matter, the keys are sorted)
+    kv = int(np.prod(ksize))
+    j = torch.arange(kv, dtype=indices.dtype, device=indices.device)[:, None]
+    ok = (indices[:, 0] >= 0)[None, :]
+    key = indices[:, 0][None, :]
+    inner = kv
+    for a in range(ndim):
+        inner //= ksize[a]
+        k_a = torch.remainder(torch.div(j, inner, rounding_mode="floor"),
+                              ksize[a])
+        o = indices[:, a + 1][None, :] * stride[a] + k_a * dilation[a] \
+            - padding[a]
+        ok = ok & (o >= 0) & (o < out_shape[a])
         key = key * out_shape[a] + o
     sk = torch.sort(torch.where(ok, key, sentinel).reshape(-1)).values
 

@@ -132,6 +132,10 @@ class QuantizedSparseConv(SparseModule):
                  input_scale: float, output_scale: float,
                  act_type: str = "none"):
         super().__init__()
+        if conv.transposed:
+            raise NotImplementedError(
+                "the int8 transposed conv runs the native rulebook path (the "
+                "JAX package's CPU gather route), which is not ported yet")
         if conv.act_type != "none":
             act_type = conv.act_type
         if act_type not in ("none", "relu"):

@@ -141,13 +141,16 @@ def test_unported_paths_raise():
             with pytest.raises(NotImplementedError, match="key-sorted"):
                 conv(x)
             assert conv(x.sort_by_key()).keys_sorted
-    # transposed convs wait for their output discovery; an inverse conv
-    # needs the key of the regular conv it inverts
-    for kw in (dict(subm=False, transposed=True),
-               dict(subm=True, transposed=True)):
-        with pytest.raises(NotImplementedError,
-                           match="build_deconv_outputs"):
-            st.SparseConvolution(3, 3, 4, 3, device="cpu", **kw)
+    # a transposed conv runs the DG path too, which needs key-sorted input
+    # (with subm=True it is a subm conv, as in the JAX package); an inverse
+    # conv needs the key of the regular conv it inverts
+    conv = st.SparseConvolution(3, 3, 4, 3, stride=2, transposed=True,
+                                device="cpu")
+    with torch.no_grad(), pytest.raises(NotImplementedError,
+                                        match="key-sorted"):
+        conv(x)
+    assert st.SparseConvolution(3, 3, 4, 3, subm=True, transposed=True,
+                                device="cpu").transposed
     with pytest.raises(ValueError, match="indice_key"):
         st.SparseConvolution(3, 3, 4, 3, inverse=True, device="cpu")
 

@@ -11,12 +11,15 @@ import numpy as np
 import pytest
 import torch
 
+import spconv_tpu_torch as st
 from spconv_tpu_torch.benchmark import basic as TB
 from spconv_tpu_torch.benchmark import centerpoint as TCP
 from spconv_tpu_torch.models import SparseUNet, centerpoint_encoder
 from spconv_tpu_torch.ops import coords as TC
 from spconv_tpu_torch.ops import dg_conv as TD
-from spconv_tpu_torch.ops.rulebook import build_conv_outputs
+from spconv_tpu_torch.ops import probes as TP
+from spconv_tpu_torch.ops.rulebook import (build_conv_outputs,
+                                           build_deconv_outputs)
 
 from utils import generate_sparse_data
 
@@ -833,3 +836,278 @@ def test_no_key_benchnet_train_step_on_card_matches_cpu(dev):
         scale = ref[k].abs().max().item()
         err = (p.grad.cpu() - ref[k]).abs().max().item()
         assert scale > 0 and err <= 1e-3 * scale, (k, err, scale)
+
+
+# transposed convs: (grid, ksize, stride, padding, output_padding, batch):
+# the USAGE.md chain's k2 s2, the general k3 s2 p1 op1, a stride-1 one and
+# two batches
+_TRANSPOSED = [((20, 32, 32), (2, 2, 2), (2, 2, 2), (0, 0, 0), (0, 0, 0), 1),
+               ((20, 32, 32), (3, 3, 3), (2, 2, 2), (1, 1, 1), (1, 1, 1), 1),
+               ((20, 32, 32), (3, 3, 3), (1, 1, 1), (1, 1, 1), (0, 0, 0), 1),
+               ((10, 16, 16), (3, 3, 3), (2, 2, 2), (1, 1, 1), (0, 0, 0), 2)]
+
+
+def _transposed_case(shape, ksize, stride, padding, opad, batch, c=8,
+                     k_out=16, dtype=torch.float32, seed=15):
+    """A transposed conv's operands on the CPU, on the swapped spaces of
+    ``dg_regular_conv``: its input's keys (``out_keys``), its expanded
+    output's (``in_keys``), the geometry, the forward's divide table and
+    the backward's affine table (plain), features ``x`` on the input rows,
+    a ``dout`` on the output rows and ``w`` ``[kv, c, k_out]``."""
+    rng = np.random.RandomState(seed)
+    feats, inds = generate_sparse_data(shape, 1200, c, batch_size=batch,
+                                       rng=rng)
+    key = inds[:, 0].astype(np.int64)
+    for a, sz in enumerate(shape):
+        key = key * sz + inds[:, a + 1]
+    order = np.argsort(key, kind="stable")
+    nbuf = 1280 * batch
+    ib = np.full((nbuf, 4), -1, np.int32)
+    ib[:len(inds)] = inds[order]
+    inds_t = torch.from_numpy(ib)
+    dil = (1, 1, 1)
+    out_inds, exp_keys, _, _ = build_deconv_outputs(
+        inds_t, spatial_shape=shape, batch_size=batch, ksize=ksize,
+        stride=stride, padding=padding, dilation=dil, out_padding=opad)
+    in_keys, _ = TC.linearize(inds_t, shape, batch)
+    geom = dict(ksize=ksize, stride=stride, padding=padding, dilation=dil,
+                in_shape=tuple(TC.get_deconv_output_size(
+                    shape, ksize, stride, padding, dil, opad)),
+                out_shape=shape, batch_size=batch)
+    div = TD.dg_pos_divide_plain(exp_keys, in_keys, **geom)
+    aff = TD.dg_pos_affine_plain(exp_keys, in_keys, **geom)
+    live_in, live_out = inds_t[:, 0] >= 0, out_inds[:, 0] >= 0
+    g = torch.Generator().manual_seed(seed)
+    kv = int(np.prod(ksize))
+    x = torch.randn((nbuf, c), generator=g) * live_in[:, None]
+    dout = torch.randn((exp_keys.shape[0], k_out), generator=g) \
+        * live_out[:, None]
+    w = torch.randn((kv, c, k_out), generator=g) / np.sqrt(kv * c)
+    return dict(exp_keys=exp_keys, in_keys=in_keys, geom=geom, div=div,
+                aff=aff, x=x.to(dtype), dout=dout.to(dtype), w=w.to(dtype),
+                live_in=live_in)
+
+
+@pytest.mark.parametrize("case", _TRANSPOSED)
+def test_transposed_tables_match_plain(dev, case):
+    """B1 divide (the forward's table, over the expanded output rows) and
+    affine (the backward's, over the input rows) on a transposed conv's
+    swapped spaces equal their plain versions exactly, and count under
+    ``dg_pos_divide_transposed`` / ``dg_pos_affine_transposed``."""
+    t = _transposed_case(*case)
+    keys = (t["exp_keys"].to(dev), t["in_keys"].to(dev))
+    TD.reset_launch_counts()
+    div = TD.build_dg_pos_divide(*keys, path="transposed", **t["geom"])
+    aff = TD.build_dg_pos_affine(*keys, path="transposed", **t["geom"])
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_pos_divide_transposed=1,
+                                       dg_pos_affine_transposed=1)
+    assert (t["div"] >= 0).any()
+    assert torch.equal(div.cpu(), t["div"]) and torch.equal(aff.cpu(),
+                                                            t["aff"])
+
+
+@pytest.mark.parametrize("dtype,tol,wtol", [(torch.float32, 2e-5, 1e-4),
+                                            (torch.bfloat16, 1.6e-2,
+                                             1.6e-2)])
+@pytest.mark.parametrize("case", _TRANSPOSED)
+def test_transposed_gemm_kernels_match_plain(dev, dtype, tol, wtol, case):
+    """B2 on the divide table (path ``"transposed"``), and dgrad and wgrad
+    through the affine table, against their plain versions; tolerances as
+    the strided ones'.  Rows without a match get a zero din; two wgrad runs
+    are bit-equal."""
+    t = _transposed_case(*case, dtype=dtype)
+    x, dout, w = (t[k].to(dev) for k in ("x", "dout", "w"))
+    div, aff = t["div"].to(dev), t["aff"].to(dev)
+    TD.reset_launch_counts()
+    out = TD.dg_fwd(x, w, div, path="transposed")
+    din = TD.dg_dgrad(dout, w, aff, path="transposed")
+    dw = TD.dg_wgrad(x, dout, aff, path="transposed")
+    again = TD.dg_wgrad(x, dout, aff, path="transposed")
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_transposed=1,
+                                       dg_dgrad_transposed=1,
+                                       dg_wgrad_transposed=2)
+    assert torch.equal(dw, again)
+    for got, ref, tl in ((out, TD.dg_fwd_plain(x, w, div), tol),
+                         (din, TD.dg_dgrad_plain(dout, w, aff), tol),
+                         (dw, TD.dg_wgrad_plain(x, dout, aff), wtol)):
+        ref = ref.float()
+        err = (got.float() - ref).abs().max().item()
+        assert ref.abs().max().item() > 0 and err <= tl * ref.abs().max(
+        ).item(), err
+    assert not din[~t["live_in"].to(dev)].any()
+
+
+def _usage_chain(device, seed=0):
+    """The decoder chain of ``docs/USAGE.md:34-38``."""
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(device=device, generator=gen)
+    return st.SparseSequential(
+        st.SubMConv3d(32, 64, 3, indice_key="c0", **kw),
+        st.SparseConv3d(64, 128, 3, stride=2, padding=1, indice_key="down1",
+                        **kw),
+        st.SparseInverseConv3d(128, 64, 3, indice_key="down1", **kw),
+        st.SparseConvTranspose3d(64, 32, 2, stride=2, **kw))
+
+
+def _chain_input(device):
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                           n_target=1500, device=device)
+    g = torch.Generator().manual_seed(1)
+    f = torch.randn((x.indices.shape[0], 32), generator=g)
+    return x.replace_feature((f * x.valid_mask.cpu()[:, None]).to(device))
+
+
+def test_transposed_chain_train_step_on_card_matches_cpu(dev):
+    """One f32 training step of the USAGE.md chain (subm, strided, inverse,
+    transposed) through every kernel on the card against the same step
+    through the plain versions on the CPU: coordinates equal, the loss
+    within 1e-4 relative, every grad within 1e-4*max|ref|.  The transposed
+    conv launches B1 divide and affine, B2, dgrad and wgrad under
+    ``*_transposed``; the chain's input needs no gradient, so the subm
+    conv launches no dgrad."""
+    net = _usage_chain("cpu")
+    x = _chain_input("cpu")
+    with torch.no_grad():
+        ref_out = net(x)
+    ref_loss = TB.train_step(net, x, 0.0)
+    ref = {k: p.grad.clone() for k, p in net.named_parameters()}
+    net.to(dev)
+    xd = _chain_input(dev)
+    with torch.no_grad():
+        out = net(xd)
+    assert torch.equal(out.indices.cpu(), ref_out.indices)
+    assert out.spatial_shape == ref_out.spatial_shape == (80, 128, 128)
+    TD.reset_launch_counts()
+    loss = TB.train_step(net, xd, 0.0)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(
+        dg_pos=1, dg_pos_rev=1, dg_pos_affine=1, dg_pos_divide=1,
+        dg_pos_divide_transposed=1, dg_pos_affine_transposed=1,
+        dg_fwd=1, dg_fwd_strided=1, dg_fwd_inverse=1, dg_fwd_transposed=1,
+        dg_dgrad_strided=1, dg_dgrad_inverse=1,
+        dg_dgrad_transposed=1, dg_wgrad=1, dg_wgrad_strided=1,
+        dg_wgrad_inverse=1, dg_wgrad_transposed=1)
+    assert abs(loss.item() - ref_loss.item()) <= 1e-4 * ref_loss.item()
+    for k, p in net.named_parameters():
+        scale = ref[k].abs().max().item()
+        err = (p.grad.cpu() - ref[k]).abs().max().item()
+        assert scale > 0 and err <= 1e-4 * scale, (k, err, scale)
+
+
+def _probe_counts(**nonzero):
+    return {**dict.fromkeys(TP.launch_counts, 0), **nonzero}
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.int32,
+                                   torch.float32])
+@pytest.mark.parametrize("start", [0, 3, 96, 384, 4090, -2])
+def test_probe_copy_matches_plain(dev, dtype, start):
+    """The copy kernel bit-equal to its plain version for every element
+    size, on the 16-byte path (width 128) and the one-element path (width
+    7), rows past either end of the table 0; and the chunk copy."""
+    g = torch.Generator().manual_seed(start + 7)
+    for width in (128, 7):
+        x = torch.randint(-100, 100, (4096, width), generator=g).to(dtype)
+        s = torch.tensor([start], dtype=torch.int32)
+        ref = TP.copy_rows_plain(x, s, 64)
+        TP.reset_launch_counts()
+        got = TP.copy_rows(x.to(dev), s.to(dev), 64)
+        torch.cuda.synchronize()
+        assert TP.launch_counts == _probe_counts(probe_copy=1)
+        assert got.dtype == ref.dtype and torch.equal(got.cpu(), ref)
+    tab = torch.rand((256, 128), generator=g)
+    s = torch.tensor([5], dtype=torch.int32)
+    assert torch.equal(TP.copy_rows(tab.to(dev), s.to(dev), 16, scale=16,
+                                    off=16).cpu(), tab[96:112])
+
+
+@pytest.mark.parametrize("m,n", [(128, 128), (100, 37), (1, 65)])
+def test_probe_transpose_matches_plain(dev, m, n):
+    a = torch.rand((m, n), generator=torch.Generator().manual_seed(m))
+    TP.reset_launch_counts()
+    got = TP.transpose(a.to(dev))
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_transpose=1)
+    assert torch.equal(got.cpu(), TP.transpose_plain(a))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("rows", [8, 32, 64, 128])
+def test_probe_gathers_match_plain(dev, dtype, rows):
+    """The lane gather bit-equal to its plain version (indices outside the
+    row give 0), and the row broadcast for f32."""
+    g = torch.Generator().manual_seed(rows)
+    x = torch.randint(-2**30, 2**30, (rows, 128), generator=g)
+    x = x.to(dtype) if dtype == torch.int32 else torch.rand(
+        (rows, 128), generator=g)
+    idx = torch.randint(-2, 130, (rows, 128), generator=g, dtype=torch.int32)
+    TP.reset_launch_counts()
+    got = TP.lane_gather(x.to(dev), idx.to(dev))
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_lane_gather=1)
+    assert torch.equal(got.cpu(), TP.lane_gather_plain(x, idx))
+    if dtype == torch.float32:
+        got = TP.row_broadcast(x.to(dev), 3, 4.0, 8)
+        torch.cuda.synchronize()
+        assert TP.launch_counts == _probe_counts(probe_lane_gather=1,
+                                                 probe_row_broadcast=1)
+        assert torch.equal(got.cpu(), TP.row_broadcast_plain(x, 3, 4.0, 8))
+
+
+@pytest.mark.parametrize("table_dtype,t,w,c", [
+    (torch.int8, 128, 256, 128), (torch.float32, 256, 1024, 64),
+    (torch.float32, 50, 300, 33)])
+def test_probe_join_matches_plain(dev, table_dtype, t, w, c):
+    """The one-hot join bit-equal to its plain version (the f32 sums in
+    the plain version's order), int8 -> int32 and f32; keys with repeats
+    and probes that match nothing."""
+    g = torch.Generator().manual_seed(t)
+    probes = (torch.arange(t, dtype=torch.int32) * 3)
+    keys = torch.sort(torch.randint(0, 3 * t, (w,), generator=g,
+                                    dtype=torch.int32)).values
+    table = (torch.randint(-127, 127, (w, c), generator=g).to(torch.int8)
+             if table_dtype == torch.int8 else torch.randn((w, c),
+                                                           generator=g))
+    TP.reset_launch_counts()
+    got = TP.keyed_sum(probes.to(dev), keys.to(dev), table.to(dev))
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_join=1)
+    assert torch.equal(got.cpu(), TP.keyed_sum_plain(probes, keys, table))
+
+
+def test_probe_rank_matches_plain(dev):
+    g = torch.Generator().manual_seed(3)
+    keys = torch.sort(torch.randint(0, 10_000, (128,), generator=g,
+                                    dtype=torch.int32)).values
+    probes = torch.randint(0, 10_000, (16, 128), generator=g,
+                           dtype=torch.int32)
+    TP.reset_launch_counts()
+    got = TP.lane_rank(keys.to(dev), probes.to(dev))
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_rank=1)
+    assert torch.equal(got.cpu(), TP.lane_rank_plain(keys, probes))
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 256, 128), (128, 432, 128),
+                                   (70, 40, 90)])
+def test_probe_gemm_matches_plain(dev, m, k, n):
+    """s8 -> s32 bit-equal to its plain version; bf16 within the probe's
+    own ``rtol=2e-2`` of the f32 product (``tools/probe_dg.py:109``) and
+    within 1e-5 of max|ref| of the plain version (f32 sums in another
+    order)."""
+    g = torch.Generator().manual_seed(k)
+    a8 = torch.randint(-127, 127, (m, k), generator=g).to(torch.int8)
+    b8 = torch.randint(-127, 127, (k, n), generator=g).to(torch.int8)
+    a, b = torch.rand((m, k), generator=g), torch.rand((k, n), generator=g)
+    TP.reset_launch_counts()
+    got8 = TP.gemm(a8.to(dev), b8.to(dev))
+    got = TP.gemm(a.to(dev), b.to(dev)).cpu()
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_gemm_s8=1,
+                                             probe_gemm_bf16=1)
+    assert torch.equal(got8.cpu(), TP.gemm_plain(a8, b8))
+    assert np.allclose(got.numpy(), (a @ b).numpy(), rtol=2e-2)
+    ref = TP.gemm_plain(a, b)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

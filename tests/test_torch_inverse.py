@@ -270,8 +270,8 @@ def test_inverse_grads_match_jax():
 
 def test_inverse_conv_refusals():
     """An inverse conv with no record under its key, another kernel size
-    or another input grid or buffer raises ``ValueError``; transposed convs
-    are not ported and raise ``NotImplementedError``."""
+    or another input grid or buffer raises ``ValueError``, and so does one
+    under a transposed conv's record."""
     feats, inds, geom, bound, out_shape = _case("k3s2p1", c=4, seed=10)
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          geom["spatial_shape"], 1, keys_sorted=True)
@@ -297,9 +297,12 @@ def test_inverse_conv_refusals():
             SparseInverseConv3d(8, 4, 3, algo="sk", **kw)(y)
         assert SparseInverseConv3d(8, 4, 3, **kw)(y).spatial_shape == \
             tuple(geom["spatial_shape"])
-    with pytest.raises(NotImplementedError, match="build_deconv_outputs"):
-        SparseConvolution(3, 8, 4, 3, stride=2, transposed=True,
-                          device="cpu")
+    with torch.no_grad():
+        t = SparseConvolution(3, 4, 8, 3, stride=2, padding=1,
+                              transposed=True, indice_key="t",
+                              device="cpu")(x)
+        with pytest.raises(ValueError, match="transposed"):
+            SparseInverseConv3d(8, 4, 3, indice_key="t", device="cpu")(t)
     with pytest.raises(ValueError, match="indice_key"):
         SparseInverseConv3d(8, 4, 3, device="cpu")
 
