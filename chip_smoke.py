@@ -7,11 +7,16 @@ Phases (every check raises, so a failure exits non-zero before the last
 line is printed):
 1. the card: CUDA must be available; prints nvidia-smi's name and power
    limit;
-2. builds the CUDA kernels from ``spconv_tpu_torch/csrc`` with nvcc;
+2. builds the CUDA kernels from ``spconv_tpu_torch/csrc`` with nvcc and
+   prints each kernel's ptxas registers, spills and static shared memory
+   (B2's bf16 variants with their dynamic shared memory);
 3. holds each kernel against its plain PyTorch version at every stage shape
    of the benchmark net on a synthetic scan, in f32 and bf16, with CUDA-event
    times of both: the match table forward and reversed, the gather-GEMM
-   forward, dgrad and wgrad;
+   forward, dgrad and wgrad; times B2 at one width of each bf16 variant
+   (K = 16, 32, 64, 128, 256 and the scalar gather at C = 3) at the stage-0
+   shape, and checks in a profiler window that a bf16 dgrad is one device
+   op, the B2 launch, with no weight-transpose copy beside it;
 4. serves the full-width bf16 benchmark net (14 SubMConv3d, 6 max pools) on
    three synthetic scans after one warm-up, through the port's kernels, and
    checks launch counts, output sanity, per-stage coordinates against a
@@ -20,7 +25,9 @@ line is printed):
    the gather-GEMM on it) and the subm kernels against their plain versions
    at every layer shape of the CenterPoint encoder on its synthetic scan;
 5. trains: one SGD step of the bf16 net per synthetic scan after a warm-up
-   step, with launch counts, finite non-zero grads and step times; the f32
+   step, with launch counts, finite non-zero grads and step times; a
+   profiler window of one step with its 14 forward and 13 dgrad B2 device
+   launches and no copy beside a dgrad; the f32
    net's grads through the kernels against the same step through the plain
    versions of the backward; and an ``algo="sk"`` conv pair against
    ``algo="dg"``;
@@ -96,6 +103,7 @@ line is printed):
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -158,6 +166,9 @@ SK_MEAN_TOL = 1e-6
 SEARCH_SERVE = dict(dg_fwd_search=14)
 SEARCH_STEP = dict(SEARCH_SERVE, dg_dgrad_search=13, dg_wgrad_search=14)
 SEARCH_Q_WIDTHS = (64, 128)  # bench.py's run_int8 layer: C = K
+# (C, K) of one width of each B2 bf16 variant, timed at the stage-0 shape:
+# K = 16, 32, 64, 128 and 256 wide tiles, and the scalar gather (C = 3)
+B2_WIDTHS = ((64, 16), (64, 32), (64, 64), (128, 128), (256, 256), (3, 64))
 
 
 def expected(D, **nonzero):
@@ -307,6 +318,55 @@ def peak_mib(torch, fn):
     torch.cuda.synchronize()
     return ((torch.cuda.max_memory_allocated() - base) / 2**20,
             base / 2**20)
+
+
+def device_ops(torch, fn):
+    """Names of the device ops (kernels, copies, fills) of one call of
+    ``fn`` after a warm-up, in order, from a ``torch.profiler`` window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return [e.name for e in sorted(ops, key=lambda e: e.time_range.start)]
+
+
+def b2_mode(name):
+    """``"fwd"`` or ``"dgrad"`` for a device op of B2's bf16 kernel (its
+    ``TRANS`` flag: W[k] read as its transpose), else None."""
+    if "dg_fwd_bf16_kernel" not in name:
+        return None
+    m = re.search(r"Tile<[^>]*>, (true|false)", name)
+    return "dgrad" if m[1] == "true" else "fwd"
+
+
+def ptxas_report(log):
+    """``[(kernel, [ptxas lines])]``: each kernel entry of the build's
+    ``-Xptxas -v`` report with its registers / shared memory line and its
+    stack / spill line, names demangled by ``c++filt`` where the machine
+    has it."""
+    entries = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entries.append((m.group(1), []))
+        elif entries and ("registers" in line or "spill" in line):
+            entries[-1][1].append(re.sub(r"^ptxas info\s*:\s*", "",
+                                         line.strip()))
+    names = [n for n, _ in entries]
+    try:
+        dem = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if dem.returncode == 0 and len(dem.stdout.splitlines()) == len(names):
+            names = dem.stdout.splitlines()
+    except OSError:
+        pass
+    return [(n, lines) for n, (_, lines) in zip(names, entries)]
 
 
 def plain_conv_fn(torch, D, fwd):
@@ -2282,15 +2342,25 @@ def main():
     path, secs, log = build_library()
     load_library()
     print(f"build: {path.name} in {secs:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
 
     from spconv_tpu_torch.benchmark import basic as B
     from spconv_tpu_torch.core import SparseConvTensor
     from spconv_tpu_torch.modules import SparseMaxPool3d, SubMConv3d
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
+
+    # ptxas's report of every kernel: B2's bf16 variants with the dynamic
+    # shared memory of their launch (b2_smem_bytes), printed, not gated
+    tiles = {t: i for i, t in enumerate(D.B2_TILES)}
+    for name, lines in ptxas_report(log):
+        m = re.search(r"Tile<(\d+), (\d+), \d+, \d+, (\d+)>, (true|false)",
+                      name)
+        dyn = ""
+        if m:
+            tile = tiles[(int(m[1]), int(m[2]), int(m[3]))]
+            dyn = (f"; {D.b2_smem_bytes(tile, m[4] == 'true')} bytes dynamic"
+                   " smem")
+        print(f"  ptxas {name}: {'; '.join(lines)}{dyn}")
 
     # ---- 3. each kernel against its plain version --------------------
     t0 = time.perf_counter()
@@ -2382,7 +2452,7 @@ def main():
                 tot[kern].add(*t)
         return d_rel, w_rel, times
 
-    tables = []
+    tables, revs = [], []
     print("stage  N_buf  active  kernel            dtype      C    K   "
           "max|d|/max|ref|  kernel_ms  plain_ms  bound_ms")
     for s, g in enumerate(geo):
@@ -2393,6 +2463,7 @@ def main():
         pk = D.build_dg_pos(keys, **geom)
         rev = D.build_dg_pos(keys, reverse=True, **geom)
         tables.append(pk)
+        revs.append(rev)
         for kern, got, plain in (
                 ("dg_pos", pk, D.dg_pos_plain(keys, **geom)),
                 ("dg_pos_rev", rev,
@@ -2437,6 +2508,28 @@ def main():
         rels = [r for _, _, r in fwd_cases(geo[0], tables[0], c, k)]
         print(f"    0 stage-0 shape  dg_fwd conv{layer} widths C={c} K={k}: "
               f"max|d|/max|ref| f32 {rels[0]:.3e}, bf16 {rels[1]:.3e}")
+    # one width of each B2 bf16 variant at the stage-0 shape, timed
+    n0_pairs = int((tables[0] >= 0).sum())
+    b2_variants = {}
+    print("B2 bf16 variants at the stage-0 shape: C K tile grid vec "
+          "kernel_ms bound_ms matched-pair TFLOP/s")
+    for c, k in B2_WIDTHS:
+        x, w, _ = list(fwd_cases(geo[0], tables[0], c, k))[-1]
+        v = D.b2_variant(x.shape[0], c, k, aligned=x.data_ptr() % 16 == 0)
+        km = cuda_ms(torch, lambda: D.dg_fwd(x, w, tables[0]), 10)
+        bnd = gemm_bound(x, w, tables[0], k)
+        b2_variants[f"C{c}_K{k}"] = dict(tile=[v.bm, v.bn], grid=list(v.grid),
+                                         vec=v.vec, ms=km, bound_ms=bnd[0])
+        print(f"  {c:4d} {k:4d} {v.bm}x{v.bn} {v.grid} {v.vec}  {km:9.4f}  "
+              f"{bnd[0]:.4f}  {2 * n0_pairs * c * k / km / 1e9:.1f}")
+    # dgrad reads W[k]^T inside the kernel: one call is one device op
+    dout = (torch.randn((x.shape[0], 64), device=dev, generator=gen)
+            * geo[0].valid_mask[:, None]).bfloat16()
+    w = torch.randn((27, 64, 64), device=dev, generator=gen).bfloat16()
+    dgrad_ops = device_ops(torch, lambda: D.dg_dgrad(dout, w, revs[0]))
+    check(len(dgrad_ops) == 1 and b2_mode(dgrad_ops[0]) == "dgrad",
+          f"a bf16 dg_dgrad call runs {dgrad_ops}, not one B2 launch")
+    print(f"bf16 dg_dgrad call: one device op, {dgrad_ops[0]}")
     print(f"per bf16 forward: dg_pos {tot['dg_pos']}, dg_fwd "
           f"{tot['dg_fwd']}")
     print(f"per bf16 training step, backward: dg_pos_rev "
@@ -2657,6 +2750,21 @@ def main():
         print(f"train step seed={seed} input=synthetic ms={ms:.3f} "
               f"loss={loss:.6e} launches={got}")
     train_launches = dict(D.launch_counts)
+    # a profiler window of one step: B2's device launches by mode, and the
+    # ops beside each dgrad (no weight-transpose copy: the kernel reads W^T)
+    ops = device_ops(torch, lambda: B.train_step(net, xs[0], 0.0))
+    modes = [b2_mode(o) for o in ops]
+    check(modes.count("fwd") == 14 and modes.count("dgrad") == 13,
+          f"a step's window has {modes.count('fwd')} forward and "
+          f"{modes.count('dgrad')} dgrad B2 launches, expected 14 and 13")
+    beside_dgrad = sorted({ops[j][:160] for i, m in enumerate(modes)
+                           if m == "dgrad" for j in (i - 1, i + 1)
+                           if 0 <= j < len(ops)})
+    check(not any("copy" in o for o in beside_dgrad),
+          f"a copy runs beside a dgrad: {beside_dgrad}")
+    print(f"train step profiler window: {len(ops)} device ops, 14 forward "
+          f"and 13 dgrad B2 launches; no copy beside a dgrad, the ops "
+          f"beside one: {beside_dgrad}")
 
     # the f32 net: grads through the kernels vs through the plain versions
     nets = [B.BenchNet(SHAPE, dtype=torch.float32, pool_bounds=bounds,
@@ -2902,7 +3010,7 @@ def main():
             tot["dg_pos_rev"]),
         row("dg_fwd", csrc + "dg_fwd.cu", pallas + "dg_conv.py:339",
             train_launches["dg_fwd"], errs("dg_fwd"), tot["dg_fwd"],
-            serve_launches=serve_launches["dg_fwd"]),
+            serve_launches=serve_launches["dg_fwd"], variants=b2_variants),
         row("dg_dgrad", csrc + "dg_fwd.cu", pallas + "dg_conv.py:1307 (din)",
             train_launches["dg_dgrad"], errs("dg_dgrad"), tot["dg_dgrad"]),
         row("dg_wgrad", csrc + "dg_wgrad.cu",

@@ -123,12 +123,17 @@ def load_library() -> ctypes.CDLL:
                                  i32, vp, vp],
         # x, w, pos, out, n, C, K, kv, stream
         "dg_fwd_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
-        "dg_fwd_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
+        # x, w, pos, out, n, C, K, kv, tile, vec, trans, stream
+        "dg_fwd_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                               i32, vp],
         # x, w, keys, out, n, C, K, kv, geom, sentinel, reverse, stream
         "dg_fwd_search_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32,
                                      ctypes.POINTER(i32), i32, i32, vp],
+        # x, w, keys, out, n, C, K, kv, geom, sentinel, reverse, tile, vec,
+        # trans, stream
         "dg_fwd_search_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32,
-                                      ctypes.POINTER(i32), i32, i32, vp],
+                                      ctypes.POINTER(i32), i32, i32, i32,
+                                      i32, i32, vp],
         # x, w, pos, scale, bias, add, add_scale, relu, out, n, C, K, kv,
         # stream
         "dg_fwd_q_launch": [vp, vp, vp, vp, vp, vp, ctypes.c_float, i32, vp,

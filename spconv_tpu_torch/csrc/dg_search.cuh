@@ -97,6 +97,10 @@ __device__ __forceinline__ int subm_probe(const int* __restrict__ keys,
 // the shared memory `sm` of kSmem ints, or nullptr when none of them
 // matches, block-wide, so the whole block skips the offset together.  Every
 // thread of the block calls it with the same k, for k = 0, 1, ..., kv - 1.
+// fill(sm, k0, gk, row0) writes the source rows of the gk offsets from k0
+// at once, sm[kk * BM + r] for offset k0 + kk, with no barrier: B2's
+// pipelined mainloop (dg_fwd.cu) stages a group of offsets' rows ahead of
+// its gathers.
 
 // The rows from a cached match table pos [kv, n].
 template <int BM>
@@ -104,6 +108,15 @@ struct TableTile {
   static constexpr int kSmem = BM;
   const int* pos;
   int n;
+
+  __device__ __forceinline__ void fill(int* sm, int k0, int gk,
+                                       int row0) const {
+    for (int e = threadIdx.x; e < gk * BM; e += blockDim.x) {
+      const int r = row0 + e % BM;
+      sm[e] = r < n ? __ldg(pos + static_cast<size_t>(k0 + e / BM) * n + r)
+                    : -1;
+    }
+  }
 
   __device__ __forceinline__ const int* tile(int* sm, int k,
                                              int row0) const {
@@ -117,8 +130,9 @@ struct TableTile {
   }
 };
 
-// Offsets searched at once: 32 x 64 rows x 4 B = 8 KB of shared memory.
-// A 3^3 kernel is one group, 5^3 four, 7^3 eleven.
+// Offsets searched at once: 32 x BM rows x 4 B (8 KB at BM = 64, 16 KB at
+// B2's BM = 128) of shared memory.  A 3^3 kernel is one group, 5^3 four,
+// 7^3 eleven.
 constexpr int kSearchGroup = 32;
 
 // The rows from an in-block search: at the first offset of each group of
@@ -126,7 +140,7 @@ constexpr int kSearchGroup = 32;
 // the group at once, offset-major, so neighbouring threads search for
 // neighbouring keys, and flags the offsets that match anywhere in the
 // tile.  The searches are repeated by every column tile of the same rows
-// (K / BN of them).
+// (one at B2's full-width tiles, K / 64 in the wgrad and int8 kernels).
 template <int BM>
 struct SearchTile {
   static constexpr int kSmem = kSearchGroup * BM + kSearchGroup;
@@ -137,24 +151,29 @@ struct SearchTile {
   int sentinel;
   int reverse;
 
+  // hit (or nullptr): flags, set to 1 for each offset kk that matches
+  __device__ __forceinline__ void fill(int* sm, int k0, int gk, int row0,
+                                       int* hit = nullptr) const {
+    for (int e = threadIdx.x; e < gk * BM; e += blockDim.x) {
+      const int r = row0 + e % BM;
+      const int p = r < n ? subm_probe(keys, n, __ldg(keys + r),
+                                       k0 + e / BM, g, sentinel,
+                                       reverse != 0)
+                          : -1;
+      sm[e] = p;
+      if (hit != nullptr && p >= 0) hit[e / BM] = 1;
+    }
+  }
+
   __device__ __forceinline__ const int* tile(int* sm, int k,
                                              int row0) const {
     int* hit = sm + kSearchGroup * BM;
     const int kk = k % kSearchGroup;
     if (kk == 0) {
-      const int gk = min(kSearchGroup, kv - k);
       __syncthreads();  // the previous group's rows and flags are read
       if (threadIdx.x < kSearchGroup) hit[threadIdx.x] = 0;
       __syncthreads();
-      for (int e = threadIdx.x; e < gk * BM; e += blockDim.x) {
-        const int r = row0 + e % BM;
-        const int p = r < n ? subm_probe(keys, n, __ldg(keys + r),
-                                         k + e / BM, g, sentinel,
-                                         reverse != 0)
-                            : -1;
-        sm[e] = p;
-        if (p >= 0) hit[e / BM] = 1;
-      }
+      fill(sm, k, min(kSearchGroup, kv - k), row0, hit);
       __syncthreads();
     }
     return hit[kk] ? sm + kk * BM : nullptr;

@@ -24,8 +24,10 @@ The kernel wrappers, each with its plain PyTorch version beside it:
   ``pos.shape[1]`` rows: on an affine table (the strided conv) ``N_out``
   from ``N_in``, on a divide table (the inverse conv) ``N_in`` from
   ``N_out``.
-* ``dg_dgrad`` (the same kernel, on the backward's table and ``W[k]^T``):
-  ``din[j] = sum_k dout[pos_bwd[k, j]] @ W[k]^T``.
+* ``dg_dgrad`` (the same kernel, on the backward's table and ``W[k]^T``,
+  which the bf16 kernel reads from the weight as it is):
+  ``din[j] = sum_k dout[pos_bwd[k, j]] @ W[k]^T``.  The bf16 kernel's tile
+  is a variant the wrapper picks from the shapes (:func:`b2_variant`).
 * ``dg_wgrad`` (kernel ``csrc/dg_wgrad.cu``):
   ``dW[k] = sum_j x[j]^T dout[pos_bwd[k, j]]``, split over rows into f32
   partials that a second kernel adds in a fixed order.
@@ -78,6 +80,10 @@ __all__ = [
     "PATHS",
     "dg_fwd",
     "dg_fwd_plain",
+    "B2_TILES",
+    "B2Variant",
+    "b2_variant",
+    "b2_smem_bytes",
     "dg_fwd_q",
     "dg_fwd_q_plain",
     "dg_regular_conv",
@@ -587,8 +593,7 @@ def dg_dgrad(dout: torch.Tensor, weight_kv: torch.Tensor,
                        n_out=None if path == "subm" else pos_bwd.shape[-1])
     if dout.device.type == "cpu":
         return dg_dgrad_plain(dout, weight_kv, pos_bwd)
-    return _gather_gemm_cuda(
-        dout, weight_kv.transpose(1, 2).contiguous(), pos_bwd, name)
+    return _gather_gemm_cuda(dout, weight_kv, pos_bwd, name, trans=True)
 
 
 def dg_dgrad_plain(dout: torch.Tensor, weight_kv: torch.Tensor,
@@ -598,16 +603,73 @@ def dg_dgrad_plain(dout: torch.Tensor, weight_kv: torch.Tensor,
     return dg_fwd_plain(dout, weight_kv.transpose(1, 2), pos_rev)
 
 
-def _gather_gemm_cuda(x, weight_kv, rows, counter, search=()):
+# B2's bf16 tiles, by variant number: (rows BM, columns BN) of a block's
+# output tile and the input channels BK of a pipeline step (csrc/dg_fwd.cu,
+# b2::Tile0..4).  BN covers K up to 256, so a block gathers each matched
+# row once for all of K.
+B2_TILES = ((128, 16, 64), (128, 32, 64), (64, 64, 64), (64, 128, 32),
+            (64, 256, 32))
+_B2_WAVE = 132          # blocks of one wave: one per SM of the H100
+_B2_MIN_SPLIT_BN = 64   # column tiles for a small N stop at this width
+
+
+class B2Variant(NamedTuple):
+    """The bf16 gather-GEMM kernel that one call launches."""
+    tile: int     # index into B2_TILES
+    bm: int
+    bn: int
+    grid: Tuple[int, int]  # (row tiles, column tiles)
+    vec: bool     # 16-byte gathers of the features' rows, else element loads
+
+
+def b2_variant(n: int, c: int, k_out: int, aligned: bool = True
+               ) -> B2Variant:
+    """The tile of a bf16 gather-GEMM of ``n`` output rows, ``c`` input and
+    ``k_out`` output channels: the narrowest tile whose BN covers ``k_out``
+    (the widest, 256, with column tiles past it), made narrower, down to
+    64 columns, while the call has fewer blocks than one wave.  ``vec``:
+    the 16-byte gather, for ``c % 8 == 0`` and features ``aligned`` to 16
+    bytes; else the scalar-gather variant."""
+    tile = next((i for i, (_, bn, _) in enumerate(B2_TILES) if bn >= k_out),
+                len(B2_TILES) - 1)
+
+    def grid(t):
+        bm, bn, _ = B2_TILES[t]
+        return -(-n // bm), -(-k_out // bn)
+
+    while (B2_TILES[tile][1] > _B2_MIN_SPLIT_BN
+           and np.prod(grid(tile)) < _B2_WAVE):
+        tile -= 1
+    bm, bn, _ = B2_TILES[tile]
+    return B2Variant(tile, bm, bn, grid(tile), c % 8 == 0 and aligned)
+
+
+def b2_smem_bytes(tile: int, trans: bool) -> int:
+    """Dynamic shared memory of B2's bf16 tile ``tile`` (``trans``: the
+    weight read as ``W[k]^T``), as ``b2::Tile::smem_bytes`` computes it: a
+    ring of 4 stages, each a gathered ``[BM, BK]`` chunk and the weight's
+    ``[BK, BN]`` chunk (``[BN, BK]`` transposed), rows padded by 8
+    elements, then the rows of 32 offsets, their live bits and list."""
+    bm, bn, bk = B2_TILES[tile]
+    b_bytes = bn * (bk + 8) * 2 if trans else bk * (bn + 8) * 2
+    return 4 * (bm * (bk + 8) * 2 + b_bytes) + (32 * bm + 2 * 32 + 1) * 4
+
+
+def _gather_gemm_cuda(x, weight_kv, rows, counter, search=(), trans=False):
     """Launches B2's kernel and counts the launch under ``counter``.  Its
     rows come from ``rows``: the table ``[kv, N_dst]``, or with ``search``
     (the search mode's extra arguments, :func:`_search_args`) the keys
     ``[N]``.  The output has ``N_dst`` (``N``) rows; ``x`` is read only
-    through the rows' matches."""
+    through the rows' matches.  ``trans``: multiply by ``W[k]^T``; the bf16
+    kernel reads the ``[kv, C, K]`` weight as it is, the f32 one takes a
+    transposed copy."""
     from .._build import load_library
 
+    if trans and x.dtype == torch.float32:
+        weight_kv, trans = weight_kv.transpose(1, 2).contiguous(), False
     c = x.shape[1]
-    kv, _, k_out = weight_kv.shape
+    kv = weight_kv.shape[0]
+    k_out = weight_kv.shape[1 if trans else 2]
     n = rows.shape[-1]
     out = torch.empty((n, k_out), dtype=x.dtype, device=x.device)
     if n == 0 or k_out == 0:
@@ -615,12 +677,18 @@ def _gather_gemm_cuda(x, weight_kv, rows, counter, search=()):
     if c == 0:
         return out.zero_()
     mode = "search_" if search else ""
-    dtype = "f32" if x.dtype == torch.float32 else "bf16"
-    launch = getattr(load_library(), f"dg_fwd_{mode}{dtype}_launch")
-    err = launch(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(weight_kv.data_ptr()),
-        ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        n, c, k_out, kv, *search, _stream_ptr(x.device))
+    lib = load_library()
+    args = [ctypes.c_void_p(x.data_ptr()),
+            ctypes.c_void_p(weight_kv.data_ptr()),
+            ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            n, c, k_out, kv, *search]
+    if x.dtype == torch.float32:
+        err = getattr(lib, f"dg_fwd_{mode}f32_launch")(
+            *args, _stream_ptr(x.device))
+    else:
+        v = b2_variant(n, c, k_out, aligned=x.data_ptr() % 16 == 0)
+        err = getattr(lib, f"dg_fwd_{mode}bf16_launch")(
+            *args, v.tile, int(v.vec), int(trans), _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out
@@ -943,8 +1011,8 @@ def dg_dgrad_search(dout: torch.Tensor, weight_kv: torch.Tensor,
     _check_operands(name, dout, weight_kv, keys)
     if dout.device.type == "cpu":
         return dg_dgrad_search_plain(dout, weight_kv, keys, geom)
-    return _gather_gemm_cuda(dout, weight_kv.transpose(1, 2).contiguous(),
-                             keys, name, (*_search_args(geom, name), 1))
+    return _gather_gemm_cuda(dout, weight_kv, keys, name,
+                             (*_search_args(geom, name), 1), trans=True)
 
 
 def dg_dgrad_search_plain(dout, weight_kv, keys, geom: SearchGeom):

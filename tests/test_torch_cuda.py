@@ -1111,3 +1111,121 @@ def test_probe_gemm_matches_plain(dev, m, k, n):
     assert np.allclose(got.numpy(), (a @ b).numpy(), rtol=2e-2)
     ref = TP.gemm_plain(a, b)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+# B2's bf16 variants (ops/dg_conv.py::b2_variant): every tile width, the
+# scalar gather (C % 8 != 0), column tiles past K = 256, a K that is no
+# 16-byte vector (20), on 3000 live rows of a 3072-row buffer (an
+# all-invalid tail)
+_B2_C = (3, 5, 12, 64, 160)
+_B2_K = (16, 20, 32, 96, 256, 320)
+
+
+def _b2_case(dev, c, k_out, n_live, nbuf, seed, kernel="k3"):
+    """bf16 features and dout on ``n_live`` rows of ``nbuf``, weights, keys
+    and geometry on the card; B1's forward and reversed tables built by
+    the kernel."""
+    feats, inds = _sorted_input(seed, n_live, c, nbuf)
+    ksize, dil = _SEARCH[kernel]
+    keys, _ = TC.linearize(torch.from_numpy(inds), SHAPE, 1)
+    geom = TD.SearchGeom.of(ksize, dil, SHAPE, 1)
+    kv = int(np.prod(ksize))
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((kv, c, k_out), generator=g) / np.sqrt(kv * c)
+    dout = torch.randn((nbuf, k_out), generator=g)
+    dout[n_live:] = 0
+    keys = keys.to(dev)
+    tabs = [TD.build_dg_pos(keys, reverse=r, **geom._asdict())
+            for r in (False, True)]
+    bf = torch.bfloat16
+    return (torch.from_numpy(feats).to(dev, bf), w.to(dev, bf),
+            dout.to(dev, bf), keys, geom, tabs)
+
+
+def _check_b2(x, w, dout, keys, geom, tabs, n_live):
+    """B2 and dgrad within 1.6e-2 * max|ref| of their plain versions (one
+    bf16 rounding of an f32 sum in another order), bit-equal on repeat,
+    zero past the live rows; S1 and S2 bit-equal to B1 + the table mode;
+    one launch each under its own counter."""
+    pos, rev = tabs
+    TD.reset_launch_counts()
+    out, din = TD.dg_fwd(x, w, pos), TD.dg_dgrad(dout, w, rev)
+    s1 = TD.dg_fwd_search(x, w, keys, geom)
+    s2 = TD.dg_dgrad_search(dout, w, keys, geom)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd=1, dg_dgrad=1,
+                                       dg_fwd_search=1, dg_dgrad_search=1)
+    for got, ref in ((out, TD.dg_fwd_plain(x, w, pos)),
+                     (din, TD.dg_dgrad_plain(dout, w, rev))):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 1.6e-2 * ref.float().abs().max().item(), err
+        assert not got[n_live:].any()
+    assert torch.equal(out, TD.dg_fwd(x, w, pos))
+    assert torch.equal(din, TD.dg_dgrad(dout, w, rev))
+    assert torch.equal(s1, out) and torch.equal(s2, din)
+
+
+@pytest.mark.parametrize("k_out", _B2_K)
+@pytest.mark.parametrize("c", _B2_C)
+def test_b2_variants_match_plain_and_table(dev, c, k_out):
+    """Every (C, K) of the grid: the forward and the input gradient (W[k]^T
+    read in the kernel) against plain, and the search mode bit-equal."""
+    _check_b2(*_b2_case(dev, c, k_out, 3000, 3072, 11), 3000)
+
+
+@pytest.mark.parametrize("c,k_out", [(3, 16), (64, 64), (160, 256),
+                                     (12, 320)])
+@pytest.mark.parametrize("n", [1, 63, 65, 512])
+def test_b2_small_n_matches_plain_and_table(dev, n, c, k_out):
+    """Buffers of 1, 63, 65 and 512 rows (an all-invalid tail past 7/8 of
+    the larger ones): partial row tiles, and the column tiles of a small
+    N."""
+    n_live = max(1, n - n // 8)
+    _check_b2(*_b2_case(dev, c, k_out, n_live, n, 12), n_live)
+
+
+@pytest.mark.parametrize("c,k_out", [(16, 16), (64, 32), (5, 32)])
+def test_b2_kernel5_matches_plain_and_table(dev, c, k_out):
+    """Kernel 5^3 with a dilation: 125 offsets, four staged groups."""
+    _check_b2(*_b2_case(dev, c, k_out, 3000, 3072, 13, kernel="k5"), 3000)
+
+
+@pytest.mark.parametrize("c,k_out", [(3, 64), (64, 64), (256, 256)])
+def test_b2_benchnet_stage0_matches_plain(dev, c, k_out):
+    """BenchNet's stage-0 size: the 125,562-voxel synthetic scan in its
+    125,952-row buffer."""
+    x0 = TB.make_bench_input(*TB.synthetic_scan(0), dtype=torch.bfloat16,
+                             device=dev)
+    keys, _ = TC.linearize(x0.indices, x0.spatial_shape, 1)
+    geom = TD.SearchGeom.of(KSIZE, DIL, x0.spatial_shape, 1)
+    tabs = [TD.build_dg_pos(keys, reverse=r, **geom._asdict())
+            for r in (False, True)]
+    g = torch.Generator(device=dev).manual_seed(c)
+    n, live = x0.indices.shape[0], x0.valid_mask[:, None]
+    x = (torch.randn((n, c), device=dev, generator=g) * live).bfloat16()
+    w = (torch.randn((KV, c, k_out), device=dev, generator=g)
+         / np.sqrt(KV * c)).bfloat16()
+    dout = (torch.randn((n, k_out), device=dev, generator=g)
+            * live).bfloat16()
+    _check_b2(x, w, dout, keys, geom, tabs, int(x0.num_voxels))
+
+
+@pytest.mark.parametrize("c,k_out", [(64, 96), (160, 32)])
+def test_b2_misaligned_features_take_the_scalar_gather(dev, c, k_out):
+    """A contiguous view whose data pointer is off 16 bytes takes the
+    scalar-gather variant; it stages the same operands as the 16-byte one,
+    so its results are bit-equal to those on an aligned copy."""
+    x, w, dout, keys, geom, tabs = _b2_case(dev, c, k_out, 3000, 3072, 14)
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xv = base[1:].view_as(x).copy_(x)
+    base_d = torch.empty(dout.numel() + 1, dtype=dout.dtype, device=dev)
+    dv = base_d[1:].view_as(dout).copy_(dout)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    assert not TD.b2_variant(3072, c, k_out, aligned=False).vec
+    pos, rev = tabs
+    assert torch.equal(TD.dg_fwd(xv, w, pos), TD.dg_fwd(x, w, pos))
+    assert torch.equal(TD.dg_dgrad(dv, w, rev), TD.dg_dgrad(dout, w, rev))
+    assert torch.equal(TD.dg_fwd_search(xv, w, keys, geom),
+                       TD.dg_fwd(x, w, pos))
+    _check_b2(xv, w, dv, keys, geom, tabs, 3000)
