@@ -7,16 +7,24 @@ Phases (every check raises, so a failure exits non-zero before the last
 line is printed):
 1. the card: CUDA must be available; prints nvidia-smi's name and power
    limit;
-2. builds the CUDA kernels from ``spconv_tpu_torch/csrc`` with nvcc and
-   prints each kernel's ptxas registers, spills and static shared memory
-   (B2's bf16 variants with their dynamic shared memory);
+2. builds the CUDA kernels from ``spconv_tpu_torch/csrc`` with nvcc, and
+   beside them the bf16 wgrad's counting build
+   (``tools/wgrad_ablation.py``), and prints each kernel's ptxas
+   registers, spills and static shared memory (B2's and wgrad's bf16
+   variants with their dynamic shared memory; a wgrad variant that spills,
+   or a report without all 24 of them, fails);
 3. holds each kernel against its plain PyTorch version at every stage shape
    of the benchmark net on a synthetic scan, in f32 and bf16, with CUDA-event
    times of both: the match table forward and reversed, the gather-GEMM
    forward, dgrad and wgrad; times B2 at one width of each bf16 variant
    (K = 16, 32, 64, 128, 256 and the scalar gather at C = 3) at the stage-0
    shape, and checks in a profiler window that a bf16 dgrad is one device
-   op, the B2 launch, with no weight-transpose copy beside it;
+   op, the B2 launch, with no weight-transpose copy beside it; checks and
+   times the bf16 wgrad at one width of each tile variant at the stage-0
+   shape, counts the MMA rows each issues there with the counting build
+   (at most 1.1 per matched pair, and exactly the whole 16-row slices of
+   the listed rows), and prints the f32 partial bytes of a BenchNet step's
+   wgrads as the split rule sizes them;
 4. serves the full-width bf16 benchmark net (14 SubMConv3d, 6 max pools) on
    three synthetic scans after one warm-up, through the port's kernels, and
    checks launch counts, output sanity, per-stage coordinates against a
@@ -169,6 +177,13 @@ SEARCH_Q_WIDTHS = (64, 128)  # bench.py's run_int8 layer: C = K
 # (C, K) of one width of each B2 bf16 variant, timed at the stage-0 shape:
 # K = 16, 32, 64, 128 and 256 wide tiles, and the scalar gather (C = 3)
 B2_WIDTHS = ((64, 16), (64, 32), (64, 64), (128, 128), (256, 256), (3, 64))
+# (C, K) of one width of each bf16 wgrad variant, timed at the stage-0
+# shape: the 16-channel tile (C = 3, scalar x), 32 x 64, 64 x 64, 64 x
+# 128, 128 x 64, 128 x 128, and 128 x 128 in 2 x 2 tiles (C = K = 256)
+WGRAD_WIDTHS = ((3, 64), (32, 32), (64, 64), (64, 128), (128, 64),
+                (128, 128), (256, 256))
+# the bf16 wgrad's MMA rows per matched pair at BenchNet's stage 0, at most
+WGRAD_MMA_ROWS = 1.1
 
 
 def expected(D, **nonzero):
@@ -367,6 +382,17 @@ def ptxas_report(log):
     except OSError:
         pass
     return [(n, lines) for n, (_, lines) in zip(names, entries)]
+
+
+def wgrad_tile(name):
+    """``(BM, BN, WARPS_M, WARPS_N, BJ)`` of a bf16 wgrad kernel's name from
+    ptxas, demangled (``dg_wgrad_bf16_kernel<wg::Tile<16, 64, 1, 4, 64>,
+    ...``) or not (``...20dg_wgrad_bf16_kernelINS0_4TileILi16ELi64E...``),
+    else None."""
+    m = re.search(r"dg_wgrad_bf16_kernel(?:<[^<]*Tile<|INS0_4TileI)"
+                  r"(?:Li)?(\d+)(?:, |ELi)(\d+)(?:, |ELi)(\d+)(?:, |ELi)"
+                  r"(\d+)(?:, |ELi)(\d+)(?:>|E)", name)
+    return tuple(int(g) for g in m.groups()) if m else None
 
 
 def plain_conv_fn(torch, D, fwd):
@@ -2337,11 +2363,23 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     # ---- 2. build ----------------------------------------------------
-    from spconv_tpu_torch._build import build_library, load_library
+    from concurrent.futures import ThreadPoolExecutor
 
-    path, secs, log = build_library()
-    load_library()
-    print(f"build: {path.name} in {secs:.2f} s")
+    from spconv_tpu_torch._build import (BUILD_DIR, build_library,
+                                         load_library)
+    from spconv_tpu_torch.tools import ablation as AB
+    from spconv_tpu_torch.tools import wgrad_ablation as WA
+
+    # beside the library: the bf16 wgrad's counting build (its k16 slices
+    # counted on the card, tools/wgrad_ablation.py's COUNT)
+    with ThreadPoolExecutor(1) as pool:
+        count_build = pool.submit(AB.build, "dg_wgrad.cu", (WA.COUNT,),
+                                  WA.COUNT_ARGTYPES,
+                                  BUILD_DIR / "wgrad_count")
+        path, secs, log = build_library()
+        load_library()
+        count_lib = count_build.result()[WA.COUNT[0]]
+    print(f"build: {path.name} in {secs:.2f} s, and the wgrad counting build")
 
     from spconv_tpu_torch.benchmark import basic as B
     from spconv_tpu_torch.core import SparseConvTensor
@@ -2349,18 +2387,34 @@ def main():
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
 
-    # ptxas's report of every kernel: B2's bf16 variants with the dynamic
-    # shared memory of their launch (b2_smem_bytes), printed, not gated
+    # ptxas's report of every kernel: B2's and wgrad's bf16 variants with
+    # the dynamic shared memory of their launch (b2_smem_bytes,
+    # wgrad_smem_bytes), printed; a wgrad variant that spills fails
     tiles = {t: i for i, t in enumerate(D.B2_TILES)}
-    for name, lines in ptxas_report(log):
-        m = re.search(r"Tile<(\d+), (\d+), \d+, \d+, (\d+)>, (true|false)",
-                      name)
+    w_tiles = {t: i for i, t in enumerate(D.WGRAD_TILES)}
+    w_seen = 0
+    report = ptxas_report(log)
+    for name, lines in report:
+        m = re.search(r"dg_fwd_bf16_kernel<[^<]*Tile<(\d+), (\d+), \d+, \d+, "
+                      r"(\d+)>, (true|false)", name)
+        w = wgrad_tile(name)
         dyn = ""
         if m:
             tile = tiles[(int(m[1]), int(m[2]), int(m[3]))]
             dyn = (f"; {D.b2_smem_bytes(tile, m[4] == 'true')} bytes dynamic"
                    " smem")
+        if w:
+            tile = w_tiles[w]
+            dyn = f"; {D.wgrad_smem_bytes(tile)} bytes dynamic smem"
+            w_seen += 1
+            spills = [int(v) for line in lines
+                      for v in re.findall(r"(\d+) bytes spill", line)]
+            check(not any(spills), f"wgrad variant spills: {name}: {lines}")
         print(f"  ptxas {name}: {'; '.join(lines)}{dyn}")
+    # 6 tiles x vec x (table, search), their names demangled or not
+    check(w_seen == 4 * len(D.WGRAD_TILES),
+          f"ptxas reported {w_seen} wgrad bf16 variants, not "
+          f"{4 * len(D.WGRAD_TILES)}")
 
     # ---- 3. each kernel against its plain version --------------------
     t0 = time.perf_counter()
@@ -2530,6 +2584,49 @@ def main():
     check(len(dgrad_ops) == 1 and b2_mode(dgrad_ops[0]) == "dgrad",
           f"a bf16 dg_dgrad call runs {dgrad_ops}, not one B2 launch")
     print(f"bf16 dg_dgrad call: one device op, {dgrad_ops[0]}")
+    # one width of each bf16 wgrad variant at the stage-0 shape, timed, and
+    # the MMA rows it issues per matched pair, counted on the card by the
+    # counting build (at most WGRAD_MMA_ROWS, and as many as wgrad_mma_rows
+    # finds in the table: whole 16-row slices of listed rows)
+    wg_pairs = int((revs[0] >= 0).sum())
+    wgrad_variants = {}
+    print(f"wgrad bf16 variants at the stage-0 shape ({wg_pairs} matched "
+          "pairs): C K tile grid vec kernel_ms bound_ms matched-pair "
+          "TFLOP/s, MMA rows per matched pair (counted on the card)")
+    for c, k in WGRAD_WIDTHS:
+        x, _, _ = list(fwd_cases(geo[0], tables[0], c, k))[-1]
+        dout = (torch.randn((x.shape[0], k), device=dev, generator=gen)
+                * geo[0].valid_mask[:, None]).bfloat16()
+        v = D.wgrad_variant(x.shape[0], c, k, aligned=x.data_ptr() % 16 == 0)
+        dw = D.dg_wgrad(x, dout, revs[0])
+        _, r = rel_err(torch, dw, D.dg_wgrad_plain(x, dout, revs[0]))
+        check(r <= WGRAD_TOL["bfloat16"] and torch.equal(
+            dw, D.dg_wgrad(x, dout, revs[0])),
+            f"dg_wgrad C={c} K={k} at stage 0: {r:.3e} or repeats differ")
+        km = cuda_ms(torch, lambda: D.dg_wgrad(x, dout, revs[0]), 10)
+        bnd = wgrad_bound(x, dout, revs[0])
+        rows = WA.issued_mma_rows(count_lib, x, dout, revs[0])
+        listed = D.wgrad_mma_rows(revs[0], c, k)[0]
+        check(rows <= WGRAD_MMA_ROWS * wg_pairs and rows == listed,
+              f"bf16 wgrad C={c} K={k} issues {rows / wg_pairs:.4f} MMA "
+              f"rows per matched pair at stage 0 (at most {WGRAD_MMA_ROWS}; "
+              f"{listed / wg_pairs:.4f} in whole slices of listed rows)")
+        wgrad_variants[f"C{c}_K{k}"] = dict(
+            tile=[v.bm, v.bn], grid=list(v.grid), vec=v.vec, ms=km,
+            bound_ms=bnd[0], mma_rows_per_pair=rows / wg_pairs)
+        print(f"  {c:4d} {k:4d} {v.bm}x{v.bn} {v.grid} {v.vec}  {km:9.4f}  "
+              f"{bnd[0]:.4f}  {2 * wg_pairs * c * k / km / 1e9:.1f}  "
+              f"{rows / wg_pairs:.4f}")
+    # the f32 partials of a step, from the split rule (a host count)
+    part_bytes = 0
+    for layer in range(14):
+        g = geo[layer // 2]
+        c, k = B.CHANNELS[layer], B.CHANNELS[layer + 1]
+        splits = D.wgrad_splits(g.indices.shape[0], 27, c, k)
+        part_bytes += 4 * 27 * c * k * splits if splits > 1 else 0
+    print(f"bf16 wgrad f32 partials a BenchNet step, counted on the host "
+          f"from wgrad_splits: {part_bytes} bytes written, read once by the "
+          "reduce")
     print(f"per bf16 forward: dg_pos {tot['dg_pos']}, dg_fwd "
           f"{tot['dg_fwd']}")
     print(f"per bf16 training step, backward: dg_pos_rev "
@@ -3015,7 +3112,7 @@ def main():
             train_launches["dg_dgrad"], errs("dg_dgrad"), tot["dg_dgrad"]),
         row("dg_wgrad", csrc + "dg_wgrad.cu",
             pallas + "dg_conv.py:1307 (dW)", train_launches["dg_wgrad"],
-            errs("dg_wgrad"), tot["dg_wgrad"]),
+            errs("dg_wgrad"), tot["dg_wgrad"], variants=wgrad_variants),
         row("sk_fwd", csrc + "dg_fwd.cu", pallas + "sorted_conv.py:446",
             sk_fwd_launches, (sk_err["sk_fwd"], sk_rel["sk_fwd"]),
             sk_ms["sk_fwd"]),

@@ -146,16 +146,18 @@ def load_library() -> ctypes.CDLL:
         # x, dout, pos_rev, part, out, n, C, K, kv, splits, stream
         "dg_wgrad_f32_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                 vp],
+        # ..., splits, tile, vec, d_vec, stream
         "dg_wgrad_bf16_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32,
-                                 i32, vp],
+                                 i32, i32, i32, i32, vp],
         # x, dout, keys, part, out, n, C, K, kv, splits, geom, sentinel,
         # stream
         "dg_wgrad_search_f32_launch": [vp, vp, vp, vp, vp, i32, i32, i32,
                                        i32, i32, ctypes.POINTER(i32), i32,
                                        vp],
+        # ..., sentinel, tile, vec, d_vec, stream
         "dg_wgrad_search_bf16_launch": [vp, vp, vp, vp, vp, i32, i32, i32,
                                         i32, i32, ctypes.POINTER(i32), i32,
-                                        vp],
+                                        i32, i32, i32, vp],
         # feat, bf16, in_keys, n, out_keys, m, C, geom, sent_out, mean,
         # out, stream
         "sk_pool_launch": [vp, i32, vp, i32, vp, i32, i32,

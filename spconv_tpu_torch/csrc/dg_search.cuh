@@ -58,17 +58,16 @@ __device__ __forceinline__ int search_row(const int* __restrict__ keys,
   return (lo < n && __ldg(keys + lo) == probe) ? lo : -1;
 }
 
-// The row of keys[0, n) whose key is `key` moved by kernel offset k
-// (row-major 'ij' order over the kernel dims): decode key's coordinates,
-// add d_k = (offset_k - centre) * dilation (negated with `reverse`: the
-// backward's probe), bounds-check every axis and binary-search the moved
-// key.  -1 where an axis leaves the grid, no row has the key, or `key` is
+// The key that `key` moves to by kernel offset k (row-major 'ij' order
+// over the kernel dims): decode key's coordinates, add d_k = (offset_k -
+// centre) * dilation (negated with `reverse`: the backward's probe) and
+// bounds-check every axis.  False where an axis leaves the grid or `key` is
 // the sentinel.
-__device__ __forceinline__ int subm_probe(const int* __restrict__ keys,
-                                          int n, int key, int k,
-                                          const SubmGeom& g, int sentinel,
-                                          bool reverse) {
-  if (key == sentinel) return -1;
+__device__ __forceinline__ bool subm_probe_key(int key, int k,
+                                               const SubmGeom& g,
+                                               int sentinel, bool reverse,
+                                               int* probe) {
+  if (key == sentinel) return false;
   int rem = key;
   int kr = k;
   int delta = 0;
@@ -89,7 +88,48 @@ __device__ __forceinline__ int subm_probe(const int* __restrict__ keys,
       stride *= g.dims[a];
     }
   }
-  return ok ? search_row(keys, n, key + delta) : -1;
+  *probe = key + delta;
+  return ok;
+}
+
+// The row of keys[0, n) whose key is `key` moved by kernel offset k
+// (subm_probe_key), or -1: where an axis leaves the grid, no row has the
+// moved key, or `key` is the sentinel.
+__device__ __forceinline__ int subm_probe(const int* __restrict__ keys,
+                                          int n, int key, int k,
+                                          const SubmGeom& g, int sentinel,
+                                          bool reverse) {
+  int probe;
+  return subm_probe_key(key, k, g, sentinel, reverse, &probe)
+             ? search_row(keys, n, probe)
+             : -1;
+}
+
+// search_row for R probes at once, n >= 1: a branch-free lower bound whose
+// steps depend on n alone, so the R searches' loads are in flight
+// together.  ok[r] false gives -1.
+template <int R>
+__device__ __forceinline__ void search_rows(const int* __restrict__ keys,
+                                            int n, const int (&probe)[R],
+                                            const bool (&ok)[R],
+                                            int (&row)[R]) {
+  int base[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) base[r] = 0;
+  for (int len = n; len > 1;) {
+    const int half = len >> 1;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      base[r] = __ldg(keys + base[r] + half) < probe[r] ? base[r] + half
+                                                       : base[r];
+    }
+    len -= half;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int lb = base[r] + (__ldg(keys + base[r]) < probe[r] ? 1 : 0);
+    row[r] = ok[r] && lb < n && __ldg(keys + lb) == probe[r] ? lb : -1;
+  }
 }
 
 // Row sources of a gather-GEMM block that owns BM output rows from row0.

@@ -30,7 +30,9 @@ The kernel wrappers, each with its plain PyTorch version beside it:
   is a variant the wrapper picks from the shapes (:func:`b2_variant`).
 * ``dg_wgrad`` (kernel ``csrc/dg_wgrad.cu``):
   ``dW[k] = sum_j x[j]^T dout[pos_bwd[k, j]]``, split over rows into f32
-  partials that a second kernel adds in a fixed order.
+  partials that a second kernel adds in a fixed order.  Its bf16 kernel
+  multiplies only the matched rows, listed per offset, on a tile the
+  wrapper picks from the shapes (:func:`wgrad_variant`).
 * ``dg_fwd_q`` (kernel ``csrc/dg_fwd_q.cu``): the int8 gather-GEMM of the
   quantized convs, int32 accumulation and the fused scale / bias / residual
   / ReLU / requant epilogue, on any of the three forward tables.
@@ -91,7 +93,13 @@ __all__ = [
     "dg_dgrad_plain",
     "dg_wgrad",
     "dg_wgrad_plain",
+    "WGRAD_TILES",
+    "WgradVariant",
+    "wgrad_variant",
+    "wgrad_smem_bytes",
     "wgrad_splits",
+    "wgrad_rows_per_split",
+    "wgrad_mma_rows",
     "DGConvFn",
     "dg_subm_conv",
     "SearchGeom",
@@ -832,22 +840,107 @@ def _dg_fwd_q_cuda(x, weight_kv, rows, scale, bias, act, add, add_scale,
 # B3: weight gradient
 # ---------------------------------------------------------------------------
 
-_WGRAD_TILE = 64            # the kernel's dW tile is 64 x 64
-_WGRAD_TARGET_BLOCKS = 1056  # 8 blocks on each of the H100's 132 SMs
-_WGRAD_MIN_ROWS = 256       # rows per split, at least: 8 chunks of 32
+# wgrad's bf16 tiles, by variant number: the input channels BM and output
+# channels BN of a block's dW tile, its warps (WARPS_M, WARPS_N) and the
+# listed rows BJ of a pipeline step (csrc/dg_wgrad.cu, wg::Tile0..5).  BM
+# follows C (16 for C <= 16) and BN follows K, so x and dout are each
+# gathered once per offset up to C, K = 128.
+WGRAD_TILES = ((16, 64, 1, 4, 64), (32, 64, 2, 2, 64), (64, 64, 2, 2, 32),
+               (64, 128, 2, 4, 32), (128, 64, 4, 2, 32), (128, 128, 4, 4, 32))
+# a narrower tile for a call with fewer blocks than one wave
+_WGRAD_NARROWER = {5: 3, 4: 2, 3: 2}
+_WGRAD_SMS = 132            # the H100's SMs
+_WGRAD_SM_SMEM = 228 << 10  # bytes of shared memory an SM holds
+_WGRAD_WAVES = 4            # splits aim at four waves of resident blocks
+_WGRAD_MIN_ROWS = 512       # rows per split, at least: one listed chunk
 _WGRAD_SCRATCH = 64 << 20   # bytes of f32 partials, at most
 
 
+class WgradVariant(NamedTuple):
+    """The bf16 wgrad kernel that one call launches."""
+    tile: int      # index into WGRAD_TILES
+    bm: int
+    bn: int
+    grid: Tuple[int, int, int]  # (dW tiles, offsets, row splits)
+    vec: bool      # 16-byte gathers of x's rows, else element loads
+    dvec: bool     # the same for dout's rows
+
+
+def _wgrad_grid(tile, n, c, k_out, kv, splits=None):
+    bm, bn, wm, wn, _ = WGRAD_TILES[tile]
+    tiles = -(-c // bm) * -(-k_out // bn)
+    if splits is None:
+        # resident blocks: by registers (128 a thread: 512 threads an SM)
+        # and by shared memory (1 KB of each block reserved)
+        slots = _WGRAD_SMS * min(
+            512 // (32 * wm * wn),
+            _WGRAD_SM_SMEM // (wgrad_smem_bytes(tile) + 1024))
+        splits = -(-_WGRAD_WAVES * slots // (tiles * kv))
+        splits = max(1, min(splits, -(-n // _WGRAD_MIN_ROWS),
+                            _WGRAD_SCRATCH // max(1, 4 * kv * c * k_out)))
+    return tiles, kv, splits
+
+
+def wgrad_variant(n: int, c: int, k_out: int, kv: int = 27,
+                  aligned: bool = True, dout_aligned: bool = True
+                  ) -> WgradVariant:
+    """The tile and row splits of a bf16 weight gradient over ``n`` rows of
+    ``x`` (``c`` channels), ``k_out`` output channels and ``kv`` offsets:
+    BM the narrowest of 16, 32, 64, 128 that covers ``c`` (128 with channel
+    tiles past it), BN 64 for ``k_out <= 64``, else 128 (with column tiles
+    past it); a 128-channel tile goes down to 64 while the call has fewer
+    blocks than one wave.  Splits aim at four waves of resident blocks, with
+    at least 512 rows a split and at most 64 MB of f32 partials ``[S, kv,
+    C, K]``.  ``vec`` / ``dvec``: the 16-byte gathers of x / dout, for
+    ``c % 8 == 0`` / ``k_out % 8 == 0`` and the features ``aligned`` to 16
+    bytes; else the scalar-gather variant for that operand."""
+    if c <= 32:
+        tile = 0 if c <= 16 else 1
+    else:
+        tile = (2, 3)[k_out > 64] if c <= 64 else (4, 5)[k_out > 64]
+    while tile in _WGRAD_NARROWER and np.prod(_wgrad_grid(
+            tile, n, c, k_out, kv, -(-n // _WGRAD_MIN_ROWS))) < _WGRAD_SMS:
+        tile = _WGRAD_NARROWER[tile]
+    bm, bn = WGRAD_TILES[tile][:2]
+    return WgradVariant(tile, bm, bn, _wgrad_grid(tile, n, c, k_out, kv),
+                        c % 8 == 0 and aligned,
+                        k_out % 8 == 0 and dout_aligned)
+
+
+def wgrad_smem_bytes(tile: int) -> int:
+    """Dynamic shared memory of wgrad's bf16 tile ``tile``, as
+    ``wg::Tile::smem_bytes`` computes it: a ring of 4 stages, each the
+    ``[BJ, BM]`` chunk of x and the ``[BJ, BN]`` chunk of dout, rows padded
+    by 8 elements, then the list of 1,024 ``(j, p)`` pairs and 16 warp
+    counts."""
+    bm, bn, _, _, bj = WGRAD_TILES[tile]
+    return 4 * bj * (bm + 8 + bn + 8) * 2 + 1024 * 8 + 16 * 4
+
+
 def wgrad_splits(n: int, kv: int, c: int, k_out: int) -> int:
-    """Row splits S of the wgrad kernel: enough blocks to fill the card
-    (``(C/64) x (K/64) x kv x S`` near 8 per SM) even at the late, small
-    stages, at least 256 rows per split, and at most 64 MB of f32 partials
-    ``[S, kv, C, K]``."""
-    tiles = kv * -(-c // _WGRAD_TILE) * -(-k_out // _WGRAD_TILE)
-    s = -(-_WGRAD_TARGET_BLOCKS // tiles)
-    s = min(s, -(-n // _WGRAD_MIN_ROWS),
-            _WGRAD_SCRATCH // max(1, 4 * kv * c * k_out))
-    return max(1, s)
+    """Row splits S of the wgrad kernels (:func:`wgrad_variant`'s)."""
+    return wgrad_variant(n, c, k_out, kv).grid[2]
+
+
+def wgrad_rows_per_split(n: int, splits: int) -> int:
+    """Rows of each split, as the kernels cut them: ``n / S`` rounded up to
+    32; the last split takes the rest, and may be empty."""
+    rows = -(-n // splits)
+    return -(-rows // 32) * 32
+
+
+def wgrad_mma_rows(pos_bwd: torch.Tensor, c: int, k_out: int
+                   ) -> Tuple[int, int]:
+    """``(MMA rows, matched pairs)`` of one dW tile of the bf16 wgrad
+    kernel on the backward's table ``pos_bwd``: each (offset, split) block
+    multiplies its matched rows, listed without gaps, in whole 16-row
+    slices."""
+    kv, n = pos_bwd.shape
+    s = wgrad_splits(n, kv, c, k_out)
+    r = wgrad_rows_per_split(n, s)
+    m = torch.nn.functional.pad((pos_bwd >= 0).int(), (0, s * r - n))
+    per = m.reshape(kv, s, r).sum(-1)
+    return int(((per + 15) // 16 * 16).sum()), int(per.sum())
 
 
 def dg_wgrad(x: torch.Tensor, dout: torch.Tensor, pos_bwd: torch.Tensor,
@@ -901,17 +994,27 @@ def _dg_wgrad_cuda(x, dout, rows, kv, counter, search=()):
         return out
     if n == 0:
         return out.zero_()
-    splits = wgrad_splits(n, kv, c, k_out)
-    part = torch.empty((splits, kv, c, k_out), dtype=torch.float32,
-                       device=x.device)
     mode = "search_" if search else ""
-    dtype = "f32" if x.dtype == torch.float32 else "bf16"
-    launch = getattr(load_library(), f"dg_wgrad_{mode}{dtype}_launch")
-    err = launch(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(dout.data_ptr()),
-        ctypes.c_void_p(rows.data_ptr()), ctypes.c_void_p(part.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), n, c, k_out, kv, splits, *search,
-        _stream_ptr(x.device))
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        v = wgrad_variant(n, c, k_out, kv, aligned=x.data_ptr() % 16 == 0,
+                          dout_aligned=dout.data_ptr() % 16 == 0)
+        splits = v.grid[2]
+    else:
+        splits = wgrad_splits(n, kv, c, k_out)
+    # the bf16 kernel writes dW itself when there is one split
+    part = torch.empty((splits, kv, c, k_out) if splits > 1 or not bf16
+                       else (0,), dtype=torch.float32, device=x.device)
+    launch = getattr(load_library(),
+                     f"dg_wgrad_{mode}{'bf16' if bf16 else 'f32'}_launch")
+    args = [ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(dout.data_ptr()),
+            ctypes.c_void_p(rows.data_ptr()),
+            ctypes.c_void_p(part.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), n, c, k_out, kv, splits,
+            *search]
+    if bf16:
+        args += [v.tile, int(v.vec), int(v.dvec)]
+    err = launch(*args, _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out

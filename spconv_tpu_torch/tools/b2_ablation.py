@@ -22,19 +22,18 @@ Run:  python -m spconv_tpu_torch.tools.b2_ablation
 """
 
 import ctypes
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from .._build import BUILD_DIR, NVCC_FLAGS, SRC_DIR, _nvcc
+from .._build import BUILD_DIR
 from ..benchmark import basic as B
 from ..ops import coords as C
 from ..ops import dg_conv as D
+from .ablation import build, cuda_ms
 
-# (name, [(line in dg_fwd.cu, its replacement)])
+# (name, [(text in dg_fwd.cu, its replacement at every place)])
 ABLATIONS = (
     ("as is", []),
     ("no MMA", [("    if (!warp_cols) return;", "    return;")]),
@@ -62,42 +61,6 @@ CASES = (
 )
 
 
-def ablated_source(edits) -> str:
-    """dg_fwd.cu with each (line, replacement) applied; each line must be
-    in the source once."""
-    src = (SRC_DIR / "dg_fwd.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"dg_fwd.cu holds {src.count(old)} of {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def build(out_dir: Path):
-    """One shared library per ablation, built in parallel; returns
-    ``{name: ctypes.CDLL}``."""
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, edits) in enumerate(ABLATIONS):
-        cu = out_dir / f"dg_fwd_ablation{i}.cu"
-        cu.write_text(ablated_source(edits))
-        lib = out_dir / f"libdg_fwd_ablation{i}.so"
-        procs[name] = (lib, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(SRC_DIR), "-o",
-             str(lib), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, (lib, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name!r}:\n{log}")
-        dll = ctypes.CDLL(str(lib))
-        dll.dg_fwd_bf16_launch.argtypes = [vp] * 4 + [i32] * 7 + [vp]
-        libs[name] = dll
-    return libs
-
-
 def issued_rows(matched: np.ndarray, rows: int) -> float:
     """MMA rows a kernel multiplies per matched (row, offset) pair when a
     tile of ``rows`` rows skips an offset only if none of them matches it;
@@ -113,23 +76,12 @@ def mask_sorted(matched: np.ndarray) -> np.ndarray:
     return matched[:, np.argsort(bits, kind="stable")]
 
 
-def cuda_ms(fn, reps=10):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main():
     dev = torch.device("cuda")
-    libs = build(BUILD_DIR / "ablation")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    libs = build("dg_fwd.cu", ABLATIONS,
+                 {"dg_fwd_bf16_launch": [vp] * 4 + [i32] * 7 + [vp]},
+                 BUILD_DIR / "ablation")
     x0 = B.make_bench_input(*B.synthetic_scan(0), device=dev)
     keys, _ = C.linearize(x0.indices, x0.spatial_shape, 1)
     geom = D.SearchGeom.of((3, 3, 3), (1, 1, 1), x0.spatial_shape, 1)

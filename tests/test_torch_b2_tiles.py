@@ -232,13 +232,16 @@ def test_b2_ablation_edits_apply_to_the_kernel_source():
     """``spconv_tpu_torch.tools.b2_ablation`` rebuilds ``csrc/dg_fwd.cu``
     with lines replaced; each line must be in the source once, so a change
     of the kernel that moves one fails here rather than on the card."""
+    from spconv_tpu_torch.tools import ablation as AB
     from spconv_tpu_torch.tools import b2_ablation as A
 
     assert [name for name, _ in A.ABLATIONS] == ["as is", "no MMA",
                                                  "no copy"]
+    src = (AB.SRC_DIR / "dg_fwd.cu").read_text()
     for _, edits in A.ABLATIONS:
-        src = A.ablated_source(edits)
-        assert all(src.count(new) >= 1 for _, new in edits)
+        assert all(src.count(old) == 1 for old, _ in edits)
+        out = AB.ablated_source("dg_fwd.cu", edits)
+        assert all(out.count(new) >= 1 for _, new in edits)
 
 
 def test_b2_ablation_counts_issued_mma_rows():

@@ -166,6 +166,136 @@ def test_dg_wgrad_kernel_matches_plain(dev, dtype, tol, c, k_out):
     assert err <= tol * ref.abs().max().item(), err
 
 
+# (C, K) of each bf16 wgrad tile variant at 3,072 rows, by variant: C = 3
+# and C = 5 (16-channel tile, scalar x), C = 20 (scalar x), K = 20 (scalar
+# dout), K = 96 on a 128-wide tile, C = 96 on a 128-channel one, and
+# channel and column tiles (C = 160, K = 256)
+_WGRAD_VARIANTS = [(0, 3, 64), (0, 5, 16), (1, 32, 32), (1, 20, 40),
+                   (2, 64, 64), (2, 64, 20), (3, 64, 96), (4, 96, 64),
+                   (5, 128, 128), (5, 160, 256)]
+WGRAD_TOL = 1.6e-2  # bf16: one rounding of each f32 sum
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+def _check_wgrad(x, dout, rev, tile=None, path="subm"):
+    """The bf16 kernel (on the tile variant ``tile``, when given) against
+    the plain version within WGRAD_TOL of max|ref|, two runs bit-equal, one
+    launch each under ``path``'s counter; returns dW."""
+    if tile is not None:
+        v = TD.wgrad_variant(x.shape[0], x.shape[1], dout.shape[1],
+                             rev.shape[0])
+        assert v.tile == tile, v
+    ref = TD.dg_wgrad_plain(x, dout, rev).float()
+    name = "dg_wgrad" if path == "subm" else f"dg_wgrad_{path}"
+    before = TD.launch_counts[name]
+    got = TD.dg_wgrad(x, dout, rev, path)
+    again = TD.dg_wgrad(x, dout, rev, path)
+    torch.cuda.synchronize()
+    assert TD.launch_counts[name] == before + 2
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    err = (got.float() - ref).abs().max().item()
+    assert err <= WGRAD_TOL * ref.abs().max().item(), err
+    return got
+
+
+@pytest.mark.parametrize("tile,c,k_out", _WGRAD_VARIANTS)
+def test_dg_wgrad_bf16_variants_match_plain_and_search(dev, tile, c, k_out):
+    """Each bf16 wgrad tile variant on 3,000 active rows in a 3,072-row
+    buffer (an all-invalid tail; 3,072 is no multiple of the 512-row chunk
+    of a split): against plain, repeats bit-equal, and S3 bit-equal to the
+    table mode on ``build_dg_pos(reverse=True)``."""
+    feats, inds = _sorted_input(12, 3000, c, 3072)
+    keys, rev = _plain_pos(inds, reverse=True)
+    g = torch.Generator().manual_seed(12)
+    dout = torch.randn((3072, k_out), generator=g)
+    dout[3000:] = 0
+    x = torch.from_numpy(feats).to(dev, torch.bfloat16)
+    dout = dout.to(dev, torch.bfloat16)
+    geom = TD.SearchGeom.of(KSIZE, DIL, SHAPE, 1)
+    rev_dev = TD.build_dg_pos(keys.to(dev), reverse=True, **geom._asdict())
+    assert torch.equal(rev_dev.cpu(), rev)
+    dw = _check_wgrad(x, dout, rev_dev, tile)
+    s3 = TD.dg_wgrad_search(x, dout, keys.to(dev), geom)
+    assert torch.equal(s3, dw)
+    assert torch.equal(s3, TD.dg_wgrad_search(x, dout, keys.to(dev), geom))
+
+
+@pytest.mark.parametrize("c,k_out", [(64, 64), (3, 64), (160, 256)])
+def test_dg_wgrad_bf16_misaligned_views(dev, c, k_out):
+    """x and dout 2 bytes off a 16-byte boundary take the scalar gathers:
+    bit-equal to the aligned call (the same sums in the same order)."""
+    feats, inds = _sorted_input(13, 3000, c, 3072)
+    _, rev = _plain_pos(inds, reverse=True)
+    g = torch.Generator().manual_seed(13)
+    x = torch.from_numpy(feats).to(dev, torch.bfloat16)
+    dout = torch.randn((3072, k_out), generator=g).to(dev, torch.bfloat16)
+    rev = rev.to(dev)
+    xm, dm = _misaligned(x), _misaligned(dout)
+    assert not TD.wgrad_variant(3072, c, k_out, aligned=False).vec
+    aligned = _check_wgrad(x, dout, rev)
+    assert torch.equal(_check_wgrad(xm, dm, rev), aligned)
+    assert torch.equal(_check_wgrad(xm, dout, rev), aligned)
+
+
+def _random_table(kv, n, n_dst, seed, hit=0.35, dead=(0, 0)):
+    """A backward table ``[kv, n]``: each (offset, row) matches a random
+    row of ``n_dst`` with probability ``hit``, except the rows in ``dead``
+    and offset 1, which match nothing."""
+    rng = np.random.RandomState(seed)
+    t = rng.randint(0, n_dst, size=(kv, n)).astype(np.int32)
+    t[rng.rand(kv, n) >= hit] = -1
+    t[:, dead[0]:dead[1]] = -1
+    t[1] = -1
+    return torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("n,c,k_out,kv", [
+    (20_000, 64, 64, 27),     # 40 splits: the first 13 see no match
+    (20_000, 5, 16, 27),
+    (4_999, 160, 256, 27),    # no multiple of the chunk or of 32
+    (9_000, 64, 32, 8),       # the transposed conv's widths and offsets
+])
+def test_dg_wgrad_bf16_splits_without_matches(dev, n, c, k_out, kv):
+    """Splits whose rows all miss, and an offset that matches nowhere
+    (dW[1] exactly 0), on a random table: against plain, repeats
+    bit-equal."""
+    n_dst = 8 * n if kv == 8 else n
+    rev = _random_table(kv, n, n_dst, 14, dead=(0, n // 3)).to(dev)
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn((n, c), generator=g).to(dev, torch.bfloat16)
+    dout = torch.randn((n_dst, k_out), generator=g).to(dev, torch.bfloat16)
+    assert TD.wgrad_splits(n, kv, c, k_out) > 1
+    dw = _check_wgrad(x, dout, rev, path="transposed" if kv == 8 else "subm")
+    assert not dw[1].any()
+
+
+def test_dg_wgrad_bf16_transposed_shape(dev):
+    """The USAGE.md chain's transposed conv backward: x of 113,664 rows (64
+    channels), dout of 1,039,616 (32), 8 offsets, each input site matching
+    its 8 disjoint children: against plain, repeats bit-equal, and dout rows
+    past 2**24 elements are read (offsets in size_t)."""
+    n, n_dst = 113_664, 1_039_616
+    rng = np.random.RandomState(15)
+    live = 113_000
+    perm = rng.permutation(8 * live).astype(np.int32).reshape(8, live)
+    t = np.full((8, n), -1, np.int32)
+    t[:, :live] = perm
+    rev = torch.from_numpy(t).to(dev)
+    g = torch.Generator().manual_seed(15)
+    x = torch.randn((n, 64), generator=g).to(dev, torch.bfloat16)
+    dout = torch.randn((n_dst, 32), generator=g).to(dev, torch.bfloat16)
+    _check_wgrad(x, dout, rev, tile=2, path="transposed")
+
+
 def test_benchnet_on_card_matches_cpu(dev):
     """The whole net through both kernels on the card against the plain
     versions on the CPU, f32."""

@@ -113,9 +113,10 @@ def test_dg_conv_grads_match_jax(c, dtype):
 
 def test_dg_wgrad_splits_fill_the_card():
     """Row splits: many at the wide stage-0 layers, few at the narrow late
-    ones, and at most 64 MB of f32 partials."""
-    assert TD.wgrad_splits(125_952, 27, 64, 64) == 40
-    assert TD.wgrad_splits(512, 27, 256, 256) == 2
+    ones (one at 512 rows: a split holds at least 512), and at most 64 MB
+    of f32 partials."""
+    assert TD.wgrad_splits(125_952, 27, 64, 64) == 79
+    assert TD.wgrad_splits(512, 27, 256, 256) == 1
     for n, c, k in ((125_952, 3, 64), (62_464, 96, 96), (4_608, 192, 192),
                     (10**6, 256, 256)):
         s = TD.wgrad_splits(n, 27, c, k)
