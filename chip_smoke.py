@@ -8,11 +8,12 @@ line is printed):
 1. the card: CUDA must be available; prints nvidia-smi's name and power
    limit;
 2. builds the CUDA kernels from ``spconv_tpu_torch/csrc`` with nvcc, and
-   beside them the bf16 wgrad's counting build
-   (``tools/wgrad_ablation.py``), and prints each kernel's ptxas
-   registers, spills and static shared memory (B2's and wgrad's bf16
-   variants with their dynamic shared memory; a wgrad variant that spills,
-   or a report without all 24 of them, fails);
+   beside them the bf16 wgrad's and B7's counting builds
+   (``tools/wgrad_ablation.py``, ``tools/b7_ablation.py``), and prints
+   each kernel's ptxas registers, spills and static shared memory (B2's,
+   wgrad's and B7's variants with their dynamic shared memory; a wgrad or
+   B7 variant that spills, or a report without all 24 wgrad and 32 B7
+   variants, fails);
 3. holds each kernel against its plain PyTorch version at every stage shape
    of the benchmark net on a synthetic scan, in f32 and bf16, with CUDA-event
    times of both: the match table forward and reversed, the gather-GEMM
@@ -59,11 +60,15 @@ line is printed):
    buffers, its scales observed on seed 0 on the card, quantized
    (``quantize_encoder``); B7 (``dg_fwd_q``) bit-equal to its plain version
    at every layer shape (subm with and without the residual, strided) and
-   at an inverse layer; three int8 requests to their BEV maps with launch
-   counts, every layer's coordinates and int8 features against a plain run
-   on the card, and the BEV against the f32 encoder's; host ms, device
-   busy share and peak memory beside the bf16 request's; an int8
-   downsample + inverse pair against plain;
+   at an inverse layer; one width of each of B7's 16 variants at the
+   stage-0 shape, bit-equal, timed, with the MMA rows it issues counted on
+   the card by the counting build and equal to ``b7_mma_rows``; three int8
+   requests to their BEV maps with launch counts, every layer's
+   coordinates and int8 features against a plain run on the card, and the
+   BEV against the f32 encoder's; host ms, device busy share and peak
+   memory beside the bf16 request's; a request's profiler window with no
+   copy of a layer's weight; an int8 downsample + inverse pair against
+   plain;
 9. the sorted-key pool (B6, ``csrc/sk_pool.cu``): the kernel bit-equal to
    its plain version (max; mean within 1e-6 of max|ref|) at the six
    BenchNet pool shapes, f32 and bf16, with CUDA-event ms of the kernel,
@@ -184,6 +189,13 @@ WGRAD_WIDTHS = ((3, 64), (32, 32), (64, 64), (64, 128), (128, 64),
                 (128, 128), (256, 256))
 # the bf16 wgrad's MMA rows per matched pair at BenchNet's stage 0, at most
 WGRAD_MMA_ROWS = 1.1
+# (C, K) of one width of each of B7's 16 variants, timed at the CenterPoint
+# stage-0 shape: per tile (K = 16, 32, 64, 128 wide), byte gathers packed
+# and not, then 16-byte gathers packed and not (ops/dg_conv.py::b7_variant)
+B7_WIDTHS = ((5, 16), (72, 16), (16, 16), (80, 16),
+             (24, 20), (100, 32), (32, 32), (96, 32),
+             (40, 48), (72, 48), (64, 64), (128, 64),
+             (12, 100), (36, 96), (32, 128), (128, 128))
 
 
 def expected(D, **nonzero):
@@ -351,6 +363,29 @@ def device_ops(torch, fn):
     return [e.name for e in sorted(ops, key=lambda e: e.time_range.start)]
 
 
+def weight_copies(torch, fn, qmods):
+    """``(weight copies, device ops, B7 launches)`` of one call of ``fn``
+    after a warm-up, in a ``torch.profiler`` window: the
+    ``aten::contiguous`` calls on a tensor of the shape of one of
+    ``qmods``' ``[kv, K, C]`` weights (B7's wrapper makes its copy so), the
+    device ops and those of B7's kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    shapes = {tuple(m.weight_kv.transpose(1, 2).shape) for m in qmods}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    copies = sum(1 for e in events if e.name == "aten::contiguous"
+                 and e.input_shapes and tuple(e.input_shapes[0]) in shapes)
+    return copies, len(dev), sum("dg_fwd_q_kernel" in n for n in dev)
+
+
 def b2_mode(name):
     """``"fwd"`` or ``"dgrad"`` for a device op of B2's bf16 kernel (its
     ``TRANS`` flag: W[k] read as its transpose), else None."""
@@ -393,6 +428,25 @@ def wgrad_tile(name):
                   r"(?:Li)?(\d+)(?:, |ELi)(\d+)(?:, |ELi)(\d+)(?:, |ELi)"
                   r"(\d+)(?:, |ELi)(\d+)(?:>|E)", name)
     return tuple(int(g) for g in m.groups()) if m else None
+
+
+def b7_tile(name):
+    """``((BM, BN, WARPS_M, WARPS_N, BK), vec, packed)`` of a B7 kernel's
+    name from ptxas, demangled (``b7::dg_fwd_q_kernel<b7::Tile<128, 16, 8,
+    1, 128>, true, false, ...``) or not (``...15dg_fwd_q_kernelINS_4TileILi
+    128ELi16E...EEELb1ELb0E...``), else None."""
+    m = re.search(r"dg_fwd_q_kernel<[^<]*Tile<(\d+), (\d+), (\d+), (\d+), "
+                  r"(\d+)>, (true|false), (true|false)", name)
+    if m:
+        return (tuple(int(g) for g in m.groups()[:5]), m[6] == "true",
+                m[7] == "true")
+    m = re.search(r"dg_fwd_q_kernelI(?:N[^I]*)?4TileI"
+                  r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)EEE"
+                  r"Lb([01])ELb([01])E", name)
+    if m:
+        return (tuple(int(g) for g in m.groups()[:5]), m[6] == "1",
+                m[7] == "1")
+    return None
 
 
 def plain_conv_fn(torch, D, fwd):
@@ -978,7 +1032,8 @@ def plain_q_layers(torch, qnet, x):
     return outs
 
 
-def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
+def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note,
+               b7_count_lib):
     """Phase 8: the int8 (PTQ) CenterPoint encoder.  Observes the scales of
     the f32 encoder ``net32`` (phase 6's buffers) on seed 0 on the card,
     quantizes it, holds B7 bit-equal to its plain version at every layer
@@ -987,10 +1042,13 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
     the bf16 net ``cp_net``, and runs an int8 downsample + inverse pair.
     Returns ``(tallies, serve_launches, pair_launches)``: B7's kernel,
     plain and bound ms summed over one int8 request (subm, strided) or the
-    inverse layer."""
+    inverse layer; and one width of each B7 variant with its MMA rows
+    counted on the card by ``b7_count_lib`` (``tools/b7_ablation.py``'s
+    counting build)."""
     import numpy as np
     from spconv_tpu_torch import SparseConv3d, SparseInverseConv3d
     from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.tools import b7_ablation as BA
     from spconv_tpu_torch.quantization import (
         MinMaxObserver, PerChannelMinMaxObserver, QuantizedSparseConv,
         dequantize, observe_encoder_scales, quantize_encoder)
@@ -1011,15 +1069,24 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
                           dtype=torch.int32).to(torch.int8)
         return q if valid is None else q * valid[:, None]
 
-    def q_case(layer, path, pos, valid_src, c, k, add, mult):
+    def q_operands(pos, valid_src, c, k, add):
+        """Random int8 features on the valid source rows and weights
+        (``[kv, C, K]`` views of ``[kv, K, C]`` tensors, as the int8 modules
+        hold them), a scale that puts the outputs in and past +-127, a
+        bias, the residual (or None)."""
         kv = pos.shape[0]
-        x, w = randq((valid_src.shape[0], c), valid_src), randq((kv, c, k))
+        x = randq((valid_src.shape[0], c), valid_src)
+        w = randq((kv, c, k)).transpose(1, 2).contiguous().transpose(1, 2)
         matched = max(1.0, float((pos >= 0).sum()) / float(
             (pos >= 0).any(0).sum().clamp(min=1)))
         u = torch.rand((2, k), device=dev, generator=gen)
         scale = (0.5 + u[0]) * 60 / (5300 * float(np.sqrt(matched * c)))
         bias = (u[1] - 0.5) * 40
         res = randq((pos.shape[1], k)) if add else None
+        return x, w, scale, bias, res
+
+    def q_case(layer, path, pos, valid_src, c, k, add, mult):
+        x, w, scale, bias, res = q_operands(pos, valid_src, c, k, add)
         kw = dict(act="relu", add=res, add_scale=0.37)
 
         def fn():
@@ -1071,6 +1138,37 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
            32, 16, False, 1)
     print("per int8 CenterPoint request: " + ", ".join(
         f"{k} {v}" for k, v in tally.items()))
+
+    # one width of each B7 variant at the stage-0 shape, bit-equal to plain
+    # (bias, relu), timed, and the MMA rows it issues counted on the card
+    # by the counting build, which must equal the host model's count
+    pos0, valid0 = cp_rec["subm0"].pos, cp_in[0].valid_mask
+    b7_variants = {}
+    print("B7 variants at the CenterPoint stage-0 shape: C K tile grid vec "
+          "packed kernel_ms bound_ms, MMA rows issued (counted on the "
+          "card; gated equal to the host model) / needed by the matched "
+          "pairs (a host count from the table)")
+    for c, k in B7_WIDTHS:
+        x, w, scale, bias, _ = q_operands(pos0, valid0, c, k, False)
+        v = D.b7_variant(x.shape[0], c, k, aligned=x.data_ptr() % 16 == 0)
+        got = D.dg_fwd_q(x, w, pos0, scale, bias, act="relu")
+        check(torch.equal(got, D.dg_fwd_q_plain(x, w, pos0, scale, bias,
+                                                act="relu")),
+              f"B7 variant C={c} K={k}: differs from plain")
+        km = cuda_ms(torch, lambda: D.dg_fwd_q(
+            x, w, pos0, scale, bias, act="relu"), 10)
+        bnd = q_bound(x, w, pos0, k, False)
+        issued = BA.issued_mma_rows(b7_count_lib, x, w, pos0, scale, bias)
+        model, needed = D.b7_mma_rows(pos0, c, k)
+        check(issued == model, f"B7 C={c} K={k}: the card issued {issued} "
+              f"MMA rows, the host model counts {model}")
+        b7_variants[f"C{c}_K{k}"] = dict(
+            tile=[v.bm, v.bn], grid=list(v.grid), vec=v.vec,
+            packed=v.packed, ms=km, bound_ms=bnd[0],
+            mma_rows_issued=issued)
+        print(f"  {c:4d} {k:4d} {v.bm}x{v.bn} {v.grid} {v.vec} {v.packed}  "
+              f"{km:9.4f}  {bnd[0]:.4f}  {issued} / {needed} = "
+              f"{issued / needed:.4f}")
 
     # ---- serve three scans in int8, counted and checked
     with torch.inference_mode():
@@ -1140,6 +1238,32 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
             windows.setdefault(name, []).append(
                 device_busy(torch, lambda: runs[name](0), 3))
         peaks = {k: peak_mib(torch, lambda: fn(0)) for k, fn in runs.items()}
+
+        # the served request reads each layer's [kv, K, C] weight as it
+        # is: its profiler window holds no copy of a tensor of a layer
+        # weight's shape, where the same request with the weights held
+        # [kv, C, K] copies each one (the ops' records on the host, which
+        # the profiler keeps in full; it can lose a device op's record now
+        # and then)
+        qmods = [m for m in qnet.modules()
+                 if isinstance(m, QuantizedSparseConv)]
+        served = weight_copies(torch, lambda: runs["int8"](0), qmods)
+        held = [m.weight_kc for m in qmods]
+        for m in qmods:
+            m.weight_kc = m.weight_kv.contiguous().transpose(1, 2)
+        try:
+            copied = weight_copies(torch, lambda: runs["int8"](0), qmods)
+        finally:
+            for m, wkc in zip(qmods, held):
+                m.weight_kc = wkc
+        check(len(qmods) == 21 and served[0] == 0
+              and copied[0] == len(qmods),
+              f"int8 request: {served[0]} weight copies ({len(qmods)} int8 "
+              f"layers); with the weights held [kv, C, K] {copied[0]}, "
+              "one a layer expected")
+    print(f"int8 request: no weight copy, {served[1]} device ops, "
+          f"{served[2]} of them B7 (with the weights held [kv, C, K]: "
+          f"{copied[0]} copies, {copied[1]} device ops)")
     for name in runs:
         busy = [b / w for w, b, _ in windows[name] if b]
         print(f"CenterPoint {name} request: host ms "
@@ -1211,7 +1335,7 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note):
               "int8 pair: the inverse's sites are not the input's, or 0")
     print(f"int8 pair (down0 16->32 + inverse 32->16 on seed 0's int8 stage "
           f"0): bit-equal to plain; launches {pair_launches}")
-    return tally, serve_launches, pair_launches
+    return tally, serve_launches, pair_launches, b7_variants
 
 
 def pool_bound(n_act, n_buf, m, c, esz):
@@ -1595,7 +1719,11 @@ def search_phase(torch, dev, gen, scans, geo, bounds, served, note):
     print("int8 search mode (S4) and run_int8: C=K, search / table ms, "
           "bf16 and int8")
     for c in SEARCH_Q_WIDTHS:
-        x8, w8 = randq((n0, c), 100), randq((27, c, c), 80)
+        # the weight as the int8 modules hold it: a [kv, C, K] view of the
+        # [kv, K, C] tensor B7 reads
+        x8 = randq((n0, c), 100)
+        w8 = randq((27, c, c), 80).transpose(1, 2).contiguous().transpose(
+            1, 2)
         scale = torch.rand(c, device=dev, generator=gen) * 0.009 + 0.001
         res = randq((n0, c), 90)
         for add in (None, res):
@@ -2368,18 +2496,25 @@ def main():
     from spconv_tpu_torch._build import (BUILD_DIR, build_library,
                                          load_library)
     from spconv_tpu_torch.tools import ablation as AB
+    from spconv_tpu_torch.tools import b7_ablation as BA
     from spconv_tpu_torch.tools import wgrad_ablation as WA
 
-    # beside the library: the bf16 wgrad's counting build (its k16 slices
-    # counted on the card, tools/wgrad_ablation.py's COUNT)
-    with ThreadPoolExecutor(1) as pool:
+    # beside the library: the bf16 wgrad's and B7's counting builds (their
+    # MMAs counted on the card, tools/wgrad_ablation.py's and
+    # tools/b7_ablation.py's COUNT)
+    with ThreadPoolExecutor(2) as pool:
         count_build = pool.submit(AB.build, "dg_wgrad.cu", (WA.COUNT,),
                                   WA.COUNT_ARGTYPES,
                                   BUILD_DIR / "wgrad_count")
+        b7_count_build = pool.submit(AB.build, "dg_fwd_q.cu", (BA.COUNT,),
+                                     BA.COUNT_ARGTYPES,
+                                     BUILD_DIR / "b7_count")
         path, secs, log = build_library()
         load_library()
         count_lib = count_build.result()[WA.COUNT[0]]
-    print(f"build: {path.name} in {secs:.2f} s, and the wgrad counting build")
+        b7_count_lib = b7_count_build.result()[BA.COUNT[0]]
+    print(f"build: {path.name} in {secs:.2f} s, and the wgrad and B7 "
+          "counting builds")
 
     from spconv_tpu_torch.benchmark import basic as B
     from spconv_tpu_torch.core import SparseConvTensor
@@ -2387,17 +2522,23 @@ def main():
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
 
-    # ptxas's report of every kernel: B2's and wgrad's bf16 variants with
+    # ptxas's report of every kernel: B2's, wgrad's and B7's variants with
     # the dynamic shared memory of their launch (b2_smem_bytes,
-    # wgrad_smem_bytes), printed; a wgrad variant that spills fails
+    # wgrad_smem_bytes, b7_smem_bytes), printed; a wgrad or B7 variant that
+    # spills fails
     tiles = {t: i for i, t in enumerate(D.B2_TILES)}
     w_tiles = {t: i for i, t in enumerate(D.WGRAD_TILES)}
-    w_seen = 0
+    q_tiles = {(bm, bn, bk): i for i, (bm, bn, bk) in enumerate(D.B7_TILES)}
+    w_seen = q_seen = 0
+    spilled = []
     report = ptxas_report(log)
     for name, lines in report:
         m = re.search(r"dg_fwd_bf16_kernel<[^<]*Tile<(\d+), (\d+), \d+, \d+, "
                       r"(\d+)>, (true|false)", name)
         w = wgrad_tile(name)
+        q = b7_tile(name)
+        spills = [int(v) for line in lines
+                  for v in re.findall(r"(\d+) bytes spill", line)]
         dyn = ""
         if m:
             tile = tiles[(int(m[1]), int(m[2]), int(m[3]))]
@@ -2407,14 +2548,25 @@ def main():
             tile = w_tiles[w]
             dyn = f"; {D.wgrad_smem_bytes(tile)} bytes dynamic smem"
             w_seen += 1
-            spills = [int(v) for line in lines
-                      for v in re.findall(r"(\d+) bytes spill", line)]
-            check(not any(spills), f"wgrad variant spills: {name}: {lines}")
+            if any(spills):
+                spilled.append(f"wgrad variant {name}: {lines}")
+        if q:
+            (bm, bn, _, _, bk), vec, packed = q
+            tile = q_tiles[(bm, bn, bk)]
+            dyn = (f"; {D.b7_smem_bytes(tile)} bytes dynamic smem (B7 tile "
+                   f"{tile}, vec {vec}, packed {packed})")
+            q_seen += 1
+            if any(spills):
+                spilled.append(f"B7 variant {name}: {lines}")
         print(f"  ptxas {name}: {'; '.join(lines)}{dyn}")
+    check(not spilled, "variants spill: " + "; ".join(spilled))
     # 6 tiles x vec x (table, search), their names demangled or not
     check(w_seen == 4 * len(D.WGRAD_TILES),
           f"ptxas reported {w_seen} wgrad bf16 variants, not "
           f"{4 * len(D.WGRAD_TILES)}")
+    # B7: 4 tiles x vec x packed x (table, search)
+    check(q_seen == 8 * len(D.B7_TILES),
+          f"ptxas reported {q_seen} B7 variants, not {8 * len(D.B7_TILES)}")
 
     # ---- 3. each kernel against its plain version --------------------
     t0 = time.perf_counter()
@@ -3050,8 +3202,9 @@ def main():
      u_sk) = unet_phase(torch, dev, gen, cp_in, cp_rec, note)
 
     # ---- 8. the int8 CenterPoint encoder -------------------------------
-    q_tot, q_serve, q_pair = int8_phase(torch, dev, gen, cp_in, cp16, cp_net,
-                                        net32, cp_rec, note)
+    q_tot, q_serve, q_pair, b7_variants = int8_phase(
+        torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note,
+        b7_count_lib)
 
     # ---- 9. the sorted-key pool (B6) ----------------------------------
     (sk_pool, sk_seg_ms, sk_pool_err, sk_serve, sk_train,
@@ -3178,7 +3331,8 @@ def main():
         row("dg_fwd_q", csrc + "dg_fwd_q.cu",
             pallas + "dg_conv.py:339 (packmode q4, shift probes, posmode; "
             "launched at :1152 by dg_subm_conv_q :1162)",
-            q_serve["dg_fwd_q"], errs("dg_fwd_q"), q_tot["dg_fwd_q"]),
+            q_serve["dg_fwd_q"], errs("dg_fwd_q"), q_tot["dg_fwd_q"],
+            variants=b7_variants),
         row("dg_fwd_q_strided", csrc + "dg_fwd_q.cu",
             pallas + "dg_conv.py:339 (packmode q4, affine probes; launched "
             "at :1152 by dg_regular_conv_q :1219)",

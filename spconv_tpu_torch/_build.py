@@ -134,15 +134,15 @@ def load_library() -> ctypes.CDLL:
         "dg_fwd_search_bf16_launch": [vp, vp, vp, vp, i32, i32, i32, i32,
                                       ctypes.POINTER(i32), i32, i32, i32,
                                       i32, i32, vp],
-        # x, w, pos, scale, bias, add, add_scale, relu, out, n, C, K, kv,
-        # stream
+        # x, wt, pos, scale, bias, add, add_scale, relu, out, n, C, K, kv,
+        # tile, vec, stream
         "dg_fwd_q_launch": [vp, vp, vp, vp, vp, vp, ctypes.c_float, i32, vp,
-                            i32, i32, i32, i32, vp],
-        # x, w, keys, scale, bias, add, add_scale, relu, out, n, C, K, kv,
-        # geom, sentinel, stream
+                            i32, i32, i32, i32, i32, i32, vp],
+        # x, wt, keys, scale, bias, add, add_scale, relu, out, n, C, K, kv,
+        # geom, sentinel, tile, vec, stream
         "dg_fwd_q_search_launch": [vp, vp, vp, vp, vp, vp, ctypes.c_float,
                                    i32, vp, i32, i32, i32, i32,
-                                   ctypes.POINTER(i32), i32, vp],
+                                   ctypes.POINTER(i32), i32, i32, i32, vp],
         # x, dout, pos_rev, part, out, n, C, K, kv, splits, stream
         "dg_wgrad_f32_launch": [vp, vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                 vp],

@@ -516,32 +516,9 @@ dg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   };
 
   for (int k0 = 0; k0 < kv; k0 += kGroup) {
-    const int gk = min(kGroup, kv - k0);
-    __syncthreads();  // the previous group's rows and lists are read
-    src.fill(rows, k0, gk, row0);
-    __syncthreads();
-    // live[kk] bit j: some row of the block's j-th 16 matches at offset kk
-    for (int kk = warp; kk < gk; kk += kThreads / 32) {
-      unsigned bits = 0u;
-#pragma unroll
-      for (int j = 0; j < T::BM / 32; ++j) {
-        const unsigned b = __ballot_sync(
-            0xffffffffu, rows[kk * T::BM + j * 32 + lane] >= 0);
-        bits |= ((b & 0xffffu) != 0u ? 1u : 0u) << (2 * j);
-        bits |= ((b >> 16) != 0u ? 1u : 0u) << (2 * j + 1);
-      }
-      if (lane == 0) live[kk] = bits;
-    }
-    __syncthreads();
-    // the offsets that match anywhere in the block, ascending
-    if (warp == 0) {
-      const unsigned bits = lane < gk ? live[lane] : 0u;
-      const unsigned any = __ballot_sync(0xffffffffu, bits != 0u);
-      if (bits != 0u) list[__popc(any & ((1u << lane) - 1u))] = lane;
-      if (lane == 0) *count = __popc(any);
-    }
-    __syncthreads();
-    cnt = *count;
+    // the group's rows, live bits and live offsets (dg_search.cuh)
+    cnt = dg::stage_group<T::BM>(src, rows, live, list, count, k0,
+                                 min(kGroup, kv - k0), row0);
     const int steps =
         PACKED ? (cnt + kSlices - 1) / kSlices : cnt * nchunks;
 #pragma unroll
@@ -590,29 +567,6 @@ dg_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 }
-
-// the two row sources' arguments, made into the Src of a tile's BM
-struct TableArgs {
-  const int* pos;
-  int n;
-  template <int BM_>
-  dg::TableTile<BM_> make() const {
-    return {pos, n};
-  }
-};
-
-struct SearchArgs {
-  const int* keys;
-  int n;
-  int kv;
-  dg::SubmGeom g;
-  int sentinel;
-  int reverse;
-  template <int BM_>
-  dg::SearchTile<BM_> make() const {
-    return {keys, n, kv, g, sentinel, reverse};
-  }
-};
 
 template <class T, bool TRANS, bool VEC, bool PACKED, class Src>
 int launch_variant(const void* x, const void* w, Src src, void* out, int n,
@@ -706,7 +660,7 @@ extern "C" int dg_fwd_bf16_launch(const void* x, const void* w,
                                   const void* pos, void* out, int n, int C,
                                   int K, int kv, int tile, int vec, int trans,
                                   void* stream) {
-  return b2::launch(x, w, b2::TableArgs{static_cast<const int*>(pos), n},
+  return b2::launch(x, w, dg::TableArgs{static_cast<const int*>(pos), n},
                     out, n, C, K, kv, tile, vec, trans, stream);
 }
 
@@ -732,7 +686,7 @@ extern "C" int dg_fwd_search_bf16_launch(const void* x, const void* w,
                                          int reverse, int tile, int vec,
                                          int trans, void* stream) {
   return b2::launch(x, w,
-                    b2::SearchArgs{static_cast<const int*>(keys), n, kv,
+                    dg::SearchArgs{static_cast<const int*>(keys), n, kv,
                                    dg::subm_geom(geom), sentinel, reverse},
                     out, n, C, K, kv, tile, vec, trans, stream);
 }

@@ -1,7 +1,8 @@
 // The subm probe, shared by B1's subm mode (dg_pos.cu) and the search-mode
-// gather-GEMMs (dg_fwd.cu, dg_wgrad.cu, dg_fwd_q.cu), and the two row
-// sources of a gather-GEMM's output tile: a cached match table, or an
-// in-block search of the same rows.
+// gather-GEMMs (dg_fwd.cu, dg_wgrad.cu, dg_fwd_q.cu), the two row sources
+// of a gather-GEMM's output tile (a cached match table, or an in-block
+// search of the same rows), and the staging of a group of offsets' rows
+// that the pipelined forward kernels (B2, B7) share.
 //
 // The search row sources replace the search mode (posmode=False, shift
 // probes) of spconv_tpu/ops/pallas/dg_conv.py::_dg_fwd_kernel (:339,
@@ -17,6 +18,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "sm90_mma.cuh"
 
 namespace dg {
 
@@ -138,9 +141,9 @@ __device__ __forceinline__ void search_rows(const int* __restrict__ keys,
 // matches, block-wide, so the whole block skips the offset together.  Every
 // thread of the block calls it with the same k, for k = 0, 1, ..., kv - 1.
 // fill(sm, k0, gk, row0) writes the source rows of the gk offsets from k0
-// at once, sm[kk * BM + r] for offset k0 + kk, with no barrier: B2's
-// pipelined mainloop (dg_fwd.cu) stages a group of offsets' rows ahead of
-// its gathers.
+// at once, sm[kk * BM + r] for offset k0 + kk, with no barrier: the
+// pipelined forward kernels (B2, B7) stage a group of offsets' rows ahead
+// of their gathers (stage_group).
 
 // The rows from a cached match table pos [kv, n].
 template <int BM>
@@ -149,13 +152,22 @@ struct TableTile {
   const int* pos;
   int n;
 
+  // The table's rows are copied with 4-byte cp.async, so that all of a
+  // thread's table reads are in flight at once.  It waits for all of the
+  // thread's cp.async groups (B2 and B7 call it with none in flight).
   __device__ __forceinline__ void fill(int* sm, int k0, int gk,
                                        int row0) const {
     for (int e = threadIdx.x; e < gk * BM; e += blockDim.x) {
       const int r = row0 + e % BM;
-      sm[e] = r < n ? __ldg(pos + static_cast<size_t>(k0 + e / BM) * n + r)
-                    : -1;
+      if (r < n) {
+        sm90::cp_async4(sm + e,
+                        pos + static_cast<size_t>(k0 + e / BM) * n + r);
+      } else {
+        sm[e] = -1;
+      }
     }
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
   }
 
   __device__ __forceinline__ const int* tile(int* sm, int k,
@@ -219,5 +231,68 @@ struct SearchTile {
     return hit[kk] ? sm + kk * BM : nullptr;
   }
 };
+
+// The two row sources' launch arguments, made into the Src of a tile's BM.
+struct TableArgs {
+  const int* pos;
+  int n;
+  template <int BM>
+  TableTile<BM> make() const {
+    return {pos, n};
+  }
+};
+
+struct SearchArgs {
+  const int* keys;
+  int n;
+  int kv;
+  SubmGeom g;
+  int sentinel;
+  int reverse;
+  template <int BM>
+  SearchTile<BM> make() const {
+    return {keys, n, kv, g, sentinel, reverse};
+  }
+};
+
+// Stages the block's rows of the gk (<= kSearchGroup) offsets from k0:
+// rows[kk * BM + r] (src.fill), live[kk] with bit j set where some row of
+// the block's j-th 16 matches at offset k0 + kk, and the offsets that match
+// anywhere in the block, ascending, in list.  Returns their count.  Every
+// thread of the block calls it; it begins and ends with a barrier, so the
+// previous group's rows and lists may still be read up to the call.
+template <int BM, class Src>
+__device__ __forceinline__ int stage_group(const Src& src, int* rows,
+                                           unsigned* live, int* list,
+                                           int* count, int k0, int gk,
+                                           int row0) {
+  static_assert(BM % 32 == 0 && BM / 16 <= 32,
+                "one live bit per 16 rows, two per warp ballot");
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  __syncthreads();  // the previous group's rows and lists are read
+  src.fill(rows, k0, gk, row0);
+  __syncthreads();
+  for (int kk = warp; kk < gk; kk += blockDim.x / 32) {
+    unsigned bits = 0u;
+#pragma unroll
+    for (int j = 0; j < BM / 32; ++j) {
+      const unsigned b =
+          __ballot_sync(0xffffffffu, rows[kk * BM + j * 32 + lane] >= 0);
+      bits |= ((b & 0xffffu) != 0u ? 1u : 0u) << (2 * j);
+      bits |= ((b >> 16) != 0u ? 1u : 0u) << (2 * j + 1);
+    }
+    if (lane == 0) live[kk] = bits;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const unsigned bits = lane < gk ? live[lane] : 0u;
+    const unsigned any = __ballot_sync(0xffffffffu, bits != 0u);
+    if (bits != 0u) list[__popc(any & ((1u << lane) - 1u))] = lane;
+    if (lane == 0) *count = __popc(any);
+  }
+  __syncthreads();
+  return *count;
+}
 
 }  // namespace dg

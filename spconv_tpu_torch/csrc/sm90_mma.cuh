@@ -1,7 +1,8 @@
-// The Hopper building blocks shared by the pipelined bf16 gather-GEMMs
-// (B2 in dg_fwd.cu, wgrad in dg_wgrad.cu): 16-byte cp.async copies into a
-// shared-memory ring, ldmatrix loads of m8n8 tiles and the m16n8k16 bf16
-// tensor-core MMA with f32 sums.
+// The Hopper building blocks shared by the pipelined gather-GEMMs (B2 in
+// dg_fwd.cu, wgrad in dg_wgrad.cu, B7 in dg_fwd_q.cu): 16-byte cp.async
+// copies into a shared-memory ring, ldmatrix loads of m8n8 tiles, the
+// m16n8k16 bf16 tensor-core MMA with f32 sums and the m16n8k32 s8 one with
+// s32 sums.
 
 #pragma once
 
@@ -20,6 +21,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (both 4-byte
+// aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
                : "memory");
 }
 
@@ -55,6 +65,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a @ b on one m16n8k32 tile: s8 operands, s32 sums (exact).  The
+// fragments are ldmatrix's m8n8 b16 tiles read as 8 rows of 16 bytes: A
+// from the rows (channels contiguous), B from the columns (W[k]^T, its
+// channels contiguous).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

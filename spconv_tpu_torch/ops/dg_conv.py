@@ -35,7 +35,10 @@ The kernel wrappers, each with its plain PyTorch version beside it:
   wrapper picks from the shapes (:func:`wgrad_variant`).
 * ``dg_fwd_q`` (kernel ``csrc/dg_fwd_q.cu``): the int8 gather-GEMM of the
   quantized convs, int32 accumulation and the fused scale / bias / residual
-  / ReLU / requant epilogue, on any of the three forward tables.
+  / ReLU / requant epilogue, on any of the three forward tables.  The
+  kernel reads the weight as ``W[k]^T`` (``[kv, K, C]``, which the int8
+  modules fold once) on a tile the wrapper picks from the shapes
+  (:func:`b7_variant`).
 * the search mode of a subm conv (the JAX package's ``pos=None``), the same
   kernels with each block searching its own rows' matches in the sorted
   keys (``csrc/dg_search.cuh``) instead of reading a table: ``dg_fwd_search``
@@ -88,6 +91,11 @@ __all__ = [
     "b2_smem_bytes",
     "dg_fwd_q",
     "dg_fwd_q_plain",
+    "B7_TILES",
+    "B7Variant",
+    "b7_variant",
+    "b7_smem_bytes",
+    "b7_mma_rows",
     "dg_regular_conv",
     "dg_dgrad",
     "dg_dgrad_plain",
@@ -630,6 +638,24 @@ class B2Variant(NamedTuple):
     vec: bool     # 16-byte gathers of the features' rows, else element loads
 
 
+def _full_width_tile(tiles, n: int, k_out: int):
+    """``(tile, grid)`` of a gather-GEMM of ``n`` output rows and ``k_out``
+    columns on ``tiles`` ((BM, BN, BK) by variant, BN ascending): the
+    narrowest tile whose BN covers ``k_out`` (the widest, with column tiles
+    past it), made narrower, down to 64 columns, while the call has fewer
+    blocks than one wave."""
+    tile = next((i for i, (_, bn, _) in enumerate(tiles) if bn >= k_out),
+                len(tiles) - 1)
+
+    def grid(t):
+        bm, bn, _ = tiles[t]
+        return -(-n // bm), -(-k_out // bn)
+
+    while tiles[tile][1] > _B2_MIN_SPLIT_BN and np.prod(grid(tile)) < _B2_WAVE:
+        tile -= 1
+    return tile, grid(tile)
+
+
 def b2_variant(n: int, c: int, k_out: int, aligned: bool = True
                ) -> B2Variant:
     """The tile of a bf16 gather-GEMM of ``n`` output rows, ``c`` input and
@@ -638,18 +664,9 @@ def b2_variant(n: int, c: int, k_out: int, aligned: bool = True
     64 columns, while the call has fewer blocks than one wave.  ``vec``:
     the 16-byte gather, for ``c % 8 == 0`` and features ``aligned`` to 16
     bytes; else the scalar-gather variant."""
-    tile = next((i for i, (_, bn, _) in enumerate(B2_TILES) if bn >= k_out),
-                len(B2_TILES) - 1)
-
-    def grid(t):
-        bm, bn, _ = B2_TILES[t]
-        return -(-n // bm), -(-k_out // bn)
-
-    while (B2_TILES[tile][1] > _B2_MIN_SPLIT_BN
-           and np.prod(grid(tile)) < _B2_WAVE):
-        tile -= 1
+    tile, grid = _full_width_tile(B2_TILES, n, k_out)
     bm, bn, _ = B2_TILES[tile]
-    return B2Variant(tile, bm, bn, grid(tile), c % 8 == 0 and aligned)
+    return B2Variant(tile, bm, bn, grid, c % 8 == 0 and aligned)
 
 
 def b2_smem_bytes(tile: int, trans: bool) -> int:
@@ -720,7 +737,10 @@ def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     ``y = f32(acc) * scale + bias + f32(add) * add_scale``, ``act`` ("none"
     or "relu"), rounded half to even and clipped to [-127, 127], each float
     step rounded on its own as the TPU kernel does.  ``x``: ``[N_src, C]``
-    int8; ``weight_kv``: ``[kv, C, K]`` int8; ``pos``: ``[kv, N_dst]``
+    int8; ``weight_kv``: ``[kv, C, K]`` int8, contiguous or the transposed
+    view of a contiguous ``[kv, K, C]`` (the layout the kernel reads; a
+    CUDA call copies any other into it, the int8 modules hold it so);
+    ``pos``: ``[kv, N_dst]``
     int32 in ``[-1, N_src)`` (trusted, as :func:`dg_fwd`'s); ``scale`` and
     ``bias`` (or None): ``[K]`` f32, already divided by the output scale;
     ``add``: ``[N_dst, K]`` int8 residual, subm path only; ``add_scale``:
@@ -751,8 +771,8 @@ def _check_q(name, x, weight_kv, n, scale, bias, act, add, rows):
     """Checks shared by the int8 wrappers: ``x`` ``[N_src, C]`` and
     ``weight_kv`` ``[kv, C, K]`` int8, ``scale`` and ``bias`` ``[K]`` f32,
     ``act`` one of ``_ACTS_Q``, ``add`` ``[n, K]`` int8; every operand and
-    ``rows`` (the table or the keys) contiguous on one device, the CPU or
-    CUDA."""
+    ``rows`` (the table or the keys) on one device, the CPU or CUDA, and
+    contiguous, ``weight_kv`` or its ``[kv, K, C]`` transpose."""
     _check(x.dtype == weight_kv.dtype == torch.int8,
            f"{name} takes int8 features and weights, got {x.dtype} and "
            f"{weight_kv.dtype}")
@@ -773,10 +793,12 @@ def _check_q(name, x, weight_kv, n, scale, bias, act, add, rows):
                f"{name}: add must be [{n}, {k_out}] int8, got "
                f"{tuple(add.shape)} {add.dtype}")
         vecs.append(add)
-    tensors = [x, weight_kv, rows] + vecs
-    _check(all(t.device == x.device for t in tensors),
+    tensors = [x, rows] + vecs
+    _check(all(t.device == x.device for t in tensors + [weight_kv]),
            f"{name}: operands must be on one device")
-    _check(all(t.is_contiguous() for t in tensors),
+    _check(all(t.is_contiguous() for t in tensors)
+           and (weight_kv.is_contiguous()
+                or weight_kv.transpose(1, 2).is_contiguous()),
            f"{name} needs contiguous tensors")
     if x.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no {name} kernel for {x.device}")
@@ -809,10 +831,89 @@ def dg_fwd_q_plain(x: torch.Tensor, weight_kv: torch.Tensor,
     return torch.round(y).clamp_(-127.0, 127.0).to(torch.int8)
 
 
+# B7's tiles, by variant number: (rows BM, columns BN) of a block's output
+# tile and the input channels BK of a pipeline step (csrc/dg_fwd_q.cu,
+# b7::Tile0..3).  BN covers K up to 128, so a block gathers each matched
+# row once for all of K; a step moves the bytes of B2's (B2_TILES).
+B7_TILES = ((128, 16, 128), (128, 32, 128), (64, 64, 128), (64, 128, 64))
+
+
+class B7Variant(NamedTuple):
+    """The int8 gather-GEMM kernel that one call launches."""
+    tile: int     # index into B7_TILES
+    bm: int
+    bn: int
+    grid: Tuple[int, int]  # (row tiles, column tiles)
+    vec: bool     # 16-byte gathers of the features' rows, else byte loads
+    packed: bool  # C <= BK / 2: several offsets a step
+
+
+def b7_variant(n: int, c: int, k_out: int, aligned: bool = True
+               ) -> B7Variant:
+    """The tile of an int8 gather-GEMM of ``n`` output rows, ``c`` input
+    and ``k_out`` output channels: the narrowest tile whose BN covers
+    ``k_out`` (the widest, 128, with column tiles past it), made narrower,
+    down to 64 columns, while the call has fewer blocks than one wave (as
+    :func:`b2_variant`).  ``vec``: the 16-byte gather, for ``c % 16 == 0``
+    and features ``aligned`` to 16 bytes; else the scalar-gather variant.
+    ``packed``: ``c`` at most half the tile's step BK, so that a step holds
+    several offsets."""
+    tile, grid = _full_width_tile(B7_TILES, n, k_out)
+    bm, bn, bk = B7_TILES[tile]
+    return B7Variant(tile, bm, bn, grid, c % 16 == 0 and aligned,
+                     c <= bk // 2)
+
+
+def b7_smem_bytes(tile: int) -> int:
+    """Dynamic shared memory of B7's tile ``tile``, as
+    ``b7::Tile::smem_bytes`` computes it: a ring of 4 stages, each a
+    gathered ``[BM, BK]`` int8 chunk and ``W[k]^T``'s ``[BN, BK]``, rows
+    padded by 16 bytes, then the rows of 32 offsets, their live bits and
+    list."""
+    bm, bn, bk = B7_TILES[tile]
+    return 4 * (bm + bn) * (bk + 16) + (32 * bm + 2 * 32 + 1) * 4
+
+
+def b7_mma_rows(pos: torch.Tensor, c: int, k_out: int) -> Tuple[int, int]:
+    """``(issued, needed)`` MMA rows of one column tile of B7 on the table
+    ``pos`` ``[kv, N]`` (or the rows S4 finds).  Issued: 16 for each (k32
+    slice, 16-row tile) whose MMAs a warp runs.  A block stages its offsets
+    32 at a time; an offset that matches nowhere in its rows takes no
+    slice; a 16-row tile multiplies a slice where one of its rows matches
+    one of the slice's offsets.  With ``c > 16`` an offset takes
+    ``ceil(c / 32)`` slices; with ``c <= 16`` (packed) a slice holds two of
+    the block's live offsets, in ascending order.  Needed: the rows a kernel
+    that multiplied each matched (row, offset) pair alone, with no padding,
+    would issue: the matched pairs times ``ceil(c / 32)``, or half of them
+    packed."""
+    kv, n = pos.shape
+    bm = B7_TILES[b7_variant(n, c, k_out).tile][0]
+    nb = -(-n // bm)
+    m = torch.nn.functional.pad(pos >= 0, (0, nb * bm - n))
+    tiles = m.reshape(kv, nb, bm // 16, 16).any(-1)  # [kv, blocks, tiles]
+    rows = 0
+    for k0 in range(0, kv, 32):
+        g = tiles[k0:k0 + 32]
+        if c > 16:
+            rows += 16 * -(-c // 32) * int(g.sum())
+            continue
+        # each block's live offsets first, ascending, then pairs of them
+        order = torch.argsort((~g.any(-1)).to(torch.int8), dim=0,
+                              stable=True)
+        g = torch.gather(g, 0, order[..., None].expand_as(g))
+        if g.shape[0] % 2:
+            g = torch.cat([g, torch.zeros_like(g[:1])])
+        rows += 16 * int((g[0::2] | g[1::2]).sum())
+    pairs = int((pos >= 0).sum())
+    return rows, (-(-pairs // 2) if c <= 16 else pairs * -(-c // 32))
+
+
 def _dg_fwd_q_cuda(x, weight_kv, rows, scale, bias, act, add, add_scale,
                    counter, search=()):
     """Launches B7's kernel on ``rows``, the table or (with ``search``)
-    the keys, as :func:`_gather_gemm_cuda`."""
+    the keys, as :func:`_gather_gemm_cuda`, reading the weight as
+    ``weight_kv.transpose(1, 2)`` (``[kv, K, C]``), copied only where that
+    view is not contiguous."""
     from .._build import load_library
 
     c = x.shape[1]
@@ -821,16 +922,20 @@ def _dg_fwd_q_cuda(x, weight_kv, rows, scale, bias, act, add, add_scale,
     out = torch.empty((n, k_out), dtype=torch.int8, device=x.device)
     if n == 0 or k_out == 0:
         return out
+    wt = weight_kv.transpose(1, 2)
+    if not wt.is_contiguous():
+        wt = wt.contiguous()
 
     def ptr(t):
         return ctypes.c_void_p(None if t is None else t.data_ptr())
 
+    v = b7_variant(n, c, k_out, aligned=x.data_ptr() % 16 == 0)
     lib = load_library()
     launch = lib.dg_fwd_q_search_launch if search else lib.dg_fwd_q_launch
     err = launch(
-        ptr(x), ptr(weight_kv), ptr(rows), ptr(scale), ptr(bias), ptr(add),
+        ptr(x), ptr(wt), ptr(rows), ptr(scale), ptr(bias), ptr(add),
         float(add_scale), int(act == "relu"), ptr(out), n, c, k_out, kv,
-        *search, _stream_ptr(x.device))
+        *search, v.tile, int(v.vec), _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out

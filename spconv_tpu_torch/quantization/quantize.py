@@ -123,8 +123,10 @@ class QuantizedSparseConv(SparseModule):
     f32 or None; Python floats ``input_scale`` and ``output_scale``.  It
     computes ``act(acc * s_in * s_w + bias [+ add * add_scale]) / s_out``
     requantized to int8, as the kernel route folds it: :meth:`refold`
-    derives the kernel's operands once (``scale_q``, ``bias_q``, the
-    ``[kv, C, K]`` weight ``weight_kv``; non-persistent buffers).  ``base``
+    derives the kernel's operands once (``scale_q``, ``bias_q`` and the
+    ``[kv, K, C]`` weight ``weight_kc``, the layout B7 reads;
+    non-persistent buffers).  ``weight_kv`` is its ``[kv, C, K]`` view.
+    ``base``
     is a copy of the fp conv without its tensors, keeping its geometry and
     ``indice_key``."""
 
@@ -162,10 +164,10 @@ class QuantizedSparseConv(SparseModule):
     def refold(self) -> None:
         """Derives the kernel's operands from the quantized state, in f32
         and in the JAX order, on the host: ``scale_q = input_scale *
-        weight_scale / output_scale``, ``bias_q = bias / output_scale``, and
-        ``weight_kv``.  Call it after changing ``weight_i8``,
-        ``weight_scale``, ``bias`` or a scale (``load_jax_state_dict``
-        does)."""
+        weight_scale / output_scale``, ``bias_q = bias / output_scale``
+        and ``weight_kc``.  Call it after changing
+        ``weight_i8``, ``weight_scale``, ``bias`` or a scale
+        (``load_jax_state_dict`` does)."""
         dev = self.weight_scale.device
         out_s = np.float32(self.output_scale)
         scale = (np.float32(self.input_scale)
@@ -175,8 +177,15 @@ class QuantizedSparseConv(SparseModule):
         self.register_buffer(
             "bias_q", None if self.bias is None else torch.from_numpy(
                 self.bias.cpu().numpy() / out_s).to(dev), persistent=False)
-        self.register_buffer("weight_kv", weight_krsc_to_kv(self.weight_i8),
-                             persistent=False)
+        self.register_buffer(
+            "weight_kc", weight_krsc_to_kv(self.weight_i8).transpose(
+                1, 2).contiguous(), persistent=False)
+
+    @property
+    def weight_kv(self) -> torch.Tensor:
+        """The ``[kv, C, K]`` weight of the conv functions: a view of
+        ``weight_kc``, which ``dg_fwd_q`` hands the kernel as it is."""
+        return self.weight_kc.transpose(1, 2)
 
     def extra_repr(self) -> str:
         return (f"act_type={self.act_type!r}, input_scale="

@@ -624,7 +624,16 @@ def _q_operands(case, path, c, k_out, seed):
     ("subm", 12, 20, "none+bias"), ("subm", 16, 16, "relu+add"),
     ("subm", 128, 128, "relu+bias+add"), ("strided", 16, 32, "relu+bias"),
     ("strided", 128, 128, "none"), ("inverse", 32, 16, "relu+bias"),
-    ("inverse", 64, 32, "none")])
+    ("inverse", 64, 32, "none"),
+    # the widths of B7's tiles and gathers (b7_variant): packed in 16-,
+    # 32- and 64-channel slots with byte and 16-byte gathers on the 16-,
+    # 32- and 64-wide tiles
+    ("subm", 32, 16, "relu+bias+add"), ("subm", 20, 16, "none+add"),
+    ("subm", 16, 32, "relu+bias+add"), ("subm", 24, 32, "relu+bias"),
+    ("subm", 5, 64, "relu+bias+add"), ("subm", 40, 48, "none+bias+add"),
+    ("subm", 16, 64, "relu+add"), ("strided", 5, 16, "none"),
+    ("strided", 20, 16, "relu+bias"), ("strided", 40, 48, "relu+bias"),
+    ("inverse", 16, 64, "relu+bias"), ("inverse", 12, 20, "none+bias")])
 def test_dg_fwd_q_kernel_matches_plain(dev, path, c, k_out, mode):
     """B7 on the card bit-equal to its plain version (run on the CPU) on
     every path and epilogue mode, and two runs bit-equal; one launch under
@@ -648,6 +657,189 @@ def test_dg_fwd_q_kernel_matches_plain(dev, path, c, k_out, mode):
     assert got.dtype == torch.int8 and tuple(got.shape) == tuple(ref.shape)
     assert torch.equal(got, again)
     assert torch.equal(got.cpu(), ref)
+
+
+# (tile, vec, packed) of each B7 variant -> (N, C, K) that takes it: slots
+# of 16 (C <= 16), 32 and 64 channels among the packed ones; the 128-wide
+# tile needs a wave of 64-row blocks (N >= 8,448)
+_B7_VARIANTS = {
+    (0, False, True): (3072, 5, 16), (0, True, True): (3072, 16, 16),
+    (0, True, False): (3072, 80, 16), (0, False, False): (3072, 72, 16),
+    (1, False, True): (3072, 24, 20), (1, True, True): (3072, 32, 32),
+    (1, True, False): (3072, 96, 32), (1, False, False): (3072, 100, 32),
+    (2, False, True): (3072, 40, 48), (2, True, True): (3072, 64, 64),
+    (2, True, False): (3072, 128, 64), (2, False, False): (3072, 72, 48),
+    (3, False, True): (10_000, 12, 100), (3, True, True): (10_000, 32, 128),
+    (3, True, False): (10_000, 128, 128),
+    (3, False, False): (10_000, 36, 96)}
+_B7_PATHS = [("subm", "none"), ("subm", "relu+bias"),
+             ("subm", "relu+bias+add"), ("strided", "none"),
+             ("strided", "relu+bias"), ("inverse", "none"),
+             ("inverse", "relu+bias")]
+
+
+def _b7_operands(dev, n, c, k_out, path, seed, kv=27, dead=(0, 0)):
+    """int8 operands of B7 on a random table ``[kv, n]`` of conv ``path``
+    (the source has ``n`` rows for "subm", ``2n`` for "strided", ``n / 2``
+    for "inverse"), on the card: features, weights, a scale that puts the
+    outputs in and past +-127, a bias, a residual and the table."""
+    n_src = {"subm": n, "strided": 2 * n, "inverse": n // 2}[path]
+    pos = _random_table(kv, n, n_src, seed, hit=0.3, dead=dead)
+    rng = np.random.RandomState(seed)
+    x = rng.randint(-127, 128, (n_src, c)).astype(np.int8)
+    w = rng.randint(-127, 128, (kv, c, k_out)).astype(np.int8)
+    scale = (rng.uniform(0.5, 1.5, k_out) * 60
+             / (5300 * np.sqrt(0.3 * kv * c))).astype(np.float32)
+    bias = rng.uniform(-20, 20, k_out).astype(np.float32)
+    add = rng.randint(-127, 128, (n, k_out)).astype(np.int8)
+    return [torch.from_numpy(t).to(dev) for t in (x, w, scale, bias, add)
+            ] + [pos.to(dev)]
+
+
+def _check_b7(x, w, scale, bias, add, pos, path, mode):
+    """B7 against its plain version, bit for bit, in epilogue ``mode``;
+    two runs bit-equal; one launch each under ``path``'s counter; returns
+    the output."""
+    kw = dict(act="relu" if "relu" in mode else "none",
+              add=add if "add" in mode else None, add_scale=0.37)
+    bias = bias if "bias" in mode else None
+    name = "dg_fwd_q" if path == "subm" else f"dg_fwd_q_{path}"
+    before = TD.launch_counts[name]
+    got = TD.dg_fwd_q(x, w, pos, scale, bias, path=path, **kw)
+    again = TD.dg_fwd_q(x, w, pos, scale, bias, path=path, **kw)
+    torch.cuda.synchronize()
+    assert TD.launch_counts[name] == before + 2
+    ref = TD.dg_fwd_q_plain(x.cpu(), w.cpu(), pos.cpu(), scale.cpu(),
+                            None if bias is None else bias.cpu(),
+                            **dict(kw, add=None if kw["add"] is None
+                                   else kw["add"].cpu()))
+    assert (ref.abs() == 127).any() and (ref != 0).any()
+    assert got.dtype == torch.int8 and torch.equal(got, again)
+    assert torch.equal(got.cpu(), ref)
+    return got
+
+
+@pytest.mark.parametrize("path,mode", _B7_PATHS)
+@pytest.mark.parametrize("variant", sorted(_B7_VARIANTS))
+def test_b7_variants_match_plain(dev, variant, path, mode):
+    """Every B7 variant (tile x 16-byte or byte gather x packed) on every
+    path and epilogue mode, bit-equal to plain, with the weight a
+    contiguous ``[kv, C, K]`` (copied by the wrapper) and the ``[kv, C,
+    K]`` view of a contiguous ``[kv, K, C]`` (read as it is)."""
+    n, c, k_out = _B7_VARIANTS[variant]
+    ops = _b7_operands(dev, n, c, k_out, path, 16)
+    v = TD.b7_variant(n, c, k_out)
+    assert (v.tile, v.vec, v.packed) == variant
+    got = _check_b7(*ops, path, mode)
+    ops[1] = ops[1].transpose(1, 2).contiguous().transpose(1, 2)
+    assert torch.equal(_check_b7(*ops, path, mode), got)
+
+
+@pytest.mark.parametrize("variant", sorted(_B7_VARIANTS))
+def test_dg_fwd_q_search_at_every_variant(dev, variant):
+    """S4 on each B7 variant (9,000 active rows of 9,216 for the
+    128-wide tile), with bias, ReLU and the residual: bit-equal to plain
+    and to B1 followed by the table mode."""
+    n, c, k_out = _B7_VARIANTS[variant]
+    nbuf = 3072 if n == 3072 else 9216
+    _, inds = _sorted_input(17, nbuf - nbuf // 32, c, nbuf)
+    keys, pos = _plain_pos(inds)
+    geom = TD.SearchGeom.of(KSIZE, DIL, SHAPE, 1)
+    x, w, scale, bias, add, _ = _b7_operands(dev, nbuf, c, k_out, "subm",
+                                              17)
+    x[nbuf - nbuf // 32:] = 0
+    v = TD.b7_variant(nbuf, c, k_out)
+    assert (v.tile, v.vec, v.packed) == variant
+    kw = dict(act="relu", add=add, add_scale=0.37)
+    TD.reset_launch_counts()
+    got = TD.dg_fwd_q_search(x, w, keys.to(dev), scale, bias, geom, **kw)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_q_search=1)
+    ref = TD.dg_fwd_q_search_plain(x.cpu(), w.cpu(), keys, scale.cpu(),
+                                   bias.cpu(), geom, act="relu",
+                                   add=add.cpu(), add_scale=0.37)
+    assert (ref.abs() == 127).any()
+    assert torch.equal(got.cpu(), ref)
+    pos_dev = TD.build_dg_pos(keys.to(dev), **geom._asdict())
+    assert torch.equal(pos_dev.cpu(), pos)
+    assert torch.equal(got, TD.dg_fwd_q(x, w, pos_dev, scale, bias, **kw))
+
+
+@pytest.mark.parametrize("c,k_out", [(64, 64), (16, 32), (12, 20),
+                                     (128, 128)])
+def test_b7_misaligned_view_takes_the_scalar_gather(dev, c, k_out):
+    """Features 1 byte past a 16-byte boundary (``base[1:]`` viewed as
+    ``[N, C]``) take the byte gather: bit-equal to the aligned call."""
+    n = 10_000 if k_out > 64 else 3072
+    x, w, scale, bias, add, pos = _b7_operands(dev, n, c, k_out, "subm",
+                                                18)
+    base = torch.empty(x.numel() + 1, dtype=torch.int8, device=dev)
+    xv = base[1:].view(x.shape)
+    xv.copy_(x)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 != 0
+    assert not TD.b7_variant(n, c, k_out, aligned=False).vec
+    got = _check_b7(xv, w, scale, bias, add, pos, "subm", "relu+bias+add")
+    assert torch.equal(got, _check_b7(x, w, scale, bias, add, pos, "subm",
+                                      "relu+bias+add"))
+
+
+@pytest.mark.parametrize("c,k_out", [(5, 16), (16, 32), (64, 64),
+                                     (128, 128)])
+def test_b7_offset_groups_without_matches(dev, c, k_out):
+    """A 5^3 kernel's 125 offsets (four staged groups) on 10,000 rows: the
+    first third of the rows and offsets 32-63 (a whole group) match
+    nothing, nor does offset 1; blocks with no match anywhere get the
+    epilogue of a zero sum.  Bit-equal to plain."""
+    x, w, scale, bias, add, pos = _b7_operands(dev, 10_000, c, k_out, "subm",
+                                               19, kv=125, dead=(0, 3333))
+    pos[32:64] = -1
+    got = _check_b7(x, w, scale, bias, add, pos, "subm", "relu+bias+add")
+    assert got[:3333].any()  # bias and residual alone
+
+
+def test_int8_request_launches_no_weight_copy(dev):
+    """A served int8 encoder request reads each layer's ``[kv, K, C]``
+    weight as it is: it launches 21 B7 kernels, and its profiler window
+    records no copy of a tensor of a layer weight's shape, where the same
+    request with the weights held ``[kv, C, K]`` copies each of the 21 (the
+    ops' host records: the profiler can lose a device op's record now and
+    then)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spconv_tpu_torch.quantization import (QuantizedSparseConv,
+                                               observe_encoder_scales,
+                                               quantize_encoder)
+
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                           n_target=1500, device=dev)
+    net = centerpoint_encoder(in_channels=5, bn=False, device=dev).eval()
+    qnet = quantize_encoder(net, scales=observe_encoder_scales(net, [x]))
+    mods = [m for m in qnet.modules() if isinstance(m, QuantizedSparseConv)]
+    shapes = {tuple(m.weight_kv.transpose(1, 2).shape) for m in mods}
+
+    def copies():
+        with torch.no_grad():
+            qnet(x)
+            torch.cuda.synchronize()
+            TD.reset_launch_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         record_shapes=True) as prof:
+                qnet(x)
+                torch.cuda.synchronize()
+        assert TD.launch_counts["dg_fwd_q"] + TD.launch_counts[
+            "dg_fwd_q_strided"] == 21
+        return sum(1 for e in prof.events() if e.name == "aten::contiguous"
+                   and e.input_shapes and tuple(e.input_shapes[0]) in shapes)
+
+    assert len(mods) == 21 and copies() == 0
+    held = [m.weight_kc for m in mods]
+    for m in mods:
+        m.weight_kc = m.weight_kv.contiguous().transpose(1, 2)
+    copied = copies()
+    for m, wkc in zip(mods, held):
+        m.weight_kc = wkc
+    assert copied == 21
 
 
 def test_int8_encoder_on_card_matches_cpu(dev):
