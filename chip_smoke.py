@@ -707,6 +707,8 @@ def unet_phase(torch, dev, gen, scans, cp_rec, note):
         print(f"  {layer:11s} {got.shape[0]:3d} {got.shape[1]:6d} "
               f"{rec.out_keys.shape[0]:6d} {matches:8d}  {km:9.4f}  "
               f"{pm:8.4f}  {bnd[0]:.4f}")
+    print(f"  divide tables at the edge inputs: "
+          f"{edge_tables(torch, dev, 'divide')} bit-equal to plain")
 
     def gemm_cases(layer, runs, dt):
         """Each ``kern: (kernel, plain, valid rows or None, tol, bound)``
@@ -1346,6 +1348,202 @@ def pool_bound(n_act, n_buf, m, c, esz):
     return bound((n_act + m) * c * esz + 4 * (n_buf + m))
 
 
+def edge_tables(torch, dev, kind):
+    """B1 bit-equal to its plain version at every edge input of
+    ``spconv_tpu_torch/tools/table_cases.py``, through the public entry
+    and through the windowed path (``b1_window_plan``; the entry takes the
+    direct path for small tables): ``kind`` "subm" (each case's subm
+    kernels, forward and reversed), "affine" or "divide" (its regular
+    convs), or "transposed" (both tables of a transposed conv with each
+    regular conv's geometry, on the swapped spaces, counted as
+    ``path="transposed"``).  Returns the number of tables checked."""
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops.rulebook import (build_conv_outputs,
+                                               build_deconv_outputs)
+    from spconv_tpu_torch.tools.table_cases import TABLE_CASES, table_case
+
+    import numpy as np
+    from spconv_tpu_torch._build import load_library
+
+    def windowed(rows, table, tg, batch):
+        """The table through B1's windowed path whatever its size (the
+        public entry takes the direct path for small tables)."""
+        pos = torch.empty((int(np.prod(tg.ksize)), rows.shape[0]),
+                          dtype=torch.int32, device=dev)
+        plan = D.b1_window_plan(rows.shape[0], tg.ksize, tg.stride,
+                                tg.divide, sms=D.sm_count(rows.device.index))
+        check(D.launch_b1(load_library(), rows, table, tg,
+                          C.grid_sentinel(tg.row_dims, batch), plan,
+                          pos) == 0, "B1's windowed launch failed")
+        return pos
+
+    checked = 0
+    for name in TABLE_CASES:
+        inds_np, shape, batch, subm, regular = table_case(name)
+        inds = torch.from_numpy(inds_np).to(dev)
+        keys, _ = C.linearize(inds, shape, batch)
+        if kind == "subm":
+            for ksize, dil in subm:
+                for rev in (False, True):
+                    geom = dict(ksize=ksize, dilation=dil,
+                                spatial_shape=shape, batch_size=batch,
+                                reverse=rev)
+                    want = D.dg_pos_plain(keys, **geom)
+                    check(torch.equal(D.build_dg_pos(keys, **geom), want)
+                          and torch.equal(windowed(
+                              keys, keys, D.TableGeom.subm(ksize, dil, shape,
+                                                           rev), batch),
+                              want),
+                          f"B1 subm {name} {ksize} reverse={rev} differs "
+                          "from plain at its edge input")
+                    checked += 2
+            continue
+        for ksize, stride, padding, dil in regular:
+            conv = dict(ksize=ksize, stride=stride, padding=padding,
+                        dilation=dil)
+            if kind == "transposed":
+                zero = (0,) * len(shape)
+                _, t_keys, _, _ = build_deconv_outputs(
+                    inds, spatial_shape=shape, batch_size=batch,
+                    out_padding=zero, **conv)
+                geom = dict(conv, in_shape=tuple(C.get_deconv_output_size(
+                    shape, ksize, stride, padding, dil, zero)),
+                            out_shape=shape, batch_size=batch)
+                spaces, path, modes = ((t_keys, keys), "transposed",
+                                       ("affine", "divide"))
+            else:
+                _, out_keys, _, _ = build_conv_outputs(
+                    inds, spatial_shape=shape, batch_size=batch,
+                    out_bound=inds.shape[0], **conv)
+                geom = dict(conv, in_shape=shape, out_shape=tuple(
+                    C.get_conv_output_size(shape, ksize, stride, padding,
+                                           dil)), batch_size=batch)
+                spaces, path, modes = (keys, out_keys), "strided", (kind,)
+            for mode in modes:
+                build, plain = ((D.build_dg_pos_affine,
+                                 D.dg_pos_affine_plain) if mode == "affine"
+                                else (D.build_dg_pos_divide,
+                                      D.dg_pos_divide_plain))
+                want = plain(*spaces, **geom)
+                tg = D.TableGeom.regular(mode == "divide", **{
+                    k: v for k, v in geom.items() if k != "batch_size"})
+                rows, table = spaces if mode == "divide" else spaces[::-1]
+                check(torch.equal(build(*spaces, path=path, **geom), want)
+                      and torch.equal(windowed(rows, table, tg, batch),
+                                      want),
+                      f"B1 {mode} ({path}) {name} {conv} differs from "
+                      "plain at its edge input")
+                checked += 2
+    return checked
+
+
+def edge_pools(torch, dev):
+    """B6 against its plain version at every pool edge input of
+    ``tools/table_cases.py``, f32 and bf16, max and mean, with a NaN, a
+    +inf and a -inf feature: max bit-equal (NaN where plain has it), mean
+    within ``SK_MEAN_TOL`` of max|ref|; and on a view of the features 2
+    bytes off 16-byte alignment (the scalar path).  Returns the number of
+    pools checked."""
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import sorted_pool as SKP
+    from spconv_tpu_torch.ops.rulebook import build_pool2_outputs
+    from spconv_tpu_torch.tools.table_cases import POOL_CASES, pool_case
+
+    checked = 0
+    for name in POOL_CASES:
+        feats, inds_np, shape, batch = pool_case(name)
+        inds = torch.from_numpy(inds_np).to(dev)
+        in_keys, _ = C.linearize(inds, shape, batch)
+        _, out_keys, _, _ = build_pool2_outputs(
+            inds, spatial_shape=shape, batch_size=batch,
+            out_bound=inds.shape[0])
+        kw = dict(in_shape=shape, out_shape=tuple(s // 2 for s in shape),
+                  batch_size=batch)
+        xf = torch.from_numpy(feats).to(dev)
+        rows = torch.nonzero(inds[:, 0] >= 0).squeeze(1)
+        xf[rows[3], 0] = float("nan")
+        xf[rows[10], -1] = float("inf")
+        xf[rows[20], 0] = float("-inf")
+        for dt in (torch.float32, torch.bfloat16):
+            x = xf.to(dt)
+            view = torch.empty(x.numel() + 1, dtype=dt, device=dev)[1:]
+            view = view.view_as(x).copy_(x)
+            for mode in ("max", "mean"):
+                for feat in (x, view):
+                    got = SKP.sk_pool2(feat, in_keys, out_keys, mode=mode,
+                                       **kw)
+                    ref = SKP.sk_pool2_plain(feat, in_keys, out_keys,
+                                             mode=mode, **kw)
+                    same_nan = torch.equal(got.isnan(), ref.isnan())
+                    if mode == "max":
+                        ok = same_nan and torch.equal(got.nan_to_num(),
+                                                      ref.nan_to_num())
+                    else:
+                        fin = torch.isfinite(ref)
+                        _, r = rel_err(torch, got[fin], ref[fin])
+                        ok = same_nan and r <= SK_MEAN_TOL and torch.equal(
+                            got[~fin].nan_to_num(), ref[~fin].nan_to_num())
+                    check(ok, f"B6 {mode} {dt} {name} differs from plain at "
+                          "its edge input")
+                    checked += 1
+    return checked
+
+
+def table_fallbacks(torch, dev, geo, count_lib):
+    """B1's windows that did not fit in its pool whole (their searches end
+    in global memory, sampled or not), counted on the card by the counting
+    build (``tools/table_count.py``), for each BenchNet stage's forward and
+    reversed table and the dense "slab" and "full_pool" inputs of
+    ``tools/table_cases.py``: each count equal to the host's
+    (``table_count.b1_fallbacks``), the two inputs' above 0, the
+    "full_pool" input's with windows that the host finds left without a
+    sample (the first window fills the pool), and every counting-build
+    table bit-equal to plain.  Returns ``{label: count}``."""
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.tools import table_count as TCN
+    from spconv_tpu_torch.tools.table_cases import table_case
+
+    cases = [(f"stage {s}", C.linearize(g.indices, g.spatial_shape, 1)[0],
+              tuple(g.spatial_shape), 1, KSIZE, DIL)
+             for s, g in enumerate(geo)]
+    for name in ("slab", "full_pool"):
+        inds, shape, batch, subm, _ = table_case(name)
+        cases.append((name, C.linearize(torch.from_numpy(inds).to(dev),
+                                        shape, batch)[0], shape, batch)
+                     + subm[0])
+    counts = {}
+    unsampled = 0
+    for label, keys, dims, batch, ksize, dil in cases:
+        sent = C.grid_sentinel(dims, batch)
+        for rev in (False, True):
+            tg = D.TableGeom.subm(ksize, dil, dims, rev)
+            plan = D.b1_plan(keys.shape[0], ksize,
+                             sms=D.sm_count(keys.device.index))
+            card, pos = TCN.fallen_back(count_lib, keys, keys, tg, sent,
+                                        plan)
+            host, none = TCN.b1_fallbacks(
+                TCN.b1_windows(keys, keys, tg, sent, plan), plan,
+                keys.shape[0])
+            check(torch.equal(pos, D.dg_pos_plain(
+                keys, ksize=ksize, dilation=dil, spatial_shape=dims,
+                batch_size=batch, reverse=rev)),
+                f"B1 counting build {label} reverse={rev} differs from "
+                "plain")
+            check(card == host, f"B1 {label} reverse={rev}: {card} windows "
+                  f"fell back on the card, {host} on the host")
+            counts[f"{label}{' reversed' if rev else ''}"] = card
+            if label == "full_pool":
+                unsampled += none
+    check(all(counts[k] > 0 for k in ("slab", "slab reversed", "full_pool",
+                                      "full_pool reversed")),
+          f"the edge inputs' windows all fit whole: {counts}")
+    check(unsampled > 0, "no window of the full_pool input is left without "
+          "a sample")
+    return counts
+
+
 def sk_pool_phase(torch, dev, gen, scans, geo, bounds, served):
     """Phase 9: the sorted-key pool (B6).  The kernel against its plain
     version at the six BenchNet pool shapes (``geo``: each pool's input,
@@ -1463,6 +1661,8 @@ def sk_pool_phase(torch, dev, gen, scans, geo, bounds, served):
     print(f"per bf16 forward (6 pools): max {tally['max']}, seg route "
           f"{seg_ms['max']:.4f} ms; mean {tally['mean']}, seg route "
           f"{seg_ms['mean']:.4f} ms")
+    print(f"  B6 at the edge inputs: {edge_pools(torch, dev)} pools equal to "
+          "plain")
 
     def sk_net(dtype, cls=SparseMaxPool3d, algo="sk", train=False):
         net = B.BenchNet(SHAPE, dtype=dtype, pool_bounds=bounds, device=dev,
@@ -2091,6 +2291,9 @@ def transposed_phase(torch, dev, cp_in, note):
         print(f"  {kern:26s} int32 exact  {km:9.4f}  {pm:8.4f}  "
               f"{bnd[0]:.4f} (matches {int((got >= 0).sum())} of "
               f"{got.numel()})")
+    n_edge = edge_tables(torch, dev, "transposed")
+    print(f"  B1 transposed tables at the edge inputs: {n_edge} bit-equal "
+          "to plain")
     div, aff = (tables["dg_pos_divide_transposed"],
                 tables["dg_pos_affine_transposed"])
     check(int((div >= 0).sum()) == int((aff >= 0).sum()) == act_exp,
@@ -2497,23 +2700,29 @@ def main():
                                          load_library)
     from spconv_tpu_torch.tools import ablation as AB
     from spconv_tpu_torch.tools import b7_ablation as BA
+    from spconv_tpu_torch.tools import table_count as TCN
     from spconv_tpu_torch.tools import wgrad_ablation as WA
 
     # beside the library: the bf16 wgrad's and B7's counting builds (their
     # MMAs counted on the card, tools/wgrad_ablation.py's and
-    # tools/b7_ablation.py's COUNT)
-    with ThreadPoolExecutor(2) as pool:
+    # tools/b7_ablation.py's COUNT) and B1's (its windows that did not fit
+    # its pool whole, tools/table_count.py's COUNT)
+    with ThreadPoolExecutor(3) as pool:
         count_build = pool.submit(AB.build, "dg_wgrad.cu", (WA.COUNT,),
                                   WA.COUNT_ARGTYPES,
                                   BUILD_DIR / "wgrad_count")
         b7_count_build = pool.submit(AB.build, "dg_fwd_q.cu", (BA.COUNT,),
                                      BA.COUNT_ARGTYPES,
                                      BUILD_DIR / "b7_count")
+        table_count_build = pool.submit(AB.build, "dg_pos.cu", (TCN.COUNT,),
+                                        TCN.COUNT_ARGTYPES,
+                                        BUILD_DIR / "table_count")
         path, secs, log = build_library()
         load_library()
         count_lib = count_build.result()[WA.COUNT[0]]
         b7_count_lib = b7_count_build.result()[BA.COUNT[0]]
-    print(f"build: {path.name} in {secs:.2f} s, and the wgrad and B7 "
+        table_count_lib = table_count_build.result()[TCN.COUNT[0]]
+    print(f"build: {path.name} in {secs:.2f} s, and the wgrad, B7 and B1 "
           "counting builds")
 
     from spconv_tpu_torch.benchmark import basic as B
@@ -2529,7 +2738,7 @@ def main():
     tiles = {t: i for i, t in enumerate(D.B2_TILES)}
     w_tiles = {t: i for i, t in enumerate(D.WGRAD_TILES)}
     q_tiles = {(bm, bn, bk): i for i, (bm, bn, bk) in enumerate(D.B7_TILES)}
-    w_seen = q_seen = 0
+    w_seen = q_seen = b1_seen = b6_seen = 0
     spilled = []
     report = ptxas_report(log)
     for name, lines in report:
@@ -2558,8 +2767,20 @@ def main():
             q_seen += 1
             if any(spills):
                 spilled.append(f"B7 variant {name}: {lines}")
+        if re.search(r"dg_pos_(direct_)?kernel|sk_pool_kernel", name):
+            if "dg_pos" in name:
+                b1_seen += 1
+            else:
+                b6_seen += 1
+            if any(spills):
+                spilled.append(f"B1 / B6 kernel {name}: {lines}")
         print(f"  ptxas {name}: {'; '.join(lines)}{dyn}")
     check(not spilled, "variants spill: " + "; ".join(spilled))
+    # B1: (windowed, direct) x ndim 1-4 x (affine, divide); B6: ndim 1-4
+    # x dtype x vec
+    check(b1_seen == 16 and b6_seen == 16,
+          f"ptxas reported {b1_seen} B1 and {b6_seen} B6 kernels, not 16 "
+          "and 16")
     # 6 tiles x vec x (table, search), their names demangled or not
     check(w_seen == 4 * len(D.WGRAD_TILES),
           f"ptxas reported {w_seen} wgrad bf16 variants, not "
@@ -2781,6 +3002,12 @@ def main():
           "reduce")
     print(f"per bf16 forward: dg_pos {tot['dg_pos']}, dg_fwd "
           f"{tot['dg_fwd']}")
+    n_edge = edge_tables(torch, dev, "subm")
+    print(f"B1 subm tables at the edge inputs: {n_edge} bit-equal to plain")
+    fallbacks = table_fallbacks(torch, dev, geo, table_count_lib)
+    print(f"B1 windows that did not fit whole, their searches ending in "
+          f"global memory (counted on the card, equal to the host count, "
+          f"tables bit-equal): {fallbacks}")
     print(f"per bf16 training step, backward: dg_pos_rev "
           f"{tot['dg_pos_rev']}, dg_dgrad {tot['dg_dgrad']}, dg_wgrad "
           f"{tot['dg_wgrad']}")
@@ -2896,6 +3123,9 @@ def main():
                 rec.out_indices[:, 0] >= 0, pos, c, k, key, 1)
     print("per bf16 CenterPoint request: " + ", ".join(
         f"{k} {v}" for k, v in cp_tot.items()))
+    n_edge = edge_tables(torch, dev, "affine")
+    print(f"B1 affine tables at the edge inputs: {n_edge} bit-equal to "
+          "plain")
 
     # ---- 4. serve ----------------------------------------------------
     net = B.BenchNet(SHAPE, dtype=torch.bfloat16, pool_bounds=bounds,
@@ -3253,7 +3483,8 @@ def main():
     kernels = [
         row("dg_pos", csrc + "dg_pos.cu", pallas + "dg_conv.py:710",
             train_launches["dg_pos"], errs("dg_pos"), tot["dg_pos"],
-            serve_launches=serve_launches["dg_pos"]),
+            serve_launches=serve_launches["dg_pos"],
+            windows_fallen_back=fallbacks),
         row("dg_pos_reverse", csrc + "dg_pos.cu",
             pallas + "dg_conv.py:710 (reverse=True, built at :1707)",
             train_launches["dg_pos_rev"], errs("dg_pos_rev"),

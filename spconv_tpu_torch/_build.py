@@ -112,15 +112,10 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     argtypes = {
-        # keys, n, kv, geom, sentinel, reverse, pos, stream
-        "dg_pos_launch": [vp, i32, i32, ctypes.POINTER(i32), i32, i32, vp,
-                          vp],
-        # out_keys, n_out, in_keys, n_in, kv, geom, sent_out, pos, stream
-        "dg_pos_affine_launch": [vp, i32, vp, i32, i32, ctypes.POINTER(i32),
-                                 i32, vp, vp],
-        # in_keys, n_in, out_keys, n_out, kv, geom, sent_in, pos, stream
-        "dg_pos_divide_launch": [vp, i32, vp, i32, i32, ctypes.POINTER(i32),
-                                 i32, vp, vp],
+        # rows, n_rows, tab, n_tab, geom, row_sent, divide, self, sort,
+        # tile, gpp, pool, smem, pos, stream
+        "dg_pos_launch": [vp, i32, vp, i32, ctypes.POINTER(i32), i32, i32,
+                          i32, i32, i32, i32, i32, i32, vp, vp],
         # x, w, pos, out, n, C, K, kv, stream
         "dg_fwd_f32_launch": [vp, vp, vp, vp, i32, i32, i32, i32, vp],
         # x, w, pos, out, n, C, K, kv, tile, vec, trans, stream
@@ -159,9 +154,10 @@ def load_library() -> ctypes.CDLL:
                                         i32, i32, ctypes.POINTER(i32), i32,
                                         i32, i32, i32, vp],
         # feat, bf16, in_keys, n, out_keys, m, C, geom, sent_out, mean,
-        # out, stream
+        # tile, pool, lanes, threads, vec, smem, out, stream
         "sk_pool_launch": [vp, i32, vp, i32, vp, i32, i32,
-                           ctypes.POINTER(i32), i32, i32, vp, vp],
+                           ctypes.POINTER(i32), i32, i32, i32, i32, i32, i32,
+                           i32, i32, vp, vp],
         # the probe kernels (B9, csrc/probes.cu)
         # x, n, width, kind, start, scale, off, rows, vec, out, stream
         "probe_copy_launch": [vp, i32, i32, i32, vp, i32, i32, i32, i32, vp,

@@ -1,77 +1,64 @@
 // B1 `dg_pos`: the match table of a submanifold conv stage on key-sorted
 // input, in the forward direction or reversed (the backward's table); in
 // affine mode the table of a regular (strided) conv, and in divide mode its
-// inverse, the table of the inverse conv and of the strided backward (see
-// below).
+// inverse, the table of the inverse conv and of the strided backward (on
+// swapped spaces, of the transposed conv).
 //
 // Replaces: spconv_tpu/ops/pallas/dg_conv.py::_dg_pos_kernel (launched by
-//   _build_dg_pos, public entry build_dg_pos).  The TPU kernel searches
-//   128-lane tiles of probes inside DMA'd, lane-chunked key windows chosen by
-//   a window plan, with a serial sweep when a probe falls outside its window.
-//   None of that is needed here: the whole key array (N int32, about 0.5 MB
-//   for a 125k-voxel scan) stays resident in L2, so every probe searches all
-//   of it.
+//   _build_dg_pos, public entry build_dg_pos), and the affine and divide
+//   probes of the same file's kernels that the strided, inverse and
+//   transposed convs run in search mode: :302 (_vec_affine_probes) and :315
+//   (_vec_divide_probes) inside :339 (_dg_fwd_kernel, launched at :1020)
+//   and :1307 (_dg_bwd_kernel, launched at :1598), from _dg_reg_conv
+//   (:1837-1860) and _dg_reg_conv_bwd (:1874-1889).  The TPU kernel
+//   searches 128-lane tiles of probes inside DMA'd, lane-chunked key windows
+//   chosen by a window plan; here a block finds its own windows.
 //
-// Computes: for output row i and kernel offset k (row-major 'ij' order over
-//   the kernel dims), decode the row's coordinates from its key, add the
-//   displacement d_k = (offset_k - centre) * dilation, bounds-check every
-//   axis, and binary-search the shifted key in keys[0, N).  Writes the
-//   matching row or -1 to pos[k * N + i] (offset-major, so the gather-GEMM
-//   reads one offset's column of a row tile coalesced).  Sentinel rows get
-//   -1 at every offset.  With `reverse` every displacement is negated
-//   (probe = key - delta_k, each axis bounds-checked at coord - d_k): the
-//   table that dgrad and wgrad gather dout through (build_dg_pos with
-//   reverse=True, built in _dg_conv_p_fwd).  For a subm kernel, odd and so
-//   symmetric, that is the forward table with its offset axis flipped, but
-//   the kernel computes it directly and does not rely on the symmetry.
+// Computes: for each row i of the table's rows and kernel offset k
+//   (row-major 'ij' order over the kernel dims), the row of the searched
+//   keys whose key is row i's key moved by k, or -1 (dg_search.cuh's
+//   WindowRows gives the maps), written to pos[k * N + i] (offset-major, so
+//   the gather-GEMMs read one offset's column of a row tile coalesced).
+//   Rows with the sentinel get -1 at every offset.  Modes:
+//   - subm (`divide` 0, `self` 1): the stage's own keys, each axis moved by
+//     (offset - centre) * dilation and bounds-checked;
+//   - subm reversed (`divide` 1, `self` 1): every displacement negated, the
+//     table dgrad and wgrad gather dout through (for an odd kernel the
+//     forward table flipped on its offset axis; computed directly);
+//   - affine (`divide` 0): output rows, each axis at coord * stride + off *
+//     dil - pad inside the input grid, searched in the input keys;
+//   - divide (`divide` 1): input rows, each axis at (coord - off * dil +
+//     pad) / stride where that divides and lies inside the output grid,
+//     searched in the output keys: the exact inverse of the affine table.
 //
-// Bound on the H100: latency.  A probe is ~log2(N) = 17 dependent key loads
-//   that hit L2 (the top levels of the search hit L1); there is almost no
-//   arithmetic and the output is 4 bytes per (row, offset).
+// Bound on the H100: bytes (N keys read, kv * N table entries written: 13.6
+//   MB at BenchNet's first stage); the searches are integer compares.  A
+//   search of all N keys per probe is ~17 dependent L2 loads, so the table
+//   was latency-bound at 14x its bound.
 //
-// Design: one thread per (row, offset), offset-major thread order so that
-//   writes are coalesced and neighbouring threads search for neighbouring
-//   keys, which share the upper levels of the search path in cache.  Many
-//   independent searches in flight hide the load latency.
-//
-// Affine mode (`dg_pos_affine_launch`): the match table of a regular
-//   (strided) conv, whose output sites differ from its input sites.
-//   Replaces the affine probes of the same Pallas kernels that the strided
-//   conv runs in search mode: spconv_tpu/ops/pallas/dg_conv.py:302
-//   (_vec_affine_probes) inside :339 (_dg_fwd_kernel), launched at :1020
-//   through _dg_reg_conv (:1837-1849), public entry dg_regular_conv.  The
-//   TPU kernel searches windows of the input keys inside its GEMM; here the
-//   search is this table, and B2 (dg_fwd.cu) gathers through it unchanged.
-//   For output row o and kernel offset k, decode o's key with the OUTPUT
-//   dims (batch b first), move each axis to coord * stride + off_k * dil -
-//   pad (the regular conv's displacement: no centring, unlike the subm
-//   mode), bounds-check it against the INPUT dims, relinearize with the
-//   input dims and b, and binary-search in_keys[0, N_in) (about 0.5 MB for
-//   the CenterPoint scan, resident in L2).  Writes the input row or -1 to
-//   pos[k * N_out + o]; sentinel output rows get -1 at every offset.  Bound
-//   and design as the subm mode.
-//
-// Divide mode (`dg_pos_divide_launch`): the exact inverse of the affine
-//   table, [kv, N_in].  Replaces the divide probes of the same Pallas
-//   kernels: spconv_tpu/ops/pallas/dg_conv.py:315 (_vec_divide_probes)
-//   inside :339 (_dg_fwd_kernel, the inverse conv's forward) and :1307
-//   (_dg_bwd_kernel, the strided conv's backward, probes from
-//   sorted_conv.py:392 _probe_divide_fn), launched at :1020 and :1598 from
-//   _dg_reg_conv (:1850-1860) and _dg_reg_conv_bwd (:1874-1881).  For input
-//   row i and kernel offset k, decode i's key with the INPUT dims (batch b
-//   first); per axis t = coord - (off_k * dil - pad) must be >= 0 and
-//   divisible by the stride, and c = t / stride must lie inside the OUTPUT
-//   dims; relinearize c with the output dims and b, and binary-search
-//   out_keys[0, N_out) (~0.45 MB at the U-Net's first downsample, resident
-//   in L2).  Writes the output row or -1 to pos[k * N_in + i]; sentinel
-//   input rows get -1.  Row i holds o at offset k iff the affine table
-//   holds i at (k, o): each offset's map is one-to-one.
-//   Bound: latency of the dependent L2 loads of the search, as the other
-//   modes; the bytes are N_in * 4 read and kv * N_in * 4 written.  Design:
-//   as the other modes, one thread per (row, offset), offset-major, so many
-//   independent searches are in flight and the writes are coalesced; most
-//   probes fail the divisibility test (7 of 8 offsets of a k3 s2 input row)
-//   and never search.
+// Design (dg_search.cuh, WindowRows): a block owns a tile of consecutive
+//   rows; for each group of offsets (fixed indices on all but the last two
+//   kernel axes) it stages the window of searched keys that the tile's
+//   probes can reach in shared memory (two lower bounds, one warp each,
+//   128 keys a step), then walks each (row, line of the last kernel axis):
+//   one
+//   lower bound in the window, a short forward scan to each next offset.
+//   A 3^3 kernel does 9 searches a row, in shared memory; a subm stage's
+//   centre line starts at the row itself.  The windows of a pass share a
+//   pool of 4,096 keys; one that does not fit whole keeps every s-th key
+//   there where the rest of the pool allows one key each (else none), and
+//   its searches end in global memory.  A warp walks one line for 32
+//   consecutive rows and stores their results offset-major, 32
+//   consecutive ints a store; in divide
+//   mode with a stride the rows are walked by residue class, and the
+//   results collect in shared memory and are written out after the pass.
+//   The tile, the groups a pass holds, the pool, the shared memory and the
+//   grid come from the host plan (ops/dg_conv.py::b1_plan): tiles of 128
+//   rows at the large stages, 64 or 32 where 128 would leave fewer than
+//   two blocks an SM.  A table of at most 131,072 (row, offset) probes
+//   (BenchNet's stages 4-6) takes the direct path instead, one thread a
+//   probe searching the whole table: there a window's fixed chain (rows,
+//   group pass, bounds, staging, walks) outlasts one search.
 
 #include <cuda_runtime.h>
 
@@ -79,166 +66,139 @@
 
 namespace {
 
-using dg::kMaxNdim;
-using dg::search_row;
-
-struct AffineGeom {
-  int ndim;
-  int out_dims[kMaxNdim];
-  int in_dims[kMaxNdim];
-  int stride[kMaxNdim];
-  int ksize[kMaxNdim];
-  int dil[kMaxNdim];
-  int pad[kMaxNdim];
-};
-
-// The subm probe is dg_search.cuh's, shared with the search-mode kernels.
-__global__ void dg_pos_kernel(const int* __restrict__ keys, int n, int kv,
-                              dg::SubmGeom g, int sentinel, int reverse,
-                              int* __restrict__ pos) {
+// The direct path: one thread per (row, offset), offset-major (coalesced
+// writes, neighbouring threads on neighbouring keys): the row moved by the
+// offset, searched in the whole table (dg::search_row).
+template <int NDIM, bool kDivide>
+__global__ void __launch_bounds__(256, 2)
+dg_pos_direct_kernel(const int* __restrict__ rows, int n_rows,
+                     const int* __restrict__ tab, int n_tab, dg::WinGeom g,
+                     int row_sent, int kv, int* __restrict__ pos) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= kv * n) return;
-  const int k = t / n;
-  const int i = t - k * n;
-  pos[t] = dg::subm_probe(keys, n, keys[i], k, g, sentinel, reverse != 0);
-}
-
-__global__ void dg_pos_affine_kernel(const int* __restrict__ out_keys,
-                                     int n_out,
-                                     const int* __restrict__ in_keys,
-                                     int n_in, int kv, AffineGeom g,
-                                     int sent_out, int* __restrict__ pos) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= kv * n_out) return;
-  const int k = t / n_out;
-  const int o = t - k * n_out;
-  const int key = out_keys[o];
+  if (t >= kv * n_rows) return;
+  const int k = t / n_rows;
+  const int key = __ldg(rows + t - k * n_rows);
   int res = -1;
-  if (key != sent_out) {
+  if (key != row_sent) {
     int rem = key;
     int kr = k;
-    int lin = 0;  // input key without the batch term
-    int vol = 1;  // volume of the input axes done so far
+    int lin = 0;  // the moved key without the batch term
+    int vol = 1;  // the volume of the table's axes done so far
     bool ok = true;
 #pragma unroll
-    for (int a = kMaxNdim - 1; a >= 0; --a) {
-      if (a < g.ndim) {
-        const int coord = rem % g.out_dims[a];
-        rem /= g.out_dims[a];
-        const int ka = kr % g.ksize[a];
-        kr /= g.ksize[a];
-        const int c = coord * g.stride[a] + ka * g.dil[a] - g.pad[a];
-        ok = ok && c >= 0 && c < g.in_dims[a];
-        if (ok) lin += c * vol;
-        vol *= g.in_dims[a];
-      }
+    for (int a = NDIM - 1; a >= 0; --a) {
+      const int x = rem % g.row_dims[a];
+      rem /= g.row_dims[a];
+      const int ka = kr % g.ksize[a];
+      kr /= g.ksize[a];
+      int c = 0;
+      ok = ok && dg::win_axis<kDivide>(g, a, x, ka, &c);
+      lin += c * vol;
+      vol *= g.tab_dims[a];
     }
     // rem is now the batch index
-    if (ok) res = search_row(in_keys, n_in, rem * vol + lin);
+    if (ok) res = dg::search_row(tab, n_tab, rem * vol + lin);
   }
   pos[t] = res;
 }
 
-// Same geometry record as the affine mode; here the row decodes with
-// in_dims and the probe relinearizes with out_dims.
-__global__ void dg_pos_divide_kernel(const int* __restrict__ in_keys,
-                                     int n_in,
-                                     const int* __restrict__ out_keys,
-                                     int n_out, int kv, AffineGeom g,
-                                     int sent_in, int* __restrict__ pos) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= kv * n_in) return;
-  const int k = t / n_in;
-  const int i = t - k * n_in;
-  const int key = in_keys[i];
-  int res = -1;
-  if (key != sent_in) {
-    int rem = key;
-    int kr = k;
-    int lin = 0;  // output key without the batch term
-    int vol = 1;  // volume of the output axes done so far
-    bool ok = true;
-#pragma unroll
-    for (int a = kMaxNdim - 1; a >= 0; --a) {
-      if (a < g.ndim) {
-        const int coord = rem % g.in_dims[a];
-        rem /= g.in_dims[a];
-        const int ka = kr % g.ksize[a];
-        kr /= g.ksize[a];
-        const int tt = coord - (ka * g.dil[a] - g.pad[a]);
-        // tt >= 0 is checked first: C's % and / truncate toward zero
-        ok = ok && tt >= 0 && tt % g.stride[a] == 0 &&
-             tt / g.stride[a] < g.out_dims[a];
-        if (ok) lin += (tt / g.stride[a]) * vol;
-        vol *= g.out_dims[a];
+template <int NDIM, bool kDivide>
+__global__ void __launch_bounds__(256, 2)
+dg_pos_kernel(const int* __restrict__ rows, int n_rows,
+              const int* __restrict__ tab, int n_tab, dg::WinGeom g,
+              int row_sent, int self, int sort, int tile, int gpp, int pool,
+              int* __restrict__ pos) {
+  extern __shared__ int sm[];
+  // without sort the walks store straight into pos
+  const dg::WindowRows<NDIM, kDivide> w{rows, n_rows,   tab,  n_tab,
+                                        g,    row_sent, self, sort,
+                                        tile, gpp,      pool,
+                                        sort ? nullptr : pos};
+  const int row0 = blockIdx.x * tile;
+  const int here = min(tile, n_rows - row0);
+  const int per_group = w.kline() * w.klast();
+  const int groups = w.groups();
+  w.load_rows(sm, row0);
+  for (int g0 = 0; g0 < groups; g0 += gpp) {
+    const int gc = min(gpp, groups - g0);
+    const int fell_back = w.search(sm, g0, gc, row0);
+    (void)fell_back;  // windows searched in global memory this pass
+    if (sort) {
+      // the pass's results, offset-major; the next pass writes out only
+      // after the barriers of its search
+      const int* out = w.out(sm);
+      const size_t k0 = static_cast<size_t>(g0) * per_group;
+      for (int e = threadIdx.x; e < gc * per_group * tile; e += blockDim.x) {
+        const int kk = e / tile;
+        const int r = e - kk * tile;
+        if (r < here) pos[(k0 + kk) * n_rows + row0 + r] = out[e];
       }
     }
-    // rem is now the batch index
-    if (ok) res = search_row(out_keys, n_out, rem * vol + lin);
   }
-  pos[t] = res;
 }
 
-AffineGeom affine_geom(const int* geom) {
-  AffineGeom g;
-  g.ndim = geom[0];
-  for (int a = 0; a < kMaxNdim; ++a) {
-    g.out_dims[a] = geom[1 + a];
-    g.in_dims[a] = geom[1 + kMaxNdim + a];
-    g.stride[a] = geom[1 + 2 * kMaxNdim + a];
-    g.ksize[a] = geom[1 + 3 * kMaxNdim + a];
-    g.dil[a] = geom[1 + 4 * kMaxNdim + a];
-    g.pad[a] = geom[1 + 5 * kMaxNdim + a];
+template <int NDIM>
+cudaError_t launch(const int* rows, int n_rows, const int* tab, int n_tab,
+                   const dg::WinGeom& g, int row_sent, int divide, int self,
+                   int sort, int tile, int gpp, int pool, int smem, int* pos,
+                   cudaStream_t s) {
+  if (tile == 0) {
+    int kv = 1;
+    for (int a = 0; a < NDIM; ++a) kv *= g.ksize[a];
+    const int blocks = (kv * n_rows + 255) / 256;
+    auto direct = divide ? dg_pos_direct_kernel<NDIM, true>
+                         : dg_pos_direct_kernel<NDIM, false>;
+    direct<<<blocks, 256, 0, s>>>(rows, n_rows, tab, n_tab, g, row_sent, kv,
+                                  pos);
+    return cudaGetLastError();
   }
-  return g;
+  const int blocks = (n_rows + tile - 1) / tile;
+  auto kernel =
+      divide ? dg_pos_kernel<NDIM, true> : dg_pos_kernel<NDIM, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<blocks, 256, smem, s>>>(rows, n_rows, tab, n_tab, g, row_sent,
+                                   self, sort, tile, gpp, pool, pos);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// geom (host memory): ndim, dims[4], ksize[4], dilation[4].  reverse != 0
-// negates every displacement.
-extern "C" int dg_pos_launch(const void* keys, int n, int kv, const int* geom,
-                             int sentinel, int reverse, void* pos,
+// One table [kv, n_rows] of the rows' sorted keys searched in tab's
+// (dg_search.cuh's WindowRows): geom (host memory) as dg::win_geom reads
+// it; divide != 0 takes the divide map, else the affine one; self != 0
+// when tab is rows (a subm stage); sort != 0 walks the rows by residue
+// class (divide mode, stride product 2-64).  The plan
+// (ops/dg_conv.py::b1_plan): tile rows a block (<= 256; 0: the direct
+// path, which reads no other plan value), gpp offset groups a pass, pool
+// keys of windows a pass, smem bytes of dynamic shared memory.  The wrapper checks kv * n_rows < 2**31 and that both key spaces
+// fit in int32.
+extern "C" int dg_pos_launch(const void* rows, int n_rows, const void* tab,
+                             int n_tab, const int* geom, int row_sent,
+                             int divide, int self, int sort, int tile,
+                             int gpp, int pool, int smem, void* pos,
                              void* stream) {
-  const int threads = 256;
-  const int total = kv * n;
-  const int blocks = (total + threads - 1) / threads;
-  dg_pos_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), n, kv, dg::subm_geom(geom), sentinel,
-      reverse, static_cast<int*>(pos));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// geom (host memory): ndim, out_dims[4], in_dims[4], stride[4], ksize[4],
-// dilation[4], padding[4].  The wrapper checks kv * n_out < 2**31 and that
-// both key spaces fit in int32.
-extern "C" int dg_pos_affine_launch(const void* out_keys, int n_out,
-                                    const void* in_keys, int n_in, int kv,
-                                    const int* geom, int sent_out, void* pos,
-                                    void* stream) {
-  const int threads = 256;
-  const int total = kv * n_out;
-  const int blocks = (total + threads - 1) / threads;
-  dg_pos_affine_kernel<<<blocks, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(out_keys), n_out,
-      static_cast<const int*>(in_keys), n_in, kv, affine_geom(geom),
-      sent_out, static_cast<int*>(pos));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// geom: as dg_pos_affine_launch's.  The wrapper checks kv * n_in < 2**31.
-extern "C" int dg_pos_divide_launch(const void* in_keys, int n_in,
-                                    const void* out_keys, int n_out, int kv,
-                                    const int* geom, int sent_in, void* pos,
-                                    void* stream) {
-  const int threads = 256;
-  const int total = kv * n_in;
-  const int blocks = (total + threads - 1) / threads;
-  dg_pos_divide_kernel<<<blocks, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(in_keys), n_in,
-      static_cast<const int*>(out_keys), n_out, kv, affine_geom(geom),
-      sent_in, static_cast<int*>(pos));
-  return static_cast<int>(cudaGetLastError());
+  const dg::WinGeom g = dg::win_geom(geom);
+  const int* r = static_cast<const int*>(rows);
+  const int* t = static_cast<const int*>(tab);
+  int* p = static_cast<int*>(pos);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (g.ndim) {
+    case 1:
+      return launch<1>(r, n_rows, t, n_tab, g, row_sent, divide, self, sort,
+                       tile, gpp, pool, smem, p, s);
+    case 2:
+      return launch<2>(r, n_rows, t, n_tab, g, row_sent, divide, self, sort,
+                       tile, gpp, pool, smem, p, s);
+    case 3:
+      return launch<3>(r, n_rows, t, n_tab, g, row_sent, divide, self, sort,
+                       tile, gpp, pool, smem, p, s);
+    case 4:
+      return launch<4>(r, n_rows, t, n_tab, g, row_sent, divide, self, sort,
+                       tile, gpp, pool, smem, p, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

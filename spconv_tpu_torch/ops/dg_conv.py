@@ -17,7 +17,10 @@ The kernel wrappers, each with its plain PyTorch version beside it:
   ``[kv, N_in]``, from input sites to the output rows at ``(coord - off_k *
   dil + pad) / stride``.  The strided conv's backward, the inverse conv's
   forward and, on swapped spaces, the transposed conv's forward gather
-  through it.
+  through it.  All three modes run one windowed search
+  (``csrc/dg_search.cuh``'s ``WindowRows``) on a ``TableGeom``, launched
+  on ``b1_plan``'s tile, pool and grid (``tools/table_count.py`` models
+  its windows on the host).
 * ``dg_fwd`` (kernel ``csrc/dg_fwd.cu``): the gather-GEMM
   ``out[i] = sum_k x[pos[k, i]] @ W[k]`` with f32 accumulation, rounded
   once to the input dtype; rows without any match are 0.  The output has
@@ -66,6 +69,7 @@ path.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -82,6 +86,15 @@ __all__ = [
     "dg_pos_affine_plain",
     "build_dg_pos_divide",
     "dg_pos_divide_plain",
+    "TableGeom",
+    "B1Plan",
+    "B1_TILES",
+    "B1_POOL",
+    "b1_plan",
+    "b1_window_plan",
+    "B1_DIRECT",
+    "sm_count",
+    "launch_b1",
     "PATHS",
     "dg_fwd",
     "dg_fwd_plain",
@@ -284,30 +297,8 @@ def dg_pos_plain(keys: torch.Tensor, *, ksize, dilation, spatial_shape,
 
 
 def _dg_pos_cuda(keys, ksize, dilation, dims, sentinel, reverse):
-    from .._build import load_library
-
-    ndim = len(dims)
-    if ndim > _MAX_NDIM:
-        raise NotImplementedError(f"dg_pos kernel takes ndim <= {_MAX_NDIM}")
-    kv = int(np.prod(ksize))
-    n = keys.shape[0]
-    _check(kv * n < 2**31, f"kv*N = {kv * n} exceeds the kernel's int32 "
-                           "thread index")
-    geom = (ctypes.c_int * (1 + 3 * _MAX_NDIM))(
-        ndim,
-        *(list(dims) + [1] * (_MAX_NDIM - ndim)),
-        *(list(ksize) + [1] * (_MAX_NDIM - ndim)),
-        *(list(dilation) + [1] * (_MAX_NDIM - ndim)),
-    )
-    pos = torch.empty((kv, n), dtype=torch.int32, device=keys.device)
-    if n == 0:
-        return pos
-    lib = load_library()
-    err = lib.dg_pos_launch(
-        ctypes.c_void_p(keys.data_ptr()), n, kv, geom, sentinel,
-        int(bool(reverse)), ctypes.c_void_p(pos.data_ptr()),
-        _stream_ptr(keys.device))
-    _raise_on(err, "dg_pos")
+    tg = TableGeom.subm(ksize, dilation, dims, reverse)
+    pos = _table_cuda("dg_pos", keys, keys, tg, sentinel)
     launch_counts["dg_pos_rev" if reverse else "dg_pos"] += 1
     return pos
 
@@ -472,37 +463,189 @@ def _regular_pos_cuda(name, in_keys, out_keys, path, *, ksize, stride,
     """Launches B1 in affine (``name == "dg_pos_affine"``: a table over
     the output rows) or divide mode (over the input rows), counted under
     ``name``, or ``name + "_transposed"`` for a transposed conv."""
-    from .._build import load_library
-
-    ndim = len(in_shape)
-    if ndim > _MAX_NDIM:
-        raise NotImplementedError(f"dg_pos kernel takes ndim <= {_MAX_NDIM}")
-    kv = int(np.prod(ksize))
     affine = name == "dg_pos_affine"
+    tg = TableGeom.regular(not affine, ksize=ksize, stride=stride,
+                           padding=padding, dilation=dilation,
+                           in_shape=in_shape, out_shape=out_shape)
     # the rows the table is over, and the keys it searches
     rows, table = (out_keys, in_keys) if affine else (in_keys, out_keys)
+    sentinel = C.grid_sentinel(tg.row_dims, batch_size)
+    pos = _table_cuda(name, rows, table, tg, sentinel)
+    launch_counts[f"{name}_transposed" if path == "transposed" else name] += 1
+    return pos
+
+
+# ---------------------------------------------------------------------------
+# B1 on the card: the windowed search (csrc/dg_pos.cu, dg_search.cuh's
+# WindowRows) and its host plan
+# ---------------------------------------------------------------------------
+
+B1_TILES = (128, 64, 32)  # rows a block, largest first
+B1_POOL = 4096            # keys of windows a pass holds in shared memory
+# (row, offset) probes at most for the direct path: one thread a probe
+# searching the whole table beats a window's fixed chain a block there
+# (BenchNet's stages 4-6 and CenterPoint's conv_out table on the H100)
+B1_DIRECT = 1 << 17
+_B1_THREADS = 256
+_B1_CLASSES = 64          # residue classes a divide tile sorts by, at most
+_SMEM_PASS = 48 << 10     # a B1 pass's shared memory, without the opt-in
+SMEM_MAX = 232_448        # a block's shared memory on the H100, opted in
+
+
+class TableGeom(NamedTuple):
+    """The geometry of a B1 table (``csrc/dg_search.cuh``'s ``WinGeom``):
+    per axis, a row's coordinate ``x`` (on ``row_dims``) moves at kernel
+    index ``ka`` to ``x * stride + ka * dil - pad`` (affine), or to ``(x -
+    ka * dil + pad) / stride`` where that divides (``divide``), inside
+    ``tab_dims``.  ``self_rows``: the searched keys are the rows' own (a
+    subm stage)."""
+    row_dims: Tuple[int, ...]
+    tab_dims: Tuple[int, ...]
+    stride: Tuple[int, ...]
+    ksize: Tuple[int, ...]
+    dilation: Tuple[int, ...]
+    padding: Tuple[int, ...]
+    divide: bool
+    self_rows: bool
+
+    @classmethod
+    def subm(cls, ksize, dilation, dims, reverse=False) -> "TableGeom":
+        """A subm stage's table: the affine map with stride 1 and the
+        kernel centre as padding; reversed, the divide map."""
+        ksize, dilation = tuple(ksize), tuple(dilation)
+        pad = tuple((k // 2) * d for k, d in zip(ksize, dilation))
+        return cls(tuple(dims), tuple(dims), (1,) * len(dims), ksize,
+                   dilation, pad, bool(reverse), True)
+
+    @classmethod
+    def regular(cls, divide, *, ksize, stride, padding, dilation, in_shape,
+                out_shape) -> "TableGeom":
+        """A regular conv's affine table (output rows, input keys) or its
+        divide table (input rows, output keys)."""
+        rows, tab = (in_shape, out_shape) if divide else (out_shape,
+                                                         in_shape)
+        return cls(tuple(rows), tuple(tab), tuple(stride), tuple(ksize),
+                   tuple(dilation), tuple(padding), bool(divide), False)
+
+    def ints(self):
+        """The geometry as ``dg::win_geom`` reads it."""
+        pad = [1] * (_MAX_NDIM - len(self.ksize))
+        return (ctypes.c_int * (1 + 6 * _MAX_NDIM))(
+            len(self.ksize), *self.row_dims, *pad, *self.tab_dims, *pad,
+            *self.stride, *pad, *self.ksize, *pad, *self.dilation, *pad,
+            *self.padding, *([0] * len(pad)))
+
+
+class B1Plan(NamedTuple):
+    tile: int    # rows a block; 0: the direct path (grid: blocks of 256
+                 # probes), which reads no other field
+    groups: int  # offset groups (fixed indices on all but the last two
+                 # kernel axes) a pass holds
+    passes: int
+    pool: int    # keys of windows a pass holds in shared memory
+    sort: bool   # divide mode with stride > 1: rows walked by residue
+                 # class, results staged in shared memory
+    smem: int    # dynamic shared memory, bytes
+    grid: int    # blocks
+
+
+def window_smem(tile, ndim, groups, pool, per_group, staged=True):
+    """Bytes of ``dg::WindowRows``' shared memory: the tile's keys,
+    batches, walk order, coordinates and spans, the class counts, four
+    bounds a group, each row's leading key a group, the windows' pool
+    and, ``staged``, the pass's results."""
+    return 4 * (tile * (5 + ndim) + _B1_CLASSES + 1 + 4 * groups
+                + groups * tile + pool
+                + (groups * per_group * tile if staged else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, by which the B1 and B6 plans size
+    their grids."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def b1_plan(n_rows: int, ksize: Sequence[int], stride=None,
+            divide: bool = False, *, sms: int) -> B1Plan:
+    """The launch of a B1 table over ``n_rows`` rows with kernel ``ksize``
+    on a card of ``sms`` SMs: the direct path (one thread a probe) where
+    the table has at most ``B1_DIRECT`` probes, else
+    :func:`b1_window_plan`'s."""
+    kv = int(np.prod([int(k) for k in ksize]))
+    if n_rows * kv <= B1_DIRECT:
+        return B1Plan(0, 0, 0, 0, False, 0, -(-n_rows * kv // _B1_THREADS))
+    return b1_window_plan(n_rows, ksize, stride, divide, sms=sms)
+
+
+def b1_window_plan(n_rows: int, ksize: Sequence[int], stride=None,
+                   divide: bool = False, *, sms: int) -> B1Plan:
+    """The windowed launch of a B1 table over ``n_rows`` rows with kernel
+    ``ksize`` on a card of ``sms`` SMs: the largest tile of ``B1_TILES``
+    whose grid has two blocks an SM (32 rows where none has) and a pool of
+    ``B1_POOL`` keys for the windows.
+    ``divide`` with a stride whose product is 2-64 sorts each tile's rows
+    by residue class and stages the results, as many offset groups a pass
+    as fit in 48 KB (one, opted in up to the card's 227 KB, where none
+    fits; a smaller tile before that); else a pass holds every group."""
+    ksize = tuple(int(k) for k in ksize)
+    ndim = len(ksize)
+    per_group = ksize[-1] * (ksize[-2] if ndim >= 2 else 1)
+    groups = int(np.prod(ksize)) // per_group
+    classes = int(np.prod(stride)) if stride is not None else 1
+    sort = bool(divide) and 1 < classes <= _B1_CLASSES
+    tiles = [t for t in B1_TILES if t == B1_TILES[-1]
+             or -(-n_rows // t) >= 2 * sms]
+    fit = groups
+    for tile in tiles:
+        if not sort:
+            break
+        fit = max(g for g in range(groups + 1)
+                  if g == 0 or window_smem(tile, ndim, g, B1_POOL,
+                                           per_group) <= _SMEM_PASS)
+        if fit:
+            break
+    else:
+        fit = 1
+    smem = window_smem(tile, ndim, fit, B1_POOL, per_group, sort)
+    _check(smem <= SMEM_MAX, f"B1 kernel {ksize}: a line of {per_group} "
+                             "offsets does not fit in shared memory")
+    return B1Plan(tile, fit, -(-groups // fit), B1_POOL, sort, smem,
+                  -(-n_rows // tile))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def launch_b1(lib, rows, table, tg: TableGeom, sentinel: int, plan: B1Plan,
+              pos: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``dg_pos_launch`` (the library's, or a
+    rebuilt one's) on ``plan``, writing ``pos``; returns its CUDA error."""
+    return lib.dg_pos_launch(
+        _ptr(rows), rows.shape[0], _ptr(table), table.shape[0], tg.ints(),
+        sentinel, int(tg.divide), int(tg.self_rows), int(plan.sort),
+        plan.tile, plan.groups, plan.pool, plan.smem, _ptr(pos),
+        _stream_ptr(rows.device))
+
+
+def _table_cuda(name, rows, table, tg: TableGeom, sentinel):
+    """B1's table ``[kv, N_rows]`` of ``rows`` searched in ``table``."""
+    from .._build import load_library
+
+    if len(tg.ksize) > _MAX_NDIM:
+        raise NotImplementedError(f"dg_pos kernel takes ndim <= {_MAX_NDIM}")
+    kv = int(np.prod(tg.ksize))
     n = rows.shape[0]
     _check(kv * n < 2**31, f"{name}: kv*N = {kv * n} exceeds the kernel's "
-                           "int32 thread index")
-    pad = [1] * (_MAX_NDIM - ndim)
-    geom = (ctypes.c_int * (1 + 6 * _MAX_NDIM))(
-        ndim,
-        *(list(out_shape) + pad), *(list(in_shape) + pad),
-        *(list(stride) + pad), *(list(ksize) + pad),
-        *(list(dilation) + pad), *(list(padding) + [0] * (_MAX_NDIM - ndim)),
-    )
+                           "int32 table index")
     pos = torch.empty((kv, n), dtype=torch.int32, device=rows.device)
     if n == 0:
         return pos
-    lib = load_library()
-    launch = lib.dg_pos_affine_launch if affine else lib.dg_pos_divide_launch
-    sentinel = C.grid_sentinel(out_shape if affine else in_shape, batch_size)
-    err = launch(
-        ctypes.c_void_p(rows.data_ptr()), n,
-        ctypes.c_void_p(table.data_ptr()), table.shape[0], kv, geom,
-        sentinel, ctypes.c_void_p(pos.data_ptr()), _stream_ptr(rows.device))
-    _raise_on(err, name)
-    launch_counts[f"{name}_transposed" if path == "transposed" else name] += 1
+    plan = b1_plan(n, tg.ksize, tg.stride, tg.divide,
+                   sms=sm_count(rows.device.index))
+    _raise_on(launch_b1(load_library(), rows, table, tg, sentinel, plan, pos),
+              name)
     return pos
 
 

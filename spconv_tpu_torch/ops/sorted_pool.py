@@ -5,7 +5,8 @@ runs on key-sorted input, with no rulebook.
 * ``pool2_child_keys``: the ``2**ndim`` child keys of each parent key.
 * ``sk_pool2`` (kernel ``csrc/sk_pool.cu``, B6): for each parent row, the
   max or mean over the children found in the sorted input keys, with
-  ``sk_pool2_plain`` beside it.
+  ``sk_pool2_plain`` beside it; ``b6_plan`` is its launch (parents a
+  block, lanes a parent, 16-byte chunks or channels).
 * ``SKPool2Fn``: its autograd Function.  The backward is torch ops, as the
   JAX package's is XLA (``_sk_pool2_ad_bwd``); ``sk_pool2_ad`` takes it
   whenever a gradient is wanted.
@@ -25,17 +26,18 @@ adds one to ``launch_counts["sk_pool"]`` (the port's counts, kept in
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from . import coords as C
-from .dg_conv import _check, _check_keys, _decode, _raise_on, _stream_ptr
-from .dg_conv import launch_counts
+from .dg_conv import (_check, _check_keys, _decode, _ptr, _raise_on,
+                      _stream_ptr, launch_counts, sm_count, window_smem)
 from .rulebook import pool2_parent_keys
 
 __all__ = ["pool_offsets", "pool2_child_keys", "sk_pool2", "sk_pool2_plain",
+           "B6_TILES", "B6_POOL", "B6Plan", "b6_plan", "launch_b6",
            "sk_pool2_bwd", "SKPool2Fn", "sk_pool2_ad"]
 
 _MAX_NDIM = 4
@@ -160,31 +162,81 @@ def sk_pool2_plain(features: torch.Tensor, in_keys: torch.Tensor,
     return out.to(features.dtype)
 
 
+B6_TILES = (128, 64, 32, 16, 8, 4, 2)  # parents a block, largest first
+B6_POOL = 2048  # keys of the children's windows a block holds
+
+
+class B6Plan(NamedTuple):
+    tile: int     # parents a block
+    lanes: int    # lanes a parent: one 16-byte chunk (or channel) each
+    threads: int  # a block's
+    vec: bool     # 16-byte chunks; else one channel a lane
+    pool: int     # keys of the children's windows in shared memory
+    smem: int     # dynamic shared memory, bytes
+    grid: int     # blocks
+
+
+def b6_plan(m: int, c: int, itemsize: int, ndim: int,
+            aligned: bool = True, *, sms: int, tile: int = 0) -> B6Plan:
+    """The launch of B6 over ``m`` parents of ``c`` channels of
+    ``itemsize`` bytes on a card of ``sms`` SMs: 16-byte chunks where
+    ``c`` fills them and the features are ``aligned`` to 16 bytes, a
+    power-of-two group of lanes covering a row's chunks (at most 32), and
+    the largest tile of ``B6_TILES`` whose grid has a block an SM, or at
+    least one full block of 256 threads (the best tile of each BenchNet
+    pool in ``tools/b6_tiles.py``'s sweep on the H100, whose readings
+    ``PERF.md`` keeps).  The children are B1's affine table with kernel 2
+    and stride 2, one pass of ``2**(ndim - 2)`` groups, their windows in a
+    pool of ``B6_POOL`` keys.  ``tile``: a tile of ``B6_TILES`` to take
+    instead (the sweep's)."""
+    chunk = 16 // itemsize
+    vec = c % chunk == 0 and aligned
+    units = c // chunk if vec else c
+    lanes = min(32, 1 << max(0, units - 1).bit_length())
+    if not tile:
+        tile = next((t for t in B6_TILES if -(-m // t) >= sms),
+                    B6_TILES[-1])
+        tile = max(tile, min(B6_TILES[0], 256 // lanes))
+    threads = min(256, max(32, tile * lanes))
+    groups = 2 ** max(ndim - 2, 0)
+    smem = window_smem(tile, ndim, groups, B6_POOL, 4 if ndim > 1 else 2)
+    return B6Plan(tile, lanes, threads, vec, B6_POOL, smem, -(-m // tile))
+
+
+def launch_b6(lib, features, in_keys, out_keys, in_dims, out_dims,
+              batch_size: int, mode: str, plan: B6Plan, out) -> int:
+    """One launch of ``lib``'s ``sk_pool_launch`` (the library's) on
+    ``plan``, writing ``out``; returns its CUDA error."""
+    ndim = len(in_dims)
+    geom = (ctypes.c_int * (1 + 2 * _MAX_NDIM))(
+        ndim, *(list(out_dims) + [1] * (_MAX_NDIM - ndim)),
+        *(list(in_dims) + [1] * (_MAX_NDIM - ndim)))
+    return lib.sk_pool_launch(
+        _ptr(features), int(features.dtype == torch.bfloat16), _ptr(in_keys),
+        features.shape[0], _ptr(out_keys), out_keys.shape[0],
+        features.shape[1], geom, C.grid_sentinel(out_dims, batch_size),
+        int(mode == "mean"), plan.tile, plan.pool, plan.lanes, plan.threads,
+        int(plan.vec), plan.smem, _ptr(out), _stream_ptr(features.device))
+
+
 def _sk_pool2_cuda(features, in_keys, out_keys, in_shape, out_shape,
                    batch_size, mode):
     from .._build import load_library
 
     in_dims = [int(s) for s in in_shape]
     out_dims = [int(s) for s in out_shape]
-    ndim = len(in_dims)
-    sent_out = C.grid_sentinel(out_dims, batch_size)
+    C.grid_sentinel(out_dims, batch_size)
     C.grid_sentinel(in_dims, batch_size)
-    n, c = features.shape
+    c = features.shape[1]
     m = out_keys.shape[0]
     out = torch.empty((m, c), dtype=features.dtype, device=features.device)
     if m == 0 or c == 0:
         return out
-    geom = (ctypes.c_int * (1 + 2 * _MAX_NDIM))(
-        ndim, *(out_dims + [1] * (_MAX_NDIM - ndim)),
-        *(in_dims + [1] * (_MAX_NDIM - ndim)))
-    err = load_library().sk_pool_launch(
-        ctypes.c_void_p(features.data_ptr()),
-        int(features.dtype == torch.bfloat16),
-        ctypes.c_void_p(in_keys.data_ptr()), n,
-        ctypes.c_void_p(out_keys.data_ptr()), m, c, geom, sent_out,
-        int(mode == "mean"), ctypes.c_void_p(out.data_ptr()),
-        _stream_ptr(features.device))
-    _raise_on(err, "sk_pool")
+    plan = b6_plan(m, c, features.element_size(), len(in_dims),
+                   aligned=features.data_ptr() % 16 == 0,
+                   sms=sm_count(features.device.index))
+    _raise_on(launch_b6(load_library(), features, in_keys, out_keys, in_dims,
+                        out_dims, batch_size, mode, plan, out), "sk_pool")
     launch_counts["sk_pool"] += 1
     return out
 

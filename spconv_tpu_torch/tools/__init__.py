@@ -11,6 +11,12 @@ the CUDA card unless the caller passes ``device="cpu"`` (then the plain
 versions run) and returns ``{case: ok}``.  Run one with, e.g.::
 
     python -m spconv_tpu_torch.tools.probe_dg
+
+Beside them: the kernel ablation and counting scripts on the card
+(``b2_ablation``, ``wgrad_ablation``, ``b7_ablation``, ``table_count``,
+sharing ``ablation``'s harness), ``b6_tiles`` (the sweep behind B6's tile
+rule) and ``table_cases``, the edge inputs of the table and pool kernels
+that the tests and ``chip_smoke.py`` share.
 """
 
 from typing import Dict

@@ -1,7 +1,11 @@
-"""The build-and-time harness of the kernel ablation scripts
-(``b2_ablation``, ``wgrad_ablation``): a kernel source rebuilt with texts
-replaced, one shared library per ablation, built in parallel, and a CUDA
-event timer.
+"""The build-and-time harness of the kernel ablation and counting scripts:
+``b2_ablation`` (B2), ``wgrad_ablation`` (wgrad, and its counting build
+of MMA rows), ``b7_ablation`` (B7, and its counting build),
+``table_count`` (B1's counting build of the windows searched in global
+memory) and ``b6_tiles`` (its timer only); ``chip_smoke.py`` builds the
+three counting builds through it.  A kernel source rebuilt with
+texts replaced, one shared library per ablation, built in parallel, and a
+CUDA event timer.
 """
 
 import ctypes

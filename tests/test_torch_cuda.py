@@ -1551,3 +1551,216 @@ def test_b2_misaligned_features_take_the_scalar_gather(dev, c, k_out):
     assert torch.equal(TD.dg_fwd_search(xv, w, keys, geom),
                        TD.dg_fwd(x, w, pos))
     _check_b2(xv, w, dv, keys, geom, tabs, 3000)
+
+
+# ---------------------------------------------------------------------------
+# B1 and B6 at the edge inputs of spconv_tpu_torch/tools/table_cases.py
+# (held against the JAX package on the CPU in test_torch_table_edges.py and
+# test_torch_table_pool_plan.py)
+# ---------------------------------------------------------------------------
+
+def _edge_keys(name, dev):
+    from spconv_tpu_torch.tools.table_cases import table_case
+
+    inds, shape, batch, subm, regular = table_case(name)
+    inds = torch.from_numpy(inds).to(dev)
+    return inds, TC.linearize(inds, shape, batch)[0], shape, batch, subm, \
+        regular
+
+
+_EDGE_TABLES = ("slab", "full_pool", "batch_tail", "faces", "dil2",
+                "ndim1", "ndim2", "ndim4", "k5", "even")
+
+
+def _windowed(rows, table, tg, sentinel):
+    """B1's table through its windowed path (``b1_window_plan``) whatever
+    the table's size: the public entry takes the direct path for small
+    tables."""
+    from spconv_tpu_torch._build import load_library
+
+    kv = int(np.prod(tg.ksize))
+    pos = torch.empty((kv, rows.shape[0]), dtype=torch.int32,
+                      device=rows.device)
+    plan = TD.b1_window_plan(rows.shape[0], tg.ksize, tg.stride, tg.divide,
+                             sms=TD.sm_count(rows.device.index))
+    assert TD.launch_b1(load_library(), rows, table, tg, sentinel, plan,
+                        pos) == 0
+    return pos
+
+
+@pytest.mark.parametrize("name", _EDGE_TABLES)
+def test_b1_edge_tables_match_plain(dev, name):
+    """B1 bit-equal to its plain version in every mode at each edge input,
+    through the public entry (one launch counted a table) and through the
+    windowed path: the subm kernels forward and reversed, the regular
+    convs' affine and divide tables, and both tables of a transposed conv
+    of the same geometry on the swapped spaces."""
+    from spconv_tpu_torch.ops.rulebook import build_conv_outputs
+
+    inds, keys, shape, batch, subm, regular = _edge_keys(name, dev)
+    for ksize, dil in subm:
+        for rev in (False, True):
+            geom = dict(ksize=ksize, dilation=dil, spatial_shape=shape,
+                        batch_size=batch, reverse=rev)
+            before = sum(TD.launch_counts.values())
+            got = TD.build_dg_pos(keys, **geom)
+            assert sum(TD.launch_counts.values()) == before + 1
+            want = TD.dg_pos_plain(keys, **geom)
+            assert torch.equal(got, want)
+            assert torch.equal(_windowed(
+                keys, keys, TD.TableGeom.subm(ksize, dil, shape, rev),
+                TC.grid_sentinel(shape, batch)), want)
+    for ksize, stride, padding, dil in regular:
+        conv = dict(ksize=ksize, stride=stride, padding=padding,
+                    dilation=dil)
+        zero = (0,) * len(shape)
+        _, out_keys, _, _ = build_conv_outputs(
+            inds, spatial_shape=shape, batch_size=batch,
+            out_bound=inds.shape[0], **conv)
+        _, t_keys, _, _ = build_deconv_outputs(
+            inds, spatial_shape=shape, batch_size=batch, out_padding=zero,
+            **conv)
+        spaces = (
+            ((keys, out_keys), "strided", dict(
+                conv, in_shape=shape, out_shape=tuple(TC.get_conv_output_size(
+                    shape, ksize, stride, padding, dil)), batch_size=batch)),
+            ((t_keys, keys), "transposed", dict(
+                conv, in_shape=tuple(TC.get_deconv_output_size(
+                    shape, ksize, stride, padding, dil, zero)),
+                out_shape=shape, batch_size=batch)))
+        for (ins, outs), path, geom in spaces:
+            for divide, build, plain in (
+                    (False, TD.build_dg_pos_affine, TD.dg_pos_affine_plain),
+                    (True, TD.build_dg_pos_divide, TD.dg_pos_divide_plain)):
+                want = plain(ins, outs, **geom)
+                got = build(ins, outs, path=path, **geom)
+                assert torch.equal(got, want), (build.__name__, path, conv)
+                tg = TD.TableGeom.regular(divide, **{
+                    k: v for k, v in geom.items() if k != "batch_size"})
+                rows, table = (ins, outs) if divide else (outs, ins)
+                assert torch.equal(_windowed(
+                    rows, table, tg, TC.grid_sentinel(tg.row_dims, batch)),
+                    want), ("windowed", build.__name__, path, conv)
+
+
+_EDGE_POOLS = ("c12_batch_tail", "c6", "ndim1", "ndim2", "ndim4", "slab",
+               "full_pool")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", _EDGE_POOLS)
+def test_b6_edge_pools_match_plain(dev, name, dtype):
+    """B6 at each pool edge input, with a NaN, a +inf and a -inf feature,
+    on the features and on a view 2 bytes off 16-byte alignment (the
+    scalar path): max bit-equal, mean within 1e-6*max|ref| where finite and
+    NaN / inf where plain has them."""
+    from spconv_tpu_torch.ops import sorted_pool as TS
+    from spconv_tpu_torch.ops.rulebook import build_pool2_outputs
+    from spconv_tpu_torch.tools.table_cases import pool_case
+
+    feats, inds, shape, batch = pool_case(name)
+    inds = torch.from_numpy(inds).to(dev)
+    in_keys, _ = TC.linearize(inds, shape, batch)
+    _, out_keys, _, _ = build_pool2_outputs(
+        inds, spatial_shape=shape, batch_size=batch, out_bound=inds.shape[0])
+    geom = dict(in_shape=shape, out_shape=tuple(s // 2 for s in shape),
+                batch_size=batch)
+    x = torch.from_numpy(feats).to(dev)
+    rows = torch.nonzero(inds[:, 0] >= 0).squeeze(1)
+    x[rows[3], 0], x[rows[10], -1], x[rows[20], 0] = (
+        float("nan"), float("inf"), float("-inf"))
+    x = x.to(dtype)
+    view = torch.empty(x.numel() + 1, dtype=dtype, device=dev)[1:]
+    view = view.view_as(x).copy_(x)
+    for feat in (x, view):
+        for mode in ("max", "mean"):
+            got = TS.sk_pool2(feat, in_keys, out_keys, mode=mode, **geom)
+            ref = TS.sk_pool2_plain(feat, in_keys, out_keys, mode=mode,
+                                    **geom)
+            assert torch.equal(got.isnan(), ref.isnan())
+            if mode == "max":
+                assert torch.equal(got.nan_to_num(), ref.nan_to_num())
+                continue
+            fin = torch.isfinite(ref)
+            assert torch.equal(got[~fin].nan_to_num(), ref[~fin].nan_to_num())
+            err = (got[fin].float() - ref[fin].float()).abs().max().item()
+            assert err <= 1e-6 * ref[fin].float().abs().max().item()
+
+
+def test_b1_sampled_windows_counted_on_the_slab(dev):
+    """The counting build of ``dg_pos.cu`` (``tools/table_count.py``)
+    counts the windows B1 samples (did not fit in its pool whole) on the
+    dense slab: above 0, equal to the host count (``b1_fallbacks``), with
+    the table bit-equal to plain, forward and reversed."""
+    _check_fallbacks(dev, "slab", "table_count_test")
+
+
+def _check_fallbacks(dev, name, build_dir):
+    """The counting build's count of B1's windows searched in global memory
+    at table edge input ``name``, forward and reversed: above 0 and equal
+    to the host count (``tools/table_count.py``'s ``b1_fallbacks``), the
+    table bit-equal to plain.  Returns the host's count of the windows
+    left without a sample."""
+    from spconv_tpu_torch._build import BUILD_DIR
+    from spconv_tpu_torch.tools import ablation as AB
+    from spconv_tpu_torch.tools import table_count as TCN
+
+    count_lib = AB.build("dg_pos.cu", (TCN.COUNT,), TCN.COUNT_ARGTYPES,
+                         BUILD_DIR / build_dir)[TCN.COUNT[0]]
+    _, keys, shape, batch, subm, _ = _edge_keys(name, dev)
+    (ksize, dil), sent = subm[0], TC.grid_sentinel(shape, batch)
+    unsampled = 0
+    for rev in (False, True):
+        tg = TD.TableGeom.subm(ksize, dil, shape, rev)
+        plan = TD.b1_plan(keys.shape[0], ksize, sms=TD.sm_count(dev.index))
+        card, pos = TCN.fallen_back(count_lib, keys, keys, tg, sent, plan)
+        host, none = TCN.b1_fallbacks(TCN.b1_windows(keys, keys, tg, sent,
+                                                     plan),
+                                      plan, keys.shape[0])
+        assert card == host > 0
+        unsampled += none
+        assert torch.equal(pos, TD.dg_pos_plain(
+            keys, ksize=ksize, dilation=dil, spatial_shape=shape,
+            batch_size=batch, reverse=rev))
+    return unsampled
+
+
+def test_b1_full_pool_windows_searched_without_sample(dev):
+    """At the "full_pool" input a block's first fitting window fills B1's
+    pool exactly and the windows after it get no sample: the counting
+    build counts them, as the host does, and the table stays bit-equal to
+    plain (its affine, divide and transposed tables, and B6's pool at the
+    pool input of the same name, are held in the edge tests above)."""
+    assert _check_fallbacks(dev, "full_pool", "table_count_full_test") > 0
+
+
+def test_b1_divide_table_in_passes(dev):
+    """A 5^3 stride-2 divide table over enough rows for 128-row tiles
+    stages its results in shared memory a few offset groups a pass (three
+    passes of b1_plan's): bit-equal to plain, and its affine inverse
+    too."""
+    from spconv_tpu_torch.ops.rulebook import build_conv_outputs
+
+    shape, ksize = (40, 60, 60), (5, 5, 5)
+    conv = dict(ksize=ksize, stride=(2, 2, 2), padding=(2, 2, 2),
+                dilation=(1, 1, 1))
+    _, inds = generate_sparse_data(shape, 40000, 1,
+                                   rng=np.random.RandomState(3))
+    key = inds[:, 1].astype(np.int64)
+    for a in range(1, 3):
+        key = key * shape[a] + inds[:, a + 1]
+    inds = torch.from_numpy(inds[np.argsort(key)]).to(dev)
+    keys, _ = TC.linearize(inds, shape, 1)
+    _, out_keys, _, _ = build_conv_outputs(
+        inds, spatial_shape=shape, batch_size=1, out_bound=inds.shape[0],
+        **conv)
+    geom = dict(conv, in_shape=shape, out_shape=tuple(
+        TC.get_conv_output_size(shape, ksize, (2, 2, 2), (2, 2, 2),
+                                (1, 1, 1))), batch_size=1)
+    plan = TD.b1_plan(keys.shape[0], ksize, (2, 2, 2), True,
+                      sms=TD.sm_count(dev.index))
+    assert plan.tile == 128 and plan.passes == 3
+    assert torch.equal(TD.build_dg_pos_divide(keys, out_keys, **geom),
+                       TD.dg_pos_divide_plain(keys, out_keys, **geom))
+    assert torch.equal(TD.build_dg_pos_affine(keys, out_keys, **geom),
+                       TD.dg_pos_affine_plain(keys, out_keys, **geom))
