@@ -109,7 +109,8 @@ line is printed):
    ``spconv_tpu_torch.tools`` probe's ``main()`` with each case OK, then
    each kernel against its plain version at its probe's shape, timed
    beside the plain version, the PyTorch call that computes the same
-   function and its bound;
+   function and its bound; the GEMMs with their plans (tile, blocks, K
+   split) and, where this PyTorch has it, ``torch.mm`` with an f32 out;
 13. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
@@ -2636,17 +2637,44 @@ def probe_phase(torch, dev):
     except RuntimeError as e:  # the yardstick only; the port never calls it
         print(f"  torch._int_mm refuses [128, 256] @ [256, 128]: {e}")
         int_mm = None
+    sms = D.sm_count(dev.index or 0)
+
+    def show_plan(row, m, k, n, is_int8):
+        """The plan ``gemm`` launches on (``ops/probes.py::gemm_plan``)."""
+        p = P.gemm_plan(m, k, n, is_int8, sms)
+        check(p.grid >= 64, f"{row}: {p.grid} blocks on {sms} SMs (fewer "
+              "than 64)")
+        print(f"  {row:22s} plan: tile {p.bm} x {p.bn}, {p.grid} blocks, K "
+              f"split over {p.kw} warps of {p.ks} ({p.kc} a round), "
+              f"{p.smem} B shared")
+        return p
+
+    plan8 = show_plan("probe_gemm_s8", 128, 256, 128, True)
     case("probe_gemm_s8", lambda: P.gemm(a8, b8), lambda: P.gemm_plain(a8, b8),
          int_mm, bound(2 * 128 * 256 + 4 * 128 * 128,
                        2 * 128 * 256 * 128, "int8"),
-         ("probe_int8", "probe_gemm_s8"))
+         ("probe_int8", "probe_gemm_s8"), plan=plan8._asdict())
     af = torch.rand((128, 432), device=dev)
     bf = torch.rand((432, 128), device=dev)
     ab, bb = af.bfloat16(), bf.bfloat16()
+    plan16 = show_plan("probe_gemm_bf16", 128, 432, 128, False)
+    # torch.mm with an f32 out computes the row's function exactly (bf16
+    # products, f32 sums and out), where this PyTorch has it
+    try:
+        torch.mm(ab, bb, out_dtype=torch.float32)
+        mm_f32 = cuda_ms(torch, lambda: torch.mm(ab, bb,
+                                                 out_dtype=torch.float32),
+                         100)
+        print(f"  torch.mm(bf16, bf16, out_dtype=float32): {mm_f32:.4f} ms")
+    except (TypeError, RuntimeError) as e:
+        mm_f32 = None
+        print(f"  torch.mm(bf16, bf16, out_dtype=float32) is missing in "
+              f"torch {torch.__version__}: {str(e).splitlines()[0]}")
     case("probe_gemm_bf16", lambda: P.gemm(af, bf),
          lambda: P.gemm_plain(af, bf), lambda: torch.matmul(ab, bb),
          bound(4 * (128 * 432 * 2 + 128 * 128), 2 * 128 * 432 * 128),
-         ("probe_dg", "probe_gemm_bf16"), tol=1e-5)
+         ("probe_dg", "probe_gemm_bf16"), tol=1e-5, plan=plan16._asdict(),
+         mm_out_f32_ms=mm_f32)
     # probe_sk: S1 at C = K = 64 on the stage-0 scan
     voxels, coors, shape = B.synthetic_scan(0)
     xsk = B.make_bench_input(voxels, coors, shape, dtype=torch.bfloat16,

@@ -171,8 +171,8 @@ def load_library() -> ctypes.CDLL:
         "probe_join_launch": [vp, i32, vp, i32, vp, i32, i32, vp, vp],
         # keys, w_n, probes, rows, lanes, out, stream
         "probe_rank_launch": [vp, i32, vp, i32, i32, vp, vp],
-        # a, b, m, k, n, is_int8, out, stream
-        "probe_gemm_launch": [vp, vp, i32, i32, i32, i32, vp, vp],
+        # a, b, m, k, n, is_int8, bm, bn, kw, ks, kc, vec, smem, out, stream
+        "probe_gemm_launch": [vp, vp, *[i32] * 11, vp, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

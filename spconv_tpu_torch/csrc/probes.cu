@@ -20,9 +20,9 @@
 //     ascending w (int8 -> int32 or f32); `probe_rank_launch`
 //     (probe_dg.py::kr): a lower bound per row, broadcast over its lanes.
 //   - gemm: `probe_gemm_launch` (probe_int8.py::probe_plain_matmul.kern,
-//     probe_dg.py::kg): a dense product on the tensor cores with 16x16x16
-//     WMMA (mma.sync) fragments, s8 x s8 -> s32 as B7 multiplies, and bf16
-//     (cast from f32 while loading) -> f32 as B2 multiplies.
+//     probe_dg.py::kg): a dense product on the tensor cores, s8 x s8 -> s32
+//     (mma.sync m16n8k32, as B7 multiplies) and f32 inputs rounded to bf16
+//     (nearest even) -> f32 sums (mma.sync m16n8k16, as B2 multiplies).
 //
 // Bound on the H100: every probe moves a few KB to a few hundred KB and
 //   does at most ~14 MFLOP, so on the card each is bound by the launch and
@@ -34,16 +34,34 @@
 //   and writes whole 32-element rows of a [32][33] shared tile, so neither
 //   side is strided and the tile has no bank conflicts.  A join or rank
 //   block searches once (one thread), then its threads sum or write the
-//   columns.  The GEMMs are B2's and B7's 64 x 64 tiles without the row
-//   gather: bf16 tiles row-major with padded pitches, s8 tiles as planes of
-//   16 channels, so every fragment starts 32-byte aligned.
+//   columns.
+//
+// The GEMMs: at the probes' shapes (bf16 [128 x 432] @ [432 x 128], 14.2
+//   MFLOP; s8 [128 x 256] @ [256 x 128], 8.4 MOP) the bytes take 0.15 and
+//   0.04 us and the tensor cores less, so each is bound by the launch and
+//   one trip to memory; wgmma and TMA would add set-up and no speed at this
+//   size.  The host plan (ops/probes.py::gemm_plan) picks an output tile
+//   small enough for a grid of at least a third of the SMs (16 x 16 at
+//   128 x 128: 64 blocks, against 4 of 64 x 64) and splits K over up to
+//   8 warps of a block, so that each warp issues every load of its K
+//   slice before its first MMA: s8 by 16-byte cp.async, f32 by 16-byte
+//   register loads rounded to bf16 on their way into shared memory
+//   (cp.async cannot convert, and staging f32 first would add a pass
+//   through shared memory).  A and bf16 B fragments come from ldmatrix
+//   (.trans for B's [K, N] rows); s8 B rows are turned into K-contiguous
+//   columns by 4 x 4-byte permutes, since ldmatrix.trans moves 16-bit
+//   elements only.  The warps' partial tiles are added in shared memory
+//   in warp order (repeated runs bit-equal) and stored from registers, 16
+//   bytes a thread.  Ragged M, N and K are zero-filled (cp.async with 0
+//   source bytes, or masked loads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <algorithm>
 #include <cstdint>
+
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -248,187 +266,383 @@ __global__ void rank_kernel(const int* __restrict__ keys, int w_n,
 }
 
 // ---------------------------------------------------------------------------
-// gemm: out [m, n] = a [m, k] @ b [k, n], row-major, on the tensor cores
+// gemm: out [m, n] = a [m, k] @ b [k, n], row-major, on the tensor cores.
+// A block owns a BM x BN tile of out; its warps each sum one K slice of it
+// (warp w: [w * ks, min((w + 1) * ks, k)), KC at a time) into registers,
+// and the block adds the warps' partials in warp order.  The host plan
+// (ops/probes.py::gemm_plan) picks BM x BN, the warps, ks and KC.
 // ---------------------------------------------------------------------------
 
-constexpr int BM = 64;  // output rows per block
-constexpr int BN = 64;  // output columns per block
-constexpr int kGemmThreads = 128;  // 2 x 2 warps, 32 x 32 outputs each
-constexpr int LDC = BN + 4;
+constexpr int kGemmMaxWarps = 8;  // ops/probes.py::GEMM_WARPS
 
-// bf16 products of f32 inputs rounded to bf16 while loading (as the probe's
-// kernel casts its blocks), f32 sums
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_bf16_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 int m, int k, int n, float* __restrict__ out) {
-  using namespace nvcuda;
-  constexpr int BK = 32;
-  constexpr int LDA = BK + 8;  // pitches: multiples of 8 elements and of 32
-  constexpr int LDB = BN + 8;  // bytes at every 16-row fragment
-  __shared__ __align__(32) __nv_bfloat16 As[BM][LDA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK][LDB];
-  __shared__ __align__(32) float Cs[BM][LDC];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp / 2;
-  const int wc = warp % 2;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+using sm90::cp_async16;
+using sm90::cp_async_commit;
+using sm90::cp_async_wait;
+using sm90::ldsm_x4;
+using sm90::ldsm_x4_trans;
+using sm90::mma_bf16;
+using sm90::mma_s8;
+
+__device__ __forceinline__ void ldsm_x2_trans(unsigned (&r)[2],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(sm90::smem_addr(p)));
+}
+
+// The f32 tile: a round stages KC of K (the plan's: one round covers a
+// warp's slice where it can) from f32 by 16-byte register loads (NA of a
+// and NB of b a lane, all issued before the first is used), rounded to
+// bf16 into shared memory.  Pitches are an odd number of 16 bytes, so
+// ldmatrix's eight rows fall in distinct banks.
+template <int BM_, int BN_, int KC_>
+struct Bf16Tile {
+  static constexpr int BM = BM_;
+  static constexpr int BN = BN_;
+  static constexpr int MI = BM / 16;  // m16 tiles
+  static constexpr int NI = BN / 8;   // n8 tiles
+  static constexpr int KC = KC_;
+  static constexpr int LDA = KC + 8;
+  static constexpr int LDB = (BN / 8) % 2 ? BN + 16 : BN + 8;
+  static constexpr int NA = BM * KC / 128;
+  static constexpr int NB = KC * BN / 128;
+  static constexpr int kWarpSmem = 2 * (BM * LDA + KC * LDB);
+};
+
+// The s8 tile: a round copies KC bytes of K with 16-byte cp.async (NA of a
+// and NB of b a lane, all in flight at once), then turns b's rows [KC, BN]
+// into bt [BN, KC] by 4 x 4-byte blocks (ldmatrix moves 16-bit elements, so
+// it cannot transpose bytes), so the m16n8k32 B fragment is read from
+// columns of K-contiguous bytes.
+template <int BM_, int BN_, int KC_>
+struct S8Tile {
+  static constexpr int BM = BM_;
+  static constexpr int BN = BN_;
+  static constexpr int MI = BM / 16;
+  static constexpr int NI = BN / 8;
+  static constexpr int KC = KC_;
+  static constexpr int LDA = KC + 16;
+  static constexpr int LDT = KC + 16;
+  static constexpr int NA = BM * KC / 512;
+  static constexpr int NB = KC * BN / 512;
+  static constexpr int kWarpSmem = BM * LDA + KC * BN + BN * LDT;
+};
+
+// a block's dynamic shared memory: each warp's stage, then the warps'
+// partial sums [kw][BM][BN + 4] of 4 bytes
+template <class T>
+constexpr int gemm_smem(int kw) {
+  return kw * (T::kWarpSmem + T::BM * (T::BN + 4) * 4);
+}
+
+// f32 [c, c + 4) of a row at p; those at or past c_end, or all where
+// !row_ok, are 0.  VEC: one 16-byte load (c and c_end multiples of 4).
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* p, bool row_ok, int c,
+                                        int c_end) {
+  if constexpr (VEC) {
+    return row_ok && c < c_end
+               ? __ldg(reinterpret_cast<const float4*>(p + c))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int c0 = 0; c0 < k; c0 += BK) {
-    for (int e = tid; e < BM * BK; e += kGemmThreads) {
-      const int r = e / BK;
-      const int c = e % BK;
-      float v = 0.f;
-      if (row0 + r < m && c0 + c < k) {
-        v = a[static_cast<size_t>(row0 + r) * k + c0 + c];
-      }
-      As[r][c] = __float2bfloat16(v);
-    }
-    for (int e = tid; e < BK * BN; e += kGemmThreads) {
-      const int c = e / BN;
-      const int col = e % BN;
-      float v = 0.f;
-      if (c0 + c < k && col0 + col < n) {
-        v = b[static_cast<size_t>(c0 + c) * n + col0 + col];
-      }
-      Bs[c][col] = __float2bfloat16(v);
-    }
-    __syncthreads();
+  float v[4];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], &As[wr * 32 + i * 16][kk], LDA);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(fb[j], &Bs[kk][wc * 32 + j * 16], LDB);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
+  for (int j = 0; j < 4; ++j) {
+    v[j] = row_ok && c + j < c_end ? __ldg(p + c + j) : 0.f;
   }
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// four f32 rounded to nearest even bf16, stored 8 bytes at once
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+// Each warp's m16n8 accumulators into its partial tile, then the block's
+// threads load the kw partials of 4 consecutive outputs at once and add
+// them in warp order (a fixed order: repeated runs are bit-equal), and
+// store them from registers, 16 bytes at once where VEC (n a multiple of
+// 4).
+template <class T, bool VEC, typename Acc>
+__device__ __forceinline__ void reduce_store(
+    Acc (&acc)[T::MI][T::NI][4], unsigned char* red_base, int m, int n,
+    int row0, int col0, Acc* __restrict__ out) {
+  constexpr int LDR = T::BN + 4;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int kw = blockDim.x / 32;
+  Acc* red = reinterpret_cast<Acc*>(red_base);
+  Acc* mine = red + warp * T::BM * LDR;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int mi = 0; mi < T::MI; ++mi) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(&Cs[wr * 32 + i * 16][wc * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
+    for (int ni = 0; ni < T::NI; ++ni) {
+      const int r = mi * 16 + lane / 4;
+      const int c = ni * 8 + (lane % 4) * 2;
+      mine[r * LDR + c] = acc[mi][ni][0];
+      mine[r * LDR + c + 1] = acc[mi][ni][1];
+      mine[(r + 8) * LDR + c] = acc[mi][ni][2];
+      mine[(r + 8) * LDR + c + 1] = acc[mi][ni][3];
     }
   }
   __syncthreads();
-  for (int e = tid; e < BM * BN; e += kGemmThreads) {
-    const int r = e / BN;
-    const int col = e % BN;
-    if (row0 + r < m && col0 + col < n) {
-      out[static_cast<size_t>(row0 + r) * n + col0 + col] = Cs[r][col];
+  for (int q = threadIdx.x; q < T::BM * T::BN / 4; q += blockDim.x) {
+    const int r = q / (T::BN / 4);
+    const int c = (q % (T::BN / 4)) * 4;
+    using V = Vec<Acc, 4>;
+    V p[kGemmMaxWarps];
+#pragma unroll
+    for (int w = 0; w < kGemmMaxWarps; ++w) {
+      if (w < kw) {
+        p[w] = *reinterpret_cast<const V*>(red + (w * T::BM + r) * LDR + c);
+      }
+    }
+    V s = p[0];
+#pragma unroll
+    for (int w = 1; w < kGemmMaxWarps; ++w) {
+      if (w < kw) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s.v[j] += p[w].v[j];
+      }
+    }
+    const int row = row0 + r;
+    const int col = col0 + c;
+    if (row >= m) continue;
+    Acc* o = out + static_cast<size_t>(row) * n + col;
+    if constexpr (VEC) {
+      if (col < n) *reinterpret_cast<V*>(o) = s;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (col + j < n) o[j] = s.v[j];
+      }
     }
   }
 }
 
-// s8 x s8 -> s32 (exact in any order), tiles as planes of 16 channels
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-               int m, int k, int n, int* __restrict__ out) {
-  using namespace nvcuda;
-  constexpr int KP = 16;  // channels per plane: the MMA's depth
-  constexpr int NP = 4;   // planes per step
-  constexpr int BK = KP * NP;
-  __shared__ __align__(32) signed char As[NP][BM][KP];  // plane, row, chan
-  __shared__ __align__(32) signed char Bs[NP][BN][KP];  // plane, col, chan
-  __shared__ __align__(32) int Cs[BM][LDC];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp / 2;
-  const int wc = warp % 2;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[2][2];
+// bf16 products of f32 inputs rounded to bf16 (nearest even) while staging,
+// f32 sums.  Block (x, y) owns row tile x and column tile y; VEC: k and n
+// multiples of 4, a and b 16-byte aligned.
+template <class T, bool VEC>
+__global__ void __launch_bounds__(kGemmMaxWarps * 32)
+gemm_bf16_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 int m, int k, int n, int ks, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * T::BM;
+  const int col0 = blockIdx.y * T::BN;
+  auto* as = reinterpret_cast<__nv_bfloat16*>(smem + warp * T::kWarpSmem);
+  __nv_bfloat16* bs = as + T::BM * T::LDA;
+  float acc[T::MI][T::NI][4] = {};
+  const int k_end = min(k, (warp + 1) * ks);
+  for (int k0 = warp * ks; k0 < k_end; k0 += T::KC) {
+    float4 ra[T::NA];
+    float4 rb[T::NB];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0);
-  }
-  for (int c0 = 0; c0 < k; c0 += BK) {
-    for (int e = tid; e < BM * BK; e += kGemmThreads) {
-      const int r = e / BK;
-      const int c = e % BK;
-      signed char v = 0;
-      if (row0 + r < m && c0 + c < k) {
-        v = a[static_cast<size_t>(row0 + r) * k + c0 + c];
-      }
-      As[c / KP][r][c % KP] = v;
+    for (int i = 0; i < T::NA; ++i) {
+      const int u = lane + 32 * i;
+      const int r = row0 + u / (T::KC / 4);
+      ra[i] = load4<VEC>(a + static_cast<size_t>(r) * k, r < m,
+                         k0 + (u % (T::KC / 4)) * 4, k_end);
     }
-    for (int e = tid; e < BK * BN; e += kGemmThreads) {
-      const int c = e / BN;
-      const int col = e % BN;
-      signed char v = 0;
-      if (c0 + c < k && col0 + col < n) {
-        v = b[static_cast<size_t>(c0 + c) * n + col0 + col];
-      }
-      Bs[c / KP][col][c % KP] = v;
+#pragma unroll
+    for (int i = 0; i < T::NB; ++i) {
+      const int u = lane + 32 * i;
+      const int r = k0 + u / (T::BN / 4);
+      rb[i] = load4<VEC>(b + static_cast<size_t>(r) * n, r < k_end,
+                         col0 + (u % (T::BN / 4)) * 4, n);
     }
-    __syncthreads();
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                     wmma::row_major>
-          fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                     wmma::col_major>
-          fb[2];
+    for (int i = 0; i < T::NA; ++i) {
+      const int u = lane + 32 * i;
+      store_bf16x4(as + (u / (T::KC / 4)) * T::LDA + (u % (T::KC / 4)) * 4,
+                   ra[i]);
+    }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(fa[i], &As[p][wr * 32 + i * 16][0], KP);
+    for (int i = 0; i < T::NB; ++i) {
+      const int u = lane + 32 * i;
+      store_bf16x4(bs + (u / (T::BN / 4)) * T::LDB + (u % (T::BN / 4)) * 4,
+                   rb[i]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < T::KC; kk += 16) {
+      if (k0 + kk >= k_end) break;
+      unsigned af[T::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi) {
+        ldsm_x4(af[mi], as + (mi * 16 + (lane & 15)) * T::LDA + kk +
+                            (lane >> 4) * 8);
+      }
+      unsigned bfr[T::NI][2];
+#pragma unroll
+      for (int nj = 0; nj + 1 < T::NI; nj += 2) {
+        unsigned r4[4];
+        ldsm_x4_trans(r4, bs + (kk + (lane & 15)) * T::LDB + nj * 8 +
+                              (lane >> 4) * 8);
+        bfr[nj][0] = r4[0];
+        bfr[nj][1] = r4[1];
+        bfr[nj + 1][0] = r4[2];
+        bfr[nj + 1][1] = r4[3];
+      }
+      if constexpr (T::NI % 2) {
+        ldsm_x2_trans(bfr[T::NI - 1],
+                      bs + (kk + (lane & 15)) * T::LDB + (T::NI - 1) * 8);
       }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::load_matrix_sync(fb[j], &Bs[p][wc * 32 + j * 16][0], KP);
-      }
+      for (int mi = 0; mi < T::MI; ++mi) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+        for (int ni = 0; ni < T::NI; ++ni) {
+          mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
         }
       }
     }
-    __syncthreads();
+    __syncwarp();
   }
+  reduce_store<T, VEC, float>(acc, smem + (blockDim.x / 32) * T::kWarpSmem,
+                              m, n, row0, col0, out);
+}
+
+// the four bytes j of w0..w3 as one word, for j = 0..3: a 4 x 4-byte
+// transpose
+__device__ __forceinline__ void transpose4x4(unsigned (&w)[4]) {
+  const unsigned lo01 = __byte_perm(w[0], w[1], 0x5140);
+  const unsigned hi01 = __byte_perm(w[0], w[1], 0x7362);
+  const unsigned lo23 = __byte_perm(w[2], w[3], 0x5140);
+  const unsigned hi23 = __byte_perm(w[2], w[3], 0x7362);
+  w[0] = __byte_perm(lo01, lo23, 0x5410);
+  w[1] = __byte_perm(lo01, lo23, 0x7632);
+  w[2] = __byte_perm(hi01, hi23, 0x5410);
+  w[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// s8 x s8 -> s32 (exact in any order).  VEC: k and n multiples of 16, a
+// and b 16-byte aligned; else byte loads.
+template <class T, bool VEC>
+__global__ void __launch_bounds__(kGemmMaxWarps * 32)
+gemm_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+               int m, int k, int n, int ks, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * T::BM;
+  const int col0 = blockIdx.y * T::BN;
+  auto* as = reinterpret_cast<int8_t*>(smem + warp * T::kWarpSmem);
+  int8_t* braw = as + T::BM * T::LDA;  // [KC][BN], rows of b
+  int8_t* bt = braw + T::KC * T::BN;   // [BN][LDT], columns of b
+  int acc[T::MI][T::NI][4] = {};
+  const int k_end = min(k, (warp + 1) * ks);
+  for (int k0 = warp * ks; k0 < k_end; k0 += T::KC) {
+    if constexpr (VEC) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < T::NA; ++i) {
+        const int u = lane + 32 * i;
+        const int r = u / (T::KC / 16);
+        const int c = (u % (T::KC / 16)) * 16;
+        const bool ok = row0 + r < m && k0 + c < k_end;
+        cp_async16(as + r * T::LDA + c,
+                   ok ? a + static_cast<size_t>(row0 + r) * k + k0 + c : a,
+                   ok ? 16 : 0);
+      }
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(&Cs[wr * 32 + i * 16][wc * 32 + j * 16],
-                              acc[i][j], LDC, wmma::mem_row_major);
+      for (int i = 0; i < T::NB; ++i) {
+        const int u = lane + 32 * i;
+        const int r = u / (T::BN / 16);
+        const int c = (u % (T::BN / 16)) * 16;
+        const bool ok = k0 + r < k_end && col0 + c < n;
+        cp_async16(braw + r * T::BN + c,
+                   ok ? b + static_cast<size_t>(k0 + r) * n + col0 + c : b,
+                   ok ? 16 : 0);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      for (int e = lane; e < T::BM * T::KC; e += 32) {
+        const int r = e / T::KC;
+        const int c = e % T::KC;
+        as[r * T::LDA + c] = row0 + r < m && k0 + c < k_end
+                                 ? a[static_cast<size_t>(row0 + r) * k + k0 + c]
+                                 : 0;
+      }
+      for (int e = lane; e < T::KC * T::BN; e += 32) {
+        const int r = e / T::BN;
+        const int c = e % T::BN;
+        braw[e] = k0 + r < k_end && col0 + c < n
+                      ? b[static_cast<size_t>(k0 + r) * n + col0 + c]
+                      : 0;
+      }
     }
-  }
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += kGemmThreads) {
-    const int r = e / BN;
-    const int col = e % BN;
-    if (row0 + r < m && col0 + col < n) {
-      out[static_cast<size_t>(row0 + r) * n + col0 + col] = Cs[r][col];
+    __syncwarp();
+    for (int e = lane; e < (T::KC / 4) * (T::BN / 4); e += 32) {
+      const int kb = (e / (T::BN / 4)) * 4;
+      const int nb = (e % (T::BN / 4)) * 4;
+      unsigned w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w[j] = *reinterpret_cast<const unsigned*>(braw + (kb + j) * T::BN + nb);
+      }
+      transpose4x4(w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<unsigned*>(bt + (nb + j) * T::LDT + kb) = w[j];
+      }
     }
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < T::KC; kk += 32) {
+      if (k0 + kk >= k_end) break;
+      unsigned af[T::MI][4];
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi) {
+        ldsm_x4(af[mi], as + (mi * 16 + (lane & 15)) * T::LDA + kk +
+                            (lane >> 4) * 16);
+      }
+      unsigned bfr[T::NI / 2][4];
+#pragma unroll
+      for (int nj = 0; nj < T::NI / 2; ++nj) {
+        ldsm_x4(bfr[nj], bt + (nj * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                                  T::LDT + kk + ((lane >> 3) & 1) * 16);
+      }
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < T::NI; ++ni) {
+          mma_s8(acc[mi][ni], af[mi], bfr[ni / 2][(ni % 2) * 2],
+                 bfr[ni / 2][(ni % 2) * 2 + 1]);
+        }
+      }
+    }
+    __syncwarp();
   }
+  reduce_store<T, VEC, int>(acc, smem + (blockDim.x / 32) * T::kWarpSmem, m,
+                            n, row0, col0, out);
+}
+
+// one launch of a tile's kernel on the plan's grid and warps; dynamic
+// shared memory above 48 KB only by the opt-in, once per instantiation (of
+// the tile and VEC), to what kGemmMaxWarps warps take
+template <class T, bool VEC, typename In, typename Out, class Kern>
+int launch_gemm(Kern kern, const void* a, const void* b, int m, int k, int n,
+                int kw, int ks, int smem, void* out, cudaStream_t s) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           gemm_smem<T>(kGemmMaxWarps));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (kw < 1 || kw > kGemmMaxWarps || smem != gemm_smem<T>(kw) || ks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((m + T::BM - 1) / T::BM, (n + T::BN - 1) / T::BN);
+  kern<<<grid, kw * 32, smem, s>>>(static_cast<const In*>(a),
+                                   static_cast<const In*>(b), m, k, n, ks,
+                                   static_cast<Out*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -516,20 +730,49 @@ extern "C" int probe_rank_launch(const void* keys, int w_n, const void* probes,
 }
 
 // is_int8: a [m, k], b [k, n] int8 -> out int32; else f32 inputs, bf16
-// products, f32 out
+// products, f32 out.  The plan (ops/probes.py::gemm_plan): a bm x bn tile
+// a block, kw warps each summing ks of K, kc a round, vec 16-byte loads,
+// smem bytes of dynamic shared memory; a tile and round it has no kernel
+// for, or smem that is not the kernel's, is refused.
 extern "C" int probe_gemm_launch(const void* a, const void* b, int m, int k,
-                                 int n, int is_int8, void* out,
+                                 int n, int is_int8, int bm, int bn, int kw,
+                                 int ks, int kc, int vec, int smem, void* out,
                                  void* stream) {
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_int8) {
-    gemm_s8_kernel<<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const int8_t*>(a), static_cast<const int8_t*>(b), m, k, n,
-        static_cast<int*>(out));
-  } else {
-    gemm_bf16_kernel<<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), m, k, n,
-        static_cast<float*>(out));
+#define PROBE_GEMM(Tile, kernel, In, Out, BM_, BN_, KC_)                     \
+  if (bm == BM_ && bn == BN_ && kc == KC_) {                                 \
+    using T = Tile<BM_, BN_, KC_>;                                           \
+    return vec ? launch_gemm<T, true, In, Out>(kernel<T, true>, a, b, m, k,  \
+                                               n, kw, ks, smem, out, s)      \
+               : launch_gemm<T, false, In, Out>(kernel<T, false>, a, b, m,   \
+                                                k, n, kw, ks, smem, out, s); \
   }
-  return static_cast<int>(cudaGetLastError());
+#define PROBE_GEMM_S8(BM_, BN_, KC_) \
+  PROBE_GEMM(S8Tile, gemm_s8_kernel, int8_t, int, BM_, BN_, KC_)
+#define PROBE_GEMM_BF16(BM_, BN_, KC_) \
+  PROBE_GEMM(Bf16Tile, gemm_bf16_kernel, float, float, BM_, BN_, KC_)
+  if (is_int8) {
+    PROBE_GEMM_S8(32, 32, 32)
+    PROBE_GEMM_S8(32, 32, 64)
+    PROBE_GEMM_S8(32, 16, 32)
+    PROBE_GEMM_S8(32, 16, 64)
+    PROBE_GEMM_S8(16, 16, 32)
+    PROBE_GEMM_S8(16, 16, 64)
+    PROBE_GEMM_S8(16, 16, 128)
+  } else {
+    PROBE_GEMM_BF16(32, 32, 16)
+    PROBE_GEMM_BF16(32, 32, 32)
+    PROBE_GEMM_BF16(32, 16, 16)
+    PROBE_GEMM_BF16(32, 16, 32)
+    PROBE_GEMM_BF16(16, 16, 16)
+    PROBE_GEMM_BF16(16, 16, 32)
+    PROBE_GEMM_BF16(16, 16, 64)
+    PROBE_GEMM_BF16(16, 8, 16)
+    PROBE_GEMM_BF16(16, 8, 32)
+    PROBE_GEMM_BF16(16, 8, 64)
+  }
+#undef PROBE_GEMM_BF16
+#undef PROBE_GEMM_S8
+#undef PROBE_GEMM
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,7 +16,8 @@ plain PyTorch version beside it:
 * :func:`lane_rank` (search family): ``out[r, :] = #{keys < probes[r,
   0]}``;
 * :func:`gemm` (gemm family): ``a @ b`` on the tensor cores, s8 -> s32, or
-  f32 inputs rounded to bf16 with f32 sums.
+  f32 inputs rounded to bf16 with f32 sums, launched on
+  :func:`gemm_plan`'s tile and K split.
 
 A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
 tensor it launches its kernel or raises; it never falls back.  Each launch
@@ -26,9 +27,11 @@ adds one to its entry of ``launch_counts``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
+
+from .dg_conv import sm_count
 
 __all__ = [
     "copy_rows",
@@ -45,6 +48,11 @@ __all__ = [
     "lane_rank_plain",
     "gemm",
     "gemm_plain",
+    "GEMM_TILES",
+    "GEMM_WARPS",
+    "GemmPlan",
+    "gemm_plan",
+    "launch_gemm",
     "launch_counts",
     "reset_launch_counts",
 ]
@@ -318,10 +326,94 @@ def lane_rank_plain(keys: torch.Tensor, probes: torch.Tensor
 # gemm family
 # ---------------------------------------------------------------------------
 
+# (rows, columns) of a block's output tile, largest first; s8 takes only
+# those 16 columns wide or more (a 16-byte copy of a row of b)
+GEMM_TILES = ((32, 32), (32, 16), (16, 16), (16, 8))
+GEMM_WARPS = 8  # a block's at most, each summing a slice of K
+
+
+class GemmPlan(NamedTuple):
+    bm: int      # output rows a block
+    bn: int      # output columns a block
+    kw: int      # warps a block, warp w summing K in [w * ks, (w + 1) * ks)
+    ks: int      # K a warp: a multiple of the MMA's depth
+    kc: int      # K a warp stages a round, every load issued at once: 1,
+                 # 2 or 4 MMA steps, the least that holds ks
+    vec: bool    # 16-byte loads (k and n fill them, a and b aligned)
+    smem: int    # dynamic shared memory, bytes
+    grid: int    # blocks: ceil(m / bm) row tiles by ceil(n / bn) column
+                 # tiles
+
+
+def gemm_plan(m: int, k: int, n: int, is_int8: bool, sms: int, *,
+              aligned: bool = True, tile: Optional[tuple] = None,
+              kw: Optional[int] = None) -> GemmPlan:
+    """The launch of :func:`gemm` on ``a [m, k] @ b [k, n]`` on a card of
+    ``sms`` SMs.  The tile: the largest of ``GEMM_TILES`` whose grid has
+    at least ``sms // 3`` blocks, else the smallest.  K: in steps of the
+    MMA's depth (16 bf16, 32 s8) over at most ``GEMM_WARPS`` warps, spread
+    evenly so that no warp is idle; a warp stages ``kc`` of its slice at
+    once.  At the probes' shapes on the H100 that is 64 blocks of 16 x 16,
+    7 warps of 4 steps (bf16) and 8 warps of 1 step (s8), each slice in one
+    round: the fastest tile and split of each in ``tools/gemm_tiles.py``'s
+    sweep, whose readings ``PERF.md`` keeps.  ``tile`` and ``kw``: a tile
+    of ``GEMM_TILES`` and a warp count to take instead (the sweep's)."""
+    tiles = [t for t in GEMM_TILES if t[1] >= 16 or not is_int8]
+    if tile is None:
+        tile = next((t for t in tiles
+                     if -(-m // t[0]) * -(-n // t[1]) >= sms // 3),
+                    tiles[-1])
+    if tile not in tiles:
+        raise ValueError(f"gemm_plan: no {'s8' if is_int8 else 'bf16'} "
+                         f"tile {tile}")
+    bm, bn = tile
+    _check(-(-n // bn) <= 65535, f"gemm_plan: n = {n} needs more than "
+           "65,535 column tiles")
+    depth = 32 if is_int8 else 16
+    steps = max(1, -(-k // depth))
+    kw = min(kw or GEMM_WARPS, GEMM_WARPS, steps)
+    per = -(-steps // kw)
+    kw = -(-steps // per)
+    ks = per * depth
+    # the kernels' rounds: 1, 2 or 4 MMA steps (2 at most on the larger
+    # tiles, whose stages would hold more); the least that holds ks
+    rounds = [depth * s for s in (1, 2, 4)[:3 if bm + bn <= 32 else 2]]
+    kc = next((r for r in rounds if r >= ks), rounds[-1])
+    if is_int8:
+        warp_smem = bm * (kc + 16) + kc * bn + bn * (kc + 16)
+        vec = k % 16 == 0 and n % 16 == 0 and aligned
+    else:
+        ldb = bn + 16 if (bn // 8) % 2 else bn + 8
+        warp_smem = 2 * (bm * (kc + 8) + kc * ldb)
+        vec = k % 4 == 0 and n % 4 == 0 and aligned
+    smem = kw * (warp_smem + bm * (bn + 4) * 4)
+    return GemmPlan(bm, bn, kw, ks, kc, vec, smem,
+                    -(-m // bm) * -(-n // bn))
+
+
+def _gemm_args(a, b, plan, out):
+    """``probe_gemm_launch``'s arguments but the stream."""
+    (m, k), n = a.shape, b.shape[1]
+    return (_ptr(a), _ptr(b), m, k, n, int(a.dtype == torch.int8), plan.bm,
+            plan.bn, plan.kw, plan.ks, plan.kc, int(plan.vec), plan.smem,
+            _ptr(out))
+
+
+def launch_gemm(lib, a: torch.Tensor, b: torch.Tensor, plan: GemmPlan,
+                out: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``probe_gemm_launch`` on ``plan``, writing
+    ``out``; returns its CUDA error (uncounted: the wrapper is
+    :func:`gemm`)."""
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    return lib.probe_gemm_launch(*_gemm_args(a, b, plan, out),
+                                 ctypes.c_void_p(stream))
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` -> ``[M, N]`` on the tensor cores: int8 ``[M, K]`` and
     ``[K, N]`` -> int32 (exact), or f32 inputs rounded to bf16 (round to
-    nearest even), their products summed in f32 -> f32."""
+    nearest even), their products summed in f32 -> f32; launched on
+    :func:`gemm_plan`'s tile and K split."""
     _check(a.ndim == 2 and b.ndim == 2 and a.shape[1] == b.shape[0],
            "gemm: a must be [M, K] and b [K, N]")
     _check(a.dtype == b.dtype and a.dtype in (torch.int8, torch.float32),
@@ -334,8 +426,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), device=a.device,
                       dtype=torch.int32 if is_int8 else torch.float32)
     if m and n:
-        _launch("probe_gemm_launch", name, _ptr(a), _ptr(b), m, k, n,
-                int(is_int8), _ptr(out), device=a.device)
+        plan = gemm_plan(m, k, n, is_int8, sm_count(a.device.index),
+                         aligned=_aligned(a, 16) and _aligned(b, 16))
+        _launch("probe_gemm_launch", name, *_gemm_args(a, b, plan, out),
+                device=a.device)
     return out
 
 

@@ -15,7 +15,8 @@ versions run) and returns ``{case: ok}``.  Run one with, e.g.::
 Beside them: the kernel ablation and counting scripts on the card
 (``b2_ablation``, ``wgrad_ablation``, ``b7_ablation``, ``table_count``,
 sharing ``ablation``'s harness), ``b6_tiles`` (the sweep behind B6's tile
-rule) and ``table_cases``, the edge inputs of the table and pool kernels
+rule), ``gemm_tiles`` (the sweep behind the probe GEMMs' plan, and their
+ablations) and ``table_cases``, the edge inputs of the table and pool kernels
 that the tests and ``chip_smoke.py`` share.
 """
 

@@ -1412,26 +1412,65 @@ def test_probe_rank_matches_plain(dev):
     assert torch.equal(got.cpu(), TP.lane_rank_plain(keys, probes))
 
 
+def _probe_gemm_operands(m, k, n, values, g):
+    """int8 and f32 operands: uniform ("random"); s8 of only -128 and 127
+    with a row and a column all -128 (the largest sum, 16384 K) and f32
+    each exactly halfway between two bf16 values ("edge"); or uniform in
+    storage one element past a 16-byte boundary ("unaligned")."""
+    if values == "edge":
+        a8 = torch.where(torch.rand((m, k), generator=g) < 0.5, -128, 127)
+        b8 = torch.where(torch.rand((k, n), generator=g) < 0.5, -128, 127)
+        a8[0], b8[:, 0] = -128, -128
+        half = [((torch.rand(s, generator=g) * 2 - 1).bfloat16().float()
+                 .view(torch.int32) | 0x8000).view(torch.float32)
+                for s in ((m, k), (k, n))]
+        return a8.to(torch.int8), b8.to(torch.int8), *half
+    a8 = torch.randint(-127, 127, (m, k), generator=g).to(torch.int8)
+    b8 = torch.randint(-127, 127, (k, n), generator=g).to(torch.int8)
+    return a8, b8, torch.rand((m, k), generator=g), torch.rand((k, n),
+                                                               generator=g)
+
+
+def _off_by_one(t, dev):
+    """``t`` on ``dev``, contiguous, one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# the probes' shapes, then ragged ones reaching each tile of
+# ops/probes.py::gemm_plan, K split over 1-8 warps, a K of one MMA step
+# and a warp slice staged in several rounds
 @pytest.mark.parametrize("m,k,n", [(128, 256, 128), (128, 432, 128),
-                                   (70, 40, 90)])
-def test_probe_gemm_matches_plain(dev, m, k, n):
+                                   (70, 40, 90), (1, 1, 1), (129, 33, 65),
+                                   (64, 1000, 48), (256, 432, 256),
+                                   (512, 96, 512), (192, 72, 224),
+                                   (64, 3000, 48), (32, 4096, 32)])
+@pytest.mark.parametrize("values", ["random", "edge", "unaligned"])
+def test_probe_gemm_matches_plain(dev, m, k, n, values):
     """s8 -> s32 bit-equal to its plain version; bf16 within the probe's
     own ``rtol=2e-2`` of the f32 product (``tools/probe_dg.py:109``) and
     within 1e-5 of max|ref| of the plain version (f32 sums in another
-    order)."""
+    order), inputs halfway between two bf16 values rounded to even as the
+    plain version rounds them, and two runs bit-equal."""
     g = torch.Generator().manual_seed(k)
-    a8 = torch.randint(-127, 127, (m, k), generator=g).to(torch.int8)
-    b8 = torch.randint(-127, 127, (k, n), generator=g).to(torch.int8)
-    a, b = torch.rand((m, k), generator=g), torch.rand((k, n), generator=g)
+    a8, b8, a, b = _probe_gemm_operands(m, k, n, values, g)
+    place = ((lambda t: _off_by_one(t, dev)) if values == "unaligned"
+             else (lambda t: t.to(dev)))
+    ops8, ops = (place(a8), place(b8)), (place(a), place(b))
     TP.reset_launch_counts()
-    got8 = TP.gemm(a8.to(dev), b8.to(dev))
-    got = TP.gemm(a.to(dev), b.to(dev)).cpu()
+    got8 = TP.gemm(*ops8)
+    got = TP.gemm(*ops).cpu()
+    again = TP.gemm(*ops).cpu()
     torch.cuda.synchronize()
     assert TP.launch_counts == _probe_counts(probe_gemm_s8=1,
-                                             probe_gemm_bf16=1)
+                                             probe_gemm_bf16=2)
     assert torch.equal(got8.cpu(), TP.gemm_plain(a8, b8))
-    assert np.allclose(got.numpy(), (a @ b).numpy(), rtol=2e-2)
+    assert torch.equal(got, again)
     ref = TP.gemm_plain(a, b)
+    if values != "edge":
+        assert np.allclose(got.numpy(), (a @ b).numpy(), rtol=2e-2)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
