@@ -2566,33 +2566,56 @@ def probe_phase(torch, dev):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
     print("probe kernels at their probes' shapes: max|d| vs plain, ms "
-          "(CUDA events, 100 launches) beside plain, bound and torch call; "
-          "each is launch-bound")
+          "(CUDA events, 100 launches) beside plain, bound and torch call "
+          "(the copies' slice takes its start from the host); each is "
+          "launch-bound")
     i32 = torch.int32
+    sms = D.sm_count(dev.index or 0)
+
+    def show_copy_plan(row, x, rows):
+        """The plan ``copy_rows`` launches on for ``x`` (``ops/probes.py::
+        copy_launch_plan``)."""
+        p = P.copy_launch_plan(x, rows)
+        check(p.vec and p.tx * p.ty == P.COPY_THREADS, f"{row}: plan {p}")
+        print(f"  {row:22s} plan: {p.grid} blocks of {p.tx} x {p.ty} "
+              f"threads ({p.ty} rows a block), one 16-byte output vector "
+              "a thread")
+        return p._asdict()
+
     x8 = on((np.arange(4096 * 128).reshape(4096, 128) % 117 - 58)
             .astype(np.int8))
     s96 = torch.tensor([96], dtype=i32, device=dev)
     case("probe_copy_int8", lambda: P.copy_rows(x8, s96, 64),
          lambda: P.copy_rows_plain(x8, s96, 64),
          lambda: x8[96:160].to(torch.int32), bound(64 * 128 * 5 + 4),
-         ("probe_int8", "probe_copy"))
+         ("probe_int8", "probe_copy"),
+         plan=show_copy_plan("probe_copy_int8", x8, 64))
     xb = on(np.arange(4096 * 128).reshape(4096, 128) % 977).to(torch.bfloat16)
     s384 = torch.tensor([384], dtype=i32, device=dev)
     case("probe_copy_dma_align", lambda: P.copy_rows(xb, s384, 64),
          lambda: P.copy_rows_plain(xb, s384, 64),
          lambda: xb[384:448].to(torch.bfloat16, copy=True),
-         bound(2 * 64 * 128 * 2 + 4), ("probe_dma_align", "probe_copy"))
+         bound(2 * 64 * 128 * 2 + 4), ("probe_dma_align", "probe_copy"),
+         plan=show_copy_plan("probe_copy_dma_align", xb, 64))
     tab = torch.rand((256, 128), device=dev)
     s5 = torch.tensor([5], dtype=i32, device=dev)
     case("probe_copy_chunk",
          lambda: P.copy_rows(tab, s5, 16, scale=16, off=16),
          lambda: P.copy_rows_plain(tab, s5, 16, scale=16, off=16),
          lambda: tab[96:112].to(torch.float32, copy=True),
-         bound(2 * 16 * 128 * 4 + 4), ("probe_dg", "probe_copy"))
+         bound(2 * 16 * 128 * 4 + 4), ("probe_dg", "probe_copy"),
+         plan=show_copy_plan("probe_copy_chunk", tab, 16))
     a = torch.rand((128, 128), device=dev)
+    tplan = P.transpose_launch_plan(a)
+    check(tplan.vec and tplan.grid >= sms // 3,
+          f"probe_transpose: plan {tplan} on {sms} SMs")
+    print(f"  {'probe_transpose':22s} plan: {tplan.grid} blocks of "
+          f"{tplan.p} x {tplan.q} threads, a 4 x 4 block a thread in "
+          "registers")
     case("probe_transpose", lambda: P.transpose(a),
          lambda: P.transpose_plain(a), lambda: a.t().contiguous(),
-         bound(2 * 128 * 128 * 4), ("probe_dg", "probe_transpose"))
+         bound(2 * 128 * 128 * 4), ("probe_dg", "probe_transpose"),
+         plan=tplan._asdict())
     xg = torch.rand((128, 128), device=dev)
     idx = torch.randint(0, 128, (128, 128), device=dev, dtype=i32)
     idx64 = idx.long()
@@ -2637,7 +2660,6 @@ def probe_phase(torch, dev):
     except RuntimeError as e:  # the yardstick only; the port never calls it
         print(f"  torch._int_mm refuses [128, 256] @ [256, 128]: {e}")
         int_mm = None
-    sms = D.sm_count(dev.index or 0)
 
     def show_plan(row, m, k, n, is_int8):
         """The plan ``gemm`` launches on (``ops/probes.py::gemm_plan``)."""

@@ -159,11 +159,11 @@ def load_library() -> ctypes.CDLL:
                            ctypes.POINTER(i32), i32, i32, i32, i32, i32, i32,
                            i32, i32, vp, vp],
         # the probe kernels (B9, csrc/probes.cu)
-        # x, n, width, kind, start, scale, off, rows, vec, out, stream
-        "probe_copy_launch": [vp, i32, i32, i32, vp, i32, i32, i32, i32, vp,
-                              vp],
-        # a, m, n, out, stream
-        "probe_transpose_launch": [vp, i32, i32, vp, vp],
+        # x, n, width, kind, start, scale, off, rows, vec, tx, ty, grid,
+        # out, stream
+        "probe_copy_launch": [vp, i32, i32, i32, vp, *[i32] * 7, vp, vp],
+        # a, m, n, p, q, vec, out, stream
+        "probe_transpose_launch": [vp, i32, i32, i32, i32, i32, vp, vp],
         # x, width, idx, row, scale, is_float, rows, out, stream
         "probe_gather_launch": [vp, i32, vp, i32, ctypes.c_float, i32, i32,
                                 vp, vp],

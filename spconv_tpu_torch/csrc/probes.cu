@@ -9,7 +9,7 @@
 //     probe_dma_align.py::make.kern, probe_dg.py::kd): rows of a table from
 //     a start row read on the device (the scalar prefetch's role), widened
 //     int8 -> int32 in the int8 probe; `probe_transpose_launch`
-//     (probe_dg.py::kt): a transpose through a padded shared tile.
+//     (probe_dg.py::kt): a transpose of 4 x 4 blocks in registers.
 //   - gather: `probe_gather_launch` (probe_dg.py::k, ::ki, ::ks):
 //     out[r, l] = x[r, idx[r, l]] (f32 or int32), or a row broadcast times
 //     a scale.
@@ -28,13 +28,24 @@
 //   does at most ~14 MFLOP, so on the card each is bound by the launch and
 //   one trip to memory (a few microseconds), not by bytes or operations.
 //
-// Design: the simplest kernel for each function.  The copy and gather
-//   kernels move 16 bytes a thread where the row allows (the wrapper checks
-//   width and alignment; else one element a thread).  The transpose reads
-//   and writes whole 32-element rows of a [32][33] shared tile, so neither
-//   side is strided and the tile has no bank conflicts.  A join or rank
-//   block searches once (one thread), then its threads sum or write the
-//   columns.
+// Design: the simplest kernel for each function.  The gather kernel moves
+//   16 bytes a thread where the row allows.  A join or rank block searches
+//   once (one thread), then its threads sum or write the columns.
+//
+// The copies (8-32 KB at the probes' shapes) and the transpose (64 KB each
+//   way) are bound by the launch and one or two dependent trips to L2, so
+//   their design is about latency: each thread makes one round of 16-byte
+//   accesses on both sides with nothing between them, on the host plans'
+//   grids (ops/probes.py::copy_plan, transpose_plan): the copy on blocks
+//   of 256 threads (on the H100 smaller blocks, hence more of them, are no
+//   faster), the transpose on at least a third of the SMs.  The copy reads
+//   its start through the read-only path before anything else, since every
+//   row load waits on it (the device read is the function: the Pallas
+//   probes' scalar prefetch); int8 -> int32 reads 4 bytes and writes 16 a
+//   thread.
+//   The transpose moves a 4 x 4 block a thread in registers: no shared
+//   memory and no barrier.  A width, shape or pointer that 16-byte
+//   accesses do not fit takes a one-element path, masked at the edges.
 //
 // The GEMMs: at the probes' shapes (bf16 [128 x 432] @ [432 x 128], 14.2
 //   MFLOP; s8 [128 x 256] @ [256 x 128], 8.4 MOP) the bytes take 0.15 and
@@ -72,71 +83,99 @@ struct alignas(sizeof(T) * V) Vec {
 
 // ---------------------------------------------------------------------------
 // copy: out[r, :] = x[start[0] * scale + off + r, :] for r < rows, widened
-// to Tout; rows outside [0, n) of x give 0
+// to Tout; rows outside [0, n) of x give 0.  A thread writes V elements at
+// once: one 16-byte vector of out (int8 -> int32: 4 bytes in, 16 out), or
+// one element on the one-element path (V = 1).  Block (tx, ty): ty rows
+// of out, tx threads along each (a thread steps by tx * V), so a thread's
+// row and column follow from its indices with no division.
 // ---------------------------------------------------------------------------
 
 template <typename Tin, typename Tout, int V>
 __global__ void copy_rows_kernel(const Tin* __restrict__ x, int n, int width,
                                  const int* __restrict__ start, int scale,
                                  int off, int rows, Tout* __restrict__ out) {
-  const long long s = static_cast<long long>(start[0]) * scale + off;
-  const int vw = width / V;
-  const int total = rows * vw;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += gridDim.x * blockDim.x) {
-    const int r = e / vw;
-    const int c = (e % vw) * V;
-    const long long src = s + r;
-    Vec<Tout, V> o;
-    if (src >= 0 && src < n) {
-      const Vec<Tin, V> in =
-          *reinterpret_cast<const Vec<Tin, V>*>(x + src * width + c);
+  // the start first (read-only path): every row load waits on it
+  const long long s = static_cast<long long>(__ldg(start)) * scale + off;
+  const int r = blockIdx.x * blockDim.y + threadIdx.y;
+  if (r >= rows) return;
+  const long long src = s + r;
+  const bool ok = src >= 0 && src < n;
+  const Tin* xr = x + src * width;
+  Tout* o = out + static_cast<size_t>(r) * width;
+  for (int c = threadIdx.x * V; c < width; c += blockDim.x * V) {
+    Vec<Tout, V> v;
+    if (ok) {
+      const Vec<Tin, V> in = *reinterpret_cast<const Vec<Tin, V>*>(xr + c);
 #pragma unroll
-      for (int j = 0; j < V; ++j) o.v[j] = static_cast<Tout>(in.v[j]);
+      for (int j = 0; j < V; ++j) v.v[j] = static_cast<Tout>(in.v[j]);
     } else {
 #pragma unroll
-      for (int j = 0; j < V; ++j) o.v[j] = static_cast<Tout>(0);
+      for (int j = 0; j < V; ++j) v.v[j] = static_cast<Tout>(0);
     }
-    *reinterpret_cast<Vec<Tout, V>*>(out + static_cast<size_t>(r) * width +
-                                     c) = o;
+    *reinterpret_cast<Vec<Tout, V>*>(o + c) = v;
   }
 }
 
 template <typename Tin, typename Tout, int V>
 int copy_rows(const void* x, int n, int width, const void* start, int scale,
-              int off, int rows, void* out, cudaStream_t s) {
-  constexpr int kThreads = 256;
-  const int total = rows * (width / V);
-  const int blocks =
-      total > 0 ? std::min((total + kThreads - 1) / kThreads, 1024) : 0;
-  if (blocks > 0) {
-    copy_rows_kernel<Tin, Tout, V><<<blocks, kThreads, 0, s>>>(
-        static_cast<const Tin*>(x), n, width, static_cast<const int*>(start),
-        scale, off, rows, static_cast<Tout*>(out));
+              int off, int rows, int tx, int ty, int grid, void* out,
+              cudaStream_t s) {
+  if (tx < 1 || ty < 1 || tx * ty > 1024 || grid < 1 ||
+      static_cast<long long>(grid) * ty < rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  copy_rows_kernel<Tin, Tout, V><<<grid, dim3(tx, ty), 0, s>>>(
+      static_cast<const Tin*>(x), n, width, static_cast<const int*>(start),
+      scale, off, rows, static_cast<Tout*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int TT = 32;  // transpose tile
+// ---------------------------------------------------------------------------
+// transpose: out [n, m] = a [m, n]^T, f32
+// ---------------------------------------------------------------------------
 
-__global__ void transpose_kernel(const float* __restrict__ a, int m, int n,
-                                 float* __restrict__ out) {
-  __shared__ float tile[TT][TT + 1];
-  const int c0 = blockIdx.x * TT;  // columns of a
-  const int r0 = blockIdx.y * TT;  // rows of a
-  for (int j = threadIdx.y; j < TT; j += blockDim.y) {
-    const int r = r0 + j;
-    const int c = c0 + threadIdx.x;
-    if (r < m && c < n) {
-      tile[j][threadIdx.x] = a[static_cast<size_t>(r) * n + c];
+// Thread (p, q) of block (bx, by) moves the 4 x 4 block of a at rows
+// 4 * (bx * P + p), columns 4 * (by * Q + q): four rows in, a transpose in
+// registers, four rows of out back, with no shared memory and no barrier.
+// Lanes run along p first, so each store instruction writes P * 16
+// consecutive bytes of each of its out rows, and each load reads Q * 16
+// consecutive bytes of each row of a: whole 32-byte sectors both ways.
+// VEC: 16-byte loads and stores (m and n multiples of 4, a and out 16-byte
+// aligned); else one element at a time, masked at the edges.
+template <bool VEC>
+__global__ void transpose_regs_kernel(const float* __restrict__ a, int m,
+                                      int n, float* __restrict__ out) {
+  const int i = 4 * (blockIdx.x * blockDim.x + threadIdx.x);  // rows of a
+  const int j = 4 * (blockIdx.y * blockDim.y + threadIdx.y);  // columns
+  if (i >= m || j >= n) return;
+  float v[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float* row = a + static_cast<size_t>(i + k) * n + j;
+    if constexpr (VEC) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(row));
+      v[k][0] = t.x;
+      v[k][1] = t.y;
+      v[k][2] = t.z;
+      v[k][3] = t.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[k][e] = i + k < m && j + e < n ? __ldg(row + e) : 0.f;
+      }
     }
   }
-  __syncthreads();
-  for (int j = threadIdx.y; j < TT; j += blockDim.y) {
-    const int r = c0 + j;  // row of out = column of a
-    const int c = r0 + threadIdx.x;
-    if (r < n && c < m) {
-      out[static_cast<size_t>(r) * m + c] = tile[threadIdx.x][j];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float* o = out + static_cast<size_t>(j + k) * m + i;
+    if constexpr (VEC) {
+      const float4 t = make_float4(v[0][k], v[1][k], v[2][k], v[3][k]);
+      *reinterpret_cast<float4*>(o) = t;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j + k < n && i + e < m) o[e] = v[e][k];
+      }
     }
   }
 }
@@ -648,43 +687,55 @@ int launch_gemm(Kern kern, const void* a, const void* b, int m, int k, int n,
 }  // namespace
 
 // kind: 0 = int8 -> int32, 1 = 2-byte elements, 2 = 4-byte elements; vec:
-// 16-byte loads (width a multiple of their elements, x and out aligned).
-// start is one int32 on the device.
+// 16-byte output vectors (width a multiple of their elements, x aligned to
+// the vector's input bytes, out to 16).  start is one int32 on the device.
+// The plan (ops/probes.py::copy_plan): blocks of tx x ty threads (ty rows
+// of out a block), grid blocks covering the rows.
 extern "C" int probe_copy_launch(const void* x, int n, int width, int kind,
                                  const void* start, int scale, int off,
-                                 int rows, int vec, void* out, void* stream) {
+                                 int rows, int vec, int tx, int ty, int grid,
+                                 void* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PROBE_COPY(Tin, Tout, V)                                        \
+  return copy_rows<Tin, Tout, V>(x, n, width, start, scale, off, rows, \
+                                 tx, ty, grid, out, s)
   switch (kind * 2 + (vec != 0)) {
     case 0:
-      return copy_rows<int8_t, int32_t, 1>(x, n, width, start, scale, off,
-                                           rows, out, s);
+      PROBE_COPY(int8_t, int32_t, 1);
     case 1:
-      return copy_rows<int8_t, int32_t, 16>(x, n, width, start, scale, off,
-                                            rows, out, s);
+      PROBE_COPY(int8_t, int32_t, 4);
     case 2:
-      return copy_rows<uint16_t, uint16_t, 1>(x, n, width, start, scale, off,
-                                              rows, out, s);
+      PROBE_COPY(uint16_t, uint16_t, 1);
     case 3:
-      return copy_rows<uint16_t, uint16_t, 8>(x, n, width, start, scale, off,
-                                              rows, out, s);
+      PROBE_COPY(uint16_t, uint16_t, 8);
     case 4:
-      return copy_rows<uint32_t, uint32_t, 1>(x, n, width, start, scale, off,
-                                              rows, out, s);
+      PROBE_COPY(uint32_t, uint32_t, 1);
     case 5:
-      return copy_rows<uint32_t, uint32_t, 4>(x, n, width, start, scale, off,
-                                              rows, out, s);
+      PROBE_COPY(uint32_t, uint32_t, 4);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PROBE_COPY
 }
 
-// a [m, n] f32 -> out [n, m]
-extern "C" int probe_transpose_launch(const void* a, int m, int n, void* out,
+// a [m, n] f32 -> out [n, m].  The plan (ops/probes.py::transpose_plan):
+// blocks of p x q threads, each moving a 4 x 4 block (vec: 16-byte
+// accesses).
+extern "C" int probe_transpose_launch(const void* a, int m, int n, int p,
+                                      int q, int vec, void* out,
                                       void* stream) {
-  const dim3 grid((n + TT - 1) / TT, (m + TT - 1) / TT);
-  transpose_kernel<<<grid, dim3(TT, 8), 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), m, n, static_cast<float*>(out));
+  if (p < 1 || q < 1 || p * q > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* in = static_cast<const float*>(a);
+  float* o = static_cast<float*>(out);
+  const dim3 grid((m + 4 * p - 1) / (4 * p), (n + 4 * q - 1) / (4 * q));
+  if (vec) {
+    transpose_regs_kernel<true><<<grid, dim3(p, q), 0, s>>>(in, m, n, o);
+  } else {
+    transpose_regs_kernel<false><<<grid, dim3(p, q), 0, s>>>(in, m, n, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

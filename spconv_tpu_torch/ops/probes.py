@@ -7,8 +7,10 @@ plain PyTorch version beside it:
 
 * :func:`copy_rows` (copy family): ``out[r] = x[start * scale + off + r]``
   for ``r < rows``, with ``start`` read on the device (the role of the
-  Pallas kernels' scalar prefetch), int8 widened to int32;
-* :func:`transpose` (copy family): ``a^T`` of an f32 matrix;
+  Pallas kernels' scalar prefetch), int8 widened to int32, launched on
+  :func:`copy_plan`'s blocks;
+* :func:`transpose` (copy family): ``a^T`` of an f32 matrix, launched on
+  :func:`transpose_plan`'s blocks;
 * :func:`lane_gather` and :func:`row_broadcast` (gather family): ``out[r,
   l] = x[r, idx[r, l]]``, and ``out[r, l] = scale * x[row, l]``;
 * :func:`keyed_sum` (search family): the one-hot join ``out[t] = sum_w
@@ -36,8 +38,18 @@ from .dg_conv import sm_count
 __all__ = [
     "copy_rows",
     "copy_rows_plain",
+    "COPY_THREADS",
+    "CopyPlan",
+    "copy_plan",
+    "copy_launch_plan",
+    "launch_copy",
     "transpose",
     "transpose_plain",
+    "TRANSPOSE_TILES",
+    "TransposePlan",
+    "transpose_plan",
+    "transpose_launch_plan",
+    "launch_transpose",
     "lane_gather",
     "lane_gather_plain",
     "row_broadcast",
@@ -113,13 +125,76 @@ def _aligned(t: torch.Tensor, nbytes: int) -> bool:
 # copy family
 # ---------------------------------------------------------------------------
 
+# a copy block's threads: at the probes' 8-32 KB on the H100, blocks of
+# 128-256 threads are as fast as any, and smaller blocks (more of them) up
+# to 0.08 us slower (tools/copy_tiles.py's sweep)
+COPY_THREADS = 256
+# the output elements of a 16-byte vector, by copy_rows' element kind
+_COPY_VEC = (4, 8, 4)
+
+
+class CopyPlan(NamedTuple):
+    vec: bool    # 16-byte output vectors (int8: 4 bytes in, 16 out)
+    per: int     # elements a thread writes at once: a vector's, or 1
+    tx: int      # threads along a row, each stepping by tx * per
+    ty: int      # rows a block
+    grid: int    # blocks: ceil(rows / ty)
+
+
+def copy_plan(rows: int, width: int, kind: int, *, aligned: bool = True,
+              threads: int = COPY_THREADS) -> CopyPlan:
+    """The launch of :func:`copy_rows` of ``rows`` rows of ``width``
+    elements of ``kind`` (``probe_copy_launch``'s: 0 int8 -> int32, 1
+    2-byte, 2 4-byte).  A thread writes one 16-byte vector of the output
+    where the width holds whole vectors and ``x`` is aligned to the
+    vector's input bytes (``aligned``), else one element.  A block of at
+    most ``threads`` threads: ``tx`` along a row (at most the row's
+    vectors), ``ty`` rows.  At the probes' shapes: int8 8 blocks of 32 x
+    8, bf16 4 of 16 x 16, the f32 chunk 2 of 32 x 8.  ``threads``: a block
+    size to take instead (``tools/copy_tiles.py``'s sweep)."""
+    _check(kind in (0, 1, 2), f"copy_plan: no element kind {kind}")
+    vec = aligned and width % _COPY_VEC[kind] == 0
+    per = _COPY_VEC[kind] if vec else 1
+    tx = min(max(1, width // per), threads)
+    ty = max(1, threads // tx)
+    return CopyPlan(vec, per, tx, ty, -(-rows // ty))
+
+
+def copy_launch_plan(x: torch.Tensor, rows: int) -> CopyPlan:
+    """The plan :func:`copy_rows` launches on for ``x`` on the card: 16-byte
+    vectors where ``x`` is aligned to a vector's input bytes (int8: 4;
+    ``out``, fresh from the caching allocator, is aligned)."""
+    kind = _COPY_KIND[x.dtype]
+    return copy_plan(rows, x.shape[1], kind,
+                     aligned=_aligned(x, 4 if kind == 0 else 16))
+
+
+def _copy_args(x, start, rows, plan, out, scale, off):
+    """``probe_copy_launch``'s arguments but the stream."""
+    n, width = x.shape
+    return [_ptr(x), n, width, _COPY_KIND[x.dtype], _ptr(start), scale, off,
+            rows, int(plan.vec), plan.tx, plan.ty, plan.grid, _ptr(out)]
+
+
+def launch_copy(lib, x: torch.Tensor, start: torch.Tensor, rows: int,
+                plan: CopyPlan, out: torch.Tensor, *, scale: int = 1,
+                off: int = 0) -> int:
+    """One launch of ``lib``'s ``probe_copy_launch`` on ``plan``, writing
+    ``out``; returns its CUDA error (uncounted: the wrapper is
+    :func:`copy_rows`)."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return lib.probe_copy_launch(
+        *_copy_args(x, start, rows, plan, out, scale, off),
+        ctypes.c_void_p(stream))
+
+
 def copy_rows(x: torch.Tensor, start: torch.Tensor, rows: int, *,
               scale: int = 1, off: int = 0) -> torch.Tensor:
     """``out[r] = x[start[0] * scale + off + r]`` for ``r < rows`` ->
     ``[rows, W]``; a source row outside ``x`` gives 0.  ``x``: ``[N, W]``
     int8 (widened to int32, as ``tools/probe_int8.py``'s probe), bf16,
     int32 or f32; ``start``: ``[1]`` int32 on ``x``'s device, read
-    there (no host sync)."""
+    there (no host sync); launched on :func:`copy_plan`'s blocks."""
     name = "probe_copy"
     _check(x.ndim == 2 and x.dtype in _COPY_KIND,
            f"{name}: x must be [N, W] of {sorted(map(str, _COPY_KIND))}")
@@ -127,15 +202,14 @@ def copy_rows(x: torch.Tensor, start: torch.Tensor, rows: int, *,
            f"{name}: start must be one int32")
     if not _operands(name, x, start):
         return copy_rows_plain(x, start, rows, scale=scale, off=off)
-    n, width = x.shape
+    width = x.shape[1]
     out = torch.empty((rows, width), device=x.device,
                       dtype=torch.int32 if x.dtype == torch.int8 else x.dtype)
-    kind = _COPY_KIND[x.dtype]
-    v = 16 // x.element_size()
-    vec = (width % v == 0 and _aligned(x, 16)
-           and _aligned(out, v * out.element_size()))
-    _launch("probe_copy_launch", name, _ptr(x), n, width, kind, _ptr(start),
-            scale, off, rows, int(vec), _ptr(out), device=x.device)
+    if rows and width:
+        _launch("probe_copy_launch", name,
+                *_copy_args(x, start, rows, copy_launch_plan(x, rows), out,
+                            scale, off),
+                device=x.device)
     return out
 
 
@@ -153,8 +227,76 @@ def copy_rows_plain(x: torch.Tensor, start: torch.Tensor, rows: int, *,
     return torch.where(ok[:, None], out, torch.zeros_like(out))
 
 
+# a transpose block's lanes (p along a's rows, q along its columns), each
+# moving a 4 x 4 block, largest first
+TRANSPOSE_TILES = ((16, 16), (16, 8), (8, 8), (8, 4), (4, 4))
+
+
+class TransposePlan(NamedTuple):
+    p: int        # lanes along a's rows (the fastest)
+    q: int        # lanes along a's columns
+    vec: bool     # 16-byte loads and stores (m and n multiples of 4, a
+                  # aligned); else one element at a time, masked
+    grid: int     # blocks
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, v - 1).bit_length()
+
+
+def transpose_plan(m: int, n: int, sms: int, *, aligned: bool = True,
+                   tile: Optional[tuple] = None) -> TransposePlan:
+    """The launch of :func:`transpose` of an f32 ``[m, n]`` on a card of
+    ``sms`` SMs: blocks of ``p x q`` threads, each thread moving a 4 x 4
+    block of ``a`` in registers; ``(p, q)``: the largest of
+    ``TRANSPOSE_TILES`` whose grid has at least ``sms // 3`` blocks, else
+    the smallest, each cut to the 4-wide blocks ``a`` has along its side
+    (rounded up to a power of two).  ``tile``: a lane pair to take
+    instead (``tools/copy_tiles.py``'s sweep)."""
+    vec = aligned and m % 4 == 0 and n % 4 == 0
+    pm, qm = _pow2_at_least(-(-m // 4)), _pow2_at_least(-(-n // 4))
+
+    def shape(t):
+        p, q = min(t[0], pm), min(t[1], qm)
+        return p, q, -(-m // (4 * p)), -(-n // (4 * q))
+
+    if tile is None:
+        tile = next((t for t in TRANSPOSE_TILES
+                     if shape(t)[2] * shape(t)[3] >= sms // 3),
+                    TRANSPOSE_TILES[-1])
+    p, q, gx, gy = shape(tile)
+    _check(gy <= 65535, f"transpose_plan: n = {n} needs more than 65,535 "
+           "column blocks")
+    return TransposePlan(p, q, vec, gx * gy)
+
+
+def transpose_launch_plan(a: torch.Tensor) -> TransposePlan:
+    """The plan :func:`transpose` launches on for ``a`` on the card: 16-byte
+    accesses where ``a`` is 16-byte aligned (``out``, fresh from the
+    caching allocator, is)."""
+    m, n = a.shape
+    return transpose_plan(m, n, sm_count(a.device.index),
+                          aligned=_aligned(a, 16))
+
+
+def _transpose_args(a, plan, out):
+    m, n = a.shape
+    return [_ptr(a), m, n, plan.p, plan.q, int(plan.vec), _ptr(out)]
+
+
+def launch_transpose(lib, a: torch.Tensor, plan: TransposePlan,
+                     out: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``probe_transpose_launch`` on ``plan``,
+    writing ``out``; returns its CUDA error (uncounted: the wrapper is
+    :func:`transpose`)."""
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    return lib.probe_transpose_launch(*_transpose_args(a, plan, out),
+                                      ctypes.c_void_p(stream))
+
+
 def transpose(a: torch.Tensor) -> torch.Tensor:
-    """``a^T`` -> ``[N, M]`` of an f32 ``[M, N]`` matrix."""
+    """``a^T`` -> ``[N, M]`` of an f32 ``[M, N]`` matrix, launched on
+    :func:`transpose_plan`'s blocks."""
     name = "probe_transpose"
     _check(a.ndim == 2 and a.dtype == torch.float32,
            f"{name}: a must be [M, N] float32")
@@ -163,7 +305,8 @@ def transpose(a: torch.Tensor) -> torch.Tensor:
     m, n = a.shape
     out = torch.empty((n, m), device=a.device, dtype=a.dtype)
     if a.numel():
-        _launch("probe_transpose_launch", name, _ptr(a), m, n, _ptr(out),
+        _launch("probe_transpose_launch", name,
+                *_transpose_args(a, transpose_launch_plan(a), out),
                 device=a.device)
     return out
 

@@ -16,8 +16,9 @@ Beside them: the kernel ablation and counting scripts on the card
 (``b2_ablation``, ``wgrad_ablation``, ``b7_ablation``, ``table_count``,
 sharing ``ablation``'s harness), ``b6_tiles`` (the sweep behind B6's tile
 rule), ``gemm_tiles`` (the sweep behind the probe GEMMs' plan, and their
-ablations) and ``table_cases``, the edge inputs of the table and pool kernels
-that the tests and ``chip_smoke.py`` share.
+ablations), ``copy_tiles`` (the same for the probe copy and transpose) and
+``table_cases``, the edge inputs of the table and pool kernels that the
+tests and ``chip_smoke.py`` share.
 """
 
 from typing import Dict

@@ -2,8 +2,9 @@
 ``b2_ablation`` (B2), ``wgrad_ablation`` (wgrad, and its counting build
 of MMA rows), ``b7_ablation`` (B7, and its counting build),
 ``table_count`` (B1's counting build of the windows searched in global
-memory), ``gemm_tiles`` (the probe GEMMs' ablations) and ``b6_tiles``
-(its timer only); ``chip_smoke.py`` builds the
+memory), ``gemm_tiles`` (the probe GEMMs' ablations), ``copy_tiles``
+(the probe copy's and transpose's ablations) and ``b6_tiles`` (its timer
+only); ``chip_smoke.py`` builds the
 three counting builds through it.  A kernel source rebuilt with
 texts replaced, one shared library per ablation, built in parallel, and a
 CUDA event timer.

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import spconv_tpu_torch as st
+from spconv_tpu_torch._build import load_library
 from spconv_tpu_torch.benchmark import basic as TB
 from spconv_tpu_torch.benchmark import centerpoint as TCP
 from spconv_tpu_torch.models import SparseUNet, centerpoint_encoder
@@ -1322,37 +1323,90 @@ def _probe_counts(**nonzero):
     return {**dict.fromkeys(TP.launch_counts, 0), **nonzero}
 
 
-@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16, torch.int32,
-                                   torch.float32])
+@pytest.mark.parametrize("dtype,place", [
+    *((d, p) for d in (torch.int8, torch.bfloat16, torch.int32,
+                       torch.float32) for p in ("aligned", "unaligned")),
+    (torch.int8, "4 bytes off"), (torch.bfloat16, "4 bytes off")])
 @pytest.mark.parametrize("start", [0, 3, 96, 384, 4090, -2])
-def test_probe_copy_matches_plain(dev, dtype, start):
+@pytest.mark.parametrize("width", [128, 7, 8, 12])
+def test_probe_copy_matches_plain(dev, dtype, start, width, place):
     """The copy kernel bit-equal to its plain version for every element
-    size, on the 16-byte path (width 128) and the one-element path (width
-    7), rows past either end of the table 0; and the chunk copy."""
-    g = torch.Generator().manual_seed(start + 7)
-    for width in (128, 7):
-        x = torch.randint(-100, 100, (4096, width), generator=g).to(dtype)
-        s = torch.tensor([start], dtype=torch.int32)
-        ref = TP.copy_rows_plain(x, s, 64)
-        TP.reset_launch_counts()
-        got = TP.copy_rows(x.to(dev), s.to(dev), 64)
-        torch.cuda.synchronize()
-        assert TP.launch_counts == _probe_counts(probe_copy=1)
-        assert got.dtype == ref.dtype and torch.equal(got.cpu(), ref)
+    size, on the 16-byte path (width 128; 8 and 12 where they hold whole
+    vectors of the kind: int8 both, bf16 8 only, 4-byte both; int8 also
+    with ``x`` 4 bytes past a 16-byte boundary, since it reads 4 bytes a
+    vector) and the one-element path (width 7, the other widths, and ``x``
+    one element, or for bf16 4 bytes, past a 16-byte boundary), rows past
+    either end of the table 0; and the chunk copy."""
+    g = torch.Generator().manual_seed(start + 7 + width)
+    x = torch.randint(-100, 100, (4096, width), generator=g).to(dtype)
+    s = torch.tensor([start], dtype=torch.int32)
+    ref = TP.copy_rows_plain(x, s, 64)
+    off = {"aligned": 0, "unaligned": 1,
+           "4 bytes off": 4 // x.element_size()}[place]
+    xd = _off_by_one(x, dev, off) if off else x.to(dev)
+    if x.dtype == torch.int8:
+        assert TP.copy_launch_plan(xd, 64).vec == (width % 4 == 0
+                                                   and off in (0, 4))
+    TP.reset_launch_counts()
+    got = TP.copy_rows(xd, s.to(dev), 64)
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_copy=1)
+    assert got.dtype == ref.dtype and torch.equal(got.cpu(), ref)
     tab = torch.rand((256, 128), generator=g)
     s = torch.tensor([5], dtype=torch.int32)
     assert torch.equal(TP.copy_rows(tab.to(dev), s.to(dev), 16, scale=16,
                                     off=16).cpu(), tab[96:112])
 
 
-@pytest.mark.parametrize("m,n", [(128, 128), (100, 37), (1, 65)])
-def test_probe_transpose_matches_plain(dev, m, n):
-    a = torch.rand((m, n), generator=torch.Generator().manual_seed(m))
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_probe_copy_replays_with_a_new_device_start(dev, dtype):
+    """``copy_rows`` captured in a CUDA graph and replayed after ``start``
+    changes on the device gives the new rows: the kernel reads the start
+    on the device, with no host sync (a sync would fail the capture)."""
+    x = torch.randint(-100, 100, (4096, 128),
+                      generator=torch.Generator().manual_seed(2)).to(dtype)
+    xd = x.to(dev)
+    start = torch.tensor([96], dtype=torch.int32, device=dev)
+    TP.copy_rows(xd, start, 64)  # the library built and loaded
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
     TP.reset_launch_counts()
-    got = TP.transpose(a.to(dev))
+    with torch.cuda.graph(graph):
+        out = TP.copy_rows(xd, start, 64)
+    assert TP.launch_counts == _probe_counts(probe_copy=1)
+    for st in (96, 3, 4090, -2, 384):
+        start.fill_(st)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = TP.copy_rows_plain(x, torch.tensor([st], dtype=torch.int32), 64)
+        assert torch.equal(out.cpu(), ref), st
+
+
+@pytest.mark.parametrize("m,n,place", [
+    (128, 128, "aligned"), (100, 37, "aligned"), (1, 65, "aligned"),
+    (4096, 8, "aligned"), (8, 4096, "aligned"), (128, 128, "unaligned")])
+def test_probe_transpose_matches_plain(dev, m, n, place):
+    """The transpose bit-equal to its plain version on its plan (16-byte
+    accesses where m and n are multiples of 4 and ``a`` is aligned, else
+    masked one element at a time), and every other plan of the sweep
+    (``tools/copy_tiles.py``: each lane pair) launched on the same
+    input."""
+    a = torch.rand((m, n), generator=torch.Generator().manual_seed(m))
+    ad = _off_by_one(a, dev) if place == "unaligned" else a.to(dev)
+    ref = TP.transpose_plain(a)
+    TP.reset_launch_counts()
+    got = TP.transpose(ad)
     torch.cuda.synchronize()
     assert TP.launch_counts == _probe_counts(probe_transpose=1)
-    assert torch.equal(got.cpu(), TP.transpose_plain(a))
+    assert torch.equal(got.cpu(), ref)
+    sms = TD.sm_count(dev.index or 0)
+    aligned = place == "aligned"
+    for plan in [TP.transpose_plan(m, n, sms, aligned=aligned, tile=t)
+                 for t in TP.TRANSPOSE_TILES + ((4, 2), (2, 2))]:
+        out = torch.full((n, m), float("nan"), device=dev)
+        assert TP.launch_transpose(load_library(), ad, plan, out) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), ref), plan
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
@@ -1431,10 +1485,11 @@ def _probe_gemm_operands(m, k, n, values, g):
                                                                generator=g)
 
 
-def _off_by_one(t, dev):
-    """``t`` on ``dev``, contiguous, one element past a 16-byte boundary."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-    out = buf[1:].view(t.shape)
+def _off_by_one(t, dev, k=1):
+    """``t`` on ``dev``, contiguous, one element (or ``k``) past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=dev)
+    out = buf[k:].view(t.shape)
     out.copy_(t)
     return out
 
