@@ -164,11 +164,14 @@ def load_library() -> ctypes.CDLL:
         "probe_copy_launch": [vp, i32, i32, i32, vp, *[i32] * 7, vp, vp],
         # a, m, n, p, q, vec, out, stream
         "probe_transpose_launch": [vp, i32, i32, i32, i32, i32, vp, vp],
-        # x, width, idx, row, scale, is_float, rows, out, stream
-        "probe_gather_launch": [vp, i32, vp, i32, ctypes.c_float, i32, i32,
-                                vp, vp],
-        # probes, t_n, keys, w_n, table, c, is_int8, out, stream
-        "probe_join_launch": [vp, i32, vp, i32, vp, i32, i32, vp, vp],
+        # x, width, idx, rows, rb, smem, grid, out, stream
+        "probe_gather_launch": [vp, i32, vp, *[i32] * 4, vp, vp],
+        # x, width, row, scale, rows, rb, rw, grid, out, stream
+        "probe_broadcast_launch": [vp, i32, i32, ctypes.c_float, *[i32] * 4,
+                                   vp, vp],
+        # probes, t_n, keys, w_n, table, c, is_int8, vec, threads, search,
+        # grid, out, stream
+        "probe_join_launch": [vp, i32, vp, i32, vp, *[i32] * 6, vp, vp],
         # keys, w_n, probes, rows, lanes, out, stream
         "probe_rank_launch": [vp, i32, vp, i32, i32, vp, vp],
         # a, b, m, k, n, is_int8, bm, bn, kw, ks, kc, vec, smem, out, stream

@@ -10,13 +10,13 @@
 //     a start row read on the device (the scalar prefetch's role), widened
 //     int8 -> int32 in the int8 probe; `probe_transpose_launch`
 //     (probe_dg.py::kt): a transpose of 4 x 4 blocks in registers.
-//   - gather: `probe_gather_launch` (probe_dg.py::k, ::ki, ::ks):
-//     out[r, l] = x[r, idx[r, l]] (f32 or int32), or a row broadcast times
-//     a scale.
+//   - gather: `probe_gather_launch` (probe_dg.py::k, ::ki): out[r, l] =
+//     x[r, idx[r, l]] (f32 or int32); `probe_broadcast_launch` (::ks): a
+//     row broadcast times a scale.
 //   - search: `probe_join_launch` (probe_int8.py::probe_matmul.kern,
 //     probe_cast.py::k_2d, k_3d, k_2d_bcast): the one-hot join
 //     out[t] = sum_w [probe[t] == keys[w]] * table[w], as an equal-range
-//     binary search in the sorted keys and a sum of the matched rows in
+//     search in the sorted keys and a sum of the matched rows in
 //     ascending w (int8 -> int32 or f32); `probe_rank_launch`
 //     (probe_dg.py::kr): a lower bound per row, broadcast over its lanes.
 //   - gemm: `probe_gemm_launch` (probe_int8.py::probe_plain_matmul.kern,
@@ -28,9 +28,24 @@
 //   does at most ~14 MFLOP, so on the card each is bound by the launch and
 //   one trip to memory (a few microseconds), not by bytes or operations.
 //
-// Design: the simplest kernel for each function.  The gather kernel moves
-//   16 bytes a thread where the row allows.  A join or rank block searches
-//   once (one thread), then its threads sum or write the columns.
+// Design: the rank block searches once (one thread), then its threads
+//   write the columns.
+//
+// The join and the gathers (a few KB at the probes' shapes) are bound by
+//   the launch and their chains of dependent trips, so their design is
+//   about latency.  The join (host plan ops/probes.py::join_plan) gives a
+//   warp to each probe and several probes to a block.  Up to 1,024 keys
+//   the warp loads them all into registers, 32 a lane, with its probe's
+//   load, and counts the keys below and at the probe across the warp: no
+//   search, no shared memory, no barrier.  Past that each warp finds its
+//   probe's equal range in global memory with ballots (32-fold a step).
+//   Each lane then loads up to 8 matched rows at once and sums them in
+//   ascending order, 16 output bytes a lane.  The lane gather (gather_plan)
+//   gives a warp to each output row: the row's loads and the indices' are
+//   issued together, and the row is read from the warp's own slice of
+//   shared memory behind a __syncwarp, with no block barrier.  The row
+//   broadcast stages nothing: a lane loads its 16 bytes of the row once
+//   and stores them, scaled, to each of its rows.
 //
 // The copies (8-32 KB at the probes' shapes) and the transpose (64 KB each
 //   way) are bound by the launch and one or two dependent trips to L2, so
@@ -181,57 +196,79 @@ __global__ void transpose_regs_kernel(const float* __restrict__ a, int m,
 }
 
 // ---------------------------------------------------------------------------
-// gather: out[r, l] = x[row >= 0 ? row : r, idx ? idx[r, l] : l] (* scale
-// for f32), 4-byte elements; an index outside [0, width) gives 0
+// gather: the lane gather out[r, l] = x[r, idx[r, l]] (4-byte elements, the
+// bits moved as they are; 0 for an index outside [0, width)), and the row
+// broadcast out[r, :] = x[row, :] * scale (f32).  A warp per output row
+// (the broadcast: rw rows a warp), rb warps a block, on the host plan's
+// grid (ops/probes.py::gather_plan); width a multiple of 4, x, idx and
+// out 16-byte aligned, 16 bytes a thread.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t lane(const uint32_t* srow, int width,
-                                        int i) {
-  return static_cast<unsigned>(i) < static_cast<unsigned>(width) ? srow[i]
-                                                                 : 0u;
+__device__ __forceinline__ uint32_t lane_at(const uint32_t* row, int width,
+                                           int i) {
+  return static_cast<unsigned>(i) < static_cast<unsigned>(width) ? row[i]
+                                                                : 0u;
 }
 
-__device__ __forceinline__ uint32_t scaled(uint32_t v, bool is_float,
-                                          float scale) {
-  return is_float ? __float_as_uint(__uint_as_float(v) * scale) : v;
-}
-
-// one block per output row; the source row is staged in shared memory with
-// 16-byte loads, the indices read and the outputs written 4 lanes at a time
-__global__ void gather_kernel(const uint32_t* __restrict__ x, int width,
-                              const int* __restrict__ idx, int row,
-                              float scale, int is_float,
-                              uint32_t* __restrict__ out) {
-  extern __shared__ uint32_t srow[];
-  const int r = blockIdx.x;
-  const int src = row >= 0 ? row : r;
-  const int w4 = width / 4;
+// The row's loads (cp.async into the warp's own slice of shared memory,
+// width elements) and the first idx vector's are issued together, before
+// anything waits; the row is read there behind a __syncwarp: no block
+// barrier.
+__global__ void lane_gather_kernel(const uint32_t* __restrict__ x, int width,
+                                   const int* __restrict__ idx, int rows,
+                                   uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (r >= rows) return;  // the whole warp
+  const int w4 = width >> 2;
   const uint4* xs =
-      reinterpret_cast<const uint4*>(x + static_cast<size_t>(src) * width);
-  for (int e = threadIdx.x; e < w4; e += blockDim.x) {
-    reinterpret_cast<uint4*>(srow)[e] = xs[e];
-  }
-  __syncthreads();
+      reinterpret_cast<const uint4*>(x + static_cast<size_t>(r) * width);
   const int4* is =
-      idx == nullptr
-          ? nullptr
-          : reinterpret_cast<const int4*>(idx +
-                                          static_cast<size_t>(r) * width);
+      reinterpret_cast<const int4*>(idx + static_cast<size_t>(r) * width);
   uint4* os = reinterpret_cast<uint4*>(out + static_cast<size_t>(r) * width);
-  for (int e = threadIdx.x; e < w4; e += blockDim.x) {
-    const int4 ix =
-        is == nullptr ? make_int4(4 * e, 4 * e + 1, 4 * e + 2, 4 * e + 3)
-                      : is[e];
-    os[e] = make_uint4(scaled(lane(srow, width, ix.x), is_float, scale),
-                       scaled(lane(srow, width, ix.y), is_float, scale),
-                       scaled(lane(srow, width, ix.z), is_float, scale),
-                       scaled(lane(srow, width, ix.w), is_float, scale));
+  int4 ix = lane < w4 ? __ldg(is + lane) : make_int4(0, 0, 0, 0);
+  uint4* srow = reinterpret_cast<uint4*>(smem) + warp * w4;
+  for (int e = lane; e < w4; e += 32) sm90::cp_async16(srow + e, xs + e, 16);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncwarp();
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(srow);
+  for (int e = lane; e < w4; e += 32) {
+    if (e != lane) ix = __ldg(is + e);
+    const uint4 o = make_uint4(lane_at(s, width, ix.x),
+                               lane_at(s, width, ix.y),
+                               lane_at(s, width, ix.z),
+                               lane_at(s, width, ix.w));
+    os[e] = o;
+  }
+}
+
+// Nothing staged: a lane loads its 16 bytes of x[row] once, scales them
+// and stores them to each of its warp's rw rows.
+__global__ void broadcast_rows_kernel(const float* __restrict__ x, int width,
+                                      int row, float scale, int rows, int rw,
+                                      float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * rw;
+  const int r1 = min(r0 + rw, rows);
+  const float4* xs =
+      reinterpret_cast<const float4*>(x + static_cast<size_t>(row) * width);
+  for (int e = lane; e < width >> 2; e += 32) {
+    if (r0 >= r1) break;
+    float4 v = __ldg(xs + e);
+    v = make_float4(__fmul_rn(v.x, scale), __fmul_rn(v.y, scale),
+                    __fmul_rn(v.z, scale), __fmul_rn(v.w, scale));
+    for (int r = r0; r < r1; ++r) {
+      reinterpret_cast<float4*>(out + static_cast<size_t>(r) * width)[e] = v;
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// search: the one-hot join and the rank, through binary searches of keys
-// sorted ascending
+// search: the one-hot join and the rank, through searches of keys sorted
+// ascending
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ int first_not_below(const int* keys, int n, int p) {
@@ -248,43 +285,108 @@ __device__ __forceinline__ int first_not_below(const int* keys, int n, int p) {
   return lo;
 }
 
-__device__ __forceinline__ int first_above(const int* keys, int lo, int n,
-                                           int p) {
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] <= p) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+// keys a join counts in registers, at most (ops/probes.py::
+// JOIN_COUNT_KEYS): 32 a lane; more are searched in global memory
+constexpr int kJoinCountKeys = 1024;
+// matched rows a lane loads before it adds them
+constexpr int kJoinBatch = 8;
+
+// a join's searches (ops/probes.py::JOIN_SEARCHES)
+enum JoinSearch {
+  kWarpSearch = 0,  // the warp's ballot search: a step narrows 32-fold
+  kWarpCount = 1,   // the keys counted in registers, 32 a lane, and summed
+                    // across the warp: no search, no shared memory
+};
+
+// [lo, hi) = [#{keys < p}, #{keys <= p}) in keys[0, w_n), ascending, the
+// same in every lane of the warp (every lane takes part).  kWarpSearch: a
+// step's lane g tests the last key of the g-th of 32 sub-ranges, and the
+// ballot's count narrows the range 32-fold (2 steps for 1,024 keys); both
+// bounds step together.  kWarpCount: a lane compares its keys lane, lane +
+// 32, ... (loaded at once, with the probe's load) and the warp adds the
+// counts.  (Each lane's own binary search, by broadcast reads, was 0.2-0.3
+// us slower than the ballot search at the probes' shapes on the H100:
+// tools/join_gather_tiles.py.)
+template <int SEARCH>
+__device__ __forceinline__ int2 equal_range(const int* keys, int w_n, int p) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0;
+  int hi = 0;
+  if constexpr (SEARCH == kWarpCount) {
+    int k[kJoinCountKeys / 32];
+#pragma unroll
+    for (int j = 0; j < kJoinCountKeys / 32; ++j) {
+      k[j] = lane + 32 * j < w_n ? __ldg(keys + lane + 32 * j) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kJoinCountKeys / 32; ++j) {
+      const bool in = lane + 32 * j < w_n;
+      lo += in && k[j] < p;
+      hi += in && k[j] <= p;
+    }
+    lo = __reduce_add_sync(0xffffffffu, lo);
+    hi = __reduce_add_sync(0xffffffffu, hi);
+  } else {
+    // a step of 32^l keys a lane, from the top level down
+    int shift = 0;
+    while (shift < 30 && (1 << (shift + 5)) < w_n) shift += 5;
+    for (; shift >= 0; shift -= 5) {
+      const long long i = lo + (static_cast<long long>(lane + 1) << shift);
+      const long long j = hi + (static_cast<long long>(lane + 1) << shift);
+      const bool a = i <= w_n && __ldg(keys + i - 1) < p;
+      const bool b = j <= w_n && __ldg(keys + j - 1) <= p;
+      lo += __popc(__ballot_sync(0xffffffffu, a)) << shift;
+      hi += __popc(__ballot_sync(0xffffffffu, b)) << shift;
     }
   }
-  return lo;
+  return make_int2(lo, hi);
 }
 
-// one block per probe: thread 0 finds the equal range [lo, hi) of the
-// probe's key, then each thread sums its columns of the matched rows in
-// ascending order (the plain version's)
-template <typename Tin, typename Tacc>
-__global__ void join_kernel(const int* __restrict__ probes,
+// The join out[t, :] = sum of table[w, :] over keys[w] == probes[t], the
+// matched rows added in ascending w from 0 (the plain version's order):
+// int8 -> int32 (exact) or f32.  A warp per probe, blockDim.x / 32 probes
+// a block (the host plan's, ops/probes.py::join_plan), the probe's equal
+// range found by SEARCH in the keys in global memory.  Then lane l sums
+// its output vectors v = l, l + 32, ... (V elements: int8 reads 4 bytes
+// and writes 16, f32 reads and writes 16; V = 1 where the columns or the
+// table's alignment do not fit vectors), loading kJoinBatch matched rows
+// before it adds them, so that a run of rows costs one trip, not one a
+// row.
+template <typename Tin, typename Tacc, int V, int SEARCH>
+__global__ void join_kernel(const int* __restrict__ probes, int t_n,
                             const int* __restrict__ keys, int w_n,
                             const Tin* __restrict__ table, int c,
                             Tacc* __restrict__ out) {
-  __shared__ int range[2];
-  const int t = blockIdx.x;
-  if (threadIdx.x == 0) {
-    const int p = probes[t];
-    const int lo = first_not_below(keys, w_n, p);
-    range[0] = lo;
-    range[1] = first_above(keys, lo, w_n, p);
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < c; col += blockDim.x) {
-    Tacc acc = 0;
-    for (int w = range[0]; w < range[1]; ++w) {
-      acc += static_cast<Tacc>(table[static_cast<size_t>(w) * c + col]);
+  const int t = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int p = t < t_n ? __ldg(probes + t) : 0;
+  const int2 r = equal_range<SEARCH>(keys, w_n, p);
+  if (t >= t_n) return;
+  for (int v = (threadIdx.x & 31) * V; v < c; v += 32 * V) {
+    Vec<Tacc, V> acc;
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc.v[j] = 0;
+    const Tin* rp = table + static_cast<size_t>(r.x) * c + v;
+    for (int n = r.y - r.x; n > 0; n -= kJoinBatch) {
+      Vec<Tin, V> row[kJoinBatch];
+#pragma unroll
+      for (int b = 0; b < kJoinBatch; ++b) {
+        if (b < n) {
+          row[b] = *reinterpret_cast<const Vec<Tin, V>*>(rp);
+          rp += c;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kJoinBatch; ++b) {
+        if (b < n) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) {
+            acc.v[j] += static_cast<Tacc>(row[b].v[j]);
+          }
+        }
+      }
     }
-    out[static_cast<size_t>(t) * c + col] = acc;
+    Tacc* o = out + static_cast<size_t>(t) * c + v;
+    *reinterpret_cast<Vec<Tacc, V>*>(o) = acc;
   }
 }
 
@@ -739,35 +841,89 @@ extern "C" int probe_transpose_launch(const void* a, int m, int n, int p,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x [*, width] 4-byte elements (width a multiple of 4, 16-byte aligned),
-// idx [rows, width] int32 or null, row < 0 for "each row its own"; out
-// [rows, width]
+// x [*, width] 4-byte elements, idx and out [rows, width] (width a
+// multiple of 4, all 16-byte aligned).  The plan (ops/probes.py::
+// gather_plan): a warp per output row, rb rows a block, grid blocks, smem
+// bytes of shared memory (rb rows).
 extern "C" int probe_gather_launch(const void* x, int width, const void* idx,
-                                   int row, float scale, int is_float,
-                                   int rows, void* out, void* stream) {
-  gather_kernel<<<rows, 32, width * sizeof(uint32_t),
-                  static_cast<cudaStream_t>(stream)>>>(
+                                   int rows, int rb, int smem, int grid,
+                                   void* out, void* stream) {
+  if (rb < 1 || rb > 32 || grid < 1 ||
+      static_cast<long long>(grid) * rb < rows || smem != rb * width * 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  lane_gather_kernel<<<grid, rb * 32, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), width, static_cast<const int*>(idx),
-      row, scale, is_float, static_cast<uint32_t*>(out));
+      rows, static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-// probes [t_n] and keys [w_n] (ascending) int32, table [w_n, c] int8
-// (is_int8, out int32) or f32 (out f32); out [t_n, c]
-extern "C" int probe_join_launch(const void* probes, int t_n, const void* keys,
-                                 int w_n, const void* table, int c,
-                                 int is_int8, void* out, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_int8) {
-    join_kernel<int8_t, int32_t><<<t_n, 128, 0, s>>>(
-        static_cast<const int*>(probes), static_cast<const int*>(keys), w_n,
-        static_cast<const int8_t*>(table), c, static_cast<int32_t*>(out));
+// x [*, width] f32, out [rows, width] (width a multiple of 4, both 16-byte
+// aligned): out[r] = x[row] * scale.  The plan (ops/probes.py::
+// gather_plan, broadcast): rb warps a block, rw rows a warp, grid blocks.
+extern "C" int probe_broadcast_launch(const void* x, int width, int row,
+                                      float scale, int rows, int rb, int rw,
+                                      int grid, void* out, void* stream) {
+  if (rb < 1 || rb > 32 || rw < 1 || grid < 1 ||
+      static_cast<long long>(grid) * rb * rw < rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  broadcast_rows_kernel<<<grid, rb * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), width, row, scale, rows, rw,
+      static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+template <typename Tin, typename Tacc, int V>
+int launch_join(const void* probes, int t_n, const void* keys, int w_n,
+                const void* table, int c, int threads, int search, int grid,
+                void* out, cudaStream_t s) {
+  const auto* pr = static_cast<const int*>(probes);
+  const auto* ks = static_cast<const int*>(keys);
+  const auto* tb = static_cast<const Tin*>(table);
+  auto* o = static_cast<Tacc*>(out);
+  if (search == kWarpCount) {
+    join_kernel<Tin, Tacc, V, kWarpCount><<<grid, threads, 0, s>>>(
+        pr, t_n, ks, w_n, tb, c, o);
   } else {
-    join_kernel<float, float><<<t_n, 128, 0, s>>>(
-        static_cast<const int*>(probes), static_cast<const int*>(keys), w_n,
-        static_cast<const float*>(table), c, static_cast<float*>(out));
+    join_kernel<Tin, Tacc, V, kWarpSearch><<<grid, threads, 0, s>>>(
+        pr, t_n, ks, w_n, tb, c, o);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// probes [t_n] and keys [w_n] (ascending) int32, table [w_n, c] int8
+// (is_int8, out int32) or f32 (out f32); out [t_n, c].  The plan
+// (ops/probes.py::join_plan): vec (16-byte output vectors: c a multiple of
+// 4, table aligned to a vector's input bytes), threads a block (a warp a
+// probe), search (a JoinSearch; kWarpCount: at most kJoinCountKeys keys),
+// grid blocks covering the probes.
+extern "C" int probe_join_launch(const void* probes, int t_n, const void* keys,
+                                 int w_n, const void* table, int c,
+                                 int is_int8, int vec, int threads, int search,
+                                 int grid, void* out, void* stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 != 0 || grid < 1 ||
+      static_cast<long long>(grid) * (threads / 32) < t_n || search < 0 ||
+      search > kWarpCount || (search == kWarpCount && w_n > kJoinCountKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PROBE_JOIN_V(Tin, Tacc, V)                                    \
+  return launch_join<Tin, Tacc, V>(probes, t_n, keys, w_n, table, c, \
+                                   threads, search, grid, out, s)
+  if (is_int8) {
+    if (vec) PROBE_JOIN_V(int8_t, int32_t, 4);
+    PROBE_JOIN_V(int8_t, int32_t, 1);
+  }
+  if (vec) PROBE_JOIN_V(float, float, 4);
+  PROBE_JOIN_V(float, float, 1);
+#undef PROBE_JOIN_V
 }
 
 // keys [w_n] ascending, probes and out [rows, lanes] int32

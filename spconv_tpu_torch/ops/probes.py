@@ -12,9 +12,11 @@ plain PyTorch version beside it:
 * :func:`transpose` (copy family): ``a^T`` of an f32 matrix, launched on
   :func:`transpose_plan`'s blocks;
 * :func:`lane_gather` and :func:`row_broadcast` (gather family): ``out[r,
-  l] = x[r, idx[r, l]]``, and ``out[r, l] = scale * x[row, l]``;
+  l] = x[r, idx[r, l]]``, and ``out[r, l] = scale * x[row, l]``, launched
+  on :func:`gather_plan`'s warps;
 * :func:`keyed_sum` (search family): the one-hot join ``out[t] = sum_w
-  [probes[t] == keys[w]] * table[w]``, int8 -> int32 or f32;
+  [probes[t] == keys[w]] * table[w]``, int8 -> int32 or f32, launched on
+  :func:`join_plan`'s blocks;
 * :func:`lane_rank` (search family): ``out[r, :] = #{keys < probes[r,
   0]}``;
 * :func:`gemm` (gemm family): ``a @ b`` on the tensor cores, s8 -> s32, or
@@ -54,8 +56,21 @@ __all__ = [
     "lane_gather_plain",
     "row_broadcast",
     "row_broadcast_plain",
+    "GATHER_WARPS",
+    "BROADCAST_ROWS",
+    "GatherPlan",
+    "gather_plan",
+    "launch_gather",
+    "launch_broadcast",
     "keyed_sum",
     "keyed_sum_plain",
+    "JOIN_THREADS",
+    "JOIN_SEARCHES",
+    "JOIN_COUNT_KEYS",
+    "JoinPlan",
+    "join_plan",
+    "join_launch_plan",
+    "launch_join",
     "lane_rank",
     "lane_rank_plain",
     "gemm",
@@ -324,38 +339,119 @@ def transpose_plain(a: torch.Tensor) -> torch.Tensor:
 # gather family
 # ---------------------------------------------------------------------------
 
+# a gather block's warps (output rows), largest first
+GATHER_WARPS = (8, 4, 2, 1)
+# output rows a row-broadcast warp writes: its lanes load the row once
+BROADCAST_ROWS = 8
+# dynamic shared memory a block takes without the opt-in, bytes
+_SMEM_BYTES = 48 * 1024
+
+
+class GatherPlan(NamedTuple):
+    rb: int      # warps a block
+    rw: int      # output rows a warp: 1 for the lane gather
+    smem: int    # dynamic shared memory, bytes: rb staged rows (the
+                 # gather), or 0 (the broadcast)
+    grid: int    # blocks: ceil(rows / (rb * rw))
+
+
+def gather_plan(rows: int, width: int, sms: int, *, broadcast: bool = False,
+                rb: Optional[int] = None,
+                rw: Optional[int] = None) -> GatherPlan:
+    """The launch of :func:`lane_gather` (or, ``broadcast``, of
+    :func:`row_broadcast`) of ``rows`` output rows of ``width`` 4-byte
+    elements (a multiple of 4) on a card of ``sms`` SMs: a warp per output
+    row (the broadcast: ``rw`` rows a warp, ``BROADCAST_ROWS`` by
+    default), a lane moving 16 bytes at a time; ``rb`` warps a block, the
+    largest of ``GATHER_WARPS`` whose grid has at least ``sms // 3``
+    blocks and whose staged rows fit 48 KB, else the smallest.  The gather
+    stages each row in its warp's slice of shared memory; the broadcast
+    stages nothing.  At the probes' shapes on the H100: the [128, 128]
+    gather 64 blocks of 2 warps, the 8-row broadcast one warp; in
+    ``tools/join_gather_tiles.py``'s sweep there every warp and row split
+    is within 0.05 us of another.  ``rb`` and ``rw``: a plan to take
+    instead (the sweep's)."""
+    _check(width % 4 == 0, f"gather_plan: width {width} is no multiple of 4")
+    if rw is None:
+        rw = BROADCAST_ROWS if broadcast else 1
+    _check(rw >= 1 and (broadcast or rw == 1),
+           f"gather_plan: {rw} rows a warp")
+    row_bytes = 0 if broadcast else 4 * width
+    _check(row_bytes <= _SMEM_BYTES, f"gather_plan: a row of {width} "
+           "elements does not fit 48 KB of shared memory")
+    warps = -(-rows // rw)
+    if rb is None:
+        fits = [w for w in GATHER_WARPS if w * row_bytes <= _SMEM_BYTES]
+        rb = next((w for w in fits if -(-warps // w) >= sms // 3), fits[-1])
+    _check(1 <= rb <= 32 and rb * row_bytes <= _SMEM_BYTES,
+           f"gather_plan: {rb} warps a block")
+    return GatherPlan(rb, rw, rb * row_bytes, -(-warps // rb))
+
+
 def _check_gather(name, x):
     _check(x.ndim == 2 and x.dtype in (torch.float32, torch.int32),
            f"{name}: x must be [R, W] float32 or int32")
 
 
-def _gather_cuda(x, idx, row, scale, rows, name):
-    """Launches the gather kernel, counted under ``"probe_" + name``."""
-    width = x.shape[1]
-    _check(width % 4 == 0 and _aligned(x, 16)
-           and (idx is None or _aligned(idx, 16)),
+def _check_vectors(name, *tensors):
+    """The gather kernels' operands: widths a multiple of 4, 16-byte
+    aligned."""
+    _check(tensors[0].shape[1] % 4 == 0
+           and all(_aligned(t, 16) for t in tensors),
            f"{name} kernel takes widths that are a multiple of 4, "
            "16-byte aligned")
-    out = torch.empty((rows, width), device=x.device, dtype=x.dtype)
-    if rows and width:
-        _launch("probe_gather_launch", f"probe_{name}", _ptr(x), width,
-                _ptr(idx), row, ctypes.c_float(scale),
-                int(x.dtype == torch.float32), rows, _ptr(out),
-                device=x.device)
-    return out
+
+
+def _gather_args(x, idx, plan, out):
+    """``probe_gather_launch``'s arguments but the stream."""
+    return [_ptr(x), x.shape[1], _ptr(idx), out.shape[0], plan.rb,
+            plan.smem, plan.grid, _ptr(out)]
+
+
+def _broadcast_args(x, row, scale, plan, out):
+    """``probe_broadcast_launch``'s arguments but the stream."""
+    return [_ptr(x), x.shape[1], row, ctypes.c_float(scale), out.shape[0],
+            plan.rb, plan.rw, plan.grid, _ptr(out)]
+
+
+def launch_gather(lib, x: torch.Tensor, idx: torch.Tensor, plan: GatherPlan,
+                  out: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``probe_gather_launch`` on ``plan``, writing
+    ``out``; returns its CUDA error (uncounted: the wrapper is
+    :func:`lane_gather`)."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return lib.probe_gather_launch(*_gather_args(x, idx, plan, out),
+                                   ctypes.c_void_p(stream))
+
+
+def launch_broadcast(lib, x: torch.Tensor, row: int, scale: float,
+                     plan: GatherPlan, out: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``probe_broadcast_launch`` on ``plan``,
+    writing ``out``; returns its CUDA error (uncounted: the wrapper is
+    :func:`row_broadcast`)."""
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return lib.probe_broadcast_launch(
+        *_broadcast_args(x, row, scale, plan, out), ctypes.c_void_p(stream))
 
 
 def lane_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[r, l] = x[r, idx[r, l]]`` -> ``[R, W]``; an index outside
     ``[0, W)`` gives 0.  ``x``: ``[R, W]`` f32 or int32; ``idx``: ``[R,
-    W]`` int32."""
+    W]`` int32; launched on :func:`gather_plan`'s warps."""
     name = "lane_gather"
     _check_gather(name, x)
     _check(idx.dtype == torch.int32 and idx.shape == x.shape,
            f"{name}: idx must be int32 of x's shape")
     if not _operands(name, x, idx):
         return lane_gather_plain(x, idx)
-    return _gather_cuda(x, idx, -1, 1.0, x.shape[0], name)
+    _check_vectors(name, x, idx)
+    rows, width = x.shape
+    out = torch.empty_like(x)
+    if rows and width:
+        plan = gather_plan(rows, width, sm_count(x.device.index))
+        _launch("probe_gather_launch", f"probe_{name}",
+                *_gather_args(x, idx, plan, out), device=x.device)
+    return out
 
 
 def lane_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -371,14 +467,23 @@ def row_broadcast(x: torch.Tensor, row: int, scale: float,
                   rows: int) -> torch.Tensor:
     """``out[r, l] = x[row, l] * scale`` (in f32) -> ``[rows, W]``: the
     stacked rows, one extracted, broadcast of ``tools/probe_dg.py``'s
-    ``ks``.  ``x``: ``[R, W]`` f32."""
+    ``ks``.  ``x``: ``[R, W]`` f32; launched on :func:`gather_plan`'s
+    warps (``broadcast``)."""
     name = "row_broadcast"
     _check_gather(name, x)
     _check(x.dtype == torch.float32, f"{name} takes float32")
     _check(0 <= row < x.shape[0], f"{name}: row {row} outside x")
     if not _operands(name, x):
         return row_broadcast_plain(x, row, scale, rows)
-    return _gather_cuda(x, None, row, scale, rows, name)
+    _check_vectors(name, x)
+    width = x.shape[1]
+    out = torch.empty((rows, width), device=x.device, dtype=x.dtype)
+    if rows and width:
+        plan = gather_plan(rows, width, sm_count(x.device.index),
+                           broadcast=True)
+        _launch("probe_broadcast_launch", f"probe_{name}",
+                *_broadcast_args(x, row, scale, plan, out), device=x.device)
+    return out
 
 
 def row_broadcast_plain(x: torch.Tensor, row: int, scale: float,
@@ -391,13 +496,94 @@ def row_broadcast_plain(x: torch.Tensor, row: int, scale: float,
 # search family
 # ---------------------------------------------------------------------------
 
+# a join block's threads (a warp a probe), largest first
+JOIN_THREADS = (256, 128, 64, 32)
+# a join's searches, as csrc/probes.cu's JoinSearch numbers them: the
+# warp's ballot search (a step narrows the range 32-fold), the keys counted
+# in registers across the warp
+JOIN_SEARCHES = ("warp", "count")
+# keys a join counts in registers, at most (csrc/probes.cu's
+# kJoinCountKeys): 32 a lane; more are searched in global memory
+JOIN_COUNT_KEYS = 1024
+
+
+class JoinPlan(NamedTuple):
+    vec: bool     # 16-byte output vectors (c a multiple of 4, the table
+                  # aligned to a vector's input bytes); else one element
+    threads: int  # a block: threads // 32 probes, a warp each
+    search: str   # one of JOIN_SEARCHES
+    grid: int     # blocks: ceil(t_n / (threads // 32))
+
+
+def join_plan(t_n: int, w_n: int, c: int, sms: int, *, aligned: bool = True,
+              threads: Optional[int] = None,
+              search: Optional[str] = None) -> JoinPlan:
+    """The launch of :func:`keyed_sum` of ``t_n`` probes into ``w_n`` keys
+    and a table of ``c`` columns on a card of ``sms`` SMs: a warp per
+    probe, a lane writing one 16-byte output vector at a time (int8 reads
+    4 bytes for it, f32 16) where ``c`` holds whole vectors and the table
+    is ``aligned``, else one element; a block of the largest of
+    ``JOIN_THREADS`` whose grid has at least ``sms // 3`` blocks, else the
+    smallest.  The search: the keys counted in registers up to
+    ``JOIN_COUNT_KEYS``, else the warp's ballot search in global memory.
+    At the probes' shapes on the H100: int8 (T = 128, 256 keys) 64 blocks
+    of 2 probes, f32 (T = 256, 1,024 keys) 64 blocks of 4, the keys
+    counted (in ``tools/join_gather_tiles.py``'s sweep, whose readings
+    ``PERF.md`` keeps, level with the ballot search or ahead of it by up to
+    0.2 us).  ``threads`` and ``search``: a plan to take instead (the
+    sweep's)."""
+    vec = aligned and c % 4 == 0
+    if threads is None:
+        threads = next((n for n in JOIN_THREADS
+                        if -(-t_n // (n // 32)) >= sms // 3),
+                       JOIN_THREADS[-1])
+    _check(threads % 32 == 0 and 32 <= threads <= 1024,
+           f"join_plan: {threads} threads a block")
+    if search is None:
+        search = "count" if w_n <= JOIN_COUNT_KEYS else "warp"
+    _check(search in JOIN_SEARCHES, f"join_plan: no search {search!r}")
+    _check(search != "count" or w_n <= JOIN_COUNT_KEYS,
+           f"join_plan: {w_n} keys exceed the {JOIN_COUNT_KEYS} counted")
+    return JoinPlan(vec, threads, search, -(-t_n // (threads // 32)))
+
+
+def join_launch_plan(probes: torch.Tensor, keys: torch.Tensor,
+                     table: torch.Tensor) -> JoinPlan:
+    """The plan :func:`keyed_sum` launches on for its operands on the card:
+    16-byte output vectors where the table is aligned to a vector's input
+    bytes (int8: 4; ``out``, fresh from the caching allocator, is
+    aligned)."""
+    w_n, c = table.shape
+    return join_plan(probes.shape[0], w_n, c, sm_count(table.device.index),
+                     aligned=_aligned(table, table.element_size() * 4))
+
+
+def _join_args(probes, keys, table, plan, out):
+    """``probe_join_launch``'s arguments but the stream."""
+    w_n, c = table.shape
+    return [_ptr(probes), probes.shape[0], _ptr(keys), w_n, _ptr(table), c,
+            int(table.dtype == torch.int8), int(plan.vec), plan.threads,
+            JOIN_SEARCHES.index(plan.search), plan.grid, _ptr(out)]
+
+
+def launch_join(lib, probes: torch.Tensor, keys: torch.Tensor,
+                table: torch.Tensor, plan: JoinPlan, out: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``probe_join_launch`` on ``plan``, writing
+    ``out``; returns its CUDA error (uncounted: the wrapper is
+    :func:`keyed_sum`)."""
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    return lib.probe_join_launch(*_join_args(probes, keys, table, plan, out),
+                                 ctypes.c_void_p(stream))
+
+
 def keyed_sum(probes: torch.Tensor, keys: torch.Tensor,
               table: torch.Tensor) -> torch.Tensor:
     """The one-hot join ``out[t] = sum_w [probes[t] == keys[w]] *
     table[w]`` -> ``[T, C]``, summed over the matched rows in ascending
     ``w``: int32 for an int8 table (exact), f32 for an f32 one.
     ``probes``: ``[T]`` int32; ``keys``: ``[W]`` int32, ascending (the
-    kernel binary-searches them); ``table``: ``[W, C]``."""
+    kernel searches them); ``table``: ``[W, C]``; launched on
+    :func:`join_plan`'s blocks."""
     name = "keyed_sum"
     _check(probes.ndim == 1 and keys.ndim == 1
            and probes.dtype == keys.dtype == torch.int32,
@@ -407,13 +593,14 @@ def keyed_sum(probes: torch.Tensor, keys: torch.Tensor,
            f"{name}: table must be [W, C] int8 or float32")
     if not _operands(name, probes, keys, table):
         return keyed_sum_plain(probes, keys, table)
-    t_n, (w_n, c) = probes.shape[0], table.shape
-    is_int8 = table.dtype == torch.int8
+    t_n, c = probes.shape[0], table.shape[1]
     out = torch.empty((t_n, c), device=table.device,
-                      dtype=torch.int32 if is_int8 else torch.float32)
+                      dtype=torch.int32 if table.dtype == torch.int8
+                      else torch.float32)
     if t_n and c:
-        _launch("probe_join_launch", "probe_join", _ptr(probes), t_n,
-                _ptr(keys), w_n, _ptr(table), c, int(is_int8), _ptr(out),
+        _launch("probe_join_launch", "probe_join",
+                *_join_args(probes, keys, table,
+                            join_launch_plan(probes, keys, table), out),
                 device=table.device)
     return out
 

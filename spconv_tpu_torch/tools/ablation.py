@@ -3,14 +3,15 @@
 of MMA rows), ``b7_ablation`` (B7, and its counting build),
 ``table_count`` (B1's counting build of the windows searched in global
 memory), ``gemm_tiles`` (the probe GEMMs' ablations), ``copy_tiles``
-(the probe copy's and transpose's ablations) and ``b6_tiles`` (its timer
-only); ``chip_smoke.py`` builds the
-three counting builds through it.  A kernel source rebuilt with
-texts replaced, one shared library per ablation, built in parallel, and a
-CUDA event timer.
+(the probe copy's and transpose's ablations), ``join_gather_tiles`` (the
+probe join's and gathers') and ``b6_tiles`` (its timer only);
+``chip_smoke.py`` builds the three counting builds through it.  A kernel
+source rebuilt with texts replaced, one shared library per ablation,
+built in parallel, a CUDA event timer and an interleaved one.
 """
 
 import ctypes
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -71,3 +72,13 @@ def cuda_ms(fn, reps=10):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def interleaved_ms(fns, rounds=7, reps=100):
+    """For each of ``fns``, the median of ``rounds`` readings of
+    ``cuda_ms(fn, reps)``, the functions read in turn in each round."""
+    reads = [[] for _ in fns]
+    for _ in range(rounds):
+        for r, fn in zip(reads, fns):
+            r.append(cuda_ms(fn, reps))
+    return [statistics.median(r) for r in reads]

@@ -28,7 +28,6 @@ Run:  python -m spconv_tpu_torch.tools.copy_tiles
 """
 
 import ctypes
-import statistics
 import sys
 
 import torch
@@ -36,7 +35,7 @@ import torch
 from .._build import BUILD_DIR, load_library
 from ..ops import dg_conv as D
 from ..ops import probes as P
-from .ablation import build, cuda_ms
+from .ablation import build, interleaved_ms as _ms
 
 _COPY_FIRST = ("const long long s = static_cast<long long>(__ldg(start)) * "
                "scale + off;")
@@ -81,16 +80,6 @@ ABLATIONS = (
 _EXACT = ("as is", "host start", "plain start load")
 # the ablations that change the copy only
 _COPY_ONLY = ("host start", "stores only", "plain start load")
-
-
-def _ms(fns, rounds=7):
-    """For each of ``fns``, the median of ``rounds`` readings of
-    ``cuda_ms(fn, 100)``, the functions read in turn in each round."""
-    reads = [[] for _ in fns]
-    for _ in range(rounds):
-        for r, fn in zip(reads, fns):
-            r.append(cuda_ms(fn, 100))
-    return [statistics.median(r) for r in reads]
 
 
 def copy_cases(dev):

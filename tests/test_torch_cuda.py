@@ -1410,47 +1410,164 @@ def test_probe_transpose_matches_plain(dev, m, n, place):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-@pytest.mark.parametrize("rows", [8, 32, 64, 128])
+@pytest.mark.parametrize("rows", [8, 32, 64, 128, 7, 33, 129, 200])
 def test_probe_gathers_match_plain(dev, dtype, rows):
     """The lane gather bit-equal to its plain version (indices outside the
-    row give 0), and the row broadcast for f32."""
+    row give 0) with one launch, on its plan and on every plan of the
+    sweep (``tools/join_gather_tiles.py``: 1-16 warps a block), row
+    counts the warps of a block do not divide included; and the row broadcast for f32, also to more
+    output rows than ``x`` has, on every warp and row split."""
     g = torch.Generator().manual_seed(rows)
     x = torch.randint(-2**30, 2**30, (rows, 128), generator=g)
     x = x.to(dtype) if dtype == torch.int32 else torch.rand(
         (rows, 128), generator=g)
     idx = torch.randint(-2, 130, (rows, 128), generator=g, dtype=torch.int32)
+    ref = TP.lane_gather_plain(x, idx)
+    xd, idxd = x.to(dev), idx.to(dev)
     TP.reset_launch_counts()
-    got = TP.lane_gather(x.to(dev), idx.to(dev))
+    got = TP.lane_gather(xd, idxd)
     torch.cuda.synchronize()
     assert TP.launch_counts == _probe_counts(probe_lane_gather=1)
-    assert torch.equal(got.cpu(), TP.lane_gather_plain(x, idx))
-    if dtype == torch.float32:
-        got = TP.row_broadcast(x.to(dev), 3, 4.0, 8)
+    assert torch.equal(got.cpu(), ref)
+    sms = TD.sm_count(dev.index or 0)
+    for plan in [TP.gather_plan(rows, 128, sms, rb=rb)
+                 for rb in TP.GATHER_WARPS + (16,)]:
+        out = torch.full_like(xd, -1)
+        assert TP.launch_gather(load_library(), xd, idxd, plan, out) == 0
         torch.cuda.synchronize()
-        assert TP.launch_counts == _probe_counts(probe_lane_gather=1,
-                                                 probe_row_broadcast=1)
-        assert torch.equal(got.cpu(), TP.row_broadcast_plain(x, 3, 4.0, 8))
+        assert torch.equal(out.cpu(), ref), plan
+    if dtype == torch.float32:
+        for row, n in ((3, 8), (rows // 2, 3 * rows + 1)):
+            TP.reset_launch_counts()
+            got = TP.row_broadcast(xd, row, 4.0, n)
+            torch.cuda.synchronize()
+            assert TP.launch_counts == _probe_counts(probe_row_broadcast=1)
+            ref = TP.row_broadcast_plain(x, row, 4.0, n)
+            assert torch.equal(got.cpu(), ref)
+            for plan in [TP.gather_plan(n, 128, sms, broadcast=True, rb=rb,
+                                        rw=rw)
+                         for rb in (1, 2, 4, 8) for rw in (1, 2, 4, 8)]:
+                out = torch.full((n, 128), float("nan"), device=dev)
+                assert TP.launch_broadcast(load_library(), xd, row, 4.0,
+                                           plan, out) == 0
+                torch.cuda.synchronize()
+                assert torch.equal(out.cpu(), ref), plan
 
 
-@pytest.mark.parametrize("table_dtype,t,w,c", [
-    (torch.int8, 128, 256, 128), (torch.float32, 256, 1024, 64),
-    (torch.float32, 50, 300, 33)])
-def test_probe_join_matches_plain(dev, table_dtype, t, w, c):
-    """The one-hot join bit-equal to its plain version (the f32 sums in
-    the plain version's order), int8 -> int32 and f32; keys with repeats
-    and probes that match nothing."""
-    g = torch.Generator().manual_seed(t)
-    probes = (torch.arange(t, dtype=torch.int32) * 3)
-    keys = torch.sort(torch.randint(0, 3 * t, (w,), generator=g,
-                                    dtype=torch.int32)).values
+@pytest.mark.parametrize("width", [4, 8, 64, 132, 256, 1000])
+def test_probe_lane_gather_widths(dev, width):
+    """Widths other than the probes' 128 (past it a lane moves several
+    vectors), each plan bit-equal to plain."""
+    g = torch.Generator().manual_seed(width)
+    x = torch.rand((37, width), generator=g)
+    idx = torch.randint(-3, width + 3, (37, width), generator=g,
+                        dtype=torch.int32)
+    ref = TP.lane_gather_plain(x, idx)
+    xd, idxd = x.to(dev), idx.to(dev)
+    TP.reset_launch_counts()
+    got = TP.lane_gather(xd, idxd)
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_lane_gather=1)
+    assert torch.equal(got.cpu(), ref)
+    sms = TD.sm_count(dev.index or 0)
+    for plan in [TP.gather_plan(37, width, sms, rb=rb)
+                 for rb in TP.GATHER_WARPS]:
+        out = torch.full_like(xd, float("nan"))
+        assert TP.launch_gather(load_library(), xd, idxd, plan, out) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), ref), plan
+
+
+def _join_operands(table_dtype, t, w, c, kind, g):
+    """probes, keys (ascending) and table for the join: ``random`` (probes
+    ``3 i``, keys drawn from ``[0, 3 t)``), ``unsorted`` (the same probes
+    shuffled), ``negative`` (probes and keys in ``[-500, 500)``), ``one
+    run`` (every key equal, one probe in four matching it), ``extremes``
+    (keys and probes at the int32 limits beside ``negative``'s)."""
+    if kind == "extremes":
+        lim = torch.tensor([-2**31, -2**31, 2**31 - 1, 2**31 - 1],
+                           dtype=torch.int32)
+        keys = torch.sort(torch.cat([torch.randint(
+            -500, 500, (w - 4,), generator=g, dtype=torch.int32), lim])).values
+        probes = torch.cat([lim[1:3], torch.randint(
+            -500, 500, (t - 2,), generator=g, dtype=torch.int32)])
+    elif kind == "one run":
+        keys = torch.full((w,), 7, dtype=torch.int32)
+        probes = torch.where(torch.arange(t) % 4 == 0, 7,
+                             torch.arange(t) + 8).int()
+    elif kind == "negative":
+        keys = torch.sort(torch.randint(-500, 500, (w,), generator=g,
+                                        dtype=torch.int32)).values
+        probes = torch.randint(-500, 500, (t,), generator=g,
+                               dtype=torch.int32)
+    else:
+        probes = torch.arange(t, dtype=torch.int32) * 3
+        if kind == "unsorted":
+            probes = probes[torch.randperm(t, generator=g)]
+        keys = torch.sort(torch.randint(0, 3 * t, (w,), generator=g,
+                                        dtype=torch.int32)).values
     table = (torch.randint(-127, 127, (w, c), generator=g).to(torch.int8)
              if table_dtype == torch.int8 else torch.randn((w, c),
                                                            generator=g))
+    return probes, keys, table
+
+
+@pytest.mark.parametrize("table_dtype,t,w,c,kind", [
+    (torch.int8, 128, 256, 128, "random"),
+    (torch.float32, 256, 1024, 64, "random"),
+    (torch.float32, 50, 300, 33, "random"),
+    (torch.int8, 128, 256, 128, "unsorted"),
+    (torch.float32, 256, 1024, 64, "unsorted"),
+    (torch.int8, 100, 777, 36, "negative"),
+    (torch.float32, 64, 500, 8, "negative"),
+    (torch.float32, 64, 300, 64, "extremes"),
+    (torch.int8, 64, 2000, 128, "extremes"),
+    (torch.int8, 40, 256, 128, "one run"),
+    (torch.float32, 40, 1024, 64, "one run"),
+    (torch.int8, 100, 2000, 64, "random"),
+    (torch.float32, 40, 3000, 64, "one run"),
+    (torch.float32, 1, 5000, 64, "random"),
+    (torch.int8, 1, 9001, 128, "one run"),
+    (torch.float32, 64, 300, 64, "misaligned"),
+    (torch.int8, 64, 300, 128, "misaligned"),
+    (torch.int8, 64, 300, 128, "4 bytes off")])
+def test_probe_join_matches_plain(dev, table_dtype, t, w, c, kind):
+    """The one-hot join bit-equal to its plain version (the f32 sums in
+    the plain version's order) with one launch, int8 -> int32 and f32:
+    keys with repeats, probes in any order, negative, or matching nothing,
+    a run of every key, keys counted in registers and past those
+    (searched in global memory), a table one element off its alignment
+    (the one-element path), an int8 table 4 bytes past a 16-byte boundary
+    (16-byte outputs from 4-byte reads); and on every plan of the sweep
+    (``tools/join_gather_tiles.py``: block sizes, each search)."""
+    g = torch.Generator().manual_seed(t + w)
+    off = {"misaligned": 1, "4 bytes off": 4}.get(kind)
+    probes, keys, table = _join_operands(table_dtype, t, w, c,
+                                         "random" if off else kind, g)
+    ref = TP.keyed_sum_plain(probes, keys, table)
+    pd, kd = probes.to(dev), keys.to(dev)
+    td = _off_by_one(table, dev, off) if off else table.to(dev)
+    if kind == "4 bytes off":
+        assert td.data_ptr() % 16 == 4
+    plan = TP.join_launch_plan(pd, kd, td)
+    assert plan.vec == (kind != "misaligned" and c % 4 == 0)
+    assert plan == TP.join_plan(t, w, c, TD.sm_count(dev.index or 0),
+                                aligned=plan.vec)
     TP.reset_launch_counts()
-    got = TP.keyed_sum(probes.to(dev), keys.to(dev), table.to(dev))
+    got = TP.keyed_sum(pd, kd, td)
     torch.cuda.synchronize()
     assert TP.launch_counts == _probe_counts(probe_join=1)
-    assert torch.equal(got.cpu(), TP.keyed_sum_plain(probes, keys, table))
+    assert torch.equal(got.cpu(), ref)
+    sms = TD.sm_count(dev.index or 0)
+    for p in [TP.join_plan(t, w, c, sms, aligned=plan.vec, threads=n,
+                           search=sr)
+              for sr in TP.JOIN_SEARCHES
+              if sr != "count" or w <= TP.JOIN_COUNT_KEYS
+              for n in TP.JOIN_THREADS]:
+        out = torch.full_like(got, -1)
+        assert TP.launch_join(load_library(), pd, kd, td, p, out) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), ref), p
 
 
 def test_probe_rank_matches_plain(dev):
