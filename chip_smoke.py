@@ -111,11 +111,27 @@ line is printed):
    beside the plain version, the PyTorch call that computes the same
    function and its bound; the GEMMs with their plans (tile, blocks, K
    split) and, where this PyTorch has it, ``torch.mm`` with an f32 out;
-13. prints a JSON line of the kernels, each with its bound (the least time
+13. the MNIST classifier (``SparseClassifier(2, 1, 10)``, batch 8 on 28 x
+   28) trained 5 SGD steps at ``examples/mnist_sparse.py``'s lr with launch
+   counts, and its first step in f32 (logits, loss, grads) against the plain
+   backward and against the plain forward and backward with plain tables;
+   the MNIST QAT flow (``spconv_tpu_torch.examples.mnist_qat.main``: float
+   pretraining, PTQ, QAT, both converted to int8) with a float step, an
+   observe pass and a QAT step counted, a QAT step in f32 against the same
+   two plain runs and each QAT conv's f32 output against the plain forward
+   on the same input, and the three accuracies; both int8 nets served 3
+   requests on B7 at ndim 2 (launch counts, every int8 layer bit-equal to
+   the plain run, the QAT-int8 output against the QAT net's forward, host
+   ms, device busy, peak memory); and the CenterPoint encoder with
+   ``bn=True`` (bf16, phase 6's buffers, BN on batch statistics) trained 3
+   steps with launch counts, a profiler window, coordinates against a plain
+   run, busy, peak memory and the f32 grads against the plain backward;
+14. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
 
+import contextlib
 import json
 import re
 import subprocess
@@ -137,9 +153,10 @@ WGRAD_TOL = {"float32": 1e-4, "bfloat16": 1.6e-2}
 NET_F32_TOL = 1e-4  # whole net forward, f32, kernel vs plain
 # whole-net weight grads, f32, kernels vs a run whose forward also goes
 # through B2 but whose backward takes the plain versions, per tensor: sums
-# in another order.  (With the plain forward as well, a max pool may break
-# a near-tie the other way and route a gradient to another child; that
-# comparison is printed, not gated.)
+# in another order (plain_kernels).  With the plain forward as well, a max
+# pool may break a near-tie the other way and route a gradient to another
+# child, so on a net with max pools that comparison is printed, not gated;
+# a fake quant's tie is counted and gated (QAT_TIE_SHARE).
 GRAD_F32_TOL = 1e-4
 SK_STAGE = 2  # the 96 -> 128 -> 128 pair of the net
 CP_STRIDED = ("down1", "down2", "down3", "out")  # indice_keys, in order
@@ -481,45 +498,109 @@ def b7_tile(name):
     return None
 
 
-def plain_conv_fn(torch, D, fwd):
-    """An autograd Function ``(x, w, pos, pos_bwd, path)`` whose backward
-    takes the plain versions ``dg_dgrad_plain`` and ``dg_wgrad_plain``
-    through ``pos_bwd`` the way ``DGConvFn`` runs the kernels; its forward
-    is ``fwd(x, w, pos, path)`` (the plain version, or the B2 kernel
-    ``dg_fwd`` to hold the backward alone against the kernels)."""
+@contextlib.contextmanager
+def plain_kernels(D, b2_forward=False):
+    """While the block runs, every DG conv kernel that ``ops.dg_conv``
+    launches is swapped for its plain version, on whatever device: B1's
+    tables (``dg_pos_plain``, ``dg_pos_affine_plain``,
+    ``dg_pos_divide_plain``), the backward (``dg_dgrad_plain``,
+    ``dg_wgrad_plain``) and, unless ``b2_forward``, B2's forward
+    (``dg_fwd_plain``).  A net run inside takes its own code, so what it
+    computes holds the kernels against their plain versions (with
+    ``b2_forward``, the backward alone).  The plain versions count no
+    launch."""
+    import numpy as np
 
-    class PlainConv(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, w, pos, pos_bwd, path):
-            ctx.save_for_backward(x, w, pos_bwd)
-            return fwd(x, w, pos, path)
+    def table(keys, ksize, dilation, dims, sentinel, reverse):
+        return D.dg_pos_plain(keys, ksize=ksize, dilation=dilation,
+                              spatial_shape=dims,
+                              batch_size=sentinel // int(np.prod(dims)),
+                              reverse=reverse)
 
-        @staticmethod
-        def backward(ctx, dout):
-            x, w, pos_bwd = ctx.saved_tensors
-            dout = dout.to(x.dtype).contiguous()
-            din = (D.dg_dgrad_plain(dout, w, pos_bwd)
-                   if ctx.needs_input_grad[0] else None)
-            return din, D.dg_wgrad_plain(x, dout, pos_bwd), None, None, None
+    def regular(name, in_keys, out_keys, path, **geom):
+        plain = (D.dg_pos_affine_plain if name == "dg_pos_affine"
+                 else D.dg_pos_divide_plain)
+        return plain(in_keys, out_keys, **geom)
 
-    return PlainConv
+    swap = dict(
+        _dg_pos_cuda=table, _regular_pos_cuda=regular,
+        dg_dgrad=lambda dout, w, pos, path="subm": D.dg_dgrad_plain(
+            dout, w, pos),
+        dg_wgrad=lambda x, dout, pos, path="subm": D.dg_wgrad_plain(
+            x, dout, pos))
+    if not b2_forward:
+        swap["dg_fwd"] = lambda x, w, pos, path="subm": D.dg_fwd_plain(
+            x, w, pos)
+    saved = {name: getattr(D, name) for name in swap}
+    for name, fn in swap.items():
+        setattr(D, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(D, name, fn)
 
 
-def plain_fwd(D):
-    """``dg_fwd_plain`` with ``dg_fwd``'s signature."""
-    return lambda x, w, pos, path: D.dg_fwd_plain(x, w, pos)
+def step_vs_plain(torch, D, nets, step, what, b2_forward=True,
+                  gate_outputs=True, gate_grads=True):
+    """Runs ``step(nets[0])`` through the kernels and ``step(nets[1])``
+    under :func:`plain_kernels` (with ``b2_forward``: the backward alone),
+    two nets of the same weights.  ``step`` takes one training step and
+    returns ``(outputs, named parameters)``: a tuple of tensors, the loss
+    first, and the parameters whose grads the step left.  Gates each output
+    at NET_F32_TOL of its max|ref| (with ``gate_outputs``) and each grad at
+    GRAD_F32_TOL of its max|ref| (with ``gate_grads``).  Returns ``(loss,
+    plain loss, worst output error, (worst grad error, its parameter))``."""
+    import numpy as np
+
+    out_k, params_k = step(nets[0])
+    with plain_kernels(D, b2_forward):
+        out_p, params_p = step(nets[1])
+    out_rel = max(rel_err(torch, a, b)[1] for a, b in zip(out_k, out_p))
+    check(out_rel <= NET_F32_TOL or not gate_outputs, f"{what} f32 outputs: "
+          f"kernels vs plain {out_rel:.3e} > {NET_F32_TOL} of max|ref|")
+    rels = []
+    for (name, pk), (_, pp) in zip(params_k, params_p):
+        check(pk.grad is not None and pp.grad is not None,
+              f"{what}: {name} has no grad")
+        rels.append((rel_err(torch, pk.grad, pp.grad)[1], name))
+    worst = max(rels)
+    check(np.isfinite(worst[0])
+          and (worst[0] <= GRAD_F32_TOL or not gate_grads),
+          f"{what} f32 grad {worst[1]}: kernels vs plain {worst[0]:.3e} > "
+          f"{GRAD_F32_TOL}")
+    return out_k[0].item(), out_p[0].item(), out_rel, worst
 
 
-def plain_forward_stages(torch, net, x, train=False, kernel_fwd=False):
+def zero_lr_step(B, net, x):
+    """``B.train_step`` at lr 0 as :func:`step_vs_plain`'s ``step``."""
+    return (B.train_step(net, x, 0.0),), list(net.named_parameters())
+
+
+def busy_text(wall, busy, reps, what, ops=None):
+    """A profiler window's reading (:func:`device_busy`) per call."""
+    return (f"profiler window of {reps}: {wall / reps:.3f} ms {what}, "
+            "device busy " + (
+                f"{busy / reps:.3f} ms ({100 * busy / wall:.1f} %, idle "
+                f"{100 - 100 * busy / wall:.1f} %)" if busy
+                else "not measured")
+            + ("" if ops is None else f", {ops / reps:.0f} device ops"))
+
+
+def turns_text(windows):
+    """Profiler windows taken in turns, ``[(name, (wall, busy, ops))]``."""
+    return "; ".join(f"{name} host {w:.3f} ms busy "
+                     f"{'none' if b is None else f'{b:.3f}'} ms {k} ops"
+                     for name, (w, b, k) in windows)
+
+
+def plain_forward_stages(torch, net, x):
     """The benchmark net's forward with the plain versions of the kernels
-    in place of the kernels, on whatever device ``x`` is on; with
-    ``train``, differentiable through the plain backward, and with
-    ``kernel_fwd`` as well, whose convs' forward runs B2."""
+    in place of the kernels, on whatever device ``x`` is on."""
     from spconv_tpu_torch.core import SparseConvTensor
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
 
-    plain = plain_conv_fn(torch, D, D.dg_fwd if kernel_fwd else plain_fwd(D))
     stages = []
     for stage in range(7):
         if stage:
@@ -528,13 +609,9 @@ def plain_forward_stages(torch, net, x, train=False, kernel_fwd=False):
         geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=x.spatial_shape,
                     batch_size=x.batch_size)
         pos = D.dg_pos_plain(keys, **geom)
-        pos_rev = D.dg_pos_plain(keys, reverse=True, **geom) if train else None
         for conv in net.convs[2 * stage:2 * stage + 2]:
-            wkv = D.weight_krsc_to_kv(conv.weight)
-            if train:
-                out = plain.apply(x.features, wkv, pos, pos_rev, "subm")
-            else:
-                out = D.dg_fwd_plain(x.features, wkv, pos)
+            out = D.dg_fwd_plain(x.features,
+                                 D.weight_krsc_to_kv(conv.weight), pos)
             out = torch.where(x.valid_mask[:, None], out,
                               torch.zeros_like(out))
             x = SparseConvTensor(out, x.indices, x.spatial_shape,
@@ -599,26 +676,20 @@ def plain_encoder_stages(torch, net, x):
     return stages
 
 
-def plain_unet(torch, net, x, train=False, kernel_fwd=False):
+def plain_unet(torch, net, x):
     """``SparseUNet``'s forward with the plain versions of the kernels in
     place of the kernels (every table by ``dg_pos_plain``,
     ``dg_pos_affine_plain`` or ``dg_pos_divide_plain``, every product by
-    ``dg_fwd_plain``), on whatever device ``x`` is on; with ``train``,
-    differentiable through the plain backward, and with ``kernel_fwd`` as
-    well, whose convs' forward runs B2.  Returns the output features."""
+    ``dg_fwd_plain``), on whatever device ``x`` is on.  Returns the output
+    features."""
     import torch.nn.functional as F
     from spconv_tpu_torch.core import SparseConvTensor
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
     from spconv_tpu_torch.ops.rulebook import build_conv_outputs
 
-    fwd = D.dg_fwd if kernel_fwd else plain_fwd(D)
-    plain = plain_conv_fn(torch, D, fwd)
-
-    def conv(layer, feats, pos, pos_bwd, path, valid):
-        wkv = D.weight_krsc_to_kv(layer.weight)
-        out = (plain.apply(feats, wkv, pos, pos_bwd, path) if train
-               else fwd(feats, wkv, pos, path))
+    def conv(layer, feats, pos, valid):
+        out = D.dg_fwd_plain(feats, D.weight_krsc_to_kv(layer.weight), pos)
         out = F.relu(out + layer.bias)
         return torch.where(valid[:, None], out, torch.zeros_like(out))
 
@@ -627,9 +698,8 @@ def plain_unet(torch, net, x, train=False, kernel_fwd=False):
         keys, _ = C.linearize(x.indices, x.spatial_shape, 1)
         geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=x.spatial_shape,
                     batch_size=1)
-        stage_pos.append((D.dg_pos_plain(keys, **geom),
-                          D.dg_pos_plain(keys, reverse=True, **geom)))
-        x = x.replace_feature(conv(subm, x.features, *stage_pos[i], "subm",
+        stage_pos.append(D.dg_pos_plain(keys, **geom))
+        x = x.replace_feature(conv(subm, x.features, stage_pos[i],
                                    x.valid_mask))
         skips.append(x)
         if i == len(net.enc_down):
@@ -644,19 +714,18 @@ def plain_unet(torch, net, x, train=False, kernel_fwd=False):
                     out_shape=C.get_conv_output_size(
                         x.spatial_shape, layer.kernel_size, layer.stride,
                         layer.padding, layer.dilation))
-        aff = D.dg_pos_affine_plain(keys, out_keys, **geom)
-        div = D.dg_pos_divide_plain(keys, out_keys, **geom)
-        downs.append((aff, div))
+        downs.append(D.dg_pos_divide_plain(keys, out_keys, **geom))
         x = SparseConvTensor(
-            conv(layer, x.features, aff, div, "strided",
+            conv(layer, x.features,
+                 D.dg_pos_affine_plain(keys, out_keys, **geom),
                  out_inds[:, 0] >= 0),
             out_inds, geom["out_shape"], 1, keys_sorted=True)
     for j, (up, subm) in enumerate(zip(net.dec_up, net.dec_subm)):
         i = len(net.enc_down) - 1 - j
-        skip, (aff, div) = skips[i], downs[i]
-        h = conv(up, x.features, div, aff, "inverse", skip.valid_mask)
+        skip = skips[i]
+        h = conv(up, x.features, downs[i], skip.valid_mask)
         h = torch.cat([h, skip.features], 1)
-        x = skip.replace_feature(conv(subm, h, *stage_pos[i], "subm",
+        x = skip.replace_feature(conv(subm, h, stage_pos[i],
                                       skip.valid_mask))
     head = net.head
     out = x.features @ head.weight.reshape(head.out_channels, -1).t()
@@ -873,9 +942,7 @@ def unet_phase(torch, dev, gen, scans, cp_rec, note):
         peak = peak_mib(torch, lambda: net16(x16[0]))
     print(f"U-Net serve: bf16, ms per request "
           f"{[round(m, 3) for m in serve_ms]}, launches {serve_launches}; "
-          f"profiler window of 3: {wall / 3:.3f} ms a request, device busy "
-          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
-             f"{100 - 100 * busy / wall:.1f} %)" if busy else "not measured")
+          + busy_text(wall, busy, 3, "a request")
           + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
           "MiB held before the request")
 
@@ -917,27 +984,15 @@ def unet_phase(torch, dev, gen, scans, cp_rec, note):
         torch, lambda: B.train_step(net, x16[0], 0.0), 3)
     peak = peak_mib(torch, lambda: B.train_step(net, x16[0], 0.0))
     print(f"U-Net train: bf16, launches over 3 steps {train_launches}; "
-          f"profiler window of 3: {wall / 3:.3f} ms a step, device busy "
-          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
-             f"{100 - 100 * busy / wall:.1f} %)" if busy else "not measured")
+          + busy_text(wall, busy, 3, "a step")
           + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
           "MiB held before the step")
 
     # the f32 grads through the kernels against the plain backward on the
     # kernels' forward
-    nets = [copy.deepcopy(net32) for _ in range(2)]
-    loss_k = B.train_step(nets[0], scans[0], 0.0).item()
-    loss_p = (plain_unet(torch, nets[1], scans[0], train=True,
-                         kernel_fwd=True).float() ** 2).sum()
-    loss_p.backward()
-    loss_p = loss_p.item()
-    check(abs(loss_k - loss_p) <= NET_F32_TOL * abs(loss_p),
-          f"U-Net f32 losses {loss_k} vs {loss_p}")
-    worst = max((rel_err(torch, a.grad, b.grad)[1], name) for (name, a), b
-                in zip(nets[0].named_parameters(), nets[1].parameters()))
-    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
-          f"U-Net f32 grad {worst[1]}: kernels vs plain backward "
-          f"{worst[0]:.3e} > {GRAD_F32_TOL}")
+    loss_k, loss_p, _, worst = step_vs_plain(
+        torch, D, [copy.deepcopy(net32) for _ in range(2)],
+        lambda n: zero_lr_step(B, n, scans[0]), "U-Net")
     print(f"unet train f32 seed=0: loss kernels {loss_k:.9e}, plain "
           f"backward {loss_p:.9e}; worst grad max|d|/max|ref| {worst[0]:.3e}"
           f" ({worst[1]}, tolerance {GRAD_F32_TOL} per tensor)")
@@ -1735,10 +1790,7 @@ def sk_pool_phase(torch, dev, gen, scans, geo, bounds, served):
                 for name, m in (("seg", seg_net), ("sk", net), ("sk", net),
                                 ("seg", seg_net))]
     print("sk-pool vs seg-pool BenchNet, 3 bf16 requests of seed 0 a "
-          "window, in turns: " + "; ".join(
-              f"{name} host {w:.3f} ms busy "
-              f"{'none' if b is None else f'{b:.3f}'} ms {k} ops"
-              for name, (w, b, k) in busy))
+          "window, in turns: " + turns_text(busy))
 
     # train: 3 bf16 steps
     step = dict(dg_pos=7, dg_pos_rev=7, dg_fwd=14, dg_dgrad=13, dg_wgrad=14,
@@ -1774,21 +1826,10 @@ def sk_pool_phase(torch, dev, gen, scans, geo, bounds, served):
 
     # the f32 net: grads through the kernels vs the plain conv backward,
     # both with the sk pools' forward on B6 and their torch-ops backward
-    nets = [sk_net(torch.float32, train=True) for _ in range(2)]
     x32 = B.make_bench_input(*scans[0], device=dev)
-    losses = [B.train_step(nets[0], x32, 0.0).item()]
-    loss_p = (plain_forward_stages(torch, nets[1], x32, train=True,
-                                   kernel_fwd=True)[-1]
-              .features.float() ** 2).sum()
-    loss_p.backward()
-    losses.append(loss_p.item())
-    check(abs(losses[0] - losses[1]) <= NET_F32_TOL * abs(losses[1]),
-          f"sk-pool f32 losses {losses}")
-    worst = max((rel_err(torch, a.grad, b.grad)[1], name)
-                for (name, a), (_, b) in zip(nets[0].named_parameters(),
-                                             nets[1].named_parameters()))
-    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
-          f"sk-pool f32 grad {worst[1]}: {worst[0]:.3e} > {GRAD_F32_TOL}")
+    *losses, _, worst = step_vs_plain(
+        torch, D, [sk_net(torch.float32, train=True) for _ in range(2)],
+        lambda n: zero_lr_step(B, n, x32), "sk-pool")
     print(f"sk-pool train f32 seed=0: loss kernels {losses[0]:.9e}, plain "
           f"conv backward {losses[1]:.9e}; worst weight grad "
           f"max|d|/max|ref| {worst[0]:.3e} ({worst[1]}, tolerance "
@@ -2042,10 +2083,7 @@ def search_phase(torch, dev, gen, scans, geo, bounds, served, note):
         peaks = [(name, peak_mib(torch, lambda: m(x0)))
                  for name, m in (("keyed", keyed), ("no-key", free))]
     print("no-key vs keyed BenchNet, 3 bf16 requests of seed 0 a window, in "
-          "turns: " + "; ".join(
-              f"{name} host {w:.3f} ms busy "
-              f"{'none' if b is None else f'{b:.3f}'} ms {k} ops"
-              for name, (w, b, k) in busy)
+          "turns: " + turns_text(busy)
           + "; peak allocated in a request: " + ", ".join(
               f"{name} {p:.1f} MiB above {b:.1f}" for name, (p, b) in peaks))
 
@@ -2094,32 +2132,18 @@ def search_phase(torch, dev, gen, scans, geo, bounds, served, note):
     print("no-key vs keyed BenchNet step (bf16, seed 0, lr 0), in turns: "
           "host ms " + "; ".join(f"{k} {[round(v, 3) for v in ms]}"
                                  for k, ms in step_ms.items())
-          + "; windows of 3: " + "; ".join(
-              f"{name} host {w:.3f} ms busy "
-              f"{'none' if b is None else f'{b:.3f}'} ms {k} ops"
-              for name, (w, b, k) in step_busy)
+          + "; windows of 3: " + turns_text(step_busy)
           + "; peak allocated in a step: " + ", ".join(
               f"{name} {p:.1f} MiB above {b:.1f}"
               for name, (p, b) in step_peaks))
 
     # the f32 no-key net's grads (S1-S3) against the plain backward on the
     # kernel forward (B1 + B2, bit-equal to S1), as phase 5
-    nets = [bench_net(torch.float32, False, train=True),
-            bench_net(torch.float32, True, train=True)]
     x32 = B.make_bench_input(*scans[0], device=dev)
-    losses = [B.train_step(nets[0], x32, 0.0).item()]
-    loss_p = (plain_forward_stages(torch, nets[1], x32, train=True,
-                                   kernel_fwd=True)[-1]
-              .features.float() ** 2).sum()
-    loss_p.backward()
-    losses.append(loss_p.item())
-    check(abs(losses[0] - losses[1]) <= NET_F32_TOL * abs(losses[1]),
-          f"no-key f32 losses {losses}")
-    worst = max((rel_err(torch, a.grad, b.grad)[1], name)
-                for (name, a), (_, b) in zip(nets[0].named_parameters(),
-                                             nets[1].named_parameters()))
-    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
-          f"no-key f32 grad {worst[1]}: {worst[0]:.3e} > {GRAD_F32_TOL}")
+    *losses, _, worst = step_vs_plain(
+        torch, D, [bench_net(torch.float32, keyed, train=True)
+                   for keyed in (False, True)],
+        lambda n: zero_lr_step(B, n, x32), "no-key")
     print(f"no-key train f32 seed=0: loss kernels {losses[0]:.9e}, plain "
           f"backward {losses[1]:.9e}; worst weight grad max|d|/max|ref| "
           f"{worst[0]:.3e} ({worst[1]}, tolerance {GRAD_F32_TOL})")
@@ -2157,33 +2181,26 @@ def search_phase(torch, dev, gen, scans, geo, bounds, served, note):
             run_int8)
 
 
-def plain_chain(torch, net, x, train=False, kernel_fwd=False):
+def plain_chain(torch, net, x):
     """The USAGE.md chain's forward (``chain_net``) with the plain versions
     of the kernels in place of the kernels (every table by its plain
     version, every product by ``dg_fwd_plain``), on whatever device ``x`` is
-    on; with ``train``, differentiable through the plain backward, and with
-    ``kernel_fwd`` as well, whose convs' forward runs B2.  Returns ``(output
-    features, output indices)``."""
+    on.  Returns ``(output features, output indices)``."""
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
     from spconv_tpu_torch.ops.rulebook import (build_conv_outputs,
                                                build_deconv_outputs)
 
-    fwd = D.dg_fwd if kernel_fwd else plain_fwd(D)
-    plain = plain_conv_fn(torch, D, fwd)
-
-    def conv(layer, feats, pos, pos_bwd, path, valid):
-        wkv = D.weight_krsc_to_kv(layer.weight)
-        out = (plain.apply(feats, wkv, pos, pos_bwd, path) if train
-               else fwd(feats, wkv, pos, path)) + layer.bias
+    def conv(layer, feats, pos, valid):
+        out = D.dg_fwd_plain(feats, D.weight_krsc_to_kv(layer.weight),
+                             pos) + layer.bias
         return torch.where(valid[:, None], out, torch.zeros_like(out))
 
     subm, down, inv, up = net
     shape = tuple(x.spatial_shape)
     keys, _ = C.linearize(x.indices, shape, 1)
     geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=shape, batch_size=1)
-    h = conv(subm, x.features, D.dg_pos_plain(keys, **geom),
-             D.dg_pos_plain(keys, reverse=True, **geom), "subm", x.valid_mask)
+    h = conv(subm, x.features, D.dg_pos_plain(keys, **geom), x.valid_mask)
     geom = dict(ksize=down.kernel_size, stride=down.stride,
                 padding=down.padding, dilation=down.dilation)
     d_inds, d_keys, _, _ = build_conv_outputs(
@@ -2192,13 +2209,12 @@ def plain_chain(torch, net, x, train=False, kernel_fwd=False):
     geom.update(in_shape=shape, batch_size=1, out_shape=tuple(
         C.get_conv_output_size(shape, down.kernel_size, down.stride,
                                down.padding, down.dilation)))
-    aff = D.dg_pos_affine_plain(keys, d_keys, **geom)
-    div = D.dg_pos_divide_plain(keys, d_keys, **geom)
-    h = conv(down, h, aff, div, "strided", d_inds[:, 0] >= 0)
-    h = conv(inv, h, div, aff, "inverse", x.valid_mask)
+    h = conv(down, h, D.dg_pos_affine_plain(keys, d_keys, **geom),
+             d_inds[:, 0] >= 0)
+    h = conv(inv, h, D.dg_pos_divide_plain(keys, d_keys, **geom),
+             x.valid_mask)
     t_inds, t_keys, t_geom = deconv_sites(x, up)
     out = conv(up, h, D.dg_pos_divide_plain(t_keys, keys, **t_geom),
-               D.dg_pos_affine_plain(t_keys, keys, **t_geom), "transposed",
                t_inds[:, 0] >= 0)
     return out, t_inds
 
@@ -2418,11 +2434,8 @@ def transposed_phase(torch, dev, cp_in, note):
         peak = peak_mib(torch, lambda: net16(x16[0]))
     print(f"chain serve: bf16, ms per request "
           f"{[round(m, 3) for m in serve_ms]}, launches "
-          f"{ {kk: v for kk, v in serve_launches.items() if v} }; profiler "
-          f"window of 3: {wall / 3:.3f} ms a request, device busy "
-          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
-             f"{100 - 100 * busy / wall:.1f} %), {ops / 3:.0f} device ops"
-             if busy else "not measured")
+          f"{ {kk: v for kk, v in serve_launches.items() if v} }; "
+          + busy_text(wall, busy, 3, "a request", ops)
           + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
           "MiB held before the request")
 
@@ -2461,32 +2474,20 @@ def transposed_phase(torch, dev, cp_in, note):
         print(f"chain train step seed={seed} input=synthetic ms={ms:.3f} "
               f"loss={loss:.6e} lr={lr:.4e}")
     train_launches = dict(D.launch_counts)
-    wall, busy, ops = device_busy(
+    wall, busy, _ = device_busy(
         torch, lambda: B.train_step(net, x16[0], 0.0), 3)
     peak = peak_mib(torch, lambda: B.train_step(net, x16[0], 0.0))
     print(f"chain train: bf16, launches over 3 steps "
-          f"{ {kk: v for kk, v in train_launches.items() if v} }; profiler "
-          f"window of 3: {wall / 3:.3f} ms a step, device busy "
-          + (f"{busy / 3:.3f} ms ({100 * busy / wall:.1f} %, idle "
-             f"{100 - 100 * busy / wall:.1f} %)" if busy else "not measured")
+          f"{ {kk: v for kk, v in train_launches.items() if v} }; "
+          + busy_text(wall, busy, 3, "a step")
           + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
           "MiB held before the step")
 
     # the f32 grads through the kernels against the plain backward on the
     # kernels' forward
-    nets = [copy.deepcopy(net32) for _ in range(2)]
-    loss_k = B.train_step(nets[0], x32[0], 0.0).item()
-    loss_p = (plain_chain(torch, nets[1], x32[0], train=True,
-                          kernel_fwd=True)[0].float() ** 2).sum()
-    loss_p.backward()
-    loss_p = loss_p.item()
-    check(abs(loss_k - loss_p) <= NET_F32_TOL * abs(loss_p),
-          f"chain f32 losses {loss_k} vs {loss_p}")
-    worst = max((rel_err(torch, a.grad, b.grad)[1], name) for (name, a), b
-                in zip(nets[0].named_parameters(), nets[1].parameters()))
-    check(np.isfinite(worst[0]) and worst[0] <= GRAD_F32_TOL,
-          f"chain f32 grad {worst[1]}: kernels vs plain backward "
-          f"{worst[0]:.3e} > {GRAD_F32_TOL}")
+    loss_k, loss_p, _, worst = step_vs_plain(
+        torch, D, [copy.deepcopy(net32) for _ in range(2)],
+        lambda n: zero_lr_step(B, n, x32[0]), "chain")
     print(f"chain train f32 seed=0: loss kernels {loss_k:.9e}, plain "
           f"backward {loss_p:.9e}; worst grad max|d|/max|ref| {worst[0]:.3e}"
           f" ({worst[1]}, tolerance {GRAD_F32_TOL} per tensor)")
@@ -2775,6 +2776,384 @@ def probe_phase(torch, dev):
                                                    "dg_fwd_search"),
          tol=TOL["bfloat16"])
     return rows
+
+
+# per MNIST classifier SGD step (models/classifier.py, batch 8 on 28 x 28):
+# two subm convs (their tables and reversed tables; the first conv's input
+# needs no gradient), two strided convs without a key (affine and divide
+# tables each step)
+CLS_STEP = dict(dg_pos=2, dg_pos_rev=2, dg_fwd=2, dg_dgrad=1, dg_wgrad=2,
+                dg_pos_affine=2, dg_pos_divide=2, dg_fwd_strided=2,
+                dg_dgrad_strided=2, dg_wgrad_strided=2)
+# per MNIST QAT float step (examples/mnist_qat.py: one subm, one strided
+# conv without a key); an observe pass runs each conv twice (the float conv
+# for BN's statistics, then the QAT conv), the second subm call on the
+# first one's table; a QAT step is an observe pass and a float-like step
+QAT_FLOAT_STEP = dict(dg_pos=1, dg_pos_rev=1, dg_fwd=1, dg_wgrad=1,
+                      dg_pos_affine=1, dg_pos_divide=1, dg_fwd_strided=1,
+                      dg_dgrad_strided=1, dg_wgrad_strided=1)
+QAT_OBSERVE = dict(dg_pos=1, dg_fwd=2, dg_pos_affine=2, dg_fwd_strided=2)
+QAT_STEP = {k: QAT_FLOAT_STEP.get(k, 0) + QAT_OBSERVE.get(k, 0)
+            for k in set(QAT_FLOAT_STEP) | set(QAT_OBSERVE)}
+# per int8 MNIST request (QuantizedSequential): one subm and one affine
+# table, one B7 launch each, no B2
+QAT_INT8_REQUEST = dict(dg_pos=1, dg_pos_affine=1, dg_fwd_q=1,
+                        dg_fwd_q_strided=1)
+QAT_STEPS = 30  # examples/mnist_qat.py's default
+CLS_STEPS = 5
+# the QAT-int8 net's dequantized output against the QAT net's own eval
+# forward, in output steps: the bound the JAX pair meets on the CPU
+# (tests/test_torch_qat.py: QAT_INT8_STEPS, QAT_INT8_SHARE)
+QAT_INT8_STEPS = 1
+QAT_INT8_SHARE = 0.01
+# a QAT step's fake-quantized activations, kernels against the plain
+# forward: one that lies on a rounding tie may land one step apart, on at
+# most this share of them
+QAT_TIE_SHARE = 0.01
+# per CenterPoint bn=True training step: the bn=False request's tables and
+# forward launches, the reversed and divide tables, and the backward (the
+# first conv's input needs no gradient); BN is torch ops
+CP_BN_STEP = dict(CP_LAUNCHES, dg_pos_rev=4, dg_pos_divide=4, dg_dgrad=16,
+                  dg_wgrad=17, dg_dgrad_strided=4, dg_wgrad_strided=4)
+
+
+def launched(torch, D, fn):
+    """``(fn's result, the launches it made)`` (non-zero counts only)."""
+    torch.cuda.synchronize()
+    before = dict(D.launch_counts)
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {k: v - before[k] for k, v in D.launch_counts.items()
+                 if v != before[k]}
+
+
+def recorded(mods, fn):
+    """``(fn(), calls)``: ``calls`` holds the first input and the output of
+    each call of a module of ``mods``, in call order (forward hooks)."""
+    calls = []
+    hooks = [m.register_forward_hook(
+        lambda _, args, out: calls.append((args[0], out))) for m in mods]
+    try:
+        return fn(), calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def qat_phase(torch, dev, cp_in, cp_bounds, net32):
+    """Phase 13: the MNIST classifier's SGD steps, the MNIST QAT flow from
+    float pretraining through PTQ and QAT to int8, both int8 nets served
+    on B7 at ndim 2, and the CenterPoint encoder with BN trained three
+    steps (``cp_in``: the f32 scans, ``cp_bounds`` / ``net32``: phase 6's
+    bounds and bn=False f32 encoder, whose plain run gives the
+    coordinates).  Returns ``{path: launches}``."""
+    import copy
+
+    import numpy as np
+
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.calibrate import apply_out_bounds
+    from spconv_tpu_torch.examples import mnist_qat as MQ
+    from spconv_tpu_torch.examples import mnist_sparse as MS
+    from spconv_tpu_torch.models import SparseClassifier, centerpoint_encoder
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.quantization import QATConvBnReLU, qat_observe
+
+    launches = {}
+
+    # ---- the MNIST classifier, SGD at the example's lr ----------------
+    rng = np.random.RandomState(0)
+    net = SparseClassifier(ndim=2, in_channels=1, num_classes=10,
+                           device=dev, seed=0)
+    batches = [MS.make_batch(rng, device=dev) for _ in range(CLS_STEPS)]
+
+    def cls_step(n):
+        logits = n(batches[0][0])
+        loss = MS.ce(logits, batches[0][1])
+        loss.backward()
+        return (loss, logits), list(n.named_parameters())
+
+    # the first step's loss, logits and grads against the plain backward
+    # on B2's forward, then against the plain forward and backward: the
+    # f32 B2 at C = 1 -> 32 and 32 -> 64 -> 64 -> 128, ndim 2
+    cls_cmp = [step_vs_plain(torch, D, [copy.deepcopy(net) for _ in
+                                        range(2)], cls_step, "classifier",
+                             b2_forward) for b2_forward in (True, False)]
+    D.reset_launch_counts()
+    losses, cls_ms = [], []
+    for step, (x, y) in enumerate(batches):
+        t0 = time.perf_counter()
+        loss, got = launched(torch, D, lambda: MS.sgd_step(net, x, y))
+        cls_ms.append((time.perf_counter() - t0) * 1e3)
+        check(got == CLS_STEP, f"classifier step {step}: launches {got}, "
+              f"expected {CLS_STEP}")
+        losses.append(loss.item())
+        check(np.isfinite(losses[-1]), f"classifier step {step}: loss "
+              f"{losses[-1]}")
+    launches["classifier"] = dict(D.launch_counts)
+    wall, busy, _ = device_busy(torch, lambda: MS.sgd_step(
+        net, *batches[0], lr=0.0), 3)
+    print(f"classifier (SparseClassifier(2, 1, 10), batch 8 on 28 x 28, "
+          f"SGD lr {MS.LR}): losses {[round(v, 6) for v in losses]}, ms "
+          f"{[round(v, 3) for v in cls_ms]}, launches a step {CLS_STEP}; "
+          + busy_text(wall, busy, 3, "a step (lr 0)")
+          + "; first step in f32 against "
+          + ", against ".join(
+              f"{what}: loss {c[0]:.9e} vs {c[1]:.9e}, logits and loss "
+              f"{c[2]:.3e} of max|ref| (tolerance {NET_F32_TOL}), worst grad"
+              f" {c[3][0]:.3e} ({c[3][1]}, tolerance {GRAD_F32_TOL} per "
+              "tensor)" for what, c in zip(
+                  ("the plain backward", "the plain forward and backward"),
+                  cls_cmp)))
+
+    # ---- the MNIST QAT flow, the example's main -----------------------
+    D.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = MQ.main(device=dev, steps=QAT_STEPS)
+    torch.cuda.synchronize()
+    flow_s = time.perf_counter() - t0
+    launches["qat_flow"] = dict(D.launch_counts)
+    check(all(np.isfinite(v) for v in res["losses_float"]
+              + res["losses_qat"]), "QAT flow: a loss is not finite")
+    acc = res["accuracy"]
+    enc, pool, head = res["enc"], res["pool"], res["head"]
+    qnet, qhead = res["qnet"], res["qhead"]
+    print(f"QAT flow ({QAT_STEPS} float + {MQ.OBSERVE_BATCHES} observe + "
+          f"{QAT_STEPS} QAT steps, batch 8 on 28 x 28): {flow_s:.3f} s; "
+          f"float loss {res['losses_float'][0]:.6f} -> "
+          f"{res['losses_float'][-1]:.6f}, QAT loss "
+          f"{res['losses_qat'][0]:.6f} -> {res['losses_qat'][-1]:.6f}; "
+          f"accuracy on the same {MQ.EVAL_BATCHES} batches: float "
+          f"{acc['float']:.4f}, PTQ int8 {acc['ptq_int8']:.4f}, QAT int8 "
+          f"{acc['qat_int8']:.4f}; launches "
+          f"{ {k: v for k, v in launches['qat_flow'].items() if v} }")
+    # one float step, one observe pass and one QAT step, counted; one QAT
+    # step's grads against the plain backward
+    x, y = MS.make_batch(rng, device=dev)
+    f_enc = copy.deepcopy(enc).train()
+    f_head = tuple(t.detach().clone().requires_grad_() for t in head)
+    opt = torch.optim.Adam(list(f_enc.parameters()) + list(f_head),
+                           lr=MQ.FLOAT_LR)
+    step_ms = {}
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        res_, got_ = launched(torch, D, fn)
+        step_ms[what] = (time.perf_counter() - t0) * 1e3
+        return res_, got_
+
+    _, got = timed("float step", lambda: MQ.float_step(
+        f_enc, pool, f_head, opt, x, y))
+    check(got == QAT_FLOAT_STEP, f"QAT flow float step: launches {got}, "
+          f"expected {QAT_FLOAT_STEP}")
+    q_net = copy.deepcopy(qnet)
+    _, got = timed("observe pass", lambda: qat_observe(q_net, x))
+    check(got == QAT_OBSERVE, f"QAT observe pass: launches {got}, "
+          f"expected {QAT_OBSERVE}")
+    # the same step's loss on copies of the net from before it (scales and
+    # running stats observed alike), through the kernels, the plain
+    # backward on B2's forward, and the plain forward and backward
+    pairs = [[(copy.deepcopy(q_net), tuple(
+        t.detach().clone().requires_grad_() for t in qhead))
+        for _ in range(2)] for _ in range(2)]
+    q_head = tuple(t.detach().clone().requires_grad_() for t in qhead)
+    q_opt = torch.optim.Adam(list(q_net.parameters()) + list(q_head),
+                             lr=MQ.QAT_LR)
+    _, got = timed("QAT step", lambda: MQ.qat_step(q_net, pool, q_head,
+                                                   q_opt, x, y))
+    check(got == QAT_STEP, f"QAT step: launches {got}, expected {QAT_STEP}")
+
+    def qat_layers(n_):
+        return [m for m in n_ if isinstance(m, QATConvBnReLU)]
+
+    acts = []  # each run's (input, fake-quantized output) of each layer
+
+    def qat_loss(pair):
+        n_, h_ = pair
+
+        def run():
+            logits = MQ.logits_of(n_, pool, h_, x)
+            loss = MQ.ce(logits, y)
+            loss.backward()
+            return loss, logits
+
+        outs, calls = recorded(qat_layers(n_), run)
+        acts.append(calls)
+        return outs, list(n_.named_parameters()) + [("head.w", h_[0]),
+                                                    ("head.b", h_[1])]
+
+    q_bwd = step_vs_plain(torch, D, pairs[0], qat_loss, "QAT step")
+    q_all = step_vs_plain(torch, D, pairs[1], qat_loss, "QAT step", False,
+                          gate_outputs=False, gate_grads=False)
+    # the plain forward may put an activation on a rounding tie one step
+    # from the kernels' (the f32 sums differ in order); then the logits
+    # and grads differ by that step's effect, and only the ties are gated
+    act_k, act_p = acts[-2:]  # the last pair's runs
+    ties, entries, tie_steps = 0, 0, 0.0
+    for layer, (_, a), (_, b) in zip(qat_layers(pairs[1][0][0]), act_k,
+                                     act_p):
+        st = ((a.features - b.features).detach().abs()
+              / layer.act_scale)[b.valid_mask]
+        ties += int((st > 0.5).sum())
+        entries += st.numel()
+        tie_steps = max(tie_steps, float(st.max()))
+    check(tie_steps <= 1 + 1e-3 and ties <= QAT_TIE_SHARE * entries,
+          f"QAT step, plain forward: {ties} of {entries} activations off, "
+          f"by up to {tie_steps:.3f} steps (at most 1 step on "
+          f"{QAT_TIE_SHARE} of them)")
+    if not ties:
+        check(q_all[2] <= NET_F32_TOL and q_all[3][0] <= GRAD_F32_TOL,
+              f"QAT step f32 vs plain forward and backward: logits and loss "
+              f"{q_all[2]:.3e} (tolerance {NET_F32_TOL}), grad "
+              f"{q_all[3][1]} {q_all[3][0]:.3e} (tolerance {GRAD_F32_TOL})")
+    # each QAT conv's f32 output (before the ReLU and the fake quant) on
+    # the kernels' run's input of that layer, against the plain forward
+    conv_rel = []
+    with torch.no_grad():
+        for layer, (x_in, _) in zip(qat_layers(pairs[1][0][0]), act_k):
+            got = recorded([layer.conv], lambda: layer(x_in))[1][0][1]
+            with plain_kernels(D):
+                ref = recorded([layer.conv], lambda: layer(x_in))[1][0][1]
+            conv_rel.append(rel_err(torch, got.features, ref.features)[1])
+    check(max(conv_rel) <= TOL["float32"], f"QAT convs' f32 forward vs "
+          f"plain: {conv_rel} > {TOL['float32']} of max|ref|")
+    print(f"QAT flow steps counted: float {QAT_FLOAT_STEP}; observe "
+          f"{QAT_OBSERVE} (the QAT conv reuses the float conv's subm "
+          f"table; the keyless downsample discovers again); QAT step "
+          f"{QAT_STEP}; host ms of each: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in step_ms.items()))
+    print(f"QAT step in f32 against the plain backward: loss "
+          f"{q_bwd[0]:.9e} vs {q_bwd[1]:.9e}, logits and loss "
+          f"{q_bwd[2]:.3e} of max|ref|, worst grad {q_bwd[3][0]:.3e} "
+          f"({q_bwd[3][1]}, tolerance {GRAD_F32_TOL} per tensor); against "
+          f"the plain forward and backward: {ties} of {entries} "
+          f"fake-quantized activations one step apart, loss {q_all[0]:.9e} "
+          f"vs {q_all[1]:.9e}, logits and loss {q_all[2]:.3e} of max|ref|, "
+          f"worst grad {q_all[3][0]:.3e} ({q_all[3][1]}; "
+          + ("gated at the tolerances above" if not ties else
+             "not gated: a tie moved an activation")
+          + f"); each QAT conv's output on the same input vs plain "
+          f"{[f'{r:.3e}' for r in conv_rel]} of max|ref| (tolerance "
+          f"{TOL['float32']})")
+
+    # ---- serve both int8 nets: 3 requests each ------------------------
+    reqs = [MS.make_batch(rng, device=dev) for _ in range(len(
+        REQUEST_SEEDS))]
+    qnet.eval()
+    for name in ("int8_ptq", "int8_qat"):
+        inet = res[name]
+        with torch.inference_mode():
+            inet(reqs[0][0])  # warm-up
+            ms = []
+            for i, (x, _) in enumerate(reqs):
+                t0 = time.perf_counter()
+                out, got = launched(torch, D, lambda: inet(x))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(got == QAT_INT8_REQUEST, f"{name} request {i}: "
+                      f"launches {got}, expected {QAT_INT8_REQUEST}")
+                launches[name] = {k: launches.get(name, {}).get(k, 0) + v
+                                  for k, v in got.items()}
+                check(out.q_scale is None and bool(
+                    torch.isfinite(out.features).all()),
+                    f"{name} request {i}: output")
+                for li, (g, p) in enumerate(zip(q_layers(inet, x),
+                                                plain_q_layers(torch, inet,
+                                                               x))):
+                    check(torch.equal(g.indices, p.indices)
+                          and torch.equal(g.features, p.features),
+                          f"{name} request {i}: int8 layer {li} differs "
+                          "from the plain run")
+                if name == "int8_qat":
+                    ref = qnet(x).features
+                    valid = out.valid_mask
+                    steps = ((out.features - ref).abs()[valid]
+                             / inet.out_scale)
+                    worst_steps = float(steps.max())
+                    share = float((steps > 0.5).float().mean())
+                    check(worst_steps <= QAT_INT8_STEPS + 1e-3
+                          and share <= QAT_INT8_SHARE,
+                          f"QAT int8 request {i}: {worst_steps:.3f} steps, "
+                          f"{share:.4f} of entries off the QAT net's "
+                          f"forward (bound {QAT_INT8_STEPS} on "
+                          f"{QAT_INT8_SHARE})")
+            wall, busy, _ = device_busy(torch, lambda: inet(reqs[0][0]), 3)
+            peak = peak_mib(torch, lambda: inet(reqs[0][0]))
+        print(f"{name} serve: ms per request {[round(m, 3) for m in ms]}, "
+              f"launches a request {QAT_INT8_REQUEST}, every int8 layer "
+              f"bit-equal to the plain run; "
+              + busy_text(wall, busy, 3, "a request")
+              + f"; peak allocated {peak[0]:.3f} MiB above the "
+              f"{peak[1]:.1f} MiB held before the request"
+              + (f"; vs the QAT net's forward: at most {worst_steps:.0f} "
+                 f"steps, {share:.4f} of entries off"
+                 if name == "int8_qat" else ""))
+
+    # ---- CenterPoint with BN, trained --------------------------------
+    def cp_bn(dtype):
+        return apply_out_bounds(centerpoint_encoder(
+            in_channels=5, bn=True, dtype=dtype, device=dev), cp_bounds)
+
+    net16 = cp_bn(torch.bfloat16).train()
+    x16 = {s: x.replace_feature(x.features.bfloat16())
+           for s, x in cp_in.items()}
+    B.train_step(net16, x16[0], 0.0)  # warm-up, no update
+    torch.cuda.synchronize()
+    lr = 1e-2 * max(p.abs().max().item() for p in net16.parameters()) / max(
+        p.grad.abs().max().item() for p in net16.parameters())
+    D.reset_launch_counts()
+    step_ms = []
+    want = {k: v for k, v in CP_BN_STEP.items() if v}
+    for seed in REQUEST_SEEDS:
+        t0 = time.perf_counter()
+        loss, got = launched(torch, D, lambda: B.train_step(
+            net16, x16[seed], lr))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check(got == want, f"CenterPoint bn=True step {seed}: launches "
+              f"{got}, expected {want}")
+        loss = loss.item()
+        check(np.isfinite(loss) and loss > 0,
+              f"CenterPoint bn=True step {seed}: loss {loss}")
+        for name, p in net16.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  and bool(p.grad.any()),
+                  f"CenterPoint bn=True step {seed}: {name} grad")
+    launches["cp_bn"] = dict(D.launch_counts)
+
+    def b2_window(ops):
+        modes = [b2_mode(o) for o in ops]
+        fwd = CP_BN_STEP["dg_fwd"] + CP_BN_STEP["dg_fwd_strided"]
+        dgrad = CP_BN_STEP["dg_dgrad"] + CP_BN_STEP["dg_dgrad_strided"]
+        if modes.count("fwd") == fwd and modes.count("dgrad") == dgrad:
+            return None
+        return (f"{modes.count('fwd')} forward and {modes.count('dgrad')} "
+                "dgrad B2 launches")
+
+    ops = counted_ops(torch, lambda: B.train_step(net16, x16[0], 0.0),
+                      D.launch_counts, CP_BN_STEP, b2_window,
+                      "a CenterPoint bn=True step")
+    wall, busy, _ = device_busy(torch, lambda: B.train_step(
+        net16, x16[0], 0.0), 3)
+    peak = peak_mib(torch, lambda: B.train_step(net16, x16[0], 0.0))
+    with torch.no_grad():
+        stages = net16.forward_stages(x16[0])
+        ref = plain_encoder_stages(torch, net32, cp_in[0])
+    for si, (g, r) in enumerate(zip(stages, ref)):
+        check(torch.equal(g.indices, r.indices), f"CenterPoint bn=True: "
+              f"stage {si} coordinates differ from the plain run")
+    loss_k, loss_p, _, cp_worst = step_vs_plain(
+        torch, D, [cp_bn(torch.float32).train() for _ in range(2)],
+        lambda n: zero_lr_step(B, n, cp_in[0]), "CenterPoint bn=True")
+    print(f"CenterPoint bn=True train (bf16, BN on batch statistics, SGD "
+          f"lr={lr:.4e}): ms per step {[round(m, 3) for m in step_ms]}, "
+          f"launches a step {want}; profiler window: {len(ops)} device ops;"
+          f" " + busy_text(wall, busy, 3, "a step")
+          + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
+          f"MiB held before the step; coordinates equal to the plain run "
+          f"at every stage; f32 loss {loss_k:.9e} (plain backward "
+          f"{loss_p:.9e}), worst f32 grad vs plain backward "
+          f"{cp_worst[0]:.3e} ({cp_worst[1]}, tolerance {GRAD_F32_TOL} per "
+          "tensor)")
+    return launches
 
 
 def main():
@@ -3365,29 +3744,16 @@ def main():
           f"and 13 dgrad B2 launches; no copy beside a dgrad, the ops "
           f"beside one: {beside_dgrad}")
 
-    # the f32 net: grads through the kernels vs through the plain versions
-    nets = [B.BenchNet(SHAPE, dtype=torch.float32, pool_bounds=bounds,
-                       device=dev, seed=0) for _ in range(3)]
+    # the f32 net: grads through the kernels vs through the plain backward
+    # (gated) and the plain forward and backward (printed)
     x32 = B.make_bench_input(*scans[0], device=dev)
-    losses = [B.train_step(nets[0], x32, 0.0).item()]
-    for net_p, kernel_fwd in zip(nets[1:], (True, False)):
-        loss_p = (plain_forward_stages(torch, net_p, x32, train=True,
-                                       kernel_fwd=kernel_fwd)[-1]
-                  .features.float() ** 2).sum()
-        loss_p.backward()
-        losses.append(loss_p.item())
-    check(all(abs(losses[0] - lp) <= NET_F32_TOL * abs(lp)
-              for lp in losses[1:]), f"f32 train losses {losses}")
-    worst = []
-    for net_p in nets[1:]:
-        rels = [(rel_err(torch, pk_.grad, pp.grad)[1], name)
-                for (name, pk_), (_, pp) in zip(nets[0].named_parameters(),
-                                                net_p.named_parameters())]
-        check(all(np.isfinite(r) for r, _ in rels), "f32 grads not finite")
-        worst.append(max(rels))
-    check(worst[0][0] <= GRAD_F32_TOL,
-          f"f32 grad {worst[0][1]}: kernels vs plain backward "
-          f"{worst[0][0]:.3e} > {GRAD_F32_TOL}")
+    cmp = [step_vs_plain(
+        torch, D, [B.BenchNet(SHAPE, dtype=torch.float32, pool_bounds=bounds,
+                              device=dev, seed=0) for _ in range(2)],
+        lambda n: zero_lr_step(B, n, x32), "BenchNet", b2_forward,
+        gate_grads=b2_forward) for b2_forward in (True, False)]
+    losses = [cmp[0][0], cmp[0][1], cmp[1][1]]
+    worst = [cmp[0][3], cmp[1][3]]
     print(f"train f32 seed=0: loss kernels {losses[0]:.9e}, plain backward "
           f"{losses[1]:.9e}, plain forward and backward {losses[2]:.9e}; "
           f"worst weight grad max|d|/max|ref| vs plain backward "
@@ -3427,26 +3793,11 @@ def main():
     check(all(torch.equal(a, b) for a, b in zip(sk, dg)),
           "algo='sk' and algo='dg' differ on the stage-2 pair")
     # the same pair through the plain versions
-    wgen = torch.Generator().manual_seed(5)
-    ws = [SubMConv3d(ci, co, 3, bias=False, dtype=torch.bfloat16,
-                     device=dev, generator=wgen).weight
-          for ci, co in ((c_in, c_mid), (c_mid, c_mid))]
-    keys, _ = C.linearize(g.indices, g.spatial_shape, 1)
-    geom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=g.spatial_shape,
-                batch_size=1)
-    pos = D.dg_pos_plain(keys, **geom)
-    pos_rev = D.dg_pos_plain(keys, reverse=True, **geom)
-    plain = plain_conv_fn(torch, D, plain_fwd(D))
-    xp = feats.clone().requires_grad_()
-    h = plain.apply(xp, D.weight_krsc_to_kv(ws[0]), pos, pos_rev, "subm")
-    h = torch.where(g.valid_mask[:, None], h, torch.zeros_like(h))
-    yp = plain.apply(h, D.weight_krsc_to_kv(ws[1]), pos, pos_rev, "subm")
-    yp = torch.where(g.valid_mask[:, None], yp, torch.zeros_like(yp))
-    (yp.float() ** 2).sum().backward()
+    with plain_kernels(D):
+        plain = pair_run("dg")[0]
     sk_err, sk_rel = {}, {}
-    for kern, pairs in (("sk_fwd", [(sk[0], yp)]),
-                        ("sk_bwd", list(zip(sk[1:], [xp.grad] +
-                                            [w.grad for w in ws])))):
+    for kern, pairs in (("sk_fwd", [(sk[0], plain[0])]),
+                        ("sk_bwd", list(zip(sk[1:], plain[1:])))):
         rels = [rel_err(torch, a, b) for a, b in pairs]
         sk_err[kern] = max(d for d, _ in rels)
         sk_rel[kern] = max(r for _, r in rels)
@@ -3572,7 +3923,14 @@ def main():
     # ---- 12. the probe kernels (B9) -----------------------------------
     probes = probe_phase(torch, dev)
 
-    # ---- 13. report --------------------------------------------------
+    # ---- 13. the MNIST classifier and QAT flow, CenterPoint with BN ----
+    qat_launches = qat_phase(torch, dev, cp_in, cp_bounds, net32)
+    print("phase 13 launches (each path counted on its own; the kernels "
+          "line below keeps the counts of phases 3-12): " + "; ".join(
+              f"{path} { {k: v for k, v in c.items() if v} }"
+              for path, c in qat_launches.items()))
+
+    # ---- 14. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, library_ms=None,
             **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against

@@ -20,8 +20,13 @@ backward; the subm and regular convs come in 1 to 4
 dimensions, and a subm conv without an ``indice_key`` runs table-free
 search kernels.  Int8 post-training quantization
 (``quantization``: ``quantize_encoder`` and friends) serves the encoder
-through an int8 kernel.  ``tools`` runs the JAX package's ``tools/``
-probe scripts on the card (``ops.probes``).  Constructors, input builders
+through an int8 kernel, and quantization-aware training (``prepare_qat``,
+``qat_observe``, ``convert_qat``) serves a trained net there too; the
+small modules (``Lambda``, ``ToDense``, ``SparseSigmoid`` and the rest),
+``SparseClassifier`` and the JAX package's MNIST examples
+(``examples.mnist_sparse``, ``examples.mnist_qat``) come with them.
+``tools`` runs the JAX package's ``tools/`` probe scripts on the card
+(``ops.probes``).  Constructors, input builders
 and the probes put their tensors on the CUDA card unless given ``device``.
 See ROADMAP.md for what is still to come.
 """
@@ -34,18 +39,21 @@ from .checkpoint import load_jax_state_dict
 from .core import SparseConvTensor, default_device, expand_nd
 from .models import SparseUNet
 from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
-                      JoinTable, SparseAvgPool, SparseAvgPool1d,
-                      SparseAvgPool2d, SparseAvgPool3d, SparseConv1d,
-                      SparseConv2d, SparseConv3d, SparseConv4d,
+                      Identity, JoinTable, Lambda, PrintCurrentTime,
+                      PrintTensorMeta, SparseAvgPool, SparseAvgPool1d,
+                      SparseAvgPool2d, SparseAvgPool3d, SparseBatchNorm,
+                      SparseConv1d, SparseConv2d, SparseConv3d, SparseConv4d,
                       SparseConvolution, SparseConvTranspose1d,
                       SparseConvTranspose2d, SparseConvTranspose3d,
                       SparseConvTranspose4d, SparseGlobalAvgPool,
-                      SparseGlobalMaxPool, SparseInverseConv1d,
-                      SparseInverseConv2d, SparseInverseConv3d,
-                      SparseInverseConv4d, SparseMaxPool, SparseMaxPool1d,
+                      SparseGlobalMaxPool, SparseIdentity,
+                      SparseInverseConv1d, SparseInverseConv2d,
+                      SparseInverseConv3d, SparseInverseConv4d,
+                      SparseLeakyReLU, SparseMaxPool, SparseMaxPool1d,
                       SparseMaxPool2d, SparseMaxPool3d, SparseMaxPool4d,
-                      SparseModule, SparseReLU, SparseSequential, SubMConv1d,
-                      SubMConv2d, SubMConv3d, SubMConv4d)
+                      SparseModule, SparseReLU, SparseSequential,
+                      SparseSigmoid, SubMConv1d, SubMConv2d, SubMConv3d,
+                      SubMConv4d, ToDense, assign_name_for_sparse_modules)
 
 __all__ = [
     "SparseConvTensor",
@@ -73,6 +81,7 @@ __all__ = [
     "JoinTable",
     "SparseUNet",
     "BatchNorm1d",
+    "SparseBatchNorm",
     "SparseMaxPool",
     "SparseMaxPool1d",
     "SparseMaxPool2d",
@@ -85,8 +94,17 @@ __all__ = [
     "SparseGlobalMaxPool",
     "SparseGlobalAvgPool",
     "SparseModule",
-    "SparseReLU",
     "SparseSequential",
+    "Lambda",
+    "SparseIdentity",
+    "Identity",
+    "SparseReLU",
+    "SparseLeakyReLU",
+    "SparseSigmoid",
+    "ToDense",
+    "PrintTensorMeta",
+    "PrintCurrentTime",
+    "assign_name_for_sparse_modules",
     "DGData",
     "DGRegData",
     "load_jax_state_dict",

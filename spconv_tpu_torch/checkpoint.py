@@ -7,7 +7,10 @@ attribute names and the KRSC weight layout, so the keys and shapes match
 across unflipped, as its kernels read ``W[k]`` as it is.  The one exception: a JAX int8 conv
 keeps its fp conv's configuration as ``base`` with a ``(1,)`` placeholder
 weight (``base.weight``), which the port's ``QuantizedSparseConv`` does not
-have; such keys are skipped and named in a warning.
+have; such keys are skipped and named in a warning.  A JAX
+``SparseSequential`` keeps its layers in a list, ``layers.<i>.``; the
+port's registers them as modules, ``<i>.`` (or a named layer's name), and
+both spellings load.
 """
 
 from __future__ import annotations
@@ -19,7 +22,30 @@ import numpy as np
 import torch
 from torch import nn
 
+from .modules.modules import SparseSequential
+
 __all__ = ["load_jax_state_dict"]
+
+
+def _port_key(module: nn.Module, key: str) -> str:
+    """``key`` with each JAX ``SparseSequential``'s ``layers.<i>`` turned
+    into the name of the port container's ``i``-th layer, walking the
+    port's module tree along the key."""
+    parts = key.split(".")
+    out = []
+    m = module
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        if (isinstance(m, SparseSequential) and part == "layers"
+                and i + 1 < len(parts) and parts[i + 1].isdigit()
+                and int(parts[i + 1]) < len(m)):
+            part = list(m._modules)[int(parts[i + 1])]
+            i += 1
+        out.append(part)
+        m = m._modules.get(part) if isinstance(m, nn.Module) else None
+        i += 1
+    return ".".join(out)
 
 
 def load_jax_state_dict(module: nn.Module, sd: Dict[str, np.ndarray],
@@ -28,9 +54,12 @@ def load_jax_state_dict(module: nn.Module, sd: Dict[str, np.ndarray],
     in place, cast to each tensor's dtype and device.  Shapes must match.
     With ``strict`` (the default), a key missing on either side raises
     ``KeyError``; the JAX int8 convs' ``base.weight`` placeholders are
-    skipped with a warning.  Modules with derived tensors (the int8 convs'
+    skipped with a warning.  A key that ``module`` lacks is read with
+    every JAX ``SparseSequential``'s ``layers.<i>`` renamed to the port
+    container's layer name.  Modules with derived tensors (the int8 convs'
     ``refold``) re-derive them.  Returns ``module``."""
     own = module.state_dict(keep_vars=True)
+    sd = {k if k in own else _port_key(module, k): v for k, v in sd.items()}
     placeholders = sorted(
         k for k in set(sd) - set(own)
         if k.endswith("base.weight") and np.shape(sd[k]) == (1,))

@@ -52,6 +52,9 @@ class SparseConvTensor:
     key (batch-major, row-major spatial; invalid rows at the tail).  The
     dynamic-gather conv requires it.  ``num_voxels`` and ``num_out_total``
     are 0-d device tensors, so reading them never syncs inside a forward.
+    ``q_scale`` is the quantization scale of int8 features (a 0-d f32
+    tensor, set by ``quantization.QuantizedSequential``), None otherwise;
+    :meth:`replace_feature` and :meth:`shadow_copy` carry it.
     """
 
     def __init__(
@@ -64,6 +67,7 @@ class SparseConvTensor:
         indice_dict: Optional[Dict[str, Any]] = None,
         keys_sorted: bool = False,
         num_out_total: Optional[torch.Tensor] = None,
+        q_scale: Optional[torch.Tensor] = None,
     ):
         if features.ndim != 2:
             raise ValueError("features must be [N, C]")
@@ -85,6 +89,7 @@ class SparseConvTensor:
         # (None when no bounded discovery ran); num_out_total > num_voxels
         # means the op dropped sites
         self.num_out_total = num_out_total
+        self.q_scale = q_scale
 
     @property
     def ndim(self) -> int:

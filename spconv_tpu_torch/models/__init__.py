@@ -1,3 +1,4 @@
+from .classifier import SparseClassifier
 from .second import (SparseBasicBlock, SparseEncoder, centerpoint_encoder,
                      second_encoder)
 from .unet import SparseUNet
@@ -8,4 +9,5 @@ __all__ = [
     "second_encoder",
     "centerpoint_encoder",
     "SparseUNet",
+    "SparseClassifier",
 ]

@@ -1,10 +1,14 @@
-"""Int8 post-training quantization (counterpart of
-``spconv_tpu/quantization``): observers, BN folding, the int8 conv on
-kernel B7, ``SparseSequential`` calibration and conversion, and whole-
-encoder PTQ.  The QAT half (``qat.py``) is not ported yet."""
+"""Int8 quantization (counterpart of ``spconv_tpu/quantization``):
+observers, BN folding, the int8 conv on kernel B7, ``SparseSequential``
+calibration and conversion, whole-encoder PTQ, and quantization-aware
+training (``qat``: fake quantization, the fused QAT conv, ``prepare_qat``,
+``qat_observe`` and ``convert_qat`` to an int8 ``QuantizedSequential``)."""
 
 from .encoder import (QuantizedSparseBasicBlock, QuantizedSparseEncoder,
                       observe_encoder_scales, quantize_encoder)
+from .qat import (QATConvBnReLU, QATQuantStub, QuantizedSequential,
+                  convert_qat, fake_quant, fake_quant_per_channel,
+                  finalize_qat, prepare_qat, qat_observe)
 from .fuse import fuse_bn_act_in_sequential, fuse_bn_weights, fuse_conv_bn
 from .quantize import (MinMaxObserver, PerChannelMinMaxObserver,
                        QuantizedSparseConv, SparseConvAddReLU, calibrate,
@@ -28,4 +32,13 @@ __all__ = [
     "QuantizedSparseEncoder",
     "observe_encoder_scales",
     "quantize_encoder",
+    "fake_quant",
+    "fake_quant_per_channel",
+    "QATConvBnReLU",
+    "QATQuantStub",
+    "QuantizedSequential",
+    "finalize_qat",
+    "prepare_qat",
+    "qat_observe",
+    "convert_qat",
 ]

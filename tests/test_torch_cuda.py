@@ -1975,3 +1975,124 @@ def test_b1_divide_table_in_passes(dev):
                        TD.dg_pos_divide_plain(keys, out_keys, **geom))
     assert torch.equal(TD.build_dg_pos_affine(keys, out_keys, **geom),
                        TD.dg_pos_affine_plain(keys, out_keys, **geom))
+
+
+def _mnist_qat_net(observe=2):
+    """The MNIST QAT example's net on the CPU, prepared and observed on
+    ``observe`` batches, and a batch it has not seen."""
+    import copy
+
+    from spconv_tpu_torch.examples import mnist_qat, mnist_sparse
+    from spconv_tpu_torch.quantization import prepare_qat, qat_observe
+
+    rng = np.random.RandomState(0)
+    qnet = prepare_qat(mnist_qat.build_net(device="cpu")[0])
+    for _ in range(observe):
+        qat_observe(qnet, mnist_sparse.make_batch(rng, device="cpu")[0])
+    return copy.deepcopy(qnet), mnist_sparse.make_batch(rng, device="cpu")
+
+
+def _to(x, dev):
+    return st.SparseConvTensor(x.features.to(dev), x.indices.to(dev),
+                               x.spatial_shape, x.batch_size,
+                               keys_sorted=x.keys_sorted)
+
+
+def test_qat_step_on_card_matches_cpu(dev):
+    """One MNIST QAT step (``examples.mnist_qat.qat_step``: an observe pass,
+    then Adam on the fake-quantized net) on the card against the same step
+    on the CPU from the same state: the launch counts of an observe pass
+    and a step; the loss, the stub's and every module's scales and BN
+    statistics within 1e-5 relative; the grads within 1e-3 of max|ref| per
+    tensor (a fake-quantized activation next to a rounding boundary may
+    round one step apart when the conv sums in another order)."""
+    import copy
+
+    from spconv_tpu_torch.examples import mnist_qat
+    from spconv_tpu_torch.modules import SparseGlobalAvgPool
+    from spconv_tpu_torch.quantization import qat_observe
+
+    qnet, (x, y) = _mnist_qat_net()
+    head = mnist_qat.build_net(device="cpu")[2]
+    nets, heads, losses = {}, {}, {}
+    for where in ("cpu", "cuda"):
+        d = torch.device("cpu") if where == "cpu" else dev
+        nets[where] = copy.deepcopy(qnet).to(d)
+        heads[where] = tuple(t.detach().clone().to(d).requires_grad_()
+                             for t in head)
+        opt = torch.optim.Adam(list(nets[where].parameters())
+                               + list(heads[where]), lr=mnist_qat.QAT_LR)
+        xd, yd = _to(x, d), y.to(d)
+        if where == "cuda":
+            before = dict(TD.launch_counts)
+            qat_observe(copy.deepcopy(nets[where]), xd)
+            torch.cuda.synchronize()
+            got = {k: TD.launch_counts[k] - before[k] for k in before}
+            assert got == _counts(dg_pos=1, dg_fwd=2, dg_pos_affine=2,
+                                  dg_fwd_strided=2)
+            before = dict(TD.launch_counts)
+        losses[where] = float(mnist_qat.qat_step(
+            nets[where], SparseGlobalAvgPool(), heads[where], opt, xd, yd))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            got = {k: TD.launch_counts[k] - before[k] for k in before}
+            assert got == _counts(
+                dg_pos=2, dg_pos_rev=1, dg_fwd=3, dg_wgrad=1,
+                dg_pos_affine=3, dg_pos_divide=1, dg_fwd_strided=3,
+                dg_dgrad_strided=1, dg_wgrad_strided=1)
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * losses["cpu"]
+    ref_sd = nets["cpu"].state_dict()
+    for k, v in nets["cuda"].state_dict().items():
+        if "scale" in k or "running" in k:
+            np.testing.assert_allclose(v.cpu().numpy(), ref_sd[k].numpy(),
+                                       rtol=1e-5, atol=1e-7, err_msg=k)
+    for (name, p), (_, q) in zip(nets["cuda"].named_parameters(),
+                                 nets["cpu"].named_parameters()):
+        ref = q.grad.numpy()
+        np.testing.assert_allclose(p.grad.cpu().numpy(), ref, rtol=0,
+                                   atol=1e-3 * np.abs(ref).max(),
+                                   err_msg=name)
+
+
+def test_int8_mnist_net_bit_equal_to_plain(dev):
+    """The converted MNIST QAT net (``convert_qat``: an int8 subm conv with
+    one input channel, then a strided one) on the card: one subm and one
+    affine table and one B7 launch each, no B2, and the output bit-equal to
+    the same net's plain run on the CPU."""
+    import copy
+
+    from spconv_tpu_torch.quantization import convert_qat
+
+    qnet, (x, _) = _mnist_qat_net()
+    net8 = convert_qat(qnet)
+    want = net8(x).features
+    net8 = copy.deepcopy(net8).to(dev)
+    before = dict(TD.launch_counts)
+    with torch.inference_mode():
+        got = net8(_to(x, dev))
+    torch.cuda.synchronize()
+    assert {k: TD.launch_counts[k] - before[k] for k in before} == _counts(
+        dg_pos=1, dg_pos_affine=1, dg_fwd_q=1, dg_fwd_q_strided=1)
+    assert got.q_scale is None and torch.equal(got.features.cpu(), want)
+    assert want.abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batchnorm_updated_on_card_matches_cpu(dev, dtype):
+    """Three ``BatchNorm1d.updated`` calls on the card (features in
+    ``dtype``, padding rows) advance the running statistics as on the
+    CPU, within 1e-6 relative."""
+    bns = {d: st.BatchNorm1d(5, momentum=0.3, device=d)
+           for d in ("cpu", "cuda")}
+    for seed in range(3):
+        fb, ib = _sorted_input(seed, 300, 5, 384)
+        x = st.SparseConvTensor(torch.from_numpy(fb * (seed + 1) + seed)
+                                .to(dtype), torch.from_numpy(ib), SHAPE, 1,
+                                keys_sorted=True)
+        x = x.replace_feature_masked(x.features)
+        for d, bn in bns.items():
+            assert bn.updated(_to(x, torch.device(d))) is bn
+    for name in ("running_mean", "running_var"):
+        np.testing.assert_allclose(
+            getattr(bns["cuda"], name).cpu().numpy(),
+            getattr(bns["cpu"], name).numpy(), rtol=1e-6, err_msg=name)
