@@ -126,7 +126,22 @@ line is printed):
    ``bn=True`` (bf16, phase 6's buffers, BN on batch statistics) trained 3
    steps with launch counts, a profiler window, coordinates against a plain
    run, busy, peak memory and the f32 grads against the plain backward;
-14. prints a JSON line of the kernels, each with its bound (the least time
+14. the native rulebook path (``ops.rulebook`` + ``ops.gather_gemm``: the
+   DG kernels on the rulebooks' pair tables, counted as ``*_native``):
+   BenchNet on ``algo="native"`` (bf16, phase 4's pool buffers) with every
+   stage's subm rulebook equal to phase 3's B1 tables and timed beside
+   them, three requests (14 ``dg_fwd_native`` each, no table kernel)
+   bit-equal to phase 4's keyed net, three training steps (13 dgrad and 14
+   wgrad more) with a zero-lr step's grads bit-equal to the DG net's, the
+   f32 grads against the plain backward, host ms, device busy and peak
+   memory beside the DG net's; phase 4's scans with rows shuffled through
+   the ``"auto"`` net (stage 0 native) against phase 4 after aligning rows
+   by coordinate; a keyed ``SparseMaxPool3d`` + ``SparseInverseConv3d``
+   and a subm + strided pair on a ``[160, 2048, 2048]`` x 4 grid (int64
+   keys) against a plain run; an int8 ``SparseConvTranspose3d(64, 32, 2,
+   s2)`` bit-equal to plain; a native forward under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+15. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -3156,6 +3171,342 @@ def qat_phase(torch, dev, cp_in, cp_bounds, net32):
     return launches
 
 
+# per native BenchNet request: 14 B2 launches on the subm rulebooks' tables
+# and no B1 (the rulebooks are torch ops); a step adds 13 dgrad (the first
+# conv's input needs no gradient) and 14 wgrad launches
+NATIVE_SERVE = dict(dg_fwd_native=14)
+NATIVE_STEP = dict(NATIVE_SERVE, dg_dgrad_native=13, dg_wgrad_native=14)
+# the grid past 2**31 sites: four batch items of the CenterPoint scans on a
+# [160, 2048, 2048] grid (int64 keys)
+BIG_SHAPE = (160, 2048, 2048)
+
+
+def native_phase(torch, dev, gen, scans, geo, bounds, served, tables, revs,
+                 cp_in, note):
+    """Phase 14: the native rulebook path.  BenchNet on ``algo="native"``
+    (bf16, phase 4's pool buffers): every stage's subm rulebook equal to
+    phase 3's B1 tables (``tables``, ``revs``), timed beside them; three
+    requests (14 ``dg_fwd_native`` launches each, no table kernel) bit-equal
+    to phase 4's keyed DG net (``served``) at every stage; three training
+    steps with launch counts, a zero-lr step's grads bit-equal to the DG
+    net's, the f32 grads against the plain backward; host ms, device busy
+    and peak memory beside the DG net's.  Then phase 4's scans with rows
+    shuffled through the ``"auto"`` net (stage 0 native), equal to phase 4
+    after aligning rows by coordinate; a keyed ``SparseMaxPool3d`` and its
+    ``SparseInverseConv3d`` (f32, forward and backward) and a subm +
+    strided pair on a grid past 2**31 sites against a plain run; an int8
+    ``SparseConvTranspose3d(64, 32, 2, s2)`` bit-equal to plain; and one
+    native conv's forward under ``torch.cuda.set_sync_debug_mode("error")``.
+    Each native kernel's error against plain goes to ``note``.  Returns
+    ``(step launches, int8 launches, B7's tally)``: the launch counts of
+    the three native training steps and of the int8 request, and B7's
+    times there."""
+    import numpy as np
+    from spconv_tpu_torch import (SparseConv3d, SparseConvTensor,
+                                  SparseConvTranspose3d, SparseInverseConv3d,
+                                  SparseMaxPool3d, SubMConv3d)
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.core import IndiceData
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops import rulebook as R
+    from spconv_tpu_torch.quantization import (PerChannelMinMaxObserver,
+                                               QuantizedSparseConv)
+
+    bf16 = torch.bfloat16
+
+    def bench_net(dtype, algo, train=False):
+        net = B.BenchNet(SHAPE, dtype=dtype, pool_bounds=bounds, device=dev,
+                         algo=algo, seed=0)
+        return net if train else net.eval()
+
+    # ---- the subm rulebooks against B1's tables, both timed
+    print("stage  N_buf  rulebook_ms  B1 table_ms (forward + reversed)")
+    for s, g in enumerate(geo):
+        geom = dict(spatial_shape=g.spatial_shape, batch_size=1,
+                    ksize=KSIZE, dilation=DIL)
+        rb = R.build_subm_rulebook(g.indices, **geom)
+        check(torch.equal(rb.pair_fwd, tables[s])
+              and torch.equal(rb.pair_bwd, revs[s]),
+              f"stage {s}: the subm rulebook differs from B1's tables")
+        keys, _ = C.linearize(g.indices, g.spatial_shape, 1)
+        tgeom = dict(ksize=KSIZE, dilation=DIL, spatial_shape=g.spatial_shape,
+                     batch_size=1)
+        rb_ms = cuda_ms(torch, lambda: R.build_subm_rulebook(g.indices,
+                                                             **geom), 5)
+        b1_ms = cuda_ms(torch, lambda: (D.build_dg_pos(keys, **tgeom),
+                                        D.build_dg_pos(keys, reverse=True,
+                                                       **tgeom)), 10)
+        print(f"{s:5d} {g.indices.shape[0]:6d}  {rb_ms:11.4f}  {b1_ms:.4f}")
+
+    # ---- serve: three requests, bit-equal to phase 4 at every stage
+    native, dg = bench_net(bf16, "native"), bench_net(bf16, None)
+    worst = 0.0
+    with torch.inference_mode():
+        native(served[0][1])  # warm-up
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        for seed, x, stages, dg_ms in served:
+            before = dict(D.launch_counts)
+            t0 = time.perf_counter()
+            got = native.forward_stages(x)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            delta = {k: D.launch_counts[k] - before[k] for k in before}
+            check(delta == expected(D, **NATIVE_SERVE),
+                  f"native request {seed}: launches {delta}")
+            recs = got[-1].indice_dict
+            check(all(isinstance(recs[f"c{i}"], IndiceData)
+                      for i in range(7)),
+                  f"native request {seed}: a stage left no IndiceData")
+            if seed == served[0][0]:
+                for i in range(7):
+                    check(torch.equal(recs[f"c{i}"].pair_fwd, tables[i]),
+                          f"native request {seed}: stage {i}'s rulebook "
+                          "differs from B1's table")
+            for i, (a, b) in enumerate(zip(got, stages)):
+                check(torch.equal(a.indices, b.indices),
+                      f"native request {seed}: stage {i} sites differ")
+                if not torch.equal(a.features, b.features):
+                    d, r = rel_err(torch, a.features, b.features)
+                    rows = int((a.features != b.features).any(1).sum())
+                    print(f"native request {seed}: stage {i} differs from "
+                          f"phase 4 in {rows} rows, max|d| {d:.3e} "
+                          f"({r:.3e} of max|ref|)")
+                    check(r <= TOL["bfloat16"], f"native request {seed}: "
+                          f"stage {i} {r:.3e} > {TOL['bfloat16']}")
+                    worst = max(worst, r)
+            print(f"native request seed={seed} ms={ms:.3f} (DG, phase 4: "
+                  f"{dg_ms:.3f}); " + ("bit-equal to phase 4's keyed net at "
+                                       "every stage" if not worst else
+                                       f"within {worst:.3e} of phase 4"))
+        x0 = served[0][1]
+        busy = [(name, device_busy(torch, lambda: m(x0), 3))
+                for name, m in (("dg", dg), ("native", native),
+                                ("native", native), ("dg", dg))]
+        peaks = [(name, peak_mib(torch, lambda: m(x0)))
+                 for name, m in (("dg", dg), ("native", native))]
+    print("native vs DG BenchNet, 3 bf16 requests of seed 0 a window, in "
+          "turns: " + turns_text(busy) + "; peak allocated in a request: "
+          + ", ".join(f"{name} {p:.1f} MiB above {b:.1f}"
+                      for name, (p, b) in peaks))
+
+    # ---- train: three steps, then a zero-lr step against the DG net's
+    net = bench_net(bf16, "native", train=True)
+    xs = [B.make_bench_input(*scans[s], dtype=bf16, device=dev)
+          for s in REQUEST_SEEDS]
+    B.train_step(net, xs[0], 0.0)  # warm-up, no update
+    torch.cuda.synchronize()
+    lr = 1e-2 * max(p.abs().max().item() for p in net.parameters()) / max(
+        p.grad.abs().max().item() for p in net.parameters())
+    D.reset_launch_counts()
+    for seed, x in zip(REQUEST_SEEDS, xs):
+        before = dict(D.launch_counts)
+        t0 = time.perf_counter()
+        loss = B.train_step(net, x, lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        delta = {k: D.launch_counts[k] - before[k] for k in before}
+        check(delta == expected(D, **NATIVE_STEP),
+              f"native train step {seed}: launches {delta}")
+        loss = loss.item()
+        check(np.isfinite(loss) and loss > 0,
+              f"native step {seed}: loss {loss}")
+        for name, p in net.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  and bool(p.grad.any()), f"native step {seed}: {name} "
+                  "grad missing, 0 or not finite")
+        print(f"native train step seed={seed} ms={ms:.3f} loss={loss:.6e}")
+    launches = dict(D.launch_counts)
+    steps = (("dg", bench_net(bf16, None, train=True)),
+             ("native", bench_net(bf16, "native", train=True)))
+    for _, m in steps:
+        B.train_step(m, xs[0], 0.0)
+    grads = [[p.grad for p in m.parameters()] for _, m in steps]
+    same = [torch.equal(a, b) for a, b in zip(*grads)]
+    if not all(same):
+        rels = [rel_err(torch, b, a)[1] for a, b in zip(*grads)]
+        print(f"native step grads differ from the DG step's in "
+              f"{same.count(False)} of {len(same)} tensors, worst "
+              f"{max(rels):.3e} of max|ref|")
+        check(max(rels) <= WGRAD_TOL["bfloat16"],
+              "native step grads beyond the bf16 bound of the DG step's")
+    step_busy = [(name, device_busy(torch, lambda: B.train_step(
+        m, xs[0], 0.0), 3)) for name, m in steps + steps[::-1]]
+    step_peaks = [(name, peak_mib(torch, lambda: B.train_step(m, xs[0], 0.0)))
+                  for name, m in steps]
+    print("native vs DG BenchNet step (bf16, seed 0, lr 0): grads "
+          + ("bit-equal" if all(same) else "within the bf16 bound")
+          + "; windows of 3 in turns: " + turns_text(step_busy)
+          + "; peak allocated in a step: " + ", ".join(
+              f"{name} {p:.1f} MiB above {b:.1f}"
+              for name, (p, b) in step_peaks))
+    x32 = B.make_bench_input(*scans[0], device=dev)
+    *losses, _, worst_g = step_vs_plain(
+        torch, D, [bench_net(torch.float32, "native", train=True)
+                   for _ in range(2)],
+        lambda n: zero_lr_step(B, n, x32), "native BenchNet")
+    print(f"native train f32 seed=0: loss kernels {losses[0]:.9e}, plain "
+          f"backward {losses[1]:.9e}; worst weight grad max|d|/max|ref| "
+          f"{worst_g[0]:.3e} ({worst_g[1]}, tolerance {GRAD_F32_TOL})")
+
+    # ---- phase 4's scans with rows shuffled, through the "auto" net
+    with torch.inference_mode():
+        for seed, x, stages, _ in served:
+            perm = torch.randperm(x.indices.shape[0], device=dev,
+                                  generator=gen)
+            xs_ = SparseConvTensor(x.features[perm], x.indices[perm], SHAPE,
+                                   1)
+            D.reset_launch_counts()
+            out = dg(xs_)
+            torch.cuda.synchronize()
+            check(dict(D.launch_counts) == expected(
+                D, dg_fwd_native=2, dg_pos=6, dg_fwd=12),
+                f"shuffled request {seed}: launches {D.launch_counts}")
+            ref = stages[-1]
+            keys, _ = C.linearize(out.indices, out.spatial_shape, 1)
+            order = torch.sort(keys, stable=True).indices
+            check(torch.equal(out.indices[order], ref.indices),
+                  f"shuffled request {seed}: sites differ from phase 4")
+            d, r = rel_err(torch, out.features[order], ref.features)
+            check(r <= TOL["bfloat16"], f"shuffled request {seed}: {r:.3e}")
+            print(f"shuffled request seed={seed}: stage 0 native, the rest "
+                  f"DG; after aligning rows by coordinate "
+                  + ("bit-equal to phase 4" if d == 0 else
+                     f"max|d| {d:.3e} ({r:.3e} of max|ref|) from phase 4"))
+
+    # ---- a keyed pool and its inverse conv, f32, against a plain run
+    g0 = geo[0]
+    feats = (torch.randn((g0.indices.shape[0], 64), device=dev,
+                         generator=gen) * g0.valid_mask[:, None])
+
+    def pool_inverse():
+        pool = SparseMaxPool3d(2, 2, indice_key="p", out_bound=bounds[0])
+        inv = SparseInverseConv3d(64, 32, 2, indice_key="p", device=dev,
+                                  generator=torch.Generator().manual_seed(3))
+        x = SparseConvTensor(feats.clone().requires_grad_(), g0.indices,
+                             SHAPE, 1, keys_sorted=True)
+        y = inv(pool(x))
+        (y.features ** 2).sum().backward()
+        return [y.features.detach(), x.features.grad, inv.weight.grad]
+
+    D.reset_launch_counts()
+    got = pool_inverse()
+    torch.cuda.synchronize()
+    check(dict(D.launch_counts) == expected(
+        D, dg_fwd_native=1, dg_dgrad_native=1, dg_wgrad_native=1),
+        f"pool + inverse launches {D.launch_counts}")
+    with plain_kernels(D):
+        ref = pool_inverse()
+    rels = [rel_err(torch, a, b) for a, b in zip(got, ref)]
+    for (d, r), tol in zip(rels, (TOL["float32"], TOL["float32"],
+                                  WGRAD_TOL["float32"])):
+        check(r <= tol, f"keyed pool + inverse: {r:.3e} > {tol} of plain")
+    for kern, (d, r) in zip(("dg_fwd_native", "dg_dgrad_native",
+                             "dg_wgrad_native"), rels):
+        note(kern, d, r)
+    print("keyed SparseMaxPool3d(2, 2) + SparseInverseConv3d(64, 32, 2) on "
+          "stage 0, f32 (every child gets W[0], as in the JAX package): "
+          "max|d|/max|ref| vs plain out {:.3e}, din {:.3e}, dW {:.3e}".format(
+              *[r for _, r in rels]))
+
+    # ---- a subm + strided pair on a grid past 2**31 sites, f32
+    rows = [torch.cat([torch.full_like(cp_in[s].indices[:, :1], b),
+                       cp_in[s].indices[:, 1:]], 1)
+            for b, s in enumerate((0, 1, 2, 0))]
+    big_inds = torch.cat(rows)
+    big_inds[big_inds[:, 1] < 0] = -1
+    check(C.use_int64_keys(BIG_SHAPE, 4), "the big grid has int32 keys")
+    big_feats = (torch.randn((big_inds.shape[0], 16), device=dev,
+                             generator=gen) * (big_inds[:, :1] >= 0))
+
+    def big_pair():
+        g = torch.Generator().manual_seed(4)
+        convs = [SubMConv3d(16, 16, 3, indice_key="s", device=dev,
+                            generator=g),
+                 SparseConv3d(16, 32, 3, stride=2, padding=1,
+                              indice_key="d", device=dev, generator=g)]
+        x = SparseConvTensor(big_feats, big_inds, BIG_SHAPE, 4)
+        with torch.no_grad():
+            return convs[1](convs[0](x))
+
+    D.reset_launch_counts()
+    t0 = time.perf_counter()
+    y_big = big_pair()
+    torch.cuda.synchronize()
+    big_ms = (time.perf_counter() - t0) * 1e3
+    check(dict(D.launch_counts) == expected(D, dg_fwd_native=2),
+          f"big-grid pair launches {D.launch_counts}")
+    with plain_kernels(D):
+        y_ref = big_pair()
+    d, r = rel_err(torch, y_big.features, y_ref.features)
+    check(torch.equal(y_big.indices, y_ref.indices) and r <= TOL["float32"],
+          f"big-grid pair vs plain: {r:.3e}")
+    note("dg_fwd_native", d, r)
+    print(f"subm + strided pair on {BIG_SHAPE} x 4 (int64 keys, "
+          f"{int((big_inds[:, 0] >= 0).sum())} sites -> "
+          f"{int(y_big.num_voxels)}): {big_ms:.3f} ms host, max|d|/max|ref| "
+          f"vs plain {r:.3e}")
+
+    # ---- the int8 transposed conv: USAGE.md's ConvTranspose(64, 32, 2, s2)
+    tconv = SparseConvTranspose3d(64, 32, 2, stride=2, device=dev,
+                                  generator=torch.Generator().manual_seed(5))
+    obs = PerChannelMinMaxObserver()
+    obs.observe(tconv.weight)
+    qt = QuantizedSparseConv(tconv, obs.scale, 0.02, 0.05, act_type="relu")
+    x_in = cp_in[0]
+    q_in = (torch.randint(-100, 101, (x_in.indices.shape[0], 64), device=dev,
+                          generator=gen, dtype=torch.int8)
+            * (x_in.indices[:, :1] >= 0))
+    xq = SparseConvTensor(q_in.to(torch.int8), x_in.indices,
+                          x_in.spatial_shape, 1, keys_sorted=True)
+    with torch.inference_mode():
+        D.reset_launch_counts()
+        yq = qt(xq)
+        torch.cuda.synchronize()
+        q_launches = dict(D.launch_counts)
+        check(q_launches == expected(D, dg_fwd_q_native=1),
+              f"int8 transposed launches {q_launches}")
+        rb = R.build_conv_rulebook(
+            xq.indices, spatial_shape=xq.spatial_shape, batch_size=1,
+            ksize=(2, 2, 2), stride=(2, 2, 2), padding=(0, 0, 0),
+            dilation=DIL, transposed=True, out_bound=yq.indices.shape[0])
+        args = (xq.features, qt.weight_kv, rb.pair_fwd, qt.scale_q,
+                qt.bias_q)
+        want = D.dg_fwd_q_plain(*args, act="relu")
+        want = want * (rb.out_indices[:, :1] >= 0)
+        check(torch.equal(yq.features, want.to(torch.int8))
+              and torch.equal(yq.indices, rb.out_indices),
+              "int8 transposed conv differs from plain")
+        note("dg_fwd_q_native", 0.0, 0.0)
+        q_tally = Tally()
+        q_tally.add(cuda_ms(torch, lambda: D.dg_fwd_q(
+                        *args, act="relu", path="native"), 10),
+                    cuda_ms(torch, lambda: D.dg_fwd_q_plain(
+                        *args, act="relu"), 2),
+                    q_bound(xq.features, qt.weight_kv, rb.pair_fwd, 32,
+                            False))
+    print(f"int8 SparseConvTranspose3d(64, 32, 2, s2) on the CenterPoint "
+          f"scan ({int(xq.num_voxels)} -> {int(yq.num_voxels)} sites on "
+          f"{tuple(yq.spatial_shape)}): bit-equal to plain; B7 {q_tally}")
+
+    # ---- the rulebooks read nothing back to the host
+    conv = SubMConv3d(64, 64, 3, indice_key="sync", algo="native",
+                      dtype=bf16, device=dev)
+    xb = g0.replace_feature(feats.to(bf16))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            conv(xb)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("a native SubMConv3d forward (rulebook + B2) ran under "
+          "torch.cuda.set_sync_debug_mode('error'): no host sync")
+    return launches, q_launches, q_tally
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
@@ -3926,11 +4277,16 @@ def main():
     # ---- 13. the MNIST classifier and QAT flow, CenterPoint with BN ----
     qat_launches = qat_phase(torch, dev, cp_in, cp_bounds, net32)
     print("phase 13 launches (each path counted on its own; the kernels "
-          "line below keeps the counts of phases 3-12): " + "; ".join(
+          "line below keeps the counts of phases 3-12 and 14): " + "; ".join(
               f"{path} { {k: v for k, v in c.items() if v} }"
               for path, c in qat_launches.items()))
 
-    # ---- 14. report --------------------------------------------------
+    # ---- 14. the native rulebook path ---------------------------------
+    native_launches, nq_launches, nq_tally = native_phase(
+        torch, dev, gen, scans, geo, bounds, served, tables, revs, cp_in,
+        note)
+
+    # ---- 15. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, library_ms=None,
             **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against
@@ -4131,6 +4487,26 @@ def main():
             "launched at :1598 by _dg_reg_conv_bwd :1882)",
             t_train["dg_wgrad_transposed"], errs("dg_wgrad_transposed"),
             t_tot["dg_wgrad_transposed"]),
+        # the native rulebook path: the same kernels on the rulebooks'
+        # tables, which phase 14 holds bit-equal to B1's at every BenchNet
+        # stage, so their times are phase 3's on those tables; the JAX
+        # native route they replace is XLA (take + einsum), not Pallas
+        row("dg_fwd_native", csrc + "dg_fwd.cu",
+            "spconv_tpu/ops/gather_gemm.py:75 (gather_mm, XLA; "
+            "indice_conv :222)", native_launches["dg_fwd_native"],
+            errs("dg_fwd_native"), tot["dg_fwd"]),
+        row("dg_dgrad_native", csrc + "dg_fwd.cu",
+            "spconv_tpu/ops/gather_gemm.py:113 (dgrad_gather_mm, XLA; "
+            "_indice_conv_bwd :182)", native_launches["dg_dgrad_native"],
+            errs("dg_dgrad_native"), tot["dg_dgrad"]),
+        row("dg_wgrad_native", csrc + "dg_wgrad.cu",
+            "spconv_tpu/ops/gather_gemm.py:149 (wgrad_gather_mm, XLA; "
+            "_indice_conv_bwd :182)", native_launches["dg_wgrad_native"],
+            errs("dg_wgrad_native"), tot["dg_wgrad"]),
+        row("dg_fwd_q_native", csrc + "dg_fwd_q.cu",
+            "spconv_tpu/quantization/quantize.py:91 (_int8_gather_mm, XLA; "
+            "the native route :337-404)", nq_launches["dg_fwd_q_native"],
+            errs("dg_fwd_q_native"), nq_tally),
     ]
     # the probe kernels (B9): each at its probe's shape, launch-bound
     probe_src = {

@@ -25,9 +25,13 @@ through an int8 kernel, and quantization-aware training (``prepare_qat``,
 small modules (``Lambda``, ``ToDense``, ``SparseSigmoid`` and the rest),
 ``SparseClassifier`` and the JAX package's MNIST examples
 (``examples.mnist_sparse``, ``examples.mnist_qat``) come with them.
-``tools`` runs the JAX package's ``tools/`` probe scripts on the card
-(``ops.probes``).  Constructors, input builders
-and the probes put their tensors on the CUDA card unless given ``device``.
+Input that is not key-sorted, ``algo="native"``, grids whose keys need
+int64, keyed, subm and other pools, and the int8 transposed conv take the
+native rulebook path (``ops.rulebook`` builds the JAX package's rulebooks,
+whose pair tables the same kernels run).  ``tools`` runs the JAX
+package's ``tools/`` probe scripts on the card (``ops.probes``).
+Constructors, input builders and the probes put their tensors on the CUDA
+card unless given ``device``.
 See ROADMAP.md for what is still to come.
 """
 
@@ -36,7 +40,8 @@ __version__ = "0.1.0"
 from . import (calibrate, checkpoint, constants, debug_utils, models, ops,
                quantization)
 from .checkpoint import load_jax_state_dict
-from .core import SparseConvTensor, default_device, expand_nd
+from .core import (IndiceData, SparseConvTensor, default_device, expand_nd,
+                   scatter_nd)
 from .models import SparseUNet
 from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
                       Identity, JoinTable, Lambda, PrintCurrentTime,
@@ -57,8 +62,10 @@ from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
 
 __all__ = [
     "SparseConvTensor",
+    "IndiceData",
     "default_device",
     "expand_nd",
+    "scatter_nd",
     "SparseConvolution",
     "SubMConv1d",
     "SubMConv2d",

@@ -16,8 +16,8 @@ import os
 WEIGHT_LAYOUT = "KRSC"
 
 # Layer default when ``algo`` is not given.  ``"auto"`` resolves to the
-# dynamic-gather path (``"dg"``) on key-sorted input; the native rulebook
-# path of the JAX package is not ported yet.
+# dynamic-gather path (``"dg"``) where it serves the input (key-sorted rows
+# on a grid of int32 keys), else to the native rulebook path.
 DEFAULT_ALGO = "auto"
 
 # Debug: every bounded output discovery (pools, strided convs) checks on

@@ -16,7 +16,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-__all__ = ["SparseConvTensor", "default_device", "expand_nd"]
+__all__ = ["SparseConvTensor", "IndiceData", "ImplicitGemmIndiceData",
+           "default_device", "expand_nd", "scatter_nd"]
 
 
 def default_device(device: Union[None, str, torch.device] = None
@@ -43,6 +44,99 @@ def expand_nd(ndim: int, val: Union[int, Sequence[int]]) -> Tuple[int, ...]:
     if len(val) != ndim:
         raise ValueError(f"expected length {ndim}, got {val}")
     return val
+
+
+def scatter_nd(indices: torch.Tensor, updates: torch.Tensor,
+               shape: Sequence[int]) -> torch.Tensor:
+    """TF-style scatter_nd: a zero tensor of ``shape`` whose entries at
+    ``indices`` (``[..., d]``, the leading ``d`` axes of ``shape``) take
+    ``updates`` (``[..., *shape[d:]]``).  A negative index counts from the
+    end of its axis, as in the JAX package; what still lies outside
+    ``shape`` is dropped.  Where two indices are equal, one of the writes
+    wins.  Reads nothing back to the host."""
+    shape = tuple(int(s) for s in shape)
+    d = indices.shape[-1]
+    lead, rest = shape[:d], shape[d:]
+    idx = indices.reshape(-1, d).long()
+    flat = torch.zeros_like(idx[:, 0])
+    ok = torch.ones_like(idx[:, 0], dtype=torch.bool)
+    for a, s in enumerate(lead):
+        i = torch.where(idx[:, a] < 0, idx[:, a] + s, idx[:, a])
+        ok &= (i >= 0) & (i < s)
+        flat = flat * s + i
+    n = int(np.prod(lead, dtype=np.int64))
+    # every dropped write lands on one spare row past the end, cut below
+    flat = torch.where(ok, flat, torch.full_like(flat, n))
+    out = updates.new_zeros((n + 1, *rest))
+    out[flat] = updates.reshape(-1, *rest)
+    return out[:n].reshape(shape)
+
+
+class IndiceData:
+    """Rulebook record of the native path (the JAX package's
+    ``IndiceData``, built by ``ops.rulebook``):
+
+    * ``pair_fwd`` ``[kv, N_out]`` int32: the input row feeding output ``o``
+      through offset ``k``, or -1;
+    * ``pair_bwd`` ``[kv, N_in]`` int32: the output row fed by input ``i``
+      through offset ``k``, or -1 (a subm rulebook's is ``pair_fwd`` with
+      its offset axis reversed);
+    * ``out_indices`` ``[N_out, ndim+1]`` and ``indices`` (the layer's
+      input coordinates, the inverse conv's output sites);
+    * ``num_out``, ``num_in`` and ``num_out_total`` (outputs before the
+      ``out_bound`` cut), 0-d int32 device tensors;
+    * the static geometry, and ``in_sorted``: whether the layer's input rows
+      were key-sorted (the inverse conv's output inherits it).
+
+    ``rank_slots`` (the port's own field) marks ``build_pool2_rulebook``'s
+    record: its ``pair_fwd`` slots are the children's rank, not kernel
+    offsets, and its ``pair_bwd`` holds only row 0, so the two tables are
+    not each other's mirror."""
+
+    def __init__(
+        self,
+        pair_fwd: torch.Tensor,
+        pair_bwd: torch.Tensor,
+        out_indices: torch.Tensor,
+        indices: torch.Tensor,
+        num_out: torch.Tensor,
+        num_in: Optional[torch.Tensor] = None,
+        num_out_total: Optional[torch.Tensor] = None,
+        *,
+        is_subm: bool,
+        spatial_shape: Sequence[int],
+        out_spatial_shape: Sequence[int],
+        ksize: Sequence[int],
+        stride: Sequence[int],
+        padding: Sequence[int],
+        dilation: Sequence[int],
+        transposed: bool = False,
+        in_sorted: bool = False,
+        rank_slots: bool = False,
+    ):
+        self.pair_fwd = pair_fwd
+        self.pair_bwd = pair_bwd
+        self.out_indices = out_indices
+        self.indices = indices
+        self.num_out = num_out
+        self.num_in = ((indices[:, 0] >= 0).sum(dtype=torch.int32)
+                       if num_in is None else num_in)
+        self.num_out_total = num_out if num_out_total is None \
+            else num_out_total
+        self.is_subm = bool(is_subm)
+        self.spatial_shape = tuple(int(s) for s in spatial_shape)
+        self.out_spatial_shape = tuple(int(s) for s in out_spatial_shape)
+        self.ksize = tuple(int(k) for k in ksize)
+        self.stride = tuple(int(s) for s in stride)
+        self.padding = tuple(int(p) for p in padding)
+        self.dilation = tuple(int(d) for d in dilation)
+        self.transposed = bool(transposed)
+        self.in_sorted = bool(in_sorted)
+        self.rank_slots = bool(rank_slots)
+
+
+# the reference's name for the implicit-GEMM record; one record serves both
+ImplicitGemmIndiceData = IndiceData
 
 
 class SparseConvTensor:
@@ -160,6 +254,41 @@ class SparseConvTensor:
         if not channels_first:
             return res
         return res.permute(0, self.ndim + 1, *range(1, self.ndim + 1))
+
+    @classmethod
+    def from_dense(cls, x: torch.Tensor,
+                   pad_to: Optional[int] = None) -> "SparseConvTensor":
+        """From a dense ``[B, *spatial, C]`` tensor: a site is active where
+        any channel is non-zero.  Rows come in row-major flat order over
+        ``(batch, *spatial)``, the key order, so ``keys_sorted`` is set.
+        ``pad_to`` fixes the buffer's rows (active sites past it are cut);
+        without it the buffer holds the active count, read on the host."""
+        batch, spatial = x.shape[0], tuple(x.shape[1:-1])
+        flat_mask = (x != 0).any(dim=-1).reshape(-1)
+        n = int(flat_mask.sum()) if pad_to is None else int(pad_to)
+        order = torch.sort((~flat_mask).to(torch.uint8), stable=True
+                           ).indices[:n]
+        found = flat_mask[order]
+        coords = torch.stack(torch.unravel_index(order, (batch, *spatial)),
+                             dim=-1).int()
+        coords = torch.where(found[:, None], coords,
+                             torch.full_like(coords, -1))
+        feats = x.reshape(-1, x.shape[-1])[order]
+        feats = torch.where(found[:, None], feats, torch.zeros_like(feats))
+        return cls(feats, coords, spatial, batch,
+                   num_voxels=found.sum(dtype=torch.int32), keys_sorted=True)
+
+    def select_by_index(self, valid_indices: torch.Tensor
+                        ) -> "SparseConvTensor":
+        """The rows ``valid_indices``, with the count recomputed and the
+        cached rulebooks dropped (row ids change).  Every other attribute,
+        ``keys_sorted`` included, is kept as the JAX package keeps it."""
+        new = self.shadow_copy()
+        new.features = self.features[valid_indices]
+        new.indices = self.indices[valid_indices]
+        new.num_voxels = (new.indices[:, 0] >= 0).sum(dtype=torch.int32)
+        new.indice_dict = {}
+        return new
 
     def sort_by_key(self) -> "SparseConvTensor":
         """Reorder rows by linearized coordinate and set ``keys_sorted``.

@@ -41,11 +41,20 @@ under its key raises.
 conv's function through a one-hot key join on the TPU) runs the same match
 tables through the same kernels; its regular-conv record lives under
 ``__skreg__``/``__skreg_in__`` as in the JAX package.  ``"auto"`` is
-``"dg"``.
+``"dg"`` wherever the DG route serves the input.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-computed some other way: the native rulebook path (any other ``algo``, and
-input that is not key-sorted).
+The native rulebook path (``algo="native"``, and ``"auto"``, ``"dg"`` or
+``"sk"`` wherever the DG route does not serve: input that is not
+key-sorted, a grid whose keys are int64 (``coords.use_int64_keys``), an
+inverse conv whose regular conv left no DG record) builds the JAX
+package's rulebooks (``ops.rulebook``) and runs ``ops.gather_gemm.
+indice_conv`` on them, which launches the DG kernels on the pair tables
+(``path="native"``).  Its records are ``IndiceData`` under ``indice_key``
+itself, as in the JAX package: a subm stage's rulebook is built once and
+reused; a regular conv's is reused only on the same geometry, and a paired
+inverse conv swaps its two tables.  Where a DG subm stage meets an
+``IndiceData`` under its key, its table goes under
+``DGData.cache_key`` instead.
 """
 
 from __future__ import annotations
@@ -59,13 +68,15 @@ from torch import nn
 
 from .. import calibrate
 from ..constants import DEFAULT_ALGO
-from ..core import SparseConvTensor, default_device, expand_nd
+from ..core import IndiceData, SparseConvTensor, default_device, expand_nd
 from ..debug_utils import maybe_assert_overflow
 from ..ops import coords as C
 from ..ops.dg_conv import (build_dg_pos, dg_regular_conv, dg_subm_conv,
                            dg_subm_conv_search)
 from ..ops.epilogue import bias_add_act
-from ..ops.rulebook import build_conv_outputs, build_deconv_outputs
+from ..ops.gather_gemm import indice_conv
+from ..ops.rulebook import (build_conv_outputs, build_conv_rulebook,
+                            build_deconv_outputs, build_subm_rulebook)
 from .modules import SparseModule
 
 __all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv1d",
@@ -77,6 +88,8 @@ __all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv1d",
            "SparseConvTranspose3d", "SparseConvTranspose4d"]
 
 IntOrSeq = Union[int, Sequence[int]]
+
+ALGOS = ("auto", "dg", "sk", "native")
 
 
 class DGData:
@@ -263,16 +276,11 @@ class SparseConvolution(SparseModule):
             out = input.shadow_copy()
             out.features = out_feat
             return out
-        if self.algo not in ("auto", "dg", "sk"):
-            raise NotImplementedError(
-                f"algo={self.algo!r}: only the dynamic-gather path (and "
-                "\"sk\", which shares its kernels) is ported; the native "
-                "rulebook path is not ported yet")
-        if not input.keys_sorted:
-            raise NotImplementedError(
-                "the DG conv needs key-sorted input (call sort_by_key()); "
-                "unsorted input takes the native rulebook path, which is "
-                "not ported yet")
+        if self.algo not in ALGOS:
+            raise ValueError(f"algo must be one of {ALGOS}, got "
+                             f"{self.algo!r}")
+        if self.algo == "native" or not self._dg_supported(input):
+            return self._call_native(input, add_input)
         if self.subm:
             return self._call_dg(input, add_input)
         if self.inverse:
@@ -291,18 +299,47 @@ class SparseConvolution(SparseModule):
         return torch.where(valid[:, None], out_feat,
                            torch.zeros_like(out_feat))
 
+    def _out_shape(self, in_shape: Sequence[int]) -> Tuple[int, ...]:
+        """The output grid of a regular or transposed conv on
+        ``in_shape``."""
+        conv = (tuple(in_shape), self.kernel_size, self.stride, self.padding,
+                self.dilation)
+        return tuple(
+            C.get_deconv_output_size(*conv, self.output_padding)
+            if self.transposed else C.get_conv_output_size(*conv))
+
+    def _dg_supported(self, input: SparseConvTensor) -> bool:
+        """Whether the DG route serves ``input`` (the JAX package's
+        ``_dg_supported``): key-sorted rows on a grid of int32 keys; for a
+        regular or transposed conv also a non-empty output grid of int32
+        keys; for an inverse conv the record of its regular conv under
+        ``__dgreg__`` (``__skreg__`` for ``algo="sk"``).  Elsewhere the
+        native path runs."""
+        if (not input.keys_sorted
+                or C.use_int64_keys(input.spatial_shape, input.batch_size)):
+            return False
+        if self.subm:
+            return True
+        if self.inverse:
+            return isinstance(input.indice_dict.get(self._record_keys()[0]),
+                              DGRegData)
+        out_shape = self._out_shape(input.spatial_shape)
+        return (all(v > 0 for v in out_shape)
+                and not C.use_int64_keys(out_shape, input.batch_size))
+
     def _stage_key(self, input: SparseConvTensor) -> str:
         """The ``indice_dict`` key of this layer's subm record:
         ``indice_key`` unless that holds a record of another kernel size or
-        dilation, then :meth:`DGData.cache_key`.  A key that holds a record
-        of another kind raises."""
+        dilation, or the native path's ``IndiceData``, then
+        :meth:`DGData.cache_key`.  A key that holds anything else raises."""
         rec = input.indice_dict.get(self.indice_key)
-        if rec is not None and not isinstance(rec, DGData):
+        if rec is not None and not isinstance(rec, (DGData, IndiceData)):
             raise ValueError(
                 f"indice_key={self.indice_key!r} holds a "
                 f"{type(rec).__name__}, not a subm match table")
-        if rec is None or (rec.ksize, rec.dilation) == (self.kernel_size,
-                                                        self.dilation):
+        if rec is None or (isinstance(rec, DGData)
+                           and (rec.ksize, rec.dilation)
+                           == (self.kernel_size, self.dilation)):
             return self.indice_key
         return DGData.cache_key(self.indice_key, self.kernel_size,
                                 self.dilation)
@@ -386,10 +423,7 @@ class SparseConvolution(SparseModule):
         which :meth:`_cache_record` caches."""
         indices = input.indices
         in_shape = tuple(input.spatial_shape)
-        conv = (self.kernel_size, self.stride, self.padding, self.dilation)
-        out_shape = tuple(
-            C.get_deconv_output_size(in_shape, *conv, self.output_padding)
-            if self.transposed else C.get_conv_output_size(in_shape, *conv))
+        out_shape = self._out_shape(in_shape)
         geom = dict(ksize=self.kernel_size, stride=self.stride,
                     padding=self.padding, dilation=self.dilation,
                     in_shape=in_shape, out_shape=out_shape,
@@ -539,6 +573,156 @@ class SparseConvolution(SparseModule):
             self._epilogue(out_feat, enc_in[:, 0] >= 0, add_input), enc_in,
             rec.in_shape, input.batch_size,
             indice_dict=dict(input.indice_dict), keys_sorted=True)
+
+    def _key_record(self, input: SparseConvTensor) -> Optional[IndiceData]:
+        """The native record under ``indice_key``, None when the key holds
+        none (or a record of the DG path)."""
+        rec = input.find_indice_pair(self.indice_key)
+        return rec if isinstance(rec, IndiceData) else None
+
+    def _native_inverse_record(self, input: SparseConvTensor) -> IndiceData:
+        """The rulebook an inverse conv swaps (the JAX package's
+        ``conv.py:292-349``): the ``IndiceData`` under ``indice_key``, else
+        one rebuilt from the regular conv's DG record (``__skreg__`` or
+        ``__dgreg__``, with its input indices) when that conv ran the DG
+        route, whose input was key-sorted.  Checked against this conv and
+        ``input``."""
+        data = self._key_record(input)
+        if data is None:
+            for ns in ("__skreg", "__dgreg"):
+                rec = input.indice_dict.get(f"{ns}__{self.indice_key}")
+                enc_in = input.indice_dict.get(f"{ns}_in__{self.indice_key}")
+                if isinstance(rec, DGRegData) and enc_in is not None:
+                    data = build_conv_rulebook(
+                        enc_in, spatial_shape=rec.in_shape,
+                        batch_size=input.batch_size, ksize=rec.ksize,
+                        stride=rec.stride, padding=rec.padding,
+                        dilation=rec.dilation,
+                        out_padding=rec.output_padding,
+                        transposed=rec.transposed,
+                        out_bound=rec.out_keys.shape[0])
+                    data.in_sorted = True
+                    break
+        if data is None:
+            raise ValueError(
+                f"an inverse conv reads the rulebook of the regular conv "
+                f"under indice_key={self.indice_key!r} (or its DG record), "
+                "and the input carries none")
+        mismatch = [
+            (what, got, want) for what, got, want in (
+                ("subm record", data.is_subm, False),
+                ("kernel size", self.kernel_size, data.ksize),
+                ("input spatial shape", tuple(input.spatial_shape),
+                 data.out_spatial_shape),
+                ("input buffer N", input.indices.shape[0],
+                 data.pair_fwd.shape[1]),
+            ) if got != want]
+        if mismatch:
+            raise ValueError(
+                f"inverse conv mismatch with the rulebook under "
+                f"indice_key={self.indice_key!r}: " + ", ".join(
+                    f"{w} {g} vs {x}" for w, g, x in mismatch))
+        return data
+
+    def _native_subm_record(self, input: SparseConvTensor):
+        """``(rulebook, new)`` of a subm conv: the ``IndiceData`` under
+        ``indice_key``, checked as the JAX package checks its reuse, else a
+        new one (``new`` True)."""
+        data = self._key_record(input)
+        if data is None:
+            return build_subm_rulebook(
+                input.indices, spatial_shape=input.spatial_shape,
+                batch_size=input.batch_size, ksize=self.kernel_size,
+                dilation=self.dilation), True
+        mismatch = [
+            (what, got, want) for what, got, want in (
+                ("subm", data.is_subm, True),
+                ("ksize", data.ksize, self.kernel_size),
+                ("dilation", data.dilation, self.dilation),
+                ("spatial shape", data.spatial_shape,
+                 tuple(input.spatial_shape))) if got != want]
+        if mismatch:
+            raise ValueError(
+                f"subm rulebook reuse mismatch under indice_key="
+                f"{self.indice_key!r}: " + ", ".join(
+                    f"{w} {g} vs {x}" for w, g, x in mismatch))
+        return data, False
+
+    def _native_regular_record(self, input: SparseConvTensor,
+                               out_padding: Optional[Sequence[int]] = None):
+        """``(rulebook, new)`` of a regular or transposed conv: the
+        ``IndiceData`` of a regular conv under ``indice_key`` when its
+        geometry, ``transposed`` included, is this conv's (another raises),
+        else a new one whose ``in_sorted`` records the input's flag.  A new
+        transposed rulebook takes ``out_padding`` (default this conv's
+        ``output_padding``)."""
+        data = self._key_record(input)
+        if data is not None and not data.is_subm:
+            got = (data.ksize, data.stride, data.padding, data.dilation,
+                   data.transposed, data.spatial_shape)
+            want = (self.kernel_size, self.stride, self.padding,
+                    self.dilation, self.transposed,
+                    tuple(input.spatial_shape))
+            if got != want:
+                raise ValueError(
+                    f"rulebook reuse mismatch under indice_key="
+                    f"{self.indice_key!r}: cached (ksize, stride, padding, "
+                    f"dilation, transposed, spatial) {got} vs layer {want}")
+            return data, False
+        data = build_conv_rulebook(
+            input.indices, spatial_shape=input.spatial_shape,
+            batch_size=input.batch_size, ksize=self.kernel_size,
+            stride=self.stride, padding=self.padding,
+            dilation=self.dilation,
+            out_padding=(self.output_padding if out_padding is None
+                         else out_padding),
+            transposed=self.transposed,
+            out_bound=self._resolve_out_bound(input.indices.shape[0]))
+        data.in_sorted = input.keys_sorted
+        return data, True
+
+    def _call_native(self, input: SparseConvTensor,
+                     add_input: Optional[SparseConvTensor]
+                     ) -> SparseConvTensor:
+        """The native rulebook path (the JAX package's
+        ``conv.py:292-494``): this conv's rulebook (built, or reused from
+        ``indice_key``), :func:`ops.gather_gemm.indice_conv` on its tables
+        (swapped for an inverse conv), the epilogue, and the output's
+        count and ``keys_sorted``: a subm conv keeps its input's, an
+        inverse conv takes ``in_sorted`` of the rulebook it swaps, and a
+        regular or transposed conv's sites come in ascending key order."""
+        new = False
+        if self.inverse:
+            data = self._native_inverse_record(input)
+            pair_fwd, pair_bwd = data.pair_bwd, data.pair_fwd
+            out_indices, out_shape = data.indices, data.spatial_shape
+            num_voxels, out_sorted, total = data.num_in, data.in_sorted, None
+        elif self.subm:
+            data, new = self._native_subm_record(input)
+            pair_fwd, pair_bwd = data.pair_fwd, data.pair_bwd
+            out_indices, out_shape = input.indices, input.spatial_shape
+            num_voxels, out_sorted = input.num_voxels, input.keys_sorted
+            total = None
+        else:
+            data, new = self._native_regular_record(input)
+            pair_fwd, pair_bwd = data.pair_fwd, data.pair_bwd
+            out_indices, out_shape = data.out_indices, data.out_spatial_shape
+            num_voxels, out_sorted = data.num_out, True
+            total = data.num_out_total
+            calibrate._maybe_record(self, data.num_out)
+            maybe_assert_overflow(data.num_out_total, pair_fwd.shape[1],
+                                  self.name or type(self).__name__)
+        out_feat = indice_conv(input.features, self.weight, pair_fwd,
+                               pair_bwd, is_subm=self.subm,
+                               mirrored=not data.rank_slots)
+        out = SparseConvTensor(
+            self._epilogue(out_feat, out_indices[:, 0] >= 0, add_input),
+            out_indices, out_shape, input.batch_size, num_voxels=num_voxels,
+            indice_dict=dict(input.indice_dict), keys_sorted=out_sorted,
+            num_out_total=total)
+        if new and self.indice_key is not None:
+            out.indice_dict[self.indice_key] = data
+        return out
 
 
 def _make_conv(ndim: int, subm: bool):

@@ -2,8 +2,12 @@
 
 Keys are batch-major and row-major over the spatial axes.  Invalid rows take
 the key ``prod(spatial_shape) * batch_size``, which sorts after every valid
-key.  Only single-word int32 keys are ported: a grid whose
-``batch * volume`` reaches 2**31 raises.
+key.  A grid whose ``batch * volume`` stays below ``_KEY32_LIMIT`` (2**31 -
+1) has int32 keys; a larger one has one int64 key per row, the JAX
+package's two-word ``(hi, lo)`` key read as one number (``hi * lo_prod +
+lo``, which is the same row-major key), so the two sort alike.  The
+dynamic-gather and sorted-key kernels take int32 keys only: a large grid
+takes the native rulebook path (``ops/rulebook.py``).
 """
 
 from __future__ import annotations
@@ -17,12 +21,20 @@ __all__ = [
     "get_conv_output_size",
     "get_deconv_output_size",
     "kernel_offsets",
+    "use_int64_keys",
     "grid_sentinel",
     "linearize",
     "delinearize",
+    "sort_with_ids",
 ]
 
+# Grids whose batch * volume reaches this have int64 keys.  Module-level, so
+# that tests can lower it to take the int64 path on small grids.
 _KEY32_LIMIT = 2**31 - 1
+# the JAX package's two-word keys: the trailing spatial axes whose product
+# stays below this go to the low word, the rest and the batch to the high
+# word, which must stay below 2**31 - 1
+_LO_LIMIT = 2**30
 
 
 def get_conv_output_size(
@@ -73,14 +85,35 @@ def kernel_offsets(ksize: Sequence[int]) -> np.ndarray:
     return np.stack([g.reshape(-1) for g in grids], axis=-1).astype(np.int32)
 
 
-def grid_sentinel(spatial_shape: Sequence[int], batch_size: int) -> int:
-    """The invalid-row key; raises for grids beyond single-word keys."""
+def use_int64_keys(spatial_shape: Sequence[int], batch_size: int) -> bool:
+    """True when the grid's keys are int64: ``batch * volume`` reaches
+    ``_KEY32_LIMIT`` (the JAX package's ``use_pair_keys``)."""
     vol = int(np.prod([int(s) for s in spatial_shape])) * int(batch_size)
-    if vol >= _KEY32_LIMIT:
+    return vol >= _KEY32_LIMIT
+
+
+def _check_key_capacity(shape: Sequence[int], batch_size: int) -> None:
+    """Raises where the JAX package's ``_split_dims`` raises: the high word
+    of its two-word key, the batch times the leading axes that do not fit
+    the low word, reaches 2**31 - 1."""
+    shape = [int(s) for s in shape]
+    lo, cut = 1, len(shape)
+    while cut > 0 and lo * shape[cut - 1] < _LO_LIMIT:
+        lo *= shape[cut - 1]
+        cut -= 1
+    if int(batch_size) * int(np.prod(shape[:cut], dtype=np.int64)) \
+            >= 2**31 - 1:
         raise NotImplementedError(
-            f"grid batch*{tuple(spatial_shape)} needs two-word keys, which "
-            "the port does not have yet (one int64 key is still to come)")
-    return vol
+            f"grid batch*{tuple(shape)} exceeds two-word int32 key capacity "
+            "(~2^61 sites)")
+
+
+def grid_sentinel(spatial_shape: Sequence[int], batch_size: int) -> int:
+    """The invalid-row key, ``batch * volume``; raises where the JAX
+    package's keys run out (:func:`_check_key_capacity`)."""
+    if use_int64_keys(spatial_shape, batch_size):
+        _check_key_capacity(spatial_shape, batch_size)
+    return int(np.prod([int(s) for s in spatial_shape])) * int(batch_size)
 
 
 def linearize(
@@ -89,9 +122,9 @@ def linearize(
     batch_size: int,
     valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, int]:
-    """``[N, ndim+1]`` batch-first coordinates -> (``[N]`` int32 keys,
-    sentinel).  Rows that are not ``valid`` (default: ``indices[:,0] < 0``)
-    take the sentinel."""
+    """``[N, ndim+1]`` batch-first coordinates -> (``[N]`` keys, sentinel),
+    int32 keys, or int64 on a grid of :func:`use_int64_keys`.  Rows that
+    are not ``valid`` (default: ``indices[:,0] < 0``) take the sentinel."""
     shape = [int(s) for s in spatial_shape]
     sentinel = grid_sentinel(shape, batch_size)
     if valid is None:
@@ -101,7 +134,7 @@ def linearize(
     for i, s in enumerate(shape):
         key = key * s + indices[:, i + 1].long()
     key = torch.where(valid, key, torch.full_like(key, sentinel))
-    return key.int(), sentinel
+    return (key if use_int64_keys(shape, batch_size) else key.int()), sentinel
 
 
 def delinearize(keys: torch.Tensor, spatial_shape: Sequence[int],
@@ -116,3 +149,10 @@ def delinearize(keys: torch.Tensor, spatial_shape: Sequence[int],
     coords.append(rem)
     out = torch.stack(coords[::-1], dim=-1).int()
     return torch.where(valid[:, None], out, torch.full_like(out, -1))
+
+
+def sort_with_ids(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sorted keys, order)``: a stable ascending sort, so rows of equal
+    keys keep their order (the JAX package's ``sort_with_ids``; the pool
+    rulebook's slot order depends on it).  ``order`` is int64."""
+    return torch.sort(keys, stable=True)

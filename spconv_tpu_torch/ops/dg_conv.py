@@ -141,25 +141,28 @@ __all__ = [
 
 # the convs whose gather-GEMM launches count apart: "dg_fwd" counts the
 # subm path, "dg_fwd_strided", "dg_fwd_inverse" and "dg_fwd_transposed" the
-# others, and so on (the int8 kernel has no transposed path).
-PATHS = ("subm", "strided", "inverse", "transposed")
-_REG_PATHS = PATHS[1:]  # those of dg_regular_conv and its tables
+# others, and so on (the int8 kernel has no transposed path).  "native"
+# counts the native rulebook path's launches (ops/gather_gemm.py), on the
+# pair tables of any conv.
+PATHS = ("subm", "strided", "inverse", "transposed", "native")
+_REG_PATHS = PATHS[1:4]  # those of dg_regular_conv and its tables
 
 # launches of each kernel wrapper of the port since the last
 # reset_launch_counts(); "dg_pos" counts forward subm tables, "dg_pos_rev"
 # reversed ones, "dg_pos_affine" and "dg_pos_divide" a regular or inverse
 # conv's two tables ("*_transposed" a transposed conv's), "*_search" the
 # table-free subm kernels, "sk_pool" the sorted-key pool
-# (ops/sorted_pool.py)
+# (ops/sorted_pool.py), "*_native" the native rulebook path's
 launch_counts = dict.fromkeys(
     ("dg_pos", "dg_pos_rev", "dg_pos_affine", "dg_pos_divide",
      "dg_pos_affine_transposed", "dg_pos_divide_transposed",
      "dg_fwd", "dg_fwd_strided", "dg_fwd_inverse", "dg_fwd_transposed",
-     "dg_fwd_q", "dg_fwd_q_strided", "dg_fwd_q_inverse",
+     "dg_fwd_native",
+     "dg_fwd_q", "dg_fwd_q_strided", "dg_fwd_q_inverse", "dg_fwd_q_native",
      "dg_dgrad", "dg_dgrad_strided", "dg_dgrad_inverse",
-     "dg_dgrad_transposed",
+     "dg_dgrad_transposed", "dg_dgrad_native",
      "dg_wgrad", "dg_wgrad_strided", "dg_wgrad_inverse",
-     "dg_wgrad_transposed",
+     "dg_wgrad_transposed", "dg_wgrad_native",
      "dg_fwd_search", "dg_dgrad_search", "dg_wgrad_search",
      "dg_fwd_q_search", "sk_pool"), 0)
 
@@ -710,7 +713,9 @@ def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     cost a device sync per call).  ``path`` names the conv and so the
     launch count: ``"subm"`` (the table of :func:`build_dg_pos`, N_dst =
     N_src), ``"strided"`` (an affine table), ``"inverse"`` (a divide
-    table) or ``"transposed"`` (a divide table on swapped spaces).  Records
+    table), ``"transposed"`` (a divide table on swapped spaces) or
+    ``"native"`` (a rulebook's ``pair_fwd``, ``ops/gather_gemm.py``; its
+    rows in no key order).  Records
     no autograd graph on CUDA: :class:`DGConvFn` differentiates."""
     name = _count_name("dg_fwd", path)
     _check_gather_gemm(name, x, weight_kv, pos, 1,
@@ -745,7 +750,8 @@ def dg_dgrad(dout: torch.Tensor, weight_kv: torch.Tensor,
     (:func:`dg_fwd`): the reversed table (``build_dg_pos(...,
     reverse=True)``, N_src = N_dst) for ``"subm"``, the divide table for
     ``"strided"``, the affine table for ``"inverse"`` and
-    ``"transposed"``.  It is B2's function with ``W[k]^T``, so it launches
+    ``"transposed"``, a rulebook's ``pair_bwd`` for ``"native"``.  It is
+    B2's function with ``W[k]^T``, so it launches
     B2's kernel; rows without a match (every invalid row) are 0."""
     name = _count_name("dg_dgrad", path)
     _check_gather_gemm(name, dout, weight_kv, pos_bwd, 2,
@@ -886,12 +892,15 @@ def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     ``pos``: ``[kv, N_dst]``
     int32 in ``[-1, N_src)`` (trusted, as :func:`dg_fwd`'s); ``scale`` and
     ``bias`` (or None): ``[K]`` f32, already divided by the output scale;
-    ``add``: ``[N_dst, K]`` int8 residual, subm path only; ``add_scale``:
-    a Python float, rounded to f32 once.  Rows without a match get the
-    epilogue of a zero sum.  ``path`` names the table and so the launch
-    count, as :func:`dg_fwd`'s."""
+    ``add``: ``[N_dst, K]`` int8 residual, subm and native paths only;
+    ``add_scale``: a Python float, rounded to f32 once.  Rows without a
+    match get the epilogue of a zero sum.  ``path`` names the table and so
+    the launch count, as :func:`dg_fwd`'s; the int8 transposed conv runs
+    the ``"native"`` path on its rulebook, so ``"transposed"`` is
+    refused."""
     _check(path != "transposed", "dg_fwd_q has no transposed path: the "
-                                 "int8 transposed conv is not ported")
+                                 "int8 transposed conv runs path='native' "
+                                 "on its rulebook")
     name = _count_name("dg_fwd_q", path)
     _check(pos.ndim == 2, f"{name}: pos must be [kv, N]")
     n = pos.shape[1]
@@ -901,8 +910,9 @@ def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
            f"{name}: pos is {tuple(pos.shape)} for {weight_kv.shape[0]} "
            f"offsets and {x.shape[0]} rows")
     _check(pos.dtype == torch.int32, f"{name}: pos must be int32")
-    _check(add is None or path == "subm",
-           f"{name}: the residual add is subm-only")
+    _check(add is None or path in ("subm", "native"),
+           f"{name}: the residual add is subm-only (paths 'subm' and "
+           "'native', whose rows align with the output's)")
     if x.device.type == "cpu":
         return dg_fwd_q_plain(x, weight_kv, pos, scale, bias, act=act,
                               add=add, add_scale=add_scale)

@@ -1,12 +1,11 @@
 """Sparse pooling compute (counterpart of ``spconv_tpu/ops/pool.py``).
 
-Ported: ``pool2_seg``, the kernel-2 / stride-2 / pad-0 max or mean pool of
-the segment route, and ``global_pool``.  Both are plain tensor code in the
-JAX package too (no Pallas kernel), so they stay torch ops here and
-differentiate through autograd.  The sorted-key route of the same pool,
-which runs kernel B6, is ``ops/sorted_pool.py``.  ``indice_maxpool`` and
-``indice_avgpool`` belong to the native rulebook path, which is not ported
-yet.
+``pool2_seg``, the kernel-2 / stride-2 / pad-0 max or mean pool of the
+segment route; ``indice_maxpool`` and ``indice_avgpool``, the native
+path's pools over a rulebook's ``pair_fwd``; and ``global_pool``.  All are
+plain tensor code in the JAX package too (no Pallas kernel), so they stay
+torch ops here and differentiate through autograd.  The sorted-key route
+of the 2x pool, which runs kernel B6, is ``ops/sorted_pool.py``.
 """
 
 from __future__ import annotations
@@ -18,9 +17,68 @@ import torch
 from . import coords as C
 from .rulebook import pool2_parent_keys, unique_sorted_keys
 
-__all__ = ["pool2_seg", "global_pool"]
+__all__ = ["pool2_seg", "indice_maxpool", "indice_avgpool", "global_pool"]
 
 _MODES = ("max", "mean")
+
+# elements of one [chunk, N, C] gather of the native pools, at most (the
+# JAX package's _POOL_CHUNK_BUDGET, whose chunking decides where the max's
+# gradient splits at ties)
+_POOL_CHUNK_BUDGET = 64 * 1024 * 1024
+
+
+def _pool_chunks(kv: int, n: int, c: int):
+    per = max(1, min(kv, _POOL_CHUNK_BUDGET // max(1, n * c)))
+    return [list(range(i, min(i + per, kv))) for i in range(0, kv, per)]
+
+
+def _gathered(features: torch.Tensor, pair_fwd: torch.Tensor, pad: float):
+    """``[kv, N_out]`` row indices into ``features`` in f32 with a row of
+    ``pad`` appended, which the absent pairs (-1) point at."""
+    c = features.shape[1]
+    fpad = torch.cat([features.float(),
+                      torch.full((1, c), pad, dtype=torch.float32,
+                                 device=features.device)])
+    pf = torch.where(pair_fwd >= 0, pair_fwd,
+                     torch.full_like(pair_fwd, features.shape[0])).long()
+    return fpad, pf
+
+
+def indice_maxpool(features: torch.Tensor,
+                   pair_fwd: torch.Tensor) -> torch.Tensor:
+    """``out[o]`` = the max over the present pairs ``k`` of
+    ``features[pair_fwd[k, o]]``, in f32, rounded once to the feature
+    dtype; a max that is not finite (no pair, or only -inf) is 0.  The
+    offsets are gathered in the JAX package's chunks: ``torch.amax``
+    within a chunk and ``torch.maximum`` across chunks split the gradient
+    at ties as ``jnp.max`` and ``jnp.maximum`` do (evenly among equal
+    values, and in half)."""
+    kv, n_out = pair_fwd.shape
+    c = features.shape[1]
+    fpad, pf = _gathered(features, pair_fwd, float("-inf"))
+    acc = torch.full((n_out, c), float("-inf"), dtype=torch.float32,
+                     device=features.device)
+    for ch in _pool_chunks(kv, n_out, c):
+        acc = torch.maximum(acc, torch.amax(fpad[pf[ch[0]:ch[-1] + 1]],
+                                            dim=0))
+    acc = torch.where(torch.isfinite(acc), acc, torch.zeros_like(acc))
+    return acc.to(features.dtype)
+
+
+def indice_avgpool(features: torch.Tensor,
+                   pair_fwd: torch.Tensor) -> torch.Tensor:
+    """``out[o]`` = the mean over the present pairs of
+    ``features[pair_fwd[k, o]]``, summed in f32 and divided by their count
+    (at least 1), rounded once to the feature dtype."""
+    kv, n_out = pair_fwd.shape
+    c = features.shape[1]
+    fpad, pf = _gathered(features, pair_fwd, 0.0)
+    acc = torch.zeros((n_out, c), dtype=torch.float32,
+                      device=features.device)
+    for ch in _pool_chunks(kv, n_out, c):
+        acc = acc + fpad[pf[ch[0]:ch[-1] + 1]].sum(dim=0)
+    cnt = (pair_fwd >= 0).float().sum(dim=0)[:, None]
+    return (acc / cnt.clamp(min=1.0)).to(features.dtype)
 
 
 def _check_mode(mode: str) -> None:

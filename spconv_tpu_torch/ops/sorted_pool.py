@@ -9,7 +9,9 @@ runs on key-sorted input, with no rulebook.
   block, lanes a parent, 16-byte chunks or channels).
 * ``SKPool2Fn``: its autograd Function.  The backward is torch ops, as the
   JAX package's is XLA (``_sk_pool2_ad_bwd``); ``sk_pool2_ad`` takes it
-  whenever a gradient is wanted.
+  whenever a gradient is wanted.  On input that is not key-sorted the
+  forward is the JAX route's fallback branch (``lax.cond`` there, chosen
+  from ``keys_sorted`` here): the native pool over the 2x pool rulebook.
 
 Semantics of the JAX sorted-key route, which differ from the segment route
 (``ops/pool.py::pool2_seg``): a max that is not finite (NaN, +-inf, or a
@@ -26,7 +28,7 @@ adds one to ``launch_counts["sk_pool"]`` (the port's counts, kept in
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +36,7 @@ import torch
 from . import coords as C
 from .dg_conv import (_check, _check_keys, _decode, _ptr, _raise_on,
                       _stream_ptr, launch_counts, sm_count, window_smem)
+from .pool import indice_avgpool, indice_maxpool
 from .rulebook import pool2_parent_keys
 
 __all__ = ["pool_offsets", "pool2_child_keys", "sk_pool2", "sk_pool2_plain",
@@ -286,16 +289,28 @@ def sk_pool2_bwd(features: torch.Tensor, out: torch.Tensor,
     return din.to(features.dtype)
 
 
+def _sk_pool2_forward(features, in_keys, out_keys, geom, pair_fwd):
+    """:func:`sk_pool2`, or with ``pair_fwd`` (input that is not key-sorted)
+    the JAX route's fallback branch: the native pool over the 2x pool
+    rulebook's ``pair_fwd``, torch ops."""
+    in_shape, out_shape, batch_size, mode = geom
+    if pair_fwd is not None:
+        pool = indice_maxpool if mode == "max" else indice_avgpool
+        return pool(features, pair_fwd)
+    return sk_pool2(features, in_keys, out_keys, in_shape=in_shape,
+                    out_shape=out_shape, batch_size=batch_size, mode=mode)
+
+
 class SKPool2Fn(torch.autograd.Function):
     """Differentiable :func:`sk_pool2` over ``features``: the forward
-    launches B6 (on CUDA), the backward is :func:`sk_pool2_bwd`.  ``geom``
-    is ``(in_shape, out_shape, batch_size, mode)``."""
+    launches B6 (on CUDA), or with ``pair_fwd`` takes the fallback branch
+    (:func:`_sk_pool2_forward`); the backward is :func:`sk_pool2_bwd`
+    either way, as the JAX package's custom VJP is.  ``geom`` is
+    ``(in_shape, out_shape, batch_size, mode)``."""
 
     @staticmethod
-    def forward(ctx, features, in_keys, out_keys, geom):
-        in_shape, out_shape, batch_size, mode = geom
-        out = sk_pool2(features, in_keys, out_keys, in_shape=in_shape,
-                       out_shape=out_shape, batch_size=batch_size, mode=mode)
+    def forward(ctx, features, in_keys, out_keys, geom, pair_fwd=None):
+        out = _sk_pool2_forward(features, in_keys, out_keys, geom, pair_fwd)
         ctx.geom = geom
         ctx.save_for_backward(features, out, in_keys, out_keys)
         return out
@@ -307,18 +322,21 @@ class SKPool2Fn(torch.autograd.Function):
         din = sk_pool2_bwd(features, out, dout, in_keys, out_keys,
                            in_shape=in_shape, batch_size=batch_size,
                            mode=mode)
-        return din, None, None, None
+        return din, None, None, None, None
 
 
 def sk_pool2_ad(features: torch.Tensor, in_keys: torch.Tensor,
                 out_keys: torch.Tensor, *, in_shape: Sequence[int],
                 out_shape: Sequence[int], batch_size: int,
-                mode: str = "max") -> torch.Tensor:
+                mode: str = "max",
+                pair_fwd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`sk_pool2`, through :class:`SKPool2Fn` when a gradient of
-    ``features`` is wanted."""
+    ``features`` is wanted.  For input that is not key-sorted the caller
+    passes the 2x pool rulebook's ``pair_fwd`` (``in_keys`` then in row
+    order): the forward is the JAX route's fallback branch, the backward
+    the same as on sorted input."""
     geom = (tuple(int(s) for s in in_shape),
             tuple(int(s) for s in out_shape), int(batch_size), mode)
     if torch.is_grad_enabled() and features.requires_grad:
-        return SKPool2Fn.apply(features, in_keys, out_keys, geom)
-    return sk_pool2(features, in_keys, out_keys, in_shape=geom[0],
-                    out_shape=geom[1], batch_size=geom[2], mode=mode)
+        return SKPool2Fn.apply(features, in_keys, out_keys, geom, pair_fwd)
+    return _sk_pool2_forward(features, in_keys, out_keys, geom, pair_fwd)

@@ -5,15 +5,23 @@ requant epilogue, and calibration and conversion of a
 ``SparseSequential``.
 
 Weights are int8 per output channel, activations int8 per tensor, biases
-f32.  ``QuantizedSparseConv`` runs the JAX package's kernel route (the one
-its TPU runs) through B7 (``ops.dg_conv.dg_fwd_q``) on the DG match tables:
-subm through the stage's table under ``indice_key``, strided through the
-affine table of the ``DGRegData`` record under ``__dgreg__<indice_key>``,
-inverse through that record's divide table.  That route requantizes as
-``round(acc * (s_in * s_w / s_out) + b / s_out)``; the JAX package's CPU
-gather route computes ``round((acc * s_in * s_w + b) / s_out)``, which can
-land one step away at a tie (listed in ROADMAP.md), and is not a route
-of the port.
+f32.  ``QuantizedSparseConv`` runs B7 (``ops.dg_conv.dg_fwd_q``) on one of
+two routes, chosen as the JAX package chooses on its TPU:
+
+* the kernel route, on key-sorted input on a grid of int32 keys: the DG
+  match tables, subm through the stage's table under ``indice_key``,
+  strided through the affine table of the ``DGRegData`` record under
+  ``__dgreg__<indice_key>``, inverse through that record's divide table;
+* the native route everywhere else (input that is not key-sorted, a grid
+  of int64 keys, an inverse conv whose regular conv left an ``IndiceData``
+  rather than a DG record, and every transposed conv): the rulebook of
+  ``ops.rulebook`` (reused from ``indice_key``), B7 on its ``pair_fwd``
+  (``path="native"``).
+
+Both requantize as the kernel route does, ``round(acc * (s_in * s_w /
+s_out) + b / s_out)``, so the port has one int8 function.  The JAX
+package's native route computes ``round((acc * s_in * s_w + b) /
+s_out)``, which can land one step away at a tie (listed in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -134,10 +142,6 @@ class QuantizedSparseConv(SparseModule):
                  input_scale: float, output_scale: float,
                  act_type: str = "none"):
         super().__init__()
-        if conv.transposed:
-            raise NotImplementedError(
-                "the int8 transposed conv runs the native rulebook path (the "
-                "JAX package's CPU gather route), which is not ported yet")
         if conv.act_type != "none":
             act_type = conv.act_type
         if act_type not in ("none", "relu"):
@@ -199,11 +203,6 @@ class QuantizedSparseConv(SparseModule):
         if x.features.dtype != torch.int8:
             raise TypeError(f"the int8 conv takes int8 features, got "
                             f"{x.features.dtype}")
-        if not x.keys_sorted:
-            raise NotImplementedError(
-                "the int8 conv runs the DG kernels, which need key-sorted "
-                "input (call sort_by_key()); unsorted input takes the "
-                "native rulebook path, which is not ported yet")
         if add_input is not None and not cfg.subm:
             raise ValueError("the int8 residual add is subm-only (its rows "
                              "align with the output's)")
@@ -211,6 +210,8 @@ class QuantizedSparseConv(SparseModule):
                   / self.output_scale,
                   add=None if add_input is None else add_input.features)
         w, scale, bias = self.weight_kv, self.scale_q, self.bias_q
+        if cfg.transposed or not cfg._dg_supported(x):
+            return self._native(x, kw)
         if cfg.subm:
             new = None
             if cfg.indice_key is None:
@@ -251,6 +252,42 @@ class QuantizedSparseConv(SparseModule):
             indice_dict=dict(x.indice_dict), keys_sorted=True,
             num_out_total=rec.num_out_total)
         cfg._cache_record(x, out, rec)
+        return out
+
+    def _native(self, x: SparseConvTensor, kw: dict) -> SparseConvTensor:
+        """The native route (the JAX package's ``quantize.py:337-404``):
+        the conv's rulebook, reused or built as the fp conv's native path
+        does (a regular or transposed one without ``output_padding``, as
+        the JAX route builds it), B7 on its ``pair_fwd`` (an inverse
+        conv's: the regular conv's ``pair_bwd``), and a new rulebook
+        registered under a free ``indice_key``."""
+        cfg = self.base
+        if cfg.inverse:
+            data, new = cfg._native_inverse_record(x), False
+            pair_fwd, out_indices = data.pair_bwd, data.indices
+            out_shape, num_out = data.spatial_shape, data.num_in
+            out_sorted, total = data.in_sorted, None
+        elif cfg.subm:
+            data, new = cfg._native_subm_record(x)
+            pair_fwd, out_indices = data.pair_fwd, x.indices
+            out_shape, num_out = x.spatial_shape, x.num_voxels
+            out_sorted, total = x.keys_sorted, None
+        else:
+            data, new = cfg._native_regular_record(
+                x, out_padding=(0,) * cfg.ndim)
+            pair_fwd, out_indices = data.pair_fwd, data.out_indices
+            out_shape, num_out = data.out_spatial_shape, data.num_out
+            out_sorted, total = True, data.num_out_total
+        q = dg_fwd_q(x.features, self.weight_kv, pair_fwd, self.scale_q,
+                     self.bias_q, path="native", **kw)
+        out = SparseConvTensor(
+            _masked(q, out_indices[:, 0] >= 0), out_indices, out_shape,
+            x.batch_size, num_voxels=num_out,
+            indice_dict=dict(x.indice_dict), keys_sorted=out_sorted,
+            num_out_total=total)
+        if (new and cfg.indice_key is not None
+                and cfg.indice_key not in out.indice_dict):
+            out.indice_dict[cfg.indice_key] = data
         return out
 
 

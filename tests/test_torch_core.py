@@ -64,9 +64,21 @@ def test_geometry_helpers_match_jax():
 
 
 def test_huge_grid_raises():
-    with pytest.raises(NotImplementedError, match="two-word keys"):
-        TC.linearize(torch.zeros((4, 4), dtype=torch.int32),
-                     (2048, 2048, 1024), 1)
+    """A grid of 2**32 sites has int64 keys, the JAX package's two-word
+    keys read as one number; only where those run out do both raise."""
+    shape = (2048, 2048, 1024)
+    _, inds = _rows(4, shape, 50, 1, 64)
+    jk, _ = JC.linearize(jnp.asarray(inds), shape, 1)
+    tk, sent = TC.linearize(torch.from_numpy(inds), shape, 1)
+    _, lo_prod, _ = JC._split_dims(shape, 1)
+    jk = np.asarray(jk).astype(np.int64)
+    assert tk.dtype == torch.int64 and sent == 2 ** 32
+    np.testing.assert_array_equal(tk.numpy(), jk[:, 0] * lo_prod + jk[:, 1])
+    huge = (2 ** 20, 2 ** 20, 2 ** 20)
+    for lin, zeros in ((JC.linearize, jnp.zeros((4, 4), jnp.int32)),
+                       (TC.linearize, torch.zeros((4, 4), dtype=torch.int32))):
+        with pytest.raises(NotImplementedError, match="two-word"):
+            lin(zeros, huge, 1)
 
 
 def test_sort_by_key_sets_flag_and_order():
@@ -116,43 +128,59 @@ def test_load_jax_state_dict_carries_weights_and_is_strict():
     assert (tnet[1].weight == 1).all()
 
 
+def _module_pair(*args, algo=None, **kw):
+    """A JAX ``SparseConvolution`` and the port's with its weights."""
+    import spconv_tpu
+    from spconv_tpu.checkpoint import state_dict
+
+    jm = spconv_tpu.SparseConvolution(*args, algo=algo, **kw)
+    tm = st.SparseConvolution(*args, algo=algo, device="cpu", **kw)
+    return jm, load_jax_state_dict(tm, state_dict(jm))
+
+
 def test_unported_paths_raise():
+    """What the port once refused now runs the native path, held against
+    the JAX package (its CPU route, the native path too): a subm conv on
+    input that is not key-sorted, under ``"auto"`` and ``"sk"``;
+    ``algo="native"`` on sorted input; strided, stride-1 and transposed
+    convs on unsorted input.  Sites exactly, features within 1e-5 of
+    max|ref|.  The 1x1 path needs no rulebook; an inverse conv still needs
+    the key of the regular conv it inverts."""
+    import spconv_tpu
+
     shape = (7, 9, 11)
     feats, inds = _rows(2, shape, 100, 1, 128)
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          shape, 1)
+    jx = spconv_tpu.SparseConvTensor(jnp.asarray(feats), jnp.asarray(inds),
+                                     shape, 1)
+    xs, jxs = x.sort_by_key(), jx.sort_by_key()
+    cases = [
+        (dict(subm=True), None, x, jx), (dict(subm=True), "sk", x, jx),
+        (dict(subm=True), "native", xs, jxs),
+        (dict(stride=2), None, x, jx), (dict(), None, x, jx),
+        (dict(stride=2, transposed=True), None, x, jx),
+    ]
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="key-sorted"):
-            SubMConv3d(3, 4, 3, device="cpu")(x)
-        with pytest.raises(NotImplementedError,
-                           match="native rulebook path is not ported"):
-            SubMConv3d(3, 4, 3, algo="native",
-                       device="cpu")(x.sort_by_key())
-        # "sk" runs the DG tables and kernels, so it needs sorted input too
-        with pytest.raises(NotImplementedError, match="key-sorted"):
-            SubMConv3d(3, 4, 3, algo="sk", device="cpu")(x)
+        for kw, algo, tin, jin in cases:
+            jm, tm = _module_pair(3, 3, 4, 3, **kw)
+            tm.algo = algo or "auto"
+            y, ref = tm(tin), jm(jin)
+            np.testing.assert_array_equal(y.indices.numpy(),
+                                          np.asarray(ref.indices))
+            assert y.keys_sorted == ref.keys_sorted
+            want = np.asarray(ref.features)
+            np.testing.assert_allclose(y.features.numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
         # the 1x1 path needs no match table, sorted or not
         y = SubMConv3d(3, 4, 1, device="cpu")(x)
         assert not y.features[~x.valid_mask].any()
-        # strided and stride-1 regular convs run the DG path, which needs
-        # key-sorted input
-        for kw in (dict(stride=2), dict()):
-            conv = st.SparseConvolution(3, 3, 4, 3, device="cpu", **kw)
-            with pytest.raises(NotImplementedError, match="key-sorted"):
-                conv(x)
-            assert conv(x.sort_by_key()).keys_sorted
-    # a transposed conv runs the DG path too, which needs key-sorted input
-    # (with subm=True it is a subm conv, as in the JAX package); an inverse
-    # conv needs the key of the regular conv it inverts
-    conv = st.SparseConvolution(3, 3, 4, 3, stride=2, transposed=True,
-                                device="cpu")
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="key-sorted"):
-        conv(x)
     assert st.SparseConvolution(3, 3, 4, 3, subm=True, transposed=True,
                                 device="cpu").transposed
     with pytest.raises(ValueError, match="indice_key"):
         st.SparseConvolution(3, 3, 4, 3, inverse=True, device="cpu")
+    with pytest.raises(ValueError, match="algo"):
+        SubMConv3d(3, 4, 3, algo="implicit", device="cpu")(x)
 
 
 def test_sequential_masks_dense_ops():

@@ -2096,3 +2096,196 @@ def test_batchnorm_updated_on_card_matches_cpu(dev, dtype):
         np.testing.assert_allclose(
             getattr(bns["cuda"], name).cpu().numpy(),
             getattr(bns["cpu"], name).numpy(), rtol=1e-6, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the native rulebook path: the same kernels on a rulebook's pair tables
+# ---------------------------------------------------------------------------
+
+def _shuffled_input(seed, n, c, nbuf, shape=SHAPE, batch=1):
+    """Seeded features and coordinates in a random row order (inactive
+    rows among them): the rulebook's tables then index rows in no key
+    order."""
+    rng = np.random.RandomState(seed)
+    feats, inds = generate_sparse_data(shape, n, c, batch_size=batch,
+                                       rng=rng)
+    fb = np.zeros((nbuf, c), np.float32)
+    ib = np.full((nbuf, len(shape) + 1), -1, np.int32)
+    fb[:len(inds)] = feats
+    ib[:len(inds)] = inds
+    perm = rng.permutation(nbuf)
+    return torch.from_numpy(fb[perm]), torch.from_numpy(ib[perm])
+
+
+def _rulebooks(inds, dev):
+    """A subm, a strided and a transposed rulebook of ``inds`` built on
+    ``dev``."""
+    from spconv_tpu_torch.ops import rulebook as TR
+
+    inds = inds.to(dev)
+    geo = dict(spatial_shape=SHAPE, batch_size=1)
+    return {
+        "subm": TR.build_subm_rulebook(inds, ksize=KSIZE, dilation=DIL,
+                                       **geo),
+        "strided": TR.build_conv_rulebook(
+            inds, ksize=KSIZE, stride=(2, 2, 2), padding=(1, 1, 1),
+            dilation=DIL, **geo),
+        "transposed": TR.build_conv_rulebook(
+            inds, ksize=(2, 2, 2), stride=(2, 2, 2), padding=(0, 0, 0),
+            dilation=DIL, transposed=True, out_bound=8 * inds.shape[0],
+            **geo),
+    }
+
+
+@pytest.mark.parametrize("kind", ["subm", "strided", "transposed"])
+def test_rulebooks_on_card_equal_cpu(dev, kind):
+    """The rulebook builders (torch ops) on the card equal their CPU run,
+    integer for integer, on rows in no key order."""
+    _, inds = _shuffled_input(20, 3000, 4, 3072)
+    got, want = _rulebooks(inds, dev)[kind], _rulebooks(inds, "cpu")[kind]
+    for f in ("pair_fwd", "pair_bwd", "out_indices", "num_out",
+              "num_out_total"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_pool2_and_int64_rulebooks_on_card_equal_cpu(dev):
+    """The 2x pool rulebook, and a subm rulebook on a grid of int64 keys
+    ([160, 2048, 2048] at batch 4), on the card equal their CPU run."""
+    from spconv_tpu_torch.ops import rulebook as TR
+
+    _, inds = _shuffled_input(21, 3000, 4, 3072)
+    geo = dict(spatial_shape=SHAPE, batch_size=1)
+    got = TR.build_pool2_rulebook(inds.to(dev), **geo)
+    want = TR.build_pool2_rulebook(inds, **geo)
+    big = (160, 2048, 2048)
+    rng = np.random.RandomState(22)
+    pts = np.concatenate([rng.randint(0, 4, (2000, 1)),
+                          rng.randint(0, 6, (2000, 3)) + [80, 1020, 1020]],
+                         axis=1)
+    pts = torch.from_numpy(np.unique(pts, axis=0).astype(np.int32))
+    kw = dict(spatial_shape=big, batch_size=4, ksize=KSIZE, dilation=DIL)
+    got64 = TR.build_subm_rulebook(pts.to(dev), **kw)
+    want64 = TR.build_subm_rulebook(pts, **kw)
+    for a, b in ((got, want), (got64, want64)):
+        for f in ("pair_fwd", "pair_bwd", "out_indices", "num_out"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("kind", ["subm", "strided", "transposed"])
+def test_native_gather_gemm_kernels_match_plain(dev, dtype, tol, kind):
+    """B2 forward and dgrad and the wgrad kernel on a rulebook's tables
+    whose rows are in no key order (``path="native"``), against their
+    plain versions: forward and dgrad within the file's B2 tolerances,
+    wgrad within WGRAD_TOL (bf16) of max|ref|, over ``pair_bwd`` and over
+    ``pair_fwd`` (``wgrad_gather_mm`` without the mirror); each launch
+    counted under its ``*_native`` name."""
+    from spconv_tpu_torch.ops import gather_gemm as TG
+
+    c, k_out = 32, 48
+    feats, inds = _shuffled_input(23, 3000, c, 3072)
+    rec = _rulebooks(inds, dev)[kind]
+    kv = rec.pair_fwd.shape[0]
+    g = torch.Generator().manual_seed(24)
+    w = (torch.randn((kv, c, k_out), generator=g) / np.sqrt(kv * c)).to(
+        dev, dtype)
+    x = feats.to(dev, dtype)
+    dout = torch.randn((rec.pair_fwd.shape[1], k_out), generator=g)
+    dout = (dout * (rec.out_indices[:, :1].cpu() >= 0)).to(dev, dtype)
+    TD.reset_launch_counts()
+    cases = (
+        (TD.dg_fwd(x, w, rec.pair_fwd, path="native"),
+         TD.dg_fwd_plain(x, w, rec.pair_fwd), tol),
+        (TD.dg_dgrad(dout, w, rec.pair_bwd, path="native"),
+         TD.dg_dgrad_plain(dout, w, rec.pair_bwd), tol),
+        (TG.wgrad_gather_mm(x, dout, rec.pair_fwd, None,
+                            pair_bwd=rec.pair_bwd),
+         TD.dg_wgrad_plain(x, dout, rec.pair_bwd),
+         max(tol, WGRAD_TOL if dtype == torch.bfloat16 else 1e-4)),
+        (TG.wgrad_gather_mm(x, dout, rec.pair_fwd, None),
+         TD.dg_wgrad_plain(x, dout, rec.pair_bwd),
+         max(tol, WGRAD_TOL if dtype == torch.bfloat16 else 1e-4)),
+    )
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_native=1, dg_dgrad_native=1,
+                                       dg_wgrad_native=2)
+    for got, ref, t in cases:
+        ref = ref.float()
+        err = (got.float() - ref).abs().max().item()
+        assert err <= t * ref.abs().max().item(), err
+
+
+def test_native_b7_on_transposed_rulebook_bit_equal(dev):
+    """B7 (``dg_fwd_q``, ``path="native"``) on a transposed rulebook's
+    ``pair_fwd``, with bias, ReLU and the residual, bit-equal to its plain
+    version, and one ``dg_fwd_q_native`` launch."""
+    c, k_out = 32, 16
+    _, inds = _shuffled_input(25, 3000, c, 3072)
+    rec = _rulebooks(inds, dev)["transposed"]
+    rng = np.random.RandomState(26)
+    x = torch.from_numpy(rng.randint(-127, 128, (3072, c)).astype(
+        np.int8)).to(dev)
+    w = torch.from_numpy(rng.randint(-127, 128, (8, c, k_out)).astype(
+        np.int8)).to(dev)
+    scale = torch.from_numpy((rng.rand(k_out) / 3000).astype(
+        np.float32)).to(dev)
+    bias = torch.from_numpy(rng.randn(k_out).astype(np.float32)).to(dev)
+    n = rec.pair_fwd.shape[1]
+    add = torch.from_numpy(rng.randint(-127, 128, (n, k_out)).astype(
+        np.int8)).to(dev)
+    kw = dict(act="relu", add=add, add_scale=0.5)
+    TD.reset_launch_counts()
+    got = TD.dg_fwd_q(x, w, rec.pair_fwd, scale, bias, path="native", **kw)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_fwd_q_native=1)
+    want = TD.dg_fwd_q_plain(x, w, rec.pair_fwd, scale, bias, **kw)
+    assert torch.equal(got, want)
+
+
+def test_native_conv_step_on_card_matches_cpu(dev):
+    """A native subm + strided + inverse chain on unsorted input: forward
+    and a backward on the card against the same chain on the CPU (plain
+    versions), f32; the launches are the native route's only.  A native
+    subm forward runs under ``torch.cuda.set_sync_debug_mode("error")``:
+    the rulebook reads nothing back to the host."""
+    feats, inds = _shuffled_input(27, 3000, 8, 3072)
+
+    def chain(device):
+        g = torch.Generator().manual_seed(28)
+        return st.SparseSequential(
+            st.SubMConv3d(8, 16, 3, indice_key="s", algo="native",
+                          device=device, generator=g),
+            st.SparseConv3d(16, 16, 3, stride=2, padding=1, indice_key="d",
+                            algo="native", device=device, generator=g),
+            st.SparseInverseConv3d(16, 8, 3, indice_key="d", algo="native",
+                                   device=device, generator=g))
+
+    outs = {}
+    for device in ("cpu", dev):
+        net = chain(device)
+        x = st.SparseConvTensor(feats.to(device).clone().requires_grad_(),
+                                inds.to(device), SHAPE, 1)
+        TD.reset_launch_counts()
+        y = net(x)
+        (y.features ** 2).sum().backward()
+        if device == dev:
+            torch.cuda.synchronize()
+            assert TD.launch_counts == _counts(
+                dg_fwd_native=3, dg_dgrad_native=3, dg_wgrad_native=3)
+        outs[str(device)] = [y.features.detach().cpu(), x.features.grad.cpu()
+                             ] + [p.grad.cpu() for p in net.parameters()]
+    for got, ref in zip(outs[str(dev)], outs["cpu"]):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), err
+    conv = st.SubMConv3d(8, 16, 3, indice_key="s", algo="native",
+                         device=dev)
+    x = st.SparseConvTensor(feats.to(dev), inds.to(dev), SHAPE, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            conv(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -271,7 +271,10 @@ def test_inverse_grads_match_jax():
 def test_inverse_conv_refusals():
     """An inverse conv with no record under its key, another kernel size
     or another input grid or buffer raises ``ValueError``, and so does one
-    under a transposed conv's record."""
+    under a transposed conv's record.  An ``algo="sk"`` inverse conv whose
+    regular conv left only a ``__dgreg__`` record takes the native path on
+    the rulebook rebuilt from it, as the JAX package's does: the DG
+    inverse conv's result."""
     feats, inds, geom, bound, out_shape = _case("k3s2p1", c=4, seed=10)
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          geom["spatial_shape"], 1, keys_sorted=True)
@@ -292,11 +295,17 @@ def test_inverse_conv_refusals():
                                indice_dict=y.indice_dict, keys_sorted=True)
         with pytest.raises(ValueError, match="input buffer N"):
             SparseInverseConv3d(8, 4, 3, **kw)(cut)
-        # the record's own key namespace: "sk" reads __skreg__
-        with pytest.raises(ValueError, match="__skreg__d"):
-            SparseInverseConv3d(8, 4, 3, algo="sk", **kw)(y)
-        assert SparseInverseConv3d(8, 4, 3, **kw)(y).spatial_shape == \
-            tuple(geom["spatial_shape"])
+        # the record's own key namespace: "sk" reads __skreg__, and
+        # without one rebuilds the rulebook from __dgreg__
+        inv = SparseInverseConv3d(8, 4, 3, **kw)
+        sk_inv = SparseInverseConv3d(8, 4, 3, algo="sk", **kw)
+        sk_inv.load_state_dict(inv.state_dict())
+        got, want = sk_inv(y), inv(y)
+        assert want.spatial_shape == tuple(geom["spatial_shape"])
+        assert got.keys_sorted and torch.equal(got.indices, want.indices)
+        ref = want.features.numpy()
+        np.testing.assert_allclose(got.features.numpy(), ref, rtol=0,
+                                   atol=1e-6 * np.abs(ref).max())
     with torch.no_grad():
         t = SparseConvolution(3, 4, 8, 3, stride=2, padding=1,
                               transposed=True, indice_key="t",

@@ -147,9 +147,44 @@ def test_max_pool_module_keeps_sorted_and_counts():
     dict(kernel_size=2, stride=2, algo="native"),
 ])
 def test_other_pools_raise(kwargs):
-    """The pools the JAX package sends to its native rulebook path."""
-    with pytest.raises(NotImplementedError, match="native rulebook path"):
-        SparseMaxPool3d(**kwargs)
+    """The pools the JAX package sends to its native rulebook path now run
+    it in the port too, on integer-valued features (so maxima tie): sites,
+    counts and ``keys_sorted`` exactly, features and the grads of
+    ``sum(out * cot)`` within 1e-6 of max|ref| (ties split as ``jnp.max``
+    and ``jnp.maximum`` split them).  A subm pool of even kernel size
+    raises in both packages."""
+    import spconv_tpu
+
+    shape = (9, 10, 11)
+    feats, inds = _input(7, shape, 150, 3, 384, 1)
+    feats = np.round(feats * 2).astype(np.float32)
+    jm, tm = spconv_tpu.SparseMaxPool3d(**kwargs), SparseMaxPool3d(**kwargs)
+    jx = spconv_tpu.SparseConvTensor(jnp.asarray(feats), jnp.asarray(inds),
+                                     shape, 1)
+    tx = SparseConvTensor(torch.from_numpy(feats).requires_grad_(),
+                          torch.from_numpy(inds), shape, 1)
+    if kwargs.get("subm"):
+        with pytest.raises(AssertionError, match="odd"):
+            jm(jx)
+        with pytest.raises(ValueError, match="odd"):
+            tm(tx)
+        return
+    y = tm(tx)
+    ref = jm(jx)
+    np.testing.assert_array_equal(y.indices.numpy(), np.asarray(ref.indices))
+    assert int(y.num_voxels) == int(ref.num_voxels)
+    assert y.keys_sorted == ref.keys_sorted
+    if "indice_key" in kwargs:
+        assert y.indice_dict["p"].rank_slots
+    cot = np.random.RandomState(8).randn(*y.features.shape).astype(
+        np.float32)
+    (y.features * torch.from_numpy(cot)).sum().backward()
+    grad = jax.grad(lambda f: jnp.sum(
+        jm(jx.replace_feature(f)).features * cot))(jnp.asarray(feats))
+    for got, want in ((y.features, ref.features), (tx.features.grad, grad)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
 
 
 @pytest.mark.parametrize(

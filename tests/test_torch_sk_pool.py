@@ -390,17 +390,40 @@ def test_overflow_check_is_opt_in(monkeypatch):
 
 
 def test_sk_pool_refusals():
-    """Unsorted input under ``algo="sk"`` raises (the JAX route's rulebook
-    fallback is the native rulebook path) rather than taking the seg route;
-    ``sk_pool2`` checks its operands and has no route off the CPU but its
-    kernel."""
+    """Input that is not key-sorted under ``algo="sk"`` takes the JAX
+    route's fallback branch (the native pool over the 2x pool rulebook),
+    not the seg route: sites, features and the grad against the JAX
+    ``SparseAvgPool3d(algo="sk")`` on the same rows (its ``lax.cond``
+    fallback, in interpret mode), within 1e-6 of max|ref|.  ``sk_pool2``
+    checks its operands and has no route off the CPU but its kernel."""
     shape = (9, 21, 17)
     feats, inds = _sorted_input(11, shape, 100, 4, 128)
-    x = st.SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
-                            shape, 1)
-    with pytest.raises(NotImplementedError, match="native rulebook path"):
-        st.SparseAvgPool3d(2, 2, algo="sk")(x)
-    assert st.SparseAvgPool3d(2, 2, algo="sk")(x.sort_by_key()).keys_sorted
+    perm = np.random.RandomState(12).permutation(128)
+    feats, inds = feats[perm], inds[perm]
+    x = st.SparseConvTensor(torch.from_numpy(feats).requires_grad_(),
+                            torch.from_numpy(inds), shape, 1)
+    jx = spconv_tpu.SparseConvTensor(jnp.asarray(feats), jnp.asarray(inds),
+                                     shape, 1)
+    jpool = spconv_tpu.SparseAvgPool3d(2, 2, algo="sk")
+    y = st.SparseAvgPool3d(2, 2, algo="sk")(x)
+    cot = np.random.RandomState(13).randn(*y.features.shape).astype(
+        np.float32)
+    (y.features * torch.from_numpy(cot)).sum().backward()
+
+    def pool(f):
+        out = jpool(jx.replace_feature(f))
+        return out.features, out.indices
+
+    ref, vjp, ref_inds = jax.vjp(pool, jnp.asarray(feats), has_aux=True)
+    grad, = vjp(jnp.asarray(cot))
+    np.testing.assert_array_equal(y.indices.numpy(), np.asarray(ref_inds))
+    assert y.keys_sorted
+    for got, want in ((y.features, ref), (x.features.grad, grad)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                                   atol=1e-6 * np.abs(want).max())
+    assert st.SparseAvgPool3d(2, 2, algo="sk")(
+        x.sort_by_key()).keys_sorted
     in_keys, out_keys = _port_keys(inds, shape, 1, 128)
     kw = dict(in_shape=shape, out_shape=_out_shape(shape), batch_size=1)
     with pytest.raises(ValueError, match="float32 or bfloat16"):

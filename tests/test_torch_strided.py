@@ -18,7 +18,7 @@ from spconv_tpu.ops.pallas.sorted_conv import \
     sk_regular_conv as jax_sk_regular
 from spconv_tpu.ops.rulebook import build_conv_outputs as jax_outputs
 
-from spconv_tpu_torch import SparseConv3d, SparseConvTensor
+from spconv_tpu_torch import IndiceData, SparseConv3d, SparseConvTensor
 from spconv_tpu_torch.ops import coords as TC
 from spconv_tpu_torch.ops import dg_conv as TD
 from spconv_tpu_torch.ops.rulebook import build_conv_outputs
@@ -227,9 +227,10 @@ def test_strided_sk_conv_matches_jax_sk_regular(name):
 def test_regular_record_reuse_and_refusals():
     """A second layer under the same key reuses the record only on equal
     geometry and leaves it as it is otherwise; the cached encoder input is
-    there for an inverse conv; unsorted input is refused.  With a
-    gradient wanted the layer also caches the divide table, the exact
-    inverse of the affine one, and its backward runs through it."""
+    there for an inverse conv; input not flagged key-sorted takes the
+    native path (held against the JAX module within 1e-5 of max|ref|).
+    With a gradient wanted the layer also caches the divide table, the
+    exact inverse of the affine one, and its backward runs through it."""
     feats, inds, geom, bound, _ = _case("k3s2p1", c=4, seed=5)
     x = SparseConvTensor(torch.from_numpy(feats), torch.from_numpy(inds),
                          geom["spatial_shape"], 1, keys_sorted=True)
@@ -276,7 +277,25 @@ def test_regular_record_reuse_and_refusals():
     assert a.weight.grad.abs().max() > 0
     assert xg.features.grad.abs().max() > 0
     assert not xg.features.grad[~x.valid_mask].any()
-    unsorted = SparseConvTensor(x.features, x.indices, x.spatial_shape, 1)
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match="key-sorted"):
-        a(unsorted)
+    import spconv_tpu
+    from spconv_tpu.checkpoint import load_state_dict
+
+    perm = torch.from_numpy(np.random.RandomState(6).permutation(
+        x.indices.shape[0]))
+    unsorted = SparseConvTensor(x.features[perm], x.indices[perm],
+                                x.spatial_shape, 1)
+    jm = load_state_dict(
+        spconv_tpu.SparseConv3d(4, 8, 3, stride=2, padding=1,
+                                indice_key="d"),
+        {k: v.detach().numpy() for k, v in a.state_dict().items()})
+    ref = jm(spconv_tpu.SparseConvTensor(
+        jnp.asarray(unsorted.features.numpy()),
+        jnp.asarray(unsorted.indices.numpy()), x.spatial_shape, 1))
+    with torch.no_grad():
+        got = a(unsorted)
+    assert isinstance(got.indice_dict["d"], IndiceData)
+    np.testing.assert_array_equal(got.indices.numpy(),
+                                  np.asarray(ref.indices))
+    want = np.asarray(ref.features)
+    np.testing.assert_allclose(got.features.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())

@@ -30,6 +30,7 @@ import spconv_tpu_torch as st
 from spconv_tpu_torch.checkpoint import load_jax_state_dict
 from spconv_tpu_torch.ops import coords as TC
 from spconv_tpu_torch.ops import dg_conv as TD
+from spconv_tpu_torch.ops import rulebook as TR
 from spconv_tpu_torch.ops.rulebook import build_deconv_outputs
 from spconv_tpu_torch.quantization import quantize as tq
 
@@ -220,7 +221,8 @@ def test_transposed_record_reuse_and_refusals():
     reuses the record and its tables; a regular conv whose hyperparameters
     and output grid are the same (k3 s1 p1) does not read it, nor does a
     transposed conv read a regular record; an inverse conv under a
-    transposed record raises."""
+    transposed record raises; ``algo="native"`` runs the native path,
+    held against the JAX module's."""
     feats, inds, geom, _ = _case("k3s1p1", c=4, seed=4)
     _, x = _tensors(feats, inds, geom)
     kw = dict(stride=1, padding=1, indice_key="t", device="cpu")
@@ -254,27 +256,73 @@ def test_transposed_record_reuse_and_refusals():
         with pytest.raises(ValueError, match="transposed"):
             st.SparseInverseConv3d(4, 4, 3, indice_key="t",
                                    device="cpu")(y)
-        with pytest.raises(NotImplementedError, match="native"):
-            st.SparseConvTranspose3d(4, 4, 3, algo="native",
-                                     device="cpu")(x)
+        jm, native = _modules("k3s1p1", 4, 4, "native")
+        native.algo = "native"
+        got, ref = native(x), jm(_tensors(feats, inds, geom)[0])
+        np.testing.assert_array_equal(got.indices.numpy(),
+                                      np.asarray(ref.indices))
+        _close(got.features, ref.features, F32_TOL)
     assert "transposed=True" in repr(first)
 
 
 def test_int8_transposed_conv_refused():
-    """An int8 transposed conv runs the JAX package's CPU gather route, the
-    native rulebook path, which is not ported: ``convert_to_int8`` on a
-    chain that holds one raises rather than run a strided conv's table on
-    the expanded grid, and so does ``dg_fwd_q`` on the transposed path.
-    The table builders and ``dg_regular_conv`` take only the regular
-    conv's three paths."""
+    """The int8 transposed conv runs the native route (B7 on its
+    rulebook's ``pair_fwd``): ``convert_to_int8`` converts a chain that
+    holds one, and an int8 ``SparseConvTranspose3d`` is bit-equal to the
+    kernel route's formula on the rulebook and within one step on at most
+    1 % of entries of the JAX package's native route.  ``dg_fwd_q`` still
+    refuses the transposed path, and the table builders and
+    ``dg_regular_conv`` take only the regular conv's three paths."""
+    from spconv_tpu.quantization import quantize as jq
+
     feats, inds, geom, _ = _case("k2s2p0", c=4, seed=9)
     _, x = _tensors(feats, inds, geom)
     seq = st.SparseSequential(
         st.SubMConv3d(4, 4, 3, indice_key="s", device="cpu"),
         st.SparseConvTranspose3d(4, 4, 2, stride=2, device="cpu"))
     fused, observers = tq.calibrate(seq, [x])
-    with pytest.raises(NotImplementedError, match="native rulebook path"):
-        tq.convert_to_int8(fused, observers)
+    qseq = tq.convert_to_int8(fused, observers)
+    with torch.no_grad():
+        y = qseq(x.replace_feature(tq.quantize_tensor(x.features,
+                                                      observers[0].scale)))
+    assert y.features.dtype == torch.int8 and y.keys_sorted
+
+    jc = spconv_tpu.SparseConvTranspose3d(8, 16, 2, stride=2)
+    tc = load_jax_state_dict(
+        st.SparseConvTranspose3d(8, 16, 2, stride=2, device="cpu"),
+        state_dict(jc))
+    rng = np.random.RandomState(10)
+    w_scale = (np.abs(rng.randn(16)) / 100 + 1e-3).astype(np.float32)
+    jq8 = jq.QuantizedSparseConv(jc, w_scale, 0.05, 0.04)
+    tq8 = tq.QuantizedSparseConv(tc, w_scale, 0.05, 0.04)
+    q_in = rng.randint(-127, 128, size=(inds.shape[0], 8)).astype(np.int8)
+    q_in[inds[:, 0] < 0] = 0
+    jx, tx = _tensors(q_in, inds, geom, torch.int8, jnp.int8)
+    ref = jq8(jx)
+    with torch.no_grad():
+        got = tq8(tx)
+    np.testing.assert_array_equal(got.indices.numpy(),
+                                  np.asarray(ref.indices))
+    pf = TR.build_conv_rulebook(
+        torch.from_numpy(inds), ksize=(2, 2, 2), stride=(2, 2, 2),
+        padding=(0, 0, 0), dilation=(1, 1, 1), transposed=True,
+        out_bound=got.indices.shape[0], spatial_shape=geom["spatial_shape"],
+        batch_size=1).pair_fwd.numpy()
+    wkv = tq8.weight_kv.numpy().astype(np.int64)
+    acc = np.zeros((pf.shape[1], 16), np.int64)
+    for k in range(8):
+        hit = pf[k] >= 0
+        acc[hit] += q_in[pf[k, hit]].astype(np.int64) @ wkv[k]
+    want = np.clip(np.rint((acc.astype(np.float32) * tq8.scale_q.numpy())
+                           + tq8.bias_q.numpy()), -127, 127).astype(np.int8)
+    want[got.indices.numpy()[:, 0] < 0] = 0
+    np.testing.assert_array_equal(got.features.numpy(), want)
+    diff = np.abs(got.features.numpy().astype(np.int32)
+                  - np.asarray(ref.features, np.int32))
+    print(f"int8 transposed: {int((diff > 0).sum())} of {diff.size} "
+          "entries differ from the JAX native route")
+    assert diff.max() <= 1 and (diff > 0).mean() <= 0.01
+
     x8 = torch.zeros((4, 4), dtype=torch.int8)
     with pytest.raises(ValueError, match="transposed"):
         TD.dg_fwd_q(x8, torch.zeros((8, 4, 4), dtype=torch.int8),
@@ -431,16 +479,22 @@ def test_load_jax_state_dict_carries_transposed_weights(ndim):
 
 def test_expanded_grid_past_int32_keys_raises():
     """The chain's transposed conv at batch 4: the input grid ``[80, 1024,
-    1024]`` fits one-word keys, its expanded ``[160, 2048, 2048]`` grid
-    (671,088,640 keys a batch item) does not; the port raises its
-    two-word-key error rather than overflow (one int64 key is still to
-    come)."""
-    inds = torch.tensor([[b, 3, 5, 7] for b in range(4)], dtype=torch.int32)
-    x = st.SparseConvTensor(torch.ones((4, 2)), inds, (80, 1024, 1024), 4,
-                            keys_sorted=True)
-    conv = st.SparseConvTranspose3d(2, 2, 2, stride=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="two-word keys"):
-        conv(x)
-    x1 = st.SparseConvTensor(torch.ones((1, 2)), inds[:1], (80, 1024, 1024),
-                             1, keys_sorted=True)
-    assert conv(x1).spatial_shape == (160, 2048, 2048)
+    1024]`` fits int32 keys, its expanded ``[160, 2048, 2048]`` grid
+    (671,088,640 keys a batch item) does not, so the conv takes the native
+    path on int64 keys, as the JAX module takes it on two-word keys: sites
+    and features against it.  At batch 1 the DG path serves it."""
+    inds = np.array([[b, 3, 5, 7] for b in range(4)], np.int32)
+    feats = np.random.RandomState(11).randn(4, 2).astype(np.float32)
+    geom = dict(spatial_shape=(80, 1024, 1024), batch_size=4)
+    jm, conv = _modules("k2s2p0", 2, 2, "native")
+    jx, x = _tensors(feats, inds, geom)
+    with torch.no_grad():
+        y = conv(x)
+        ref = jm(jx)
+        assert y.spatial_shape == (160, 2048, 2048)
+        np.testing.assert_array_equal(y.indices.numpy(),
+                                      np.asarray(ref.indices))
+        _close(y.features, ref.features, F32_TOL)
+        x1 = st.SparseConvTensor(x.features[:1], x.indices[:1],
+                                 (80, 1024, 1024), 1, keys_sorted=True)
+        assert conv(x1).spatial_shape == (160, 2048, 2048)
