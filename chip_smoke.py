@@ -141,7 +141,20 @@ line is printed):
    keys) against a plain run; an int8 ``SparseConvTranspose3d(64, 32, 2,
    s2)`` bit-equal to plain; a native forward under
    ``torch.cuda.set_sync_debug_mode("error")``;
-15. prints a JSON line of the kernels, each with its bound (the least time
+15. raw point clouds: ``synthetic_centerpoint_points(0..2)`` voxelized on
+   the card with the JAX loader's ``PointToVoxel`` (coordinates equal to
+   the stand-in scans' sites, all five outputs bit-equal to the CPU, CUDA-
+   event ms, a profiler window, peak memory); three points -> BEV
+   requests through phase 6's bf16 encoder (launch counts, the BEV against
+   a ``plain_kernels`` run at the bf16 kernel gate, host ms, device busy,
+   idle share, peak memory, the voxelizer's share); a layer's output
+   mapped back to the points against a numpy gather; ``sparse_add``,
+   ``RemoveDuplicate`` (then a subm conv on B1 + B2), a ``HashTable`` and
+   ``rotate_nms`` of 500 boxes against the same calls on the CPU; the
+   ``voxel_gen``, ``fuse_bn_act`` and ``int8_ptq_encoder`` examples on the
+   card against the CPU; the encoder saved and loaded through an npz
+   checkpoint and served bit-equal;
+16. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -366,6 +379,29 @@ def device_busy(torch, fn, reps):
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
     return wall, (busy or None), len(ops)
+
+
+def device_ops_by_time(torch, fn, reps):
+    """``[(name, device us, count)]`` of the device ops of ``reps`` calls
+    of ``fn`` after one warm-up, in a ``torch.profiler`` window, the most
+    time first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    return sorted(((n[:60], us, k) for n, (us, k) in by_name.items()),
+                  key=lambda r: -r[1])
 
 
 def peak_mib(torch, fn):
@@ -3507,6 +3543,319 @@ def native_phase(torch, dev, gen, scans, geo, bounds, served, tables, revs,
     return launches, q_launches, q_tally
 
 
+# per served points -> BEV request: the voxelizer and the tensor build are
+# torch ops (no kernel); the encoder launches phase 6's kernels
+POINTS_LAUNCHES = CP_LAUNCHES
+CP_BEV_SHAPE = (1, 512, 128, 128)  # [B, C * D, H, W] of the encoder
+# boxes for rotate_nms: 500 seeded (cx, cy, w, h, yaw) over a 100 m square
+NMS_BOXES = 500
+NMS_THRESH = 0.2
+VOXEL_OUTPUTS = ("voxels", "coords", "num_per_voxel", "pc_voxel_id",
+                 "num_voxels")
+
+
+def points_phase(torch, dev, cp_in, cp_net, cp_bounds):
+    """Phase 15: raw point clouds on the card.  Voxelizes
+    ``synthetic_centerpoint_points(seed)`` with the JAX loader's
+    ``PointToVoxel`` (coordinates equal to the stand-in scans' sites in
+    ``cp_in``, every output bit-equal to the CPU's, timed); serves three
+    points -> BEV requests through phase 6's calibrated bf16 encoder
+    ``cp_net`` (launch counts, the BEV against a ``plain_kernels`` run,
+    host ms, busy, idle and peak memory, the voxelizer's share); maps a
+    layer's output back to the points; runs ``sparse_add``,
+    ``RemoveDuplicate`` (feeding a subm conv on B1 + B2), a ``HashTable``,
+    ``rotate_nms`` and the three ported examples on the card against the
+    same calls on the CPU; and round-trips the encoder through
+    ``save_checkpoint`` / ``load_checkpoint`` (``cp_bounds``: its buffers),
+    bit-equal.  Returns ``{path: launches}``."""
+    import tempfile
+
+    import numpy as np
+
+    import spconv_tpu_torch as st
+    from spconv_tpu_torch.benchmark import centerpoint as CPB
+    from spconv_tpu_torch.calibrate import apply_out_bounds
+    from spconv_tpu_torch.examples import fuse_bn_act as FB
+    from spconv_tpu_torch.examples import int8_ptq_encoder as IP
+    from spconv_tpu_torch.examples import voxel_gen as VG
+    from spconv_tpu_torch.models import centerpoint_encoder
+    from spconv_tpu_torch.ops import coords as C
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.utils import (PointToVoxel, boxops,
+                                        gather_features_by_pc_voxel_id)
+
+    launches = {}
+    args = (CPB.CP_VSIZE, CPB.CP_RANGE, 3, CPB.CP_MAX_VOXELS, 1)
+    gen, gen_cpu = PointToVoxel(*args, device=dev), PointToVoxel(
+        *args, device="cpu")
+    lo, hi = np.array(CPB.CP_RANGE[:3]), np.array(CPB.CP_RANGE[3:])
+
+    # ---- voxelize: the stand-in's sites, the card against the CPU
+    t0 = time.perf_counter()
+    clouds = {s: CPB.synthetic_centerpoint_points(s) for s in REQUEST_SEEDS}
+    print(f"CenterPoint point clouds: {time.perf_counter() - t0:.2f} s on "
+          f"the host, {[len(clouds[s]) for s in REQUEST_SEEDS]} points")
+    pts = {s: torch.from_numpy(p).to(dev) for s, p in clouds.items()}
+    for s in REQUEST_SEEDS:
+        got = gen.generate_voxel_with_id(pts[s])
+        want = gen_cpu.generate_voxel_with_id(clouds[s])
+        for name, g, w in zip(VOXEL_OUTPUTS, got, want):
+            check(g.device == dev and torch.equal(g.cpu(), w),
+                  f"voxelizer seed {s}: {name} on the card differs from the "
+                  "CPU's")
+        nv, n_site = int(got[4]), int(cp_in[s].num_voxels)
+        sites = cp_in[s].indices[:n_site, 1:]
+        check(nv == n_site and torch.equal(got[1][:nv], sites)
+              and bool((got[1][nv:] == -1).all()),
+              f"voxelizer seed {s}: {nv} voxels, not the stand-in scan's "
+              f"{n_site} sites")
+        outside = ~((clouds[s] >= lo) & (clouds[s] < hi)).all(1)
+        vid = got[3].cpu().numpy()
+        check(np.array_equal(vid < 0, outside),
+              f"voxelizer seed {s}: dropped points are not those outside "
+              "the range")
+        print(f"voxelize seed={s}: {len(clouds[s])} points ({outside.sum()} "
+              f"outside the range) -> {nv} voxels, the stand-in scan's "
+              f"sites; all five outputs bit-equal to the CPU")
+
+    def voxelize():
+        return gen.generate_voxel_with_id(pts[0])
+
+    n_pts = len(clouds[0])
+    vox_ms = cuda_ms(torch, voxelize, 10)
+    vox_win = device_busy(torch, voxelize, 3)
+    print("voxelizer's device time by op over 3 calls (profiler): " + "; ".join(
+        f"{name} {us / 1e3:.4f} ms x{k}"
+        for name, us, k in device_ops_by_time(torch, voxelize, 3)[:8]))
+    vox_peak, _ = peak_mib(torch, voxelize)
+    m = CPB.CP_MAX_VOXELS
+    # each input read once, each output written once: the points, the
+    # [M, 1, 3] voxels, [M, 3] coords, [M] counts, [N] ids and the count
+    vox_bound = bound(4 * (3 * n_pts + 3 * m + 3 * m + m + n_pts + 1))
+    print(f"voxelizer ({n_pts} points -> {int(voxelize()[4])} voxels, cap "
+          f"{m}): {vox_ms:.4f} ms a call (CUDA events, 10 calls); "
+          + busy_text(*vox_win[:2], 3, "a call", vox_win[2])
+          + f"; peak +{vox_peak:.1f} MiB; bytes bound {vox_bound[0]:.4f} ms")
+
+    # ---- serve points -> BEV through phase 6's encoder
+    def request(s):
+        x, _ = CPB.voxelized_centerpoint_input(
+            points=pts[s], dtype=torch.bfloat16, device=dev)
+        return cp_net.bev(x), x
+
+    with torch.inference_mode():
+        request(0)  # warm-up
+        torch.cuda.synchronize()
+        D.reset_launch_counts()
+        req_ms = {}
+        for s in REQUEST_SEEDS:
+            t0 = time.perf_counter()
+            bev, x = request(s)
+            torch.cuda.synchronize()
+            req_ms[s] = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(x.indices, cp_in[s].indices)
+                  and x.spatial_shape == cp_in[s].spatial_shape,
+                  f"points request {s}: the voxelized tensor's rows differ "
+                  "from phase 6's scan")
+            check(tuple(bev.shape) == CP_BEV_SHAPE
+                  and bev.dtype == torch.bfloat16
+                  and bool(torch.isfinite(bev).all()) and bool(bev.any()),
+                  f"points request {s}: bev {tuple(bev.shape)} {bev.dtype}, "
+                  "not finite or all 0")
+        launches["points -> BEV, 3 requests"] = dict(D.launch_counts)
+        want = expected(D, **{k: len(REQUEST_SEEDS) * v
+                              for k, v in POINTS_LAUNCHES.items()})
+        check(launches["points -> BEV, 3 requests"] == want,
+              f"points -> BEV launches {D.launch_counts}, expected {want}")
+        for s in REQUEST_SEEDS:
+            bev, _ = request(s)
+            with plain_kernels(D):
+                ref, _ = request(s)  # its own tensor: no cached table
+            _, r = rel_err(torch, bev, ref)
+            check(r <= TOL["bfloat16"], f"points request {s}: bev against "
+                  f"plain {r:.3e} > {TOL['bfloat16']} of max|ref|")
+            print(f"points request seed={s} ms={req_ms[s]:.3f} bev "
+                  f"{tuple(bev.shape)} bf16_rel_vs_plain={r:.3e}")
+        req_win = device_busy(torch, lambda: request(0), 3)
+        req_peak, req_base = peak_mib(torch, lambda: request(0))
+        enc_x, _ = CPB.voxelized_centerpoint_input(
+            points=pts[0], dtype=torch.bfloat16, device=dev)
+        enc_win = device_busy(torch, lambda: cp_net.bev(enc_x), 3)
+    print("points -> BEV request (voxelizer, tensor build, bf16 encoder): "
+          + busy_text(*req_win[:2], 3, "a request", req_win[2])
+          + f"; peak +{req_peak:.1f} MiB (above {req_base:.1f}); encoder "
+          "alone on the same tensor: "
+          + busy_text(*enc_win[:2], 3, "a request", enc_win[2])
+          + (f"; the voxelizer's share of the request's device busy "
+             f"{100 * vox_win[1] / req_win[1]:.1f} %"
+             if vox_win[1] and req_win[1] else ""))
+
+    # ---- a layer's output mapped back to the points
+    with torch.inference_mode():
+        got = gen.generate_voxel_with_id(pts[0])
+        y = cp_net.conv_input(enc_x).features
+        per_point = gather_features_by_pc_voxel_id(y, got[3], -1.0)
+    f = y.float().cpu().numpy()
+    vid = got[3].cpu().numpy()
+    want = np.where(vid[:, None] >= 0, f[np.maximum(vid, 0)], -1.0)
+    check(np.array_equal(per_point.float().cpu().numpy(), want),
+          "gather_features_by_pc_voxel_id differs from a numpy gather")
+    print(f"conv_input's {tuple(y.shape)} output mapped to {n_pts} points: "
+          f"equal to a numpy gather, {(vid < 0).sum()} out-of-range points "
+          "at invalid_value -1")
+
+    # ---- the other modules, each on the card against the CPU
+    def cpu(x):
+        return st.SparseConvTensor(x.features.cpu(), x.indices.cpu(),
+                                   x.spatial_shape, x.batch_size,
+                                   keys_sorted=x.keys_sorted)
+
+    def same(a, b, what):
+        for name in ("features", "indices", "num_voxels"):
+            check(torch.equal(getattr(a, name).cpu(), getattr(b, name)),
+                  f"{what}: {name} on the card differs from the CPU's")
+
+    a = cp_in[0]
+    inds = a.indices.clone()
+    inds[:, 3] += 1  # one voxel along x; rows pushed off the grid drop
+    off = (a.indices[:, 0] < 0) | (inds[:, 3] >= a.spatial_shape[2])
+    inds[off] = -1
+    b = st.SparseConvTensor(torch.where(off[:, None], 0.0, a.features * 2),
+                            inds, a.spatial_shape, 1)
+    t0 = time.perf_counter()
+    s_add = st.sparse_add(a, b)
+    torch.cuda.synchronize()
+    add_ms = (time.perf_counter() - t0) * 1e3
+    same(s_add, st.sparse_add(cpu(a), cpu(b)), "sparse_add")
+    print(f"sparse_add of the scan and its copy shifted one voxel: "
+          f"{int(s_add.num_voxels)} sites in {s_add.indices.shape[0]} rows, "
+          f"{add_ms:.3f} ms host; bit-equal to the CPU")
+
+    g = torch.Generator().manual_seed(0)
+    n_act = int(a.num_voxels)
+    dup = torch.randperm(n_act, generator=g)[:n_act // 10].to(dev)
+    perm = torch.randperm(a.indices.shape[0] + dup.shape[0],
+                          generator=g).to(dev)
+    xd = st.SparseConvTensor(
+        torch.cat([a.features, a.features[dup] - 1.0])[perm],
+        torch.cat([a.indices, a.indices[dup]])[perm], a.spatial_shape, 1)
+    dedup = st.RemoveDuplicate()(xd)
+    same(dedup, st.RemoveDuplicate()(cpu(xd)), "RemoveDuplicate")
+    check(int(dedup.num_voxels) == n_act and dedup.keys_sorted,
+          "RemoveDuplicate did not keep one row a site")
+    conv = st.SubMConv3d(5, 16, 3, indice_key="dedup", device=dev,
+                         generator=torch.Generator().manual_seed(1))
+    conv_cpu = st.SubMConv3d(5, 16, 3, indice_key="dedup", device="cpu",
+                             generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        D.reset_launch_counts()
+        yd = conv(dedup)
+        torch.cuda.synchronize()
+        launches["RemoveDuplicate + subm conv"] = dict(D.launch_counts)
+        check(dict(D.launch_counts) == expected(D, dg_pos=1, dg_fwd=1),
+              f"subm conv after RemoveDuplicate: launches {D.launch_counts}")
+        _, r = rel_err(torch, yd.features.cpu(),
+                       conv_cpu(cpu(dedup)).features)
+    check(r <= TOL["float32"], f"subm conv after RemoveDuplicate: {r:.3e} "
+          "of max|ref| from the CPU")
+    print(f"RemoveDuplicate of the scan with {dup.shape[0]} rows repeated: "
+          f"{n_act} sites kept, bit-equal to the CPU; a subm conv on it "
+          f"(B1 + B2) within {r:.3e} of max|ref| of the CPU's")
+
+    keys, _ = C.linearize(a.indices, a.spatial_shape, 1)
+    keys = keys[:n_act]
+    queries = torch.cat([keys, keys + 1])
+    tables = []
+    for device in (dev, "cpu"):
+        t = st.HashTable(1 << 18, device=device).insert(
+            keys.to(device), torch.arange(n_act, dtype=torch.int32,
+                                          device=device))
+        tables.append([v.cpu() for v in (*t.query(queries.to(device)),
+                                         *t.items())])
+    check(all(torch.equal(p, q) for p, q in zip(*tables)),
+          "HashTable on the card differs from the CPU's")
+    check(int(tables[0][4]) == n_act and not bool(tables[0][1][:n_act].any()),
+          "HashTable lost keys")
+    print(f"HashTable of the scan's {n_act} keys, queried with them and "
+          f"{n_act} others: bit-equal to the CPU, "
+          f"{int((~tables[0][1]).sum())} found")
+
+    rng = np.random.RandomState(0)
+    boxes = np.concatenate([rng.uniform(-50, 50, (NMS_BOXES, 2)),
+                            rng.uniform(1, 6, (NMS_BOXES, 2)),
+                            rng.uniform(-np.pi, np.pi, (NMS_BOXES, 1))], 1)
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    scores = torch.from_numpy(rng.rand(NMS_BOXES).astype(np.float32))
+    t0 = time.perf_counter()
+    keep = boxops.rotate_nms(boxes.to(dev), scores.to(dev), NMS_THRESH)
+    torch.cuda.synchronize()
+    nms_ms = (time.perf_counter() - t0) * 1e3
+    keep_cpu = boxops.rotate_nms(boxes, scores, NMS_THRESH)
+    check(torch.equal(keep.cpu(), keep_cpu)
+          and 0 < int(keep_cpu.sum()) < NMS_BOXES,
+          "rotate_nms keep mask on the card differs from the CPU's")
+    _, r = rel_err(torch, boxops.rbbox_iou(boxes.to(dev), boxes.to(dev)),
+                   boxops.rbbox_iou(boxes, boxes).to(dev))
+    print(f"rotate_nms of {NMS_BOXES} boxes: {int(keep.sum())} kept, the "
+          f"keep mask equal to the CPU's, {nms_ms:.3f} ms host; IoU within "
+          f"{r:.3e} of max")
+
+    # ---- the ported examples, on the card against the CPU
+    D.reset_launch_counts()
+    vg = VG.main(device=dev)
+    torch.cuda.synchronize()
+    launches["examples.voxel_gen"] = dict(D.launch_counts)
+    _, r_vg = rel_err(torch, vg.cpu(), VG.main(device="cpu"))
+    D.reset_launch_counts()
+    fb = FB.main(device=dev)
+    torch.cuda.synchronize()
+    launches["examples.fuse_bn_act"] = dict(D.launch_counts)
+    fb_cpu = FB.main(device="cpu")
+    r_fb = max(rel_err(torch, p.cpu(), q)[1] for p, q in zip(fb, fb_cpu))
+    D.reset_launch_counts()
+    ip = IP.main(device=dev)
+    torch.cuda.synchronize()
+    launches["examples.int8_ptq_encoder"] = dict(D.launch_counts)
+    ip_cpu = IP.main(device="cpu")
+    _, r_ip = rel_err(torch, ip[0].cpu(), ip_cpu[0])
+    steps = (ip[1].cpu() - ip_cpu[1]).abs() / ip_cpu[3]
+    check(launches["examples.voxel_gen"] == expected(D, dg_pos=1, dg_fwd=1)
+          and launches["examples.fuse_bn_act"].get("dg_fwd_native", 0) > 0
+          and launches["examples.int8_ptq_encoder"].get("dg_fwd_q", 0) > 0,
+          f"examples' launches {launches}")
+    check(max(r_vg, r_fb, r_ip) <= NET_F32_TOL,
+          f"examples on the card against the CPU: voxel_gen {r_vg:.3e}, "
+          f"fuse_bn_act {r_fb:.3e}, int8_ptq_encoder fp {r_ip:.3e} > "
+          f"{NET_F32_TOL} of max|ref|")
+    # scales observed through B2 on the card and the plain version on the
+    # CPU may differ in the last bit, so a rounding tie may land one step
+    # apart, and the layers after carry it on
+    check(float(steps.max()) <= 2 + 1e-3
+          and float((steps > 1e-3).float().mean()) <= QAT_TIE_SHARE,
+          f"int8_ptq_encoder's int8 output on the card vs the CPU: "
+          f"{float(steps.max()):.3f} steps max")
+    print(f"examples on the card vs the CPU: voxel_gen per-point features "
+          f"{r_vg:.3e} of max|ref|; fuse_bn_act {r_fb:.3e}; int8_ptq_encoder "
+          f"fp {r_ip:.3e}, int8 {float(steps.max()):.3f} steps max, L2 error "
+          f"{ip[2]:.4f} (CPU {ip_cpu[2]:.4f})")
+
+    # ---- checkpoints: the encoder through an npz, served bit-equal
+    net2 = apply_out_bounds(centerpoint_encoder(
+        in_channels=5, bn=False, device=dev, seed=1).eval(), cp_bounds).to(
+            torch.bfloat16)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/centerpoint.npz"
+        st.save_checkpoint(cp_net, path)
+        st.load_checkpoint(net2, path)
+    with torch.inference_mode():
+        same_bev = torch.equal(cp_net.bev(enc_x), net2.bev(enc_x))
+    check(same_bev, "the encoder loaded from its checkpoint serves another "
+          "BEV")
+    print("checkpoint: the bf16 encoder saved, loaded into a net of other "
+          "weights and served: BEV bit-equal")
+    return launches
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
@@ -4286,7 +4635,14 @@ def main():
         torch, dev, gen, scans, geo, bounds, served, tables, revs, cp_in,
         note)
 
-    # ---- 15. report --------------------------------------------------
+    # ---- 15. raw point clouds: the voxelizer, points -> BEV, the rest --
+    points_launches = points_phase(torch, dev, cp_in, cp_net, cp_bounds)
+    print("phase 15 launches (each path counted on its own; the kernels "
+          "line below keeps the counts of phases 3-12 and 14): " + "; ".join(
+              f"{path} { {k: v for k, v in c.items() if v} }"
+              for path, c in points_launches.items()))
+
+    # ---- 16. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, library_ms=None,
             **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against

@@ -28,8 +28,15 @@ small modules (``Lambda``, ``ToDense``, ``SparseSigmoid`` and the rest),
 Input that is not key-sorted, ``algo="native"``, grids whose keys need
 int64, keyed, subm and other pools, and the int8 transposed conv take the
 native rulebook path (``ops.rulebook`` builds the JAX package's rulebooks,
-whose pair tables the same kernels run).  ``tools`` runs the JAX
-package's ``tools/`` probe scripts on the card (``ops.probes``).
+whose pair tables the same kernels run).  Raw point clouds come in
+through the voxelizer (``utils.PointToVoxel``, ``ops.point2voxel``); the
+smaller ops ``sparse_add``, ``RemoveDuplicate`` and ``HashTable``,
+checkpoints (``checkpoint``: npz, reference state dicts in any weight
+layout, JAX state dicts), box ops (``utils.boxops``), the point-cloud codec
+(``utils.pcc``) and the JAX package's other examples
+(``examples.voxel_gen``, ``fuse_bn_act``, ``int8_ptq_encoder``) come with
+it.  ``tools`` runs the JAX package's ``tools/`` probe scripts on the card
+(``ops.probes``).
 Constructors, input builders and the probes put their tensors on the CUDA
 card unless given ``device``.
 See ROADMAP.md for what is still to come.
@@ -37,15 +44,18 @@ See ROADMAP.md for what is still to come.
 
 __version__ = "0.1.0"
 
-from . import (calibrate, checkpoint, constants, debug_utils, models, ops,
-               quantization)
-from .checkpoint import load_jax_state_dict
+from . import (calibrate, checkpoint, constants, debug_utils, functional,
+               hash, models, ops, quantization, utils)
+from .checkpoint import (load_checkpoint, load_jax_state_dict,
+                         load_torch_state_dict, save_checkpoint)
 from .core import (IndiceData, SparseConvTensor, default_device, expand_nd,
                    scatter_nd)
+from .functional import sparse_add
+from .hash import HashTable
 from .models import SparseUNet
 from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
                       Identity, JoinTable, Lambda, PrintCurrentTime,
-                      PrintTensorMeta, SparseAvgPool, SparseAvgPool1d,
+                      PrintTensorMeta, RemoveDuplicate, SparseAvgPool, SparseAvgPool1d,
                       SparseAvgPool2d, SparseAvgPool3d, SparseBatchNorm,
                       SparseConv1d, SparseConv2d, SparseConv3d, SparseConv4d,
                       SparseConvolution, SparseConvTranspose1d,
@@ -112,14 +122,23 @@ __all__ = [
     "PrintTensorMeta",
     "PrintCurrentTime",
     "assign_name_for_sparse_modules",
+    "RemoveDuplicate",
+    "sparse_add",
+    "HashTable",
     "DGData",
     "DGRegData",
     "load_jax_state_dict",
+    "save_checkpoint",
+    "load_checkpoint",
+    "load_torch_state_dict",
     "calibrate",
     "checkpoint",
     "constants",
     "debug_utils",
+    "functional",
+    "hash",
     "models",
     "ops",
     "quantization",
+    "utils",
 ]

@@ -2289,3 +2289,144 @@ def test_native_conv_step_on_card_matches_cpu(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+def _voxelize_both(dev, pc, **kw):
+    """``point_to_voxel`` of ``pc`` on the card and on the CPU."""
+    from spconv_tpu_torch.ops.point2voxel import point_to_voxel
+
+    got = point_to_voxel(pc.to(dev), **kw)
+    torch.cuda.synchronize()
+    return [t.cpu() for t in got], point_to_voxel(pc, **kw)
+
+
+def test_point_to_voxel_on_card_equals_cpu(dev):
+    """The voxelizer on the card bit-equal to the CPU in all five outputs:
+    a CenterPoint-style cloud at 0.1 m (~45,000 points, 5 % outside the
+    range, one point a voxel) and a dense random cloud with NaN and +-inf
+    points, five points a voxel, empty means and a voxel cap below the
+    voxel count.  On a card tensor it reads nothing back to the host
+    (``set_sync_debug_mode("error")``)."""
+    pts = torch.from_numpy(TCP.synthetic_centerpoint_points(
+        0, shape=(40, 256, 256), n_target=20000))
+    kw = dict(vsize_xyz=TCP.CP_VSIZE, coors_range_xyz=TCP.CP_RANGE,
+              max_num_voxels=30000, max_num_points_per_voxel=1)
+    got, want = _voxelize_both(dev, pts, **kw)
+    assert int(want[4]) == 20000
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rng = np.random.RandomState(3)
+    pc = rng.uniform(-2, 4, (60000, 5)).astype(np.float32)
+    pc[:50, 0], pc[50:80, 1], pc[80:90, 2] = np.nan, np.inf, -np.inf
+    kw = dict(vsize_xyz=(0.1, 0.1, 0.2), coors_range_xyz=(-1, -1, -1, 3, 3,
+                                                           3),
+              max_num_voxels=8000, max_num_points_per_voxel=5,
+              empty_mean=True)
+    got, want = _voxelize_both(dev, torch.from_numpy(pc), **kw)
+    assert int(want[4]) == 8000 and int(want[2].max()) == 5
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    from spconv_tpu_torch.ops.point2voxel import point_to_voxel
+    pc_dev = torch.from_numpy(pc).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        point_to_voxel(pc_dev, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _cp_scan(dev, shift=0):
+    """A 20,000-voxel CenterPoint-style scan on the card, f32, its x
+    coordinates shifted by ``shift`` (rows pushed off the grid become
+    invalid)."""
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 256, 256),
+                                           n_target=20000, device=dev)
+    if shift:
+        inds = x.indices.clone()
+        inds[:, 3] += shift
+        off = (x.indices[:, 0] < 0) | (inds[:, 3] >= 256)
+        inds[off] = -1
+        feats = torch.where(off[:, None], 0.0, x.features + 1.0)
+        x = st.SparseConvTensor(feats, inds, x.spatial_shape, 1)
+    return x
+
+
+def _to_cpu(x):
+    return st.SparseConvTensor(x.features.cpu(), x.indices.cpu(),
+                               x.spatial_shape, x.batch_size,
+                               keys_sorted=x.keys_sorted)
+
+
+def test_sparse_add_and_remove_duplicate_on_card_equal_cpu(dev):
+    """``sparse_add`` of a scan and its shifted copy (two rows a site at
+    most, so the sums are exact in any order) and ``RemoveDuplicate`` of
+    the scan with 10 % of its rows repeated (features changed), rows
+    shuffled: bit-equal to the CPU; the deduplicated scan feeds a subm
+    conv on B1 + B2."""
+    a, b = _cp_scan(dev), _cp_scan(dev, shift=1)
+    got = st.sparse_add(a, b)
+    want = st.sparse_add(_to_cpu(a), _to_cpu(b))
+    for f in ("features", "indices", "num_voxels"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert int(want.num_voxels) > 20000
+    g = torch.Generator().manual_seed(0)
+    dup = torch.randperm(20000, generator=g)[:2000]
+    feats = torch.cat([a.features, a.features[dup.to(dev)] * 2 + 1])
+    inds = torch.cat([a.indices, a.indices[dup.to(dev)]])
+    perm = torch.randperm(feats.shape[0], generator=g).to(dev)
+    x = st.SparseConvTensor(feats[perm], inds[perm], a.spatial_shape, 1)
+    got = st.RemoveDuplicate()(x)
+    want = st.RemoveDuplicate()(_to_cpu(x))
+    for f in ("features", "indices", "num_voxels"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert int(got.num_voxels) == 20000 and got.keys_sorted
+    conv = st.SubMConv3d(5, 16, 3, indice_key="r", device=dev)
+    TD.reset_launch_counts()
+    with torch.no_grad():
+        y = conv(got)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(dg_pos=1, dg_fwd=1)
+    assert torch.isfinite(y.features).all()
+
+
+# rotated IoU, card against CPU, of max|ref| (see the test below)
+BOX_CARD_TOL = 1e-4
+
+
+def test_hash_table_and_rotate_nms_on_card_equal_cpu(dev):
+    """A ``HashTable`` insert / query of a scan's keys (and absent ones)
+    and ``rotate_nms`` of 500 seeded boxes: the card's results equal the
+    CPU's, the keep mask bit for bit.  The IoU within BOX_CARD_TOL: the
+    card's sin / cos may differ from the CPU's in the last bits, and f32
+    corners up to 45 m from the origin carry ulps of 3.8e-6 m, which an
+    intersection of nearly parallel edges magnifies."""
+    from spconv_tpu_torch.utils import boxops as TBX
+
+    x = _cp_scan(dev)
+    keys, _ = TC.linearize(x.indices, x.spatial_shape, 1)
+    keys = keys[:20000]
+    vals = torch.arange(20000, dtype=torch.int32, device=dev)
+    q = torch.cat([keys[::3], keys[::7] + 1])
+    outs = []
+    for device in (dev, "cpu"):
+        t = st.HashTable(32768, device=device).insert(keys.to(device),
+                                                      vals.to(device))
+        t, cnt = t.assign_arange_()
+        outs.append([v.cpu() for v in (*t.query(q.to(device)), *t.items(),
+                                       cnt)])
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    rng = np.random.RandomState(0)
+    boxes = np.concatenate([rng.uniform(0, 40, (500, 2)),
+                            rng.uniform(1, 5, (500, 2)),
+                            rng.uniform(-np.pi, np.pi, (500, 1))], 1)
+    boxes = torch.from_numpy(boxes.astype(np.float32))
+    scores = torch.from_numpy(rng.rand(500).astype(np.float32))
+    keep = TBX.rotate_nms(boxes.to(dev), scores.to(dev), 0.2)
+    want = TBX.rotate_nms(boxes, scores, 0.2)
+    assert torch.equal(keep.cpu(), want) and 0 < int(want.sum()) < 500
+    iou = TBX.rbbox_iou(boxes.to(dev), boxes.to(dev)).cpu()
+    ref = TBX.rbbox_iou(boxes, boxes)
+    assert (iou - ref).abs().max() <= BOX_CARD_TOL * ref.abs().max()
