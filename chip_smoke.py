@@ -154,16 +154,43 @@ line is printed):
    ``voxel_gen``, ``fuse_bn_act`` and ``int8_ptq_encoder`` examples on the
    card against the CPU; the encoder saved and loaded through an npz
    checkpoint and served bit-equal;
-16. prints a JSON line of the kernels, each with its bound (the least time
+16. the tuner, per-layer timing and data parallelism (the tuner's cache
+   is a fresh directory set before the port is imported, and phases 1-15
+   must leave it empty): BenchNet (bf16, seed 0) with tuning forced, one
+   request and one training step tuning every conv signature for
+   inference and training (each signature's native / sk / dg ms and
+   winner), three requests from the cache bit-equal to phase 4, a zero-lr
+   step's grads bit-equal to the DG net's, a second tuner reading every
+   winner back; B2's five bf16 tiles on the native stage-0 table (each
+   within the bf16 gate, timed, the winner cached, read back and launched
+   by a native conv's forward, seen in a profiler window); one BenchNet
+   request with ``benchmark=True`` (20 records at phase 4's stage sizes,
+   each time > 0, their sum beside the request's host ms and busy),
+   ``KernelTimer`` spans around the seven stages within the host ms
+   around them, a profiler window with each layer's ``record_function``
+   range and phase 4's launches, phase 6's CenterPoint host ms again;
+   ``centerpoint_encoder(5, bn=True)`` with SyncBN trained data-parallel
+   on 2 ranks of the one card (gloo, ``parallel.run_ranks``; 3 bf16 steps
+   with ms, busy and peak memory; an f32 step within 1e-4 of max|ref| of
+   one process's step on the batch of both scans, the ranks' grads
+   bit-equal; ``conv_out`` column-parallel within the f32 and bf16
+   gates), and the ``dist_train`` example's 2 steps (finite, falling
+   losses; the ``DistributedDataParallel`` path equal); a failed or hung
+   rank fails the run and none is left behind; and what BatchNorm's f64
+   statistics cost a ``bn=True`` step against f32 sums, in turns;
+17. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
 
 import contextlib
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -357,6 +384,18 @@ class Tally:
                 f"{self.bound_ms:.4f} by {self.bound_by})")
 
 
+def device_ops(prof):
+    """The device ops (kernels, copies, fills) of a ``torch.profiler``
+    window.  A ``record_function`` range (every conv and pool opens one
+    under a profiler) is a host event, which the profiler mirrors on the
+    device's timeline as a user annotation: not a device op, so not
+    counted here."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
 def device_busy(torch, fn, reps):
     """``(window ms, device-busy ms, device ops)`` over ``reps`` calls of
     ``fn`` after one warm-up, in a ``torch.profiler`` window: the host
@@ -364,7 +403,6 @@ def device_busy(torch, fn, reps):
     device's kernels, copies and fills (one stream, so they do not
     overlap), and their number.  Busy is None where the profiler saw no
     device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -376,7 +414,7 @@ def device_busy(torch, fn, reps):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ops = device_ops(prof)
     busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
     return wall, (busy or None), len(ops)
 
@@ -385,7 +423,6 @@ def device_ops_by_time(torch, fn, reps):
     """``[(name, device us, count)]`` of the device ops of ``reps`` calls
     of ``fn`` after one warm-up, in a ``torch.profiler`` window, the most
     time first."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -396,10 +433,9 @@ def device_ops_by_time(torch, fn, reps):
             fn()
         torch.cuda.synchronize()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, k = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    for e in device_ops(prof):
+        us, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
     return sorted(((n[:60], us, k) for n, (us, k) in by_name.items()),
                   key=lambda r: -r[1])
 
@@ -432,7 +468,6 @@ def counted_ops(torch, fn, counts, expect, window_ok, what):
     agrees with them, else what disagrees: such a window (a dropped
     record) is retaken, and says so, up to ``WINDOW_TRIES`` windows in
     all; the check fails only if every window disagrees."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -447,9 +482,7 @@ def counted_ops(torch, fn, counts, expect, window_ok, what):
         launched = {k: counts[k] - before[k] for k in expect}
         check(launched == expect,
               f"{what}: launches {launched}, expected {expect}")
-        ops = sorted((e for e in prof.events()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
+        ops = sorted(device_ops(prof), key=lambda e: e.time_range.start)
         names = [e.name for e in ops]
         bad = window_ok(names)
         if bad is None:
@@ -469,7 +502,6 @@ def weight_copies(torch, fn, qmods):
     ``aten::contiguous`` calls on a tensor of the shape of one of
     ``qmods``' ``[kv, K, C]`` weights (B7's wrapper makes its copy so), the
     device ops and those of B7's kernel."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     shapes = {tuple(m.weight_kv.transpose(1, 2).shape) for m in qmods}
@@ -480,7 +512,7 @@ def weight_copies(torch, fn, qmods):
         fn()
         torch.cuda.synchronize()
     events = prof.events()
-    dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    dev = [e.name for e in device_ops(prof)]
     copies = sum(1 for e in events if e.name == "aten::contiguous"
                  and e.input_shapes and tuple(e.input_shapes[0]) in shapes)
     return copies, len(dev), sum("dg_fwd_q_kernel" in n for n in dev)
@@ -580,8 +612,8 @@ def plain_kernels(D, b2_forward=False):
         dg_wgrad=lambda x, dout, pos, path="subm": D.dg_wgrad_plain(
             x, dout, pos))
     if not b2_forward:
-        swap["dg_fwd"] = lambda x, w, pos, path="subm": D.dg_fwd_plain(
-            x, w, pos)
+        swap["dg_fwd"] = (lambda x, w, pos, path="subm", tile=None:
+                          D.dg_fwd_plain(x, w, pos))
     saved = {name: getattr(D, name) for name in swap}
     for name, fn in swap.items():
         setattr(D, name, fn)
@@ -3856,10 +3888,633 @@ def points_phase(torch, dev, cp_in, cp_net, cp_bounds):
     return launches
 
 
+
+# ---- phase 16: the tuner, per-layer timing, data parallelism -------------
+
+# BenchNet's convs: (stage, C, K), in layer order
+def bench_layers(B):
+    return [(i // 2, B.CHANNELS[i], B.CHANNELS[i + 1]) for i in range(14)]
+
+
+# the CenterPoint data-parallel step: ranks on the one card (gloo), steps,
+# and the seconds a run of ranks may take before it is stopped and fails
+DP_WORLD = 2
+DP_STEPS = 3
+DP_TIMEOUT = 600
+# a data-parallel f32 step against one process's step on the batch of both
+# scans, per tensor of max|ref|: sums in another order (the BN statistics
+# accumulate in f64, so the order leaves the gradient alone)
+DP_F32_TOL = 1e-4
+
+
+def b2_tile(name):
+    """The ``B2_TILES`` entry ``(BM, BN, BK)`` of a device op of B2's bf16
+    kernel, else None."""
+    m = re.search(r"dg_fwd_bf16_kernel<[^<]*Tile<(\d+), (\d+), \d+, \d+, "
+                  r"(\d+)>", name)
+    return tuple(int(v) for v in m.groups()) if m else None
+
+
+def tune_phase(torch, dev, scans, bounds, served, geo, cache_root):
+    """Phase 16's tuner parts on BenchNet (seed 0, bf16, phase 4's pool
+    bounds), each tuner in its own directory under ``cache_root``: one
+    request and one training step under ``"auto"`` with tuning forced
+    (every conv signature tuned for inference and for training), each
+    signature's candidates printed; three requests from the cache
+    bit-equal to phase 4's keyed net at every stage (``served``); a
+    zero-lr step's grads bit-equal to the DG net's; a second tuner reading
+    every winner back.  Then B2's five bf16 tiles on the native table of
+    stage 0 (``geo[0]``) at C = K = 64: each within the bf16 gate of the
+    plain version, tuned, the winner read back, and a native conv's
+    forward launching the tuned tile (and, tuned in turn, every other
+    one)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from spconv_tpu_torch import tuner as TU
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.core import SparseConvTensor
+    from spconv_tpu_torch.modules import SubMConv3d
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.ops import gather_gemm as G
+    from spconv_tpu_torch.ops.rulebook import build_subm_rulebook
+
+    bf16 = torch.bfloat16
+    default = TU.CONV_TUNER
+    tuned = TU.ConvTuner(cache_dir=str(cache_root / "benchnet"))
+    tuned.force_tune = True
+    TU.CONV_TUNER = tuned
+    try:
+        net = B.BenchNet(SHAPE, dtype=bf16, pool_bounds=bounds, device=dev,
+                         seed=0)
+        x0 = B.make_bench_input(*scans[0], dtype=bf16, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            net(x0)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        B.train_step(net, x0, 0.0)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        cache_file = tuned._cache_file()
+        cache = json.loads(cache_file.read_text())
+        rows = {(s, c, k): geo[s].indices.shape[0]
+                for s, c, k in bench_layers(B)}
+        want = {tuned.key(op, tuned.bucket_n(n), c, k, 27, "bfloat16")
+                for (s, c, k), n in rows.items()
+                for op in ("algo", "algo_train")}
+        check(set(cache) == want, f"tuned signatures {sorted(cache)}, "
+              f"expected {sorted(want)}")
+        print(f"tuner on BenchNet (bf16, seed 0, tuning forced): a request "
+              f"tuned {sum(k.startswith('algo|') for k in cache)} "
+              f"signatures in {serve_s:.2f} s, a training step "
+              f"{sum(k.startswith('algo_train|') for k in cache)} in "
+              f"{train_s:.2f} s; ms of each candidate (forward; training: "
+              "forward and backward to the features and the weight):")
+        for key in sorted(cache, key=lambda k: (k.split("|")[0],
+                                               -int(k.split("|")[1][1:]))):
+            rec = cache[key]
+            cands = rec["candidates"]
+            check(all(np.isfinite(cands[a]) for a in ("native", "sk", "dg")),
+                  f"{key}: a candidate failed: {cands}")
+            print(f"  {key}: native {cands['native']:.4f} sk "
+                  f"{cands['sk']:.4f} dg {cands['dg']:.4f} -> "
+                  f"{rec['algo']}")
+        # three requests from the cache, bit-equal to phase 4's keyed net
+        stamp = cache_file.stat().st_mtime_ns
+        with torch.inference_mode():
+            for seed, x, stages, _ in served:
+                got = net.eval().forward_stages(x)
+                check(all(torch.equal(a.features, b.features)
+                          and torch.equal(a.indices, b.indices)
+                          for a, b in zip(got, stages)),
+                      f"tuned request {seed} differs from phase 4's")
+        # a zero-lr step against the DG net's
+        dg = B.BenchNet(SHAPE, dtype=bf16, pool_bounds=bounds, device=dev,
+                        seed=0, algo="dg")
+        B.train_step(net, x0, 0.0)
+        B.train_step(dg, x0, 0.0)
+        same = [torch.equal(a.grad, b.grad)
+                for a, b in zip(net.parameters(), dg.parameters())]
+        check(all(same), f"the tuned net's zero-lr step grads differ from "
+              f"the DG net's in {same.count(False)} of {len(same)} tensors")
+        check(cache_file.stat().st_mtime_ns == stamp,
+              "the cached net tuned again")
+        again = TU.ConvTuner(cache_dir=str(cache_root / "benchnet"))
+        for key, rec in cache.items():
+            op, n, c, k, kv, dt = key.split("|")
+            sig = dict(n=int(n[1:]), c=int(c[1:]), k=int(k[1:]),
+                       kv=int(kv[2:]), dtype=dt,
+                       training=op == "algo_train")
+            check(again.has_algo(**sig) and again.select_algo(
+                subm=True, sk_supported=True, dg_supported=True, **sig)
+                == rec["algo"], f"a second tuner reads {key} as another "
+                "winner")
+        winners = [rec["algo"] for rec in cache.values()]
+        print(f"tuned BenchNet: 3 requests from the cache bit-equal to "
+              f"phase 4 at every stage; a zero-lr step's grads bit-equal to "
+              f"the DG net's; a second tuner read all {len(cache)} winners "
+              f"back ({ {a: winners.count(a) for a in set(winners)} })")
+
+        # B2's tiles on the native table of stage 0, C = K = 64
+        g = geo[0]
+        gen = torch.Generator(device=dev).manual_seed(16)
+        pair = build_subm_rulebook(
+            g.indices, spatial_shape=g.spatial_shape, batch_size=1,
+            ksize=KSIZE, dilation=DIL).pair_fwd
+        f = (torch.randn((g.indices.shape[0], 64), device=dev, generator=gen)
+             * g.valid_mask[:, None]).to(bf16)
+        w = (torch.randn((27, 64, 64), device=dev, generator=gen)
+             / float(np.sqrt(27 * 64))).to(bf16)
+        ref = D.dg_fwd_plain(f, w, pair)
+        for tile in range(len(D.B2_TILES)):
+            _, r = rel_err(torch, G.gather_mm(f, w, pair, None, tile=tile),
+                           ref)
+            check(r <= TOL["bfloat16"], f"B2 tile {tile} on the native "
+                  f"table: {r:.3e} > {TOL['bfloat16']} of max|ref|")
+        tile_dir = str(cache_root / "tile")
+        won = TU.ConvTuner(cache_dir=tile_dir).tune_conv_tile(f, w, pair,
+                                                             None)
+        n = pair.shape[1]
+        back = TU.ConvTuner(cache_dir=tile_dir).get_tuned_params(
+            "gather_mm", n, 64, 64, 27, "bfloat16")
+        check(back == won, f"the tuned tile read back as {back}, not {won}")
+        own = D.b2_variant(n, 64, 64).tile
+        print(f"B2 bf16 tiles on the native stage-0 table (N {n}, C = K = "
+              f"64), each within {TOL['bfloat16']} of max|ref| of plain; "
+              "ms: " + ", ".join(
+                  f"{D.B2_TILES[int(v.split('=')[1])][:2]} {ms:.4f}"
+                  for v, ms in won["candidates"].items())
+              + f"; tuned tile {won['tile']} {D.B2_TILES[won['tile']][:2]}, "
+              f"b2_variant's own {own}; read back")
+        conv = SubMConv3d(64, 64, 3, bias=False, indice_key="tile",
+                          algo="native", dtype=bf16, device=dev)
+        x = SparseConvTensor(f, g.indices, g.spatial_shape, 1,
+                             keys_sorted=True)
+
+        def launched_tiles():
+            """The B2 tiles of three forwards' device ops (a window can
+            lose a device op's record)."""
+            with torch.inference_mode():
+                conv(x)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(3):
+                        conv(x)
+                    torch.cuda.synchronize()
+            return [t for t in (b2_tile(e.name) for e in device_ops(prof))
+                    if t is not None]
+
+        shown = []
+        for tile in [won["tile"]] + [t for t in range(len(D.B2_TILES))
+                                     if t != won["tile"]]:
+            if tile == won["tile"]:
+                TU.CONV_TUNER = TU.ConvTuner(cache_dir=tile_dir)
+            else:  # a tuning whose one variant is this tile caches it
+                TU.CONV_TUNER = TU.ConvTuner(
+                    cache_dir=str(cache_root / f"tile{tile}"))
+                TU.CONV_TUNER.tune_and_cache(
+                    "gather_mm", n, 64, 64, 27, "bfloat16",
+                    {f"tile={tile}": lambda a, t=tile: G.gather_mm(
+                        a, w, pair, None, tile=t)}, (f,))
+            tiles = launched_tiles()
+            check(tiles and set(tiles) == {D.B2_TILES[tile]},
+                  f"native convs with tile {tile} cached launched B2 tiles "
+                  f"{tiles}")
+            shown.append(tile)
+        print(f"native SubMConv3d(64, 64) forward with the tuned tile cached: "
+              f"its profiler window shows B2 on tile {D.B2_TILES[won['tile']]}"
+              f"; with each other tile cached in turn, that tile ({shown})")
+    finally:
+        TU.CONV_TUNER = default
+
+
+def timing_phase(torch, dev, scans, bounds, served, cp_net, cp16, cp_ms):
+    """Phase 16's per-layer timing: one BenchNet request with
+    ``benchmark=True`` (20 records, phase 4's stage sizes, times > 0,
+    their sum beside a request's host ms and profiler busy);
+    ``KernelTimer`` spans around the net's seven stages against the host
+    ms around them; a profiler window with every layer's
+    ``record_function`` range and phase 4's launches; phase 6's
+    CenterPoint request host ms again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.ops import dg_conv as D
+    from spconv_tpu_torch.tools import KernelTimer
+
+    bf16 = torch.bfloat16
+    net = B.BenchNet(SHAPE, dtype=bf16, pool_bounds=bounds, device=dev,
+                     seed=0).eval()
+    active = [int(t.num_voxels) for t in served[0][2]]
+    with torch.inference_mode():
+        x = B.make_bench_input(*scans[0], dtype=bf16, device=dev)
+        net(x)  # warm-up
+        xb = x.shadow_copy()
+        xb.benchmark = True
+        out = net(xb)
+        torch.cuda.synchronize()
+    recs = list(out.benchmark_record.values())
+    want = []
+    for s in range(7):
+        if s:
+            want.append(("SparseMaxPool3d", active[s - 1], active[s]))
+        want += [("SubMConv3d", active[s], active[s])] * 2
+    got = [(r["type"], r["num_voxels_in"], r["num_voxels_out"])
+           for r in recs]
+    check(got == want, f"benchmark records {got}, expected {want}")
+    check(all(r["time_ms"] > 0 for r in recs),
+          f"a layer's time_ms is not > 0: {[r['time_ms'] for r in recs]}")
+    layer_sum = sum(r["time_ms"] for r in recs)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net(x)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+        wall, busy, n_ops = device_busy(torch, lambda: net(x), 3)
+        timer = KernelTimer(device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = x
+        for s in range(7):
+            with timer.namespace(f"stage{s}"):
+                if s:
+                    y = net.pools[s - 1](y)
+                y = net.convs[2 * s + 1](net.convs[2 * s](y))
+        torch.cuda.synchronize()
+        stage_host = (time.perf_counter() - t0) * 1e3
+    spans = timer.get_all_pair_time()
+    check(sorted(spans) == [f"stage{s}" for s in range(7)],
+          f"KernelTimer keys {sorted(spans)}")
+    check(sum(spans.values()) <= stage_host, f"the stages' CUDA-event spans "
+          f"sum to {sum(spans.values()):.3f} ms, past the {stage_host:.3f} ms "
+          "host ms around them")
+    print(f"benchmark=True BenchNet request (bf16, seed 0): 20 records, "
+          f"voxel counts phase 4's {active}, per-layer ms (CUDA events, a "
+          f"sync after each layer) " + ", ".join(
+              f"{name} {r['time_ms']:.3f}"
+              for name, r in out.benchmark_record.items())
+          + f"; sum {layer_sum:.3f} ms vs a request without it: host "
+          f"{host:.3f} ms, " + busy_text(wall, busy, 3, "a request", n_ops))
+    print("KernelTimer spans around the 7 stages (CUDA events, one sync at "
+          "the end): " + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
+          + f"; sum {sum(spans.values()):.3f} ms <= host "
+          f"{stage_host:.3f} ms around them")
+    # a profiler window: every layer's range; the launches of phase 4
+    names = {"SubMConv3d": 14, "SparseMaxPool3d": 6}
+    with torch.inference_mode():
+        before = dict(D.launch_counts)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            net(x)
+            torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in D.launch_counts.items()
+             if v != before[k]}
+    check(delta == {"dg_pos": 7, "dg_fwd": 14},
+          f"a profiled request launched {delta}, not phase 4's")
+    events = prof.events()
+    ranges = {n: sum(1 for e in events if e.name == n
+                     and e.device_type == DeviceType.CPU) for n in names}
+    check(ranges == names, f"record_function ranges {ranges}, expected "
+          f"{names}")
+    ops = device_ops(prof)
+    check(not any(e.name in names for e in ops),
+          "a layer's range counts as a device op")
+    mirrored = sum(1 for e in events if e.device_type == DeviceType.CUDA
+                   and e.is_user_annotation)
+    print(f"profiler window of a request: record_function ranges {ranges} "
+          f"(host events; {mirrored} mirrored on the device timeline as "
+          f"user annotations, not counted), launches {delta} (phase 4's), "
+          f"{len(ops)} device ops")
+    # the host cost a layer pays with no profiler and no benchmark: the
+    # auto resolution (nothing cached: the heuristic at once; a cached
+    # winner: a signature and a dict lookup) and run_layer's two checks,
+    # timed on their own over many calls
+    from spconv_tpu_torch import tuner as TU
+    from spconv_tpu_torch.modules.modules import run_layer
+
+    conv = cp_net.stages[0][0].conv1
+    calls = 20000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        TU.CONV_TUNER.resolve(conv, cp16[0], True)
+    resolve_us = (time.perf_counter() - t0) / calls * 1e6
+    cached = TU.ConvTuner(cache_dir=str(Path(os.environ[
+        "SPCONV_TPU_TUNE_CACHE"]) / "resolve"))
+    cached.cache_algo(n=1, c=1, k=1, kv=1, dtype="float32", algo="dg")
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        cached.resolve(conv, cp16[0], True)
+    cached_us = (time.perf_counter() - t0) / calls * 1e6
+
+    class Passthrough:
+        name = None
+
+        def _forward(self, x):
+            return x
+
+    layer = Passthrough()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        layer._forward(cp16[0])
+    direct_us = (time.perf_counter() - t0) / calls * 1e6
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        run_layer(layer, cp16[0])
+    wrapped_us = (time.perf_counter() - t0) / calls * 1e6
+    n_convs = sum(1 for m in cp_net.modules()
+                  if type(m).__name__.startswith(("SubMConv", "SparseConv")))
+    print(f"host cost a layer (mean of {calls} calls on the card's host): "
+          f"auto resolution {resolve_us:.3f} us with nothing cached, "
+          f"{cached_us:.3f} us with a winner cached; run_layer's checks "
+          f"{wrapped_us - direct_us:.3f} us; a CenterPoint request ({n_convs} "
+          f"convs, nothing cached) "
+          f"{(resolve_us + wrapped_us - direct_us) * n_convs:.1f} us")
+    # phase 6's CenterPoint request host ms, again after the rest ran
+    again = []
+    with torch.inference_mode():
+        for seed in REQUEST_SEEDS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp_net.bev(cp16[seed])
+            torch.cuda.synchronize()
+            again.append((time.perf_counter() - t0) * 1e3)
+    print(f"CenterPoint request host ms (auto resolution, the benchmark "
+          f"and profiler checks on every layer): phase 6 "
+          f"{[round(m, 3) for m in cp_ms]}, phase 16 "
+          f"{[round(m, 3) for m in again]}")
+
+
+def bn_stats_f32(self, feats, mask):
+    """``BatchNorm1d._batch_stats`` with its sums in f32 (the port's
+    formula before the f64 sums; no ``axis_name``): the yardstick of what
+    the f64 sums cost."""
+    m = mask[:, None].float()
+    f32 = feats.float() * m
+    cnt = m.sum().clamp(min=1.0)
+    mean = f32.sum(0) / cnt
+    var = (f32 * f32).sum(0) / cnt - mean * mean
+    return mean, var.clamp(min=0.0), cnt
+
+
+def bn_stats_cost(torch, dev, cp_in, cp_bounds):
+    """A bf16 ``bn=True`` CenterPoint training step (phase 13's) with
+    BatchNorm's statistics summed in f64 (the port's) and in f32
+    (:func:`bn_stats_f32`), profiler windows of 3 steps in turns."""
+    from spconv_tpu_torch.benchmark import basic as B
+    from spconv_tpu_torch.calibrate import apply_out_bounds
+    from spconv_tpu_torch.models import centerpoint_encoder
+    from spconv_tpu_torch.modules import BatchNorm1d
+
+    net = apply_out_bounds(centerpoint_encoder(
+        in_channels=5, bn=True, dtype=torch.bfloat16, device=dev),
+        cp_bounds).train()
+    x = cp_in[0].replace_feature(cp_in[0].features.bfloat16())
+    f64 = BatchNorm1d._batch_stats
+    windows = []
+    try:
+        for name, fn in (("f64", f64), ("f32", bn_stats_f32),
+                         ("f32", bn_stats_f32), ("f64", f64)):
+            BatchNorm1d._batch_stats = fn
+            windows.append((name, device_busy(
+                torch, lambda: B.train_step(net, x, 0.0), 3)))
+    finally:
+        BatchNorm1d._batch_stats = f64
+    print("CenterPoint bn=True bf16 step with BatchNorm's sums in f64 (the "
+          "port's) and in f32, windows of 3 in turns: "
+          + turns_text(windows))
+
+
+def batch_of(torch, xs):
+    """One tensor holding the active rows of ``xs`` (key-sorted scans of
+    one grid) as batch items 0, 1, ...: still key-sorted."""
+    from spconv_tpu_torch.core import SparseConvTensor
+
+    feats, inds = [], []
+    for b, x in enumerate(xs):
+        n = int(x.num_voxels)
+        i = x.indices[:n].clone()
+        i[:, 0] = b
+        feats.append(x.features[:n])
+        inds.append(i)
+    n = sum(f.shape[0] for f in feats)
+    nbuf = -(-n // 1024) * 1024
+    f = feats[0].new_zeros((nbuf, feats[0].shape[1]))
+    i = inds[0].new_full((nbuf, inds[0].shape[1]), -1)
+    f[:n] = torch.cat(feats)
+    i[:n] = torch.cat(inds)
+    return SparseConvTensor(f, i, xs[0].spatial_shape, len(xs),
+                            keys_sorted=True)
+
+
+def bev_loss(torch, net, x, scale, checked):
+    """``sum(bev ** 2) * scale`` of the encoder ``net`` on ``x`` (``checked``:
+    every stage's bound read back and checked uncut, a sync a stage)."""
+    stages = net.forward_stages(x)
+    if checked:
+        for s in stages:
+            s.check_overflow("the encoder")
+    return (stages[-1].dense().float() ** 2).sum() * scale
+
+
+def dp_rank(rank, world, device, cp_bounds, steps):
+    """One rank of phase 16's data-parallel CenterPoint run, on ``device``
+    (the one card): ``centerpoint_encoder(5, bn=True)`` with every BN on ``"dp"``
+    (SyncBN) and phase 6's buffers, on ``synthetic_centerpoint_input
+    (rank)``; a bf16 warm-up step and ``steps`` SGD steps (ms, busy, peak
+    memory), then an f32 step (loss and grads for the gate) and the
+    encoder's last 128-channel conv column-parallel against the whole
+    layer on scan 0's stage-3 output (the input replicated), f32 and
+    bf16."""
+    import torch
+
+    from spconv_tpu_torch import parallel as P
+    from spconv_tpu_torch.benchmark import centerpoint as CPB
+    from spconv_tpu_torch.calibrate import apply_out_bounds
+    from spconv_tpu_torch.core import SparseConvTensor
+    from spconv_tpu_torch.models import centerpoint_encoder
+    from spconv_tpu_torch.modules import BatchNorm1d
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = P.make_mesh(world)
+    tp = P.make_mesh(world, axis="tp")
+    x = CPB.synthetic_centerpoint_input(rank, device=dev)[0]
+    shape = x.spatial_shape
+
+    def encoder(dtype):
+        net = apply_out_bounds(centerpoint_encoder(
+            in_channels=5, bn=True, dtype=dtype, device=dev), cp_bounds)
+        for m in net.modules():
+            if isinstance(m, BatchNorm1d):
+                m.axis_name = "dp"
+        return net.train()
+
+    def stacked(dtype):
+        return (x.features.to(dtype)[None].expand(world, -1, -1),
+                x.indices[None].expand(world, -1, -1))
+
+    def loss_fn(checked):
+        return lambda net, f, i: bev_loss(torch, net, SparseConvTensor(
+            f, i, shape, 1, keys_sorted=True), 1.0, checked)
+
+    res = {}
+    net16 = encoder(torch.bfloat16)
+    f16, i16 = stacked(torch.bfloat16)
+    step = P.data_parallel_value_and_grad(loss_fn(False), mesh)
+    step(net16, f16, i16)  # warm-up, no update
+    torch.cuda.synchronize()
+    lr = 1e-2 * max(p.abs().max().item() for p in net16.parameters()) / max(
+        p.grad.abs().max().item() for p in net16.parameters())
+    res["ms"], res["losses"] = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = step(net16, f16, i16)
+        with torch.no_grad():
+            for p in net16.parameters():
+                p.add_(p.grad, alpha=-lr)
+        torch.cuda.synchronize()
+        res["ms"].append((time.perf_counter() - t0) * 1e3)
+        res["losses"].append(loss.item())
+    res["lr"] = lr
+    res["busy"] = device_busy(torch, lambda: step(net16, f16, i16), 3)
+    res["peak"] = peak_mib(torch, lambda: step(net16, f16, i16))
+    net32 = encoder(torch.float32)
+    loss, grads = P.data_parallel_value_and_grad(loss_fn(True), mesh)(
+        net32, *stacked(torch.float32))
+    res["loss32"] = loss.item()
+    res["grads32"] = {k: g.cpu() for k, g in grads.items()}
+    # the last 128-channel conv (conv_out), its 128 columns over the ranks
+    # on a replicated input: scan 0's stage-3 output on every rank
+    x0 = x if rank == 0 else CPB.synthetic_centerpoint_input(0, device=dev)[0]
+    for name, net in (("float32", net32), ("bfloat16", net16)):
+        conv = net.conv_out
+        with torch.no_grad():
+            x3 = net.forward_stages(x0.replace_feature(
+                x0.features.to(next(net.parameters()).dtype)))[3]
+            whole = conv(SparseConvTensor(x3.features, x3.indices,
+                                          x3.spatial_shape, 1,
+                                          keys_sorted=True))
+            cols, idx = P.channel_parallel_conv(
+                conv, tp, axis="tp", keys_sorted=True)(
+                    conv.weight, conv.bias, x3.features, x3.indices,
+                    x3.spatial_shape, 1)
+        check(torch.equal(idx, whole.indices),
+              f"channel-parallel conv_out sites differ ({name})")
+        res[f"cp_{name}"] = rel_err(torch, cols, whole.features)[1]
+    res["cp_k"] = (net32.conv_out.out_channels // world,
+                   net32.conv_out.out_channels)
+    return res
+
+
+def dp_phase(torch, dev, cp_in, cp_bounds):
+    """Phase 16's data parallelism: :func:`dp_rank` on ``DP_WORLD`` ranks
+    of one card (``gloo``, ``file://`` rendezvous; the library was built
+    before any rank starts), the f32 step against one process's step on
+    the batch of both scans (buffers calibrated for it, uncut), the ranks'
+    grads bit-equal, the column-parallel conv within the gates, then the
+    ``dist_train`` example's 2 steps.  No process is left behind."""
+    import multiprocessing
+
+    import numpy as np
+
+    from spconv_tpu_torch.calibrate import calibrate_out_bounds
+    from spconv_tpu_torch.examples import dist_train
+    from spconv_tpu_torch.models import centerpoint_encoder
+    from spconv_tpu_torch.parallel import run_ranks
+
+    t0 = time.perf_counter()
+    res = run_ranks(dp_rank, DP_WORLD, (str(dev), cp_bounds, DP_STEPS),
+                    backend="gloo", timeout=DP_TIMEOUT)
+    run_s = time.perf_counter() - t0
+    check(multiprocessing.active_children() == [],
+          "a rank outlived its run")
+    for r, out in enumerate(res):
+        wall, busy, n_ops = out["busy"]
+        print(f"data-parallel CenterPoint rank {r} of {DP_WORLD} on ONE card "
+              f"(gloo: each all-reduce goes through host memory; not a "
+              f"reading of {DP_WORLD} cards), bf16, SyncBN, SGD lr "
+              f"{out['lr']:.4e}: step ms {[round(m, 3) for m in out['ms']]}, "
+              f"mean losses {[f'{v:.6e}' for v in out['losses']]}, "
+              + busy_text(wall, busy, 3, "a step", n_ops)
+              + f", peak allocated {out['peak'][0]:.1f} MiB above "
+              f"{out['peak'][1]:.1f}")
+        check(all(np.isfinite(out["losses"])), f"rank {r}: a loss is not "
+              "finite")
+    check(all(torch.equal(g, res[1]["grads32"][k])
+              for k, g in res[0]["grads32"].items()),
+          "the ranks' mean grads differ")
+    # one process, one tensor holding both scans
+    x2 = batch_of(torch, [cp_in[0], cp_in[1]])
+    net = calibrate_out_bounds(
+        centerpoint_encoder(in_channels=5, bn=True, device=dev).train(),
+        lambda m, t: m.bev(t), [x2], margin=1.15, mult=512)
+    loss = bev_loss(torch, net, x2, 0.5, True)
+    loss.backward()
+    check(abs(res[0]["loss32"] - loss.item()) <= DP_F32_TOL * loss.item(),
+          f"data-parallel f32 loss {res[0]['loss32']} vs one process "
+          f"{loss.item()}")
+    worst = max((rel_err(torch, res[0]["grads32"][name], p.grad.cpu())[1],
+                 name) for name, p in net.named_parameters())
+    check(worst[0] <= DP_F32_TOL, f"data-parallel f32 grad {worst[1]}: "
+          f"{worst[0]:.3e} > {DP_F32_TOL} of max|ref| of one process's")
+    for name, tol in TOL.items():
+        for r, out in enumerate(res):
+            check(out[f"cp_{name}"] <= tol, f"rank {r}: channel-parallel "
+                  f"conv_out {name} {out[f'cp_{name}']:.3e} > {tol}")
+    kd, k = res[0]["cp_k"]
+    print(f"data-parallel f32 step ({DP_WORLD} ranks, seeds 0 and 1) vs one "
+          f"process on the batch of both scans (buffers calibrated for it, "
+          f"every stage uncut): loss {res[0]['loss32']:.9e} vs "
+          f"{loss.item():.9e}, worst grad {worst[0]:.3e} of max|ref| "
+          f"({worst[1]}, gate {DP_F32_TOL}); the ranks' grads bit-equal; "
+          f"conv_out column-parallel ({kd} of {k} columns a rank) vs the "
+          f"whole layer: f32 {max(o['cp_float32'] for o in res):.3e}, bf16 "
+          f"{max(o['cp_bfloat16'] for o in res):.3e} of max|ref|; "
+          f"{run_s:.1f} s for the ranks' run")
+    ex = dist_train.main(steps=2, device=dev.type)
+    check(all(np.isfinite(ex["losses"])) and ex["loss_after"]
+          < ex["losses"][0], f"dist_train: losses {ex['losses']}, step 0's "
+          f"scans after training {ex['loss_after']}")
+    check(np.allclose(ex["ddp_losses"], ex["losses"], rtol=1e-6),
+          f"dist_train: DistributedDataParallel losses {ex['ddp_losses']} "
+          f"vs {ex['losses']}")
+    check(multiprocessing.active_children() == [],
+          "a dist_train rank outlived its run")
+    print(f"dist_train example on the card (2 ranks, gloo): losses "
+          f"{[f'{v:.6e}' for v in ex['losses']]}, step 0's scans after "
+          f"step 1 {ex['loss_after']:.6e} (falling); the "
+          f"DistributedDataParallel path's {[f'{v:.6e}' for v in ex['ddp_losses']]}")
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
              "run it from the root of a checkout")
+    # the tuner's cache: a fresh directory, set before the port is
+    # imported, so that no winner of an earlier run changes a route (phases
+    # 1-15 run with it empty); no tuning or algorithm forced from outside
+    tune_root = Path(tempfile.mkdtemp(prefix="spconv_tpu_tune_"))
+    os.environ["SPCONV_TPU_TUNE_CACHE"] = str(tune_root)
+    for flag in ("SPCONV_TPU_TUNE", "SPCONV_TPU_ALGO"):
+        os.environ.pop(flag, None)
+    try:
+        run(tune_root)
+    finally:
+        shutil.rmtree(tune_root, ignore_errors=True)
+
+
+def run(tune_root):
+    """Phases 1-17 (see the module docstring), the tuner's cache under
+    ``tune_root``."""
     sys.path.insert(0, str(ROOT))
     import numpy as np
     import torch
@@ -4642,7 +5297,29 @@ def main():
               f"{path} { {k: v for k, v in c.items() if v} }"
               for path, c in points_launches.items()))
 
-    # ---- 16. report --------------------------------------------------
+    # phases 1-15 ran with the tuner's cache empty
+    from spconv_tpu_torch import tuner as TU
+
+    check(TU.CONV_TUNER.cache_dir == tune_root
+          and not any(tune_root.iterdir()),
+          f"phases 1-15 ran with a tuner cache in {TU.CONV_TUNER.cache_dir}"
+          f" holding {[p.name for p in tune_root.iterdir()]}")
+    print(f"phases 1-15 ran with the tuner's cache empty ({tune_root})")
+
+    # ---- 16. the tuner, per-layer timing, data parallelism -----------
+    parts = [time.perf_counter()]
+    tune_phase(torch, dev, scans, bounds, served, geo, tune_root)
+    parts.append(time.perf_counter())
+    timing_phase(torch, dev, scans, bounds, served, cp_net, cp16, cp_ms)
+    bn_stats_cost(torch, dev, cp_in, cp_bounds)
+    parts.append(time.perf_counter())
+    dp_phase(torch, dev, cp_in, cp_bounds)
+    parts.append(time.perf_counter())
+    print(f"phase 16: {parts[-1] - parts[0]:.1f} s (the tuner "
+          f"{parts[1] - parts[0]:.1f}, timing {parts[2] - parts[1]:.1f}, "
+          f"data parallelism {parts[3] - parts[2]:.1f})")
+
+    # ---- 17. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, library_ms=None,
             **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against

@@ -36,7 +36,13 @@ layout, JAX state dicts), box ops (``utils.boxops``), the point-cloud codec
 (``utils.pcc``) and the JAX package's other examples
 (``examples.voxel_gen``, ``fuse_bn_act``, ``int8_ptq_encoder``) come with
 it.  ``tools`` runs the JAX package's ``tools/`` probe scripts on the card
-(``ops.probes``).
+(``ops.probes``) and holds the timers (``KernelTimer``,
+``benchmark_model``).  ``algo="auto"`` resolves through the conv tuner
+(``tuner.CONV_TUNER``: cached winners, tune-on-first-call with
+``SPCONV_TPU_TUNE=1``, B2's tile on the native path), ``benchmark=True``
+tensors record each conv's and pool's time and voxel counts, and
+``parallel`` trains data-parallel over ``torch.distributed`` with
+``SparseSyncBatchNorm`` (and runs a column-parallel conv).
 Constructors, input builders and the probes put their tensors on the CUDA
 card unless given ``device``.
 See ROADMAP.md for what is still to come.
@@ -45,9 +51,11 @@ See ROADMAP.md for what is still to come.
 __version__ = "0.1.0"
 
 from . import (calibrate, checkpoint, constants, debug_utils, functional,
-               hash, models, ops, quantization, utils)
+               hash, models, ops, parallel, quantization, tools, tuner,
+               utils)
 from .checkpoint import (load_checkpoint, load_jax_state_dict,
                          load_torch_state_dict, save_checkpoint)
+from .constants import ConvAlgo
 from .core import (IndiceData, SparseConvTensor, default_device, expand_nd,
                    scatter_nd)
 from .functional import sparse_add
@@ -67,8 +75,10 @@ from .modules import (AddTable, BatchNorm1d, ConcatTable, DGData, DGRegData,
                       SparseLeakyReLU, SparseMaxPool, SparseMaxPool1d,
                       SparseMaxPool2d, SparseMaxPool3d, SparseMaxPool4d,
                       SparseModule, SparseReLU, SparseSequential,
-                      SparseSigmoid, SubMConv1d, SubMConv2d, SubMConv3d,
-                      SubMConv4d, ToDense, assign_name_for_sparse_modules)
+                      SparseSigmoid, SparseSyncBatchNorm, SubMConv1d,
+                      SubMConv2d, SubMConv3d, SubMConv4d, ToDense,
+                      assign_name_for_sparse_modules)
+from .tuner import CONV_TUNER, ConvTuner
 
 __all__ = [
     "SparseConvTensor",
@@ -99,6 +109,7 @@ __all__ = [
     "SparseUNet",
     "BatchNorm1d",
     "SparseBatchNorm",
+    "SparseSyncBatchNorm",
     "SparseMaxPool",
     "SparseMaxPool1d",
     "SparseMaxPool2d",
@@ -131,6 +142,9 @@ __all__ = [
     "save_checkpoint",
     "load_checkpoint",
     "load_torch_state_dict",
+    "ConvAlgo",
+    "ConvTuner",
+    "CONV_TUNER",
     "calibrate",
     "checkpoint",
     "constants",
@@ -139,6 +153,9 @@ __all__ = [
     "hash",
     "models",
     "ops",
+    "parallel",
     "quantization",
+    "tools",
+    "tuner",
     "utils",
 ]

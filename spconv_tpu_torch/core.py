@@ -149,6 +149,14 @@ class SparseConvTensor:
     ``q_scale`` is the quantization scale of int8 features (a 0-d f32
     tensor, set by ``quantization.QuantizedSequential``), None otherwise;
     :meth:`replace_feature` and :meth:`shadow_copy` carry it.
+
+    ``benchmark`` turns on the per-layer records of the reference's
+    benchmark mode: every conv and pool that the tensor passes through
+    appends one record to ``benchmark_record`` (``{name: {"layer", "type",
+    "num_voxels_in", "num_voxels_out", "num_pairs", "time_ms", ...}}``,
+    ``modules.modules.record_benchmark_layer``), timing itself with a
+    device sync at its end.  The layer's output carries both;
+    :meth:`replace_feature` and :meth:`shadow_copy` do too.
     """
 
     def __init__(
@@ -159,6 +167,7 @@ class SparseConvTensor:
         batch_size: int,
         num_voxels: Optional[torch.Tensor] = None,
         indice_dict: Optional[Dict[str, Any]] = None,
+        benchmark: bool = False,
         keys_sorted: bool = False,
         num_out_total: Optional[torch.Tensor] = None,
         q_scale: Optional[torch.Tensor] = None,
@@ -178,6 +187,8 @@ class SparseConvTensor:
         self.num_voxels = num_voxels
         self.indice_dict: Dict[str, Any] = (
             {} if indice_dict is None else indice_dict)
+        self.benchmark = bool(benchmark)
+        self.benchmark_record: Dict[str, Any] = {}
         self.keys_sorted = bool(keys_sorted)
         # pre-clamp output count of the bounded op that made this tensor
         # (None when no bounded discovery ran); num_out_total > num_voxels
@@ -300,13 +311,16 @@ class SparseConvTensor:
         order = torch.sort(keys, stable=True).indices
         return SparseConvTensor(
             self.features[order], self.indices[order], self.spatial_shape,
-            self.batch_size, num_voxels=self.num_voxels, keys_sorted=True)
+            self.batch_size, num_voxels=self.num_voxels,
+            benchmark=self.benchmark, keys_sorted=True)
 
     def shadow_copy(self) -> "SparseConvTensor":
-        """Shallow copy with its own ``indice_dict``."""
+        """Shallow copy with its own ``indice_dict`` and
+        ``benchmark_record``."""
         new = object.__new__(SparseConvTensor)
         new.__dict__.update(self.__dict__)
         new.indice_dict = dict(self.indice_dict)
+        new.benchmark_record = dict(self.benchmark_record)
         return new
 
     def __repr__(self):

@@ -40,8 +40,18 @@ under its key raises.
 ``algo="sk"`` (the JAX package's sorted-key kernels, which compute the DG
 conv's function through a one-hot key join on the TPU) runs the same match
 tables through the same kernels; its regular-conv record lives under
-``__skreg__``/``__skreg_in__`` as in the JAX package.  ``"auto"`` is
-``"dg"`` wherever the DG route serves the input.
+``__skreg__``/``__skreg_in__`` as in the JAX package.  ``"auto"`` resolves
+per call through ``tuner.CONV_TUNER.resolve`` (``select_algo``'s rules):
+a winner cached for the layer's signature, else
+``"dg"`` wherever the DG route serves the input; with tuning on (``SPCONV_TPU_TUNE=1``) and no winner cached, the
+first call times the candidates on the live tensor and caches the winner
+(``ConvTuner.tune_conv_algo``).  The layer's records keep the namespace of
+its own ``algo``.  The reference's ``ConvAlgo`` enum is accepted for
+``algo``.
+
+Every forward runs through ``modules.run_layer``: a
+``torch.profiler.record_function`` range under the layer's name while a
+profiler records, and the per-layer record of ``benchmark=True`` input.
 
 The native rulebook path (``algo="native"``, and ``"auto"``, ``"dg"`` or
 ``"sk"`` wherever the DG route does not serve: input that is not
@@ -66,7 +76,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import calibrate
+from .. import calibrate, tuner
 from ..constants import DEFAULT_ALGO
 from ..core import IndiceData, SparseConvTensor, default_device, expand_nd
 from ..debug_utils import maybe_assert_overflow
@@ -77,7 +87,7 @@ from ..ops.epilogue import bias_add_act
 from ..ops.gather_gemm import indice_conv
 from ..ops.rulebook import (build_conv_outputs, build_conv_rulebook,
                             build_deconv_outputs, build_subm_rulebook)
-from .modules import SparseModule
+from .modules import SparseModule, run_layer
 
 __all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv1d",
            "SubMConv2d", "SubMConv3d", "SubMConv4d", "SparseConv1d",
@@ -204,6 +214,7 @@ class SparseConvolution(SparseModule):
         kv = int(np.prod(self.kernel_size))
         # as the JAX package: kernel 1 with a subm or stride-1 geometry is
         # a plain matmul on the input's sites, an inverse conv's too
+        self.kv = kv
         self.conv1x1 = kv == 1 and (subm or self.stride == (1,) * ndim)
         if inverse and indice_key is None:
             raise ValueError("an inverse conv requires the indice_key of "
@@ -216,7 +227,8 @@ class SparseConvolution(SparseModule):
         self.transposed = transposed
         self.inverse = inverse
         self.indice_key = indice_key
-        self.algo = algo or DEFAULT_ALGO
+        # the reference's ConvAlgo enum stands for its value
+        self.algo = getattr(algo, "value", algo) or DEFAULT_ALGO
         self.out_bound = out_bound
         self.out_bound_ratio = out_bound_ratio
         self.act_type = act_type
@@ -269,6 +281,23 @@ class SparseConvolution(SparseModule):
     def forward(self, input: SparseConvTensor,
                 add_input: Optional[SparseConvTensor] = None
                 ) -> SparseConvTensor:
+        """The conv of ``input`` (plus ``add_input``'s features before the
+        activation), under :func:`modules.run_layer`'s profiler range and
+        benchmark record."""
+        return run_layer(self, input, add_input)
+
+    def _num_pairs(self, input: SparseConvTensor, out: SparseConvTensor):
+        """The benchmark record's pair count, as the JAX package counts it:
+        the input's active rows on the 1x1 path, the matched pairs of the
+        native rulebook under ``indice_key`` in ``out``, else None."""
+        if self.conv1x1:
+            return input.num_voxels
+        data = out.find_indice_pair(self.indice_key)
+        return ((data.pair_fwd >= 0).sum() if isinstance(data, IndiceData)
+                else None)
+
+    def _forward(self, input: SparseConvTensor,
+                 add_input: Optional[SparseConvTensor]) -> SparseConvTensor:
         if self.conv1x1:
             w = self.weight.reshape(self.out_channels, self.in_channels)
             out_feat = self._epilogue(input.features @ w.t(),
@@ -279,7 +308,10 @@ class SparseConvolution(SparseModule):
         if self.algo not in ALGOS:
             raise ValueError(f"algo must be one of {ALGOS}, got "
                              f"{self.algo!r}")
-        if self.algo == "native" or not self._dg_supported(input):
+        dg_ok = self._dg_supported(input)
+        algo = (tuner.CONV_TUNER.resolve(self, input, dg_ok)
+                if self.algo == "auto" else self.algo)
+        if algo == "native" or not dg_ok:
             return self._call_native(input, add_input)
         if self.subm:
             return self._call_dg(input, add_input)

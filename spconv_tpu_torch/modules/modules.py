@@ -2,10 +2,11 @@
 ``spconv_tpu/modules/modules.py``): ``SparseSequential``, ``Lambda``,
 ``SparseIdentity`` / ``Identity``, ``SparseReLU``, ``SparseLeakyReLU``,
 ``SparseSigmoid``, ``BatchNorm1d`` / ``SparseBatchNorm`` with its
-running-stat update, ``ToDense``, the debug passthroughs
-``PrintTensorMeta`` / ``PrintCurrentTime`` and
-``assign_name_for_sparse_modules``.  ``SparseSyncBatchNorm`` (the JAX
-package's cross-device BN) is not ported yet.
+running-stat update and ``SparseSyncBatchNorm`` (its statistics summed
+across the ranks of a mesh axis), ``ToDense``, the debug passthroughs
+``PrintTensorMeta`` / ``PrintCurrentTime``,
+``assign_name_for_sparse_modules``, and the per-layer benchmark records
+(:func:`record_benchmark_layer`, :func:`run_layer`).
 
 The modules that the JAX package names (those that keep a ``name``
 attribute) keep one here, ``None`` by default, so that
@@ -20,17 +21,102 @@ from typing import Callable, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd import profiler as _profiler
 
 from ..core import SparseConvTensor, default_device
 
 __all__ = ["SparseModule", "SparseSequential", "Lambda", "SparseIdentity",
            "Identity", "SparseReLU", "SparseLeakyReLU", "SparseSigmoid",
-           "BatchNorm1d", "SparseBatchNorm", "ToDense", "PrintTensorMeta",
-           "PrintCurrentTime", "assign_name_for_sparse_modules"]
+           "BatchNorm1d", "SparseBatchNorm", "SparseSyncBatchNorm",
+           "ToDense", "PrintTensorMeta", "PrintCurrentTime",
+           "assign_name_for_sparse_modules", "record_benchmark_layer",
+           "run_layer"]
 
 
 class SparseModule(nn.Module):
     """Marker: the module takes and returns a :class:`SparseConvTensor`."""
+
+
+def record_benchmark_layer(out: SparseConvTensor, name: str,
+                           module: nn.Module, *, n_in=None, n_out=None,
+                           num_pairs=None, time_ms=None) -> None:
+    """Adds one record to ``out.benchmark_record`` under ``name`` (then
+    ``name#1``, ``name#2``, ... when taken): the JAX package's record, with
+    ``"layer"``, ``"type"`` (the module's class name),
+    ``"num_voxels_in"``, ``"num_voxels_out"`` and ``"num_pairs"`` (ints,
+    read on the host, or None), ``"time_ms"`` (float or None) and those of
+    the module's ``in_channels``, ``out_channels``, ``kernel_size``,
+    ``stride``, ``algo`` and ``indice_key`` that it has."""
+
+    def _int(v):
+        return None if v is None else int(v)
+
+    rec = {
+        "layer": name,
+        "type": type(module).__name__,
+        "num_voxels_in": _int(n_in),
+        "num_voxels_out": _int(n_out),
+        # the matched (input, output) pairs: the layer's MACs are
+        # num_pairs * C_in * C_out
+        "num_pairs": _int(num_pairs),
+        "time_ms": None if time_ms is None else float(time_ms),
+    }
+    for attr in ("in_channels", "out_channels", "kernel_size", "stride",
+                 "algo", "indice_key"):
+        if hasattr(module, attr):
+            rec[attr] = getattr(module, attr)
+    key, i = name, 1
+    while key in out.benchmark_record:
+        key = f"{name}#{i}"
+        i += 1
+    out.benchmark_record[key] = rec
+
+
+def run_layer(module: nn.Module, input: SparseConvTensor,
+              *args) -> SparseConvTensor:
+    """``module._forward(input, *args)``, a conv's or pool's forward, under
+    the layer's name (``module.name`` or its class name).
+
+    While a profiler records, the call runs inside a
+    ``torch.profiler.record_function(name)`` range (the JAX package's
+    ``jax.named_scope``), a host event around the layer's device ops.
+    Under ``input.benchmark`` the output carries the producer's records
+    and adds the layer's own (:func:`record_benchmark_layer`): its
+    ``time_ms`` is the time between two CUDA events around the call, read
+    after a sync at its end (on the CPU, the host clock), and its
+    ``num_pairs`` is ``module._num_pairs(input, out)`` where the module
+    has one.  Otherwise it adds no device op, no sync and no allocation:
+    the profiler check is one boolean."""
+    name = module.name or type(module).__name__
+    if not input.benchmark:
+        if not _profiler._is_profiler_enabled:
+            return module._forward(input, *args)
+        with torch.profiler.record_function(name):
+            return module._forward(input, *args)
+    cuda = input.features.is_cuda
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    else:
+        t0 = time.perf_counter()
+    with torch.profiler.record_function(name):
+        out = module._forward(input, *args)
+    if cuda:
+        end.record()
+        end.synchronize()
+        time_ms = start.elapsed_time(end)
+    else:
+        time_ms = (time.perf_counter() - t0) * 1e3
+    out.benchmark = True
+    for k, v in input.benchmark_record.items():
+        out.benchmark_record.setdefault(k, v)
+    pairs = getattr(module, "_num_pairs", None)
+    record_benchmark_layer(
+        out, name, module, n_in=input.num_voxels, n_out=out.num_voxels,
+        num_pairs=None if pairs is None else pairs(input, out),
+        time_ms=time_ms)
+    return out
 
 
 def _featurewise(x, fn: Callable):
@@ -123,6 +209,28 @@ class SparseIdentity(SparseModule):
 Identity = SparseIdentity
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum of ``x`` over the ranks of ``group``, its gradient the sum of
+    the ranks' gradients (the JAX ``psum`` and its transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        g = grad.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class BatchNorm1d(SparseModule):
     """Feature-row batch norm whose statistics cover active rows only (a
     dense BN over the padded buffer would count the zero padding).
@@ -137,17 +245,29 @@ class BatchNorm1d(SparseModule):
     JAX package, ``forward`` never changes the running statistics:
     :meth:`updated` advances them by a batch.
 
+    With ``axis_name`` (SyncBN), the masked count, sum and sum of squares
+    are summed across the ranks of the process group that
+    ``parallel.make_mesh`` registered under that axis, in one all-reduce
+    of a packed f64 ``[2C + 1]`` vector whose gradient is all-reduced too
+    (the JAX ``psum``): training normalizes with the global statistics
+    and :meth:`updated` advances the running ones by them.  In eval mode
+    there is no collective.  An axis with no group raises
+    ``RuntimeError`` in training; it never falls back to the local
+    statistics.
+
     Takes a :class:`SparseConvTensor` or a plain ``[N, C]`` tensor (all
     rows active).  ``device`` None is the CUDA card."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
+                 axis_name: Optional[str] = None,
                  dtype: torch.dtype = torch.float32, device=None,
                  name: Optional[str] = None):
         super().__init__()
         self.num_features = num_features
         self.eps = eps
         self.momentum = momentum
+        self.axis_name = axis_name
         self.name = name
         device = default_device(device)
         if affine:
@@ -164,7 +284,9 @@ class BatchNorm1d(SparseModule):
             num_features, dtype=torch.float32, device=device))
 
     def extra_repr(self) -> str:
-        return f"{self.num_features}, eps={self.eps}"
+        axis = (f", axis_name={self.axis_name!r}" if self.axis_name
+                else "")
+        return f"{self.num_features}, eps={self.eps}{axis}"
 
     @staticmethod
     def _feats_mask(x):
@@ -172,16 +294,30 @@ class BatchNorm1d(SparseModule):
             return x.features, x.valid_mask
         return x, torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
 
-    @staticmethod
-    def _batch_stats(feats, mask):
+    def _batch_stats(self, feats, mask):
         """f32 ``(mean, biased var, count)`` over the rows of ``mask``
-        (count at least 1)."""
+        (count at least 1), over every rank of ``axis_name`` when set.
+        The count, sum and sum of squares of the f32 features accumulate
+        in f64, so the statistics do not depend on the order of the sums
+        (rows, ranks): the one-pass variance cancels where a channel is
+        near constant, and f32 sums would leave order-dependent noise
+        there that the gradient amplifies."""
         m = mask[:, None].float()
         f32 = feats.float() * m
-        cnt = m.sum().clamp(min=1.0)
-        mean = f32.sum(0) / cnt
-        var = (f32 * f32).sum(0) / cnt - mean * mean
-        return mean, var.clamp(min=0.0), cnt
+        f64 = torch.float64
+        cnt = m.sum(dtype=f64)
+        s, ss = f32.sum(0, dtype=f64), (f32 * f32).sum(0, dtype=f64)
+        if self.axis_name is not None:
+            from ..parallel.mesh import axis_group
+
+            c = s.shape[0]
+            packed = _AllReduceSum.apply(torch.cat([cnt[None], s, ss]),
+                                         axis_group(self.axis_name))
+            cnt, s, ss = packed[0], packed[1:c + 1], packed[c + 1:]
+        cnt = cnt.clamp(min=1.0)
+        mean = s / cnt
+        var = (ss / cnt - mean * mean).clamp(min=0.0)
+        return mean.float(), var.float(), cnt.float()
 
     def forward(self, x: Union[SparseConvTensor, torch.Tensor]
                 ) -> Union[SparseConvTensor, torch.Tensor]:
@@ -216,6 +352,20 @@ class BatchNorm1d(SparseModule):
 
 class SparseBatchNorm(BatchNorm1d):
     """:class:`BatchNorm1d` under the reference's name."""
+
+
+class SparseSyncBatchNorm(BatchNorm1d):
+    """:class:`BatchNorm1d` whose statistics are summed across the ranks
+    of ``axis_name`` (default ``"dp"``, the axis ``parallel.make_mesh``
+    registers by default): the reference's ``SparseSyncBatchNorm``, which
+    wraps ``torch.nn.SyncBatchNorm``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True,
+                 axis_name: str = "dp", dtype: torch.dtype = torch.float32,
+                 device=None, name: Optional[str] = None):
+        super().__init__(num_features, eps, momentum, affine, axis_name,
+                         dtype, device, name)
 
 
 class SparseReLU(SparseModule):

@@ -43,7 +43,7 @@ from ..ops.pool import (global_pool, indice_avgpool, indice_maxpool,
 from ..ops.rulebook import (build_conv_rulebook, build_pool2_outputs,
                             build_pool2_rulebook, build_subm_rulebook)
 from ..ops.sorted_pool import sk_pool2_ad
-from .modules import SparseModule
+from .modules import SparseModule, run_layer
 
 __all__ = [
     "SparseMaxPool", "SparseAvgPool",
@@ -119,6 +119,11 @@ class _SparsePoolBase(SparseModule):
                                          input.batch_size))
 
     def forward(self, input: SparseConvTensor) -> SparseConvTensor:
+        """The pool of ``input``, under :func:`modules.run_layer`'s
+        profiler range and benchmark record."""
+        return run_layer(self, input)
+
+    def _forward(self, input: SparseConvTensor) -> SparseConvTensor:
         if self.algo == "native" or not self._is_pool2(input):
             return self._call_native(input)
         in_shape = tuple(input.spatial_shape)

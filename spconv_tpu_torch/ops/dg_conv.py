@@ -704,7 +704,7 @@ def _count_name(base: str, path: str) -> str:
 
 
 def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
-           path: str = "subm") -> torch.Tensor:
+           path: str = "subm", tile: Optional[int] = None) -> torch.Tensor:
     """``out[i] = sum_k x[pos[k, i]] @ weight_kv[k]`` -> ``[pos.shape[1],
     K]`` in ``x.dtype`` (f32 accumulation, one rounding; rows without a
     match are 0).  ``x``: ``[N_src, C]`` f32 or bf16; ``weight_kv``:
@@ -715,14 +715,20 @@ def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     N_src), ``"strided"`` (an affine table), ``"inverse"`` (a divide
     table), ``"transposed"`` (a divide table on swapped spaces) or
     ``"native"`` (a rulebook's ``pair_fwd``, ``ops/gather_gemm.py``; its
-    rows in no key order).  Records
+    rows in no key order).  ``tile``: B2's bf16 tile variant to launch
+    (an index into :data:`B2_TILES`; None: :func:`b2_variant`'s pick),
+    which the tuner passes on the native path; a bf16 call only.  Records
     no autograd graph on CUDA: :class:`DGConvFn` differentiates."""
     name = _count_name("dg_fwd", path)
     _check_gather_gemm(name, x, weight_kv, pos, 1,
                        n_out=None if path == "subm" else pos.shape[-1])
+    _check(tile is None or (x.dtype == torch.bfloat16
+                            and 0 <= tile < len(B2_TILES)),
+           f"{name}: tile {tile} is not one of B2's {len(B2_TILES)} bf16 "
+           f"tiles for {x.dtype} features")
     if x.device.type == "cpu":
         return dg_fwd_plain(x, weight_kv, pos)
-    return _gather_gemm_cuda(x, weight_kv, pos, name)
+    return _gather_gemm_cuda(x, weight_kv, pos, name, tile=tile)
 
 
 def dg_fwd_plain(x: torch.Tensor, weight_kv: torch.Tensor,
@@ -829,14 +835,16 @@ def b2_smem_bytes(tile: int, trans: bool) -> int:
     return 4 * (bm * (bk + 8) * 2 + b_bytes) + (32 * bm + 2 * 32 + 1) * 4
 
 
-def _gather_gemm_cuda(x, weight_kv, rows, counter, search=(), trans=False):
+def _gather_gemm_cuda(x, weight_kv, rows, counter, search=(), trans=False,
+                      tile=None):
     """Launches B2's kernel and counts the launch under ``counter``.  Its
     rows come from ``rows``: the table ``[kv, N_dst]``, or with ``search``
     (the search mode's extra arguments, :func:`_search_args`) the keys
     ``[N]``.  The output has ``N_dst`` (``N``) rows; ``x`` is read only
     through the rows' matches.  ``trans``: multiply by ``W[k]^T``; the bf16
     kernel reads the ``[kv, C, K]`` weight as it is, the f32 one takes a
-    transposed copy."""
+    transposed copy.  ``tile``: the bf16 tile variant (None:
+    :func:`b2_variant`'s)."""
     from .._build import load_library
 
     if trans and x.dtype == torch.float32:
@@ -862,7 +870,8 @@ def _gather_gemm_cuda(x, weight_kv, rows, counter, search=(), trans=False):
     else:
         v = b2_variant(n, c, k_out, aligned=x.data_ptr() % 16 == 0)
         err = getattr(lib, f"dg_fwd_{mode}bf16_launch")(
-            *args, v.tile, int(v.vec), int(trans), _stream_ptr(x.device))
+            *args, v.tile if tile is None else tile, int(v.vec), int(trans),
+            _stream_ptr(x.device))
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out

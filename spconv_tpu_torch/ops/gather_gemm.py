@@ -28,6 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tuner
 from . import dg_conv as D
 
 __all__ = ["indice_conv", "gather_mm", "dgrad_gather_mm", "wgrad_gather_mm",
@@ -44,16 +45,27 @@ def _check_accum(accum_dtype) -> None:
 def gather_mm(features: torch.Tensor, weight_kv: torch.Tensor,
               pair_fwd: torch.Tensor, subm_center: Optional[int],
               accum_dtype=torch.float32,
-              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+              out_dtype: Optional[torch.dtype] = None,
+              tile: Optional[int] = None) -> torch.Tensor:
     """``out[o] = sum_k features[pair_fwd[k, o]] @ weight_kv[k]`` ->
     ``[N_out, K]``.  ``features`` ``[N_in, C]``, ``weight_kv`` ``[kv, C,
     K]`` of the same dtype, ``pair_fwd`` ``[kv, N_out]`` int32 in ``[-1,
     N_in)``.  ``subm_center`` is not read: a subm rulebook's centre offset
-    is the identity table, which B2 gathers like any other."""
+    is the identity table, which B2 gathers like any other.  ``tile``: B2's
+    bf16 tile (``ops.dg_conv.B2_TILES``); None takes the winner that
+    ``tuner.CONV_TUNER`` has cached for this signature under
+    ``"gather_mm"`` (``ConvTuner.tune_conv_tile``), else B2's own pick.
+    f32 features take B2's f32 kernel, which has no tiles."""
     del subm_center
     _check_accum(accum_dtype)
+    if tile is None and features.dtype == torch.bfloat16:
+        tuned = tuner.CONV_TUNER.get_tuned_params(
+            "gather_mm", pair_fwd.shape[1], features.shape[1],
+            weight_kv.shape[2], weight_kv.shape[0], "bfloat16")
+        if tuned["source"] == "tuned":
+            tile = tuned["tile"]
     out = D.dg_fwd(features, weight_kv.contiguous(), pair_fwd,
-                   path="native")
+                   path="native", tile=tile)
     return out if out_dtype is None else out.to(out_dtype)
 
 

@@ -19,11 +19,19 @@ rule), ``gemm_tiles`` (the sweep behind the probe GEMMs' plan, and their
 ablations), ``copy_tiles`` (the same for the probe copy and transpose) and
 ``table_cases``, the edge inputs of the table and pool kernels that the
 tests and ``chip_smoke.py`` share.
+
+And the timers of the JAX package's ``spconv_tpu/tools.py`` (``timer``):
+``KernelTimer`` / ``CUDAKernelTimer`` (named, nested spans, CUDA events on
+the card) and ``benchmark_model`` (the ms of one call), re-exported here so
+that ``spconv_tpu_torch.tools.KernelTimer`` stands where
+``spconv_tpu.tools.KernelTimer`` does.
 """
 
 from typing import Dict
 
-__all__ = ["report"]
+from .timer import CUDAKernelTimer, KernelTimer, benchmark_model
+
+__all__ = ["report", "KernelTimer", "CUDAKernelTimer", "benchmark_model"]
 
 
 def report(results: Dict[str, bool], case: str, ok: bool,

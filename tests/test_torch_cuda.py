@@ -7,6 +7,8 @@ machine that has only PyTorch; there, skip the JAX-importing conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -2430,3 +2432,273 @@ def test_hash_table_and_rotate_nms_on_card_equal_cpu(dev):
     iou = TBX.rbbox_iou(boxes.to(dev), boxes.to(dev)).cpu()
     ref = TBX.rbbox_iou(boxes, boxes)
     assert (iou - ref).abs().max() <= BOX_CARD_TOL * ref.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# the tuner's B2 tile, the timers, data parallelism on the card
+# ---------------------------------------------------------------------------
+
+def _b2_tiles_launched(fn, reps=3):
+    """The B2 bf16 tile of each device launch of ``reps`` calls of
+    ``fn``, from a profiler window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    tiles = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        m = re.search(
+            r"dg_fwd_bf16_kernel<[^<]*Tile<(\d+), (\d+), \d+, \d+, (\d+)>",
+            e.name)
+        if m:
+            tiles.append(tuple(int(v) for v in m.groups()))
+    return tiles
+
+
+def _check_tile(x, w, pos, tile, path):
+    """B2 forced onto ``tile`` against plain (1.6e-2 of max|ref|), one
+    launch, bit-equal on repeat."""
+    ref = TD.dg_fwd_plain(x, w, pos).float()
+    TD.reset_launch_counts()
+    got = TD.dg_fwd(x, w, pos, path, tile=tile)
+    torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(
+        **{"dg_fwd" if path == "subm" else f"dg_fwd_{path}": 1})
+    err = (got.float() - ref).abs().max().item()
+    assert err <= 1.6e-2 * ref.abs().max().item(), err
+    assert torch.equal(got, TD.dg_fwd(x, w, pos, path, tile=tile))
+
+
+def _tile_case(c, dev):
+    """bf16 features of 3,000 sorted sites in 3,072 rows at width ``c``, a
+    ``[27, c, 96]`` weight, B1's table and a native subm rulebook's
+    ``pair_fwd`` of the same sites."""
+    from spconv_tpu_torch.ops import rulebook as TR
+
+    feats, inds = _sorted_input(40 + c, 3000, c, 3072)
+    _, pos = _plain_pos(inds)
+    g = torch.Generator().manual_seed(41)
+    w = (torch.randn((KV, c, 96), generator=g) / np.sqrt(KV * c)).to(
+        dev, torch.bfloat16)
+    pair = TR.build_subm_rulebook(torch.from_numpy(inds).to(dev),
+                                  spatial_shape=SHAPE, batch_size=1,
+                                  ksize=KSIZE, dilation=DIL).pair_fwd
+    return (torch.from_numpy(feats).to(dev, torch.bfloat16), w,
+            pos.to(dev), pair)
+
+
+@pytest.mark.parametrize("c", [3, 16, 160])
+@pytest.mark.parametrize("tile", range(5))
+def test_b2_forced_tile_matches_plain(dev, tile, c):
+    """Each of B2's five bf16 tiles forced through ``dg_fwd(tile=)`` at
+    C = 3 (the scalar gather), 16 (packed steps) and 160 (channel steps),
+    K = 96 (column tiles past 16-64-wide tiles, part of one 128- or
+    256-wide tile), on a B1 table and on a native rulebook's ``pair_fwd``
+    (the tuner's path), and ``gather_mm(tile=)`` equal to it."""
+    from spconv_tpu_torch.ops import gather_gemm as TG
+
+    x, w, pos, pair = _tile_case(c, dev)
+    _check_tile(x, w, pos, tile, "subm")
+    _check_tile(x, w, pair, tile, "native")
+    assert torch.equal(TG.gather_mm(x, w, pair, None, tile=tile),
+                       TD.dg_fwd(x, w, pair, "native", tile=tile))
+
+
+def _stage0_native():
+    """Phase 16's tile-tuning shape: BenchNet's stage 0 (seed 0, 125,562
+    voxels), 64 bf16 features, a [27, 64, 64] weight and the native subm
+    rulebook's ``pair_fwd``, and the scan's tensor."""
+    from spconv_tpu_torch.ops import rulebook as TR
+
+    x = TB.make_bench_input(*TB.synthetic_scan(0), device="cuda")
+    pair = TR.build_subm_rulebook(x.indices, spatial_shape=x.spatial_shape,
+                                  batch_size=1, ksize=KSIZE,
+                                  dilation=DIL).pair_fwd
+    g = torch.Generator(device="cuda").manual_seed(16)
+    f = (torch.randn((x.indices.shape[0], 64), device="cuda", generator=g)
+         * x.valid_mask[:, None]).bfloat16()
+    w = (torch.randn((KV, 64, 64), device="cuda", generator=g)
+         / np.sqrt(KV * 64)).bfloat16()
+    return f, w, pair, x
+
+
+@pytest.fixture(scope="module")
+def stage0_native():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only there)")
+    return _stage0_native()
+
+
+@pytest.mark.parametrize("tile", range(5))
+def test_b2_forced_tile_at_stage0(dev, stage0_native, tile):
+    """Each tile at phase 16's shape against plain."""
+    _check_tile(*stage0_native[:3], tile, "native")
+
+
+def test_tuned_tile_serves_native_conv(dev, stage0_native, tmp_path,
+                                       monkeypatch):
+    """``tune_conv_tile`` at phase 16's shape caches a winner with every
+    tile's ms; a native conv's forward with it cached equals the conv
+    forced onto that tile."""
+    from spconv_tpu_torch import tuner as TU
+    from spconv_tpu_torch.ops import gather_gemm as TG
+
+    f, w, pair, x = stage0_native
+    won = TU.ConvTuner(cache_dir=str(tmp_path)).tune_conv_tile(f, w, pair,
+                                                               None)
+    assert set(won["candidates"]) == {f"tile={i}" for i in range(5)}
+    assert all(np.isfinite(v) and v > 0 for v in won["candidates"].values())
+    monkeypatch.setattr(TU, "CONV_TUNER", TU.ConvTuner(cache_dir=str(
+        tmp_path)))
+    conv = st.SubMConv3d(64, 64, 3, bias=False, algo="native",
+                         dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        got = conv(x.replace_feature(f)).features
+    wkv = TD.weight_krsc_to_kv(conv.weight.detach())
+    assert torch.equal(got, TG.gather_mm(f, wkv, pair, None,
+                                         tile=won["tile"]))
+
+
+def _profiled_tiles():
+    """The profiler's part of :func:`test_b2_tiles_launched_as_forced`,
+    run in a fresh interpreter: B2 on each tile forced (B1 table and
+    native rulebook, C = 3, 16, 160), and a native conv with a tuned tile
+    cached at phase 16's shape, each window's B2 launches on that tile."""
+    import tempfile
+
+    from spconv_tpu_torch import tuner as TU
+    from spconv_tpu_torch.ops import gather_gemm as TG
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for c in (3, 16, 160):
+        x, w, pos, pair = _tile_case(c, dev)
+        for tile in range(5):
+            for what, fn in (
+                    ("table", lambda: TD.dg_fwd(x, w, pos, tile=tile)),
+                    ("native", lambda: TG.gather_mm(x, w, pair, None,
+                                                    tile=tile))):
+                tiles = _b2_tiles_launched(fn)
+                assert tiles and set(tiles) == {TD.B2_TILES[tile]}, (
+                    c, tile, what, tiles)
+    f, w, pair, x = _stage0_native()
+    with tempfile.TemporaryDirectory() as tmp:
+        won = TU.ConvTuner(cache_dir=tmp).tune_conv_tile(f, w, pair, None)
+        TU.CONV_TUNER = TU.ConvTuner(cache_dir=tmp)
+        conv = st.SubMConv3d(64, 64, 3, bias=False, algo="native",
+                             dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            tiles = _b2_tiles_launched(lambda: conv(x.replace_feature(f)))
+    assert tiles and set(tiles) == {TD.B2_TILES[won["tile"]]}, tiles
+    print(f"tuned tile {won['tile']} launched; every forced tile launched")
+
+
+def test_b2_tiles_launched_as_forced(dev):
+    """The profiler sees B2 launched on each forced tile and, through a
+    native conv, on the tuned one (:func:`_profiled_tiles`), in a fresh
+    interpreter: in a long test process the profiler has recorded none of
+    the device ops of short windows."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent), str(here)]))
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import test_torch_cuda as T; T._profiled_tiles()"],
+        cwd=here, env=env, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "every forced tile launched" in out.stdout
+
+
+def test_kernel_timer_and_benchmark_model_on_card(dev):
+    """``KernelTimer`` spans are CUDA events read after one sync: nested
+    keys, an outer span no shorter than its inner one, a span on another
+    stream; ``benchmark_model`` gives the ms of one call on CUDA events,
+    within 25 % of the same calls timed by hand."""
+    from spconv_tpu_torch.tools import KernelTimer, benchmark_model
+
+    a = torch.randn(2048, 2048, device=dev)
+    timer = KernelTimer()
+    with timer.namespace("outer"):
+        with timer.namespace("mm"):
+            for _ in range(4):
+                a @ a
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            with timer.record("side", stream=side):
+                a @ a
+    spans = timer.get_all_pair_time()
+    assert sorted(spans) == ["outer", "outer.mm", "outer.side"]
+    assert all(v > 0 for v in spans.values())
+    assert spans["outer"] >= spans["outer.mm"]
+    assert timer.get_all_pair_time() == spans
+    ms = benchmark_model(lambda t: t @ t, (a,), rep=10, n_outer=3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        a @ a
+    end.record()
+    end.synchronize()
+    by_hand = start.elapsed_time(end) / 10
+    assert isinstance(ms, float) and 0.75 * by_hand <= ms <= 1.25 * by_hand
+
+
+def _sync_bn_rank(rank, world, device, feats, inds):
+    """One data-parallel step of SubM -> SyncBN -> ReLU on ``device`` (the
+    conv without a bias, as before a BN: its gradient would be 0 up to
+    rounding)."""
+    from spconv_tpu_torch import parallel as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = P.make_mesh(world)
+    g = torch.Generator().manual_seed(3)
+    net = st.SparseSequential(
+        st.SubMConv3d(4, 8, 3, bias=False, indice_key="s", device=device,
+                      generator=g),
+        st.SparseSyncBatchNorm(8, device=device), st.SparseReLU()).train()
+
+    def loss_fn(n, f, i):
+        return (n(st.SparseConvTensor(f, i, SHAPE, 1, keys_sorted=True))
+                .features ** 2).sum()
+
+    loss, grads = P.data_parallel_value_and_grad(loss_fn, mesh)(
+        net, torch.from_numpy(feats).to(device),
+        torch.from_numpy(inds).to(device))
+    return {"loss": loss.item(), "grads": {k: v.cpu()
+                                           for k, v in grads.items()},
+            "launches": dict(TD.launch_counts)}
+
+
+def test_sync_bn_two_ranks_on_card_matches_cpu(dev, tmp_path):
+    """A 2-rank ``gloo`` data-parallel step with SyncBN on the one card
+    (B1 and B2 on each rank's scan, the statistics all-reduced through
+    host memory) against the same step on the CPU: loss and grads within
+    1e-4 of max per tensor; each card rank launched its kernels."""
+    from spconv_tpu_torch.parallel import run_ranks
+
+    scans = [_sorted_input(50 + r, 300, 4, 384) for r in range(2)]
+    feats = np.stack([f for f, _ in scans])
+    inds = np.stack([i for _, i in scans])
+    res = {d: run_ranks(_sync_bn_rank, 2, (d, feats, inds), backend="gloo",
+                        timeout=300, workdir=str(tmp_path))
+           for d in ("cuda", "cpu")}
+    for r in range(2):
+        card, cpu = res["cuda"][r], res["cpu"][r]
+        assert card["launches"]["dg_fwd"] == 1
+        assert card["launches"]["dg_wgrad"] == 1
+        assert not any(cpu["launches"].values())
+        np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-5)
+        for k, g in cpu["grads"].items():
+            err = (card["grads"][k] - g).abs().max().item()
+            assert err <= 1e-4 * g.abs().max().item(), (k, err)
