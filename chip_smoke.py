@@ -9,7 +9,9 @@ line is printed):
    limit;
 2. builds the CUDA kernels from ``spconv_tpu_torch/csrc`` with nvcc, and
    beside them the bf16 wgrad's and B7's counting builds
-   (``tools/wgrad_ablation.py``, ``tools/b7_ablation.py``), and prints
+   (``tools/wgrad_ablation.py``, ``tools/b7_ablation.py``), B1's, and the
+   probes with the parent's rank kernel (``tools/join_gather_tiles.py``'s
+   ``PARENT_RANK``), and prints
    each kernel's ptxas registers, spills and static shared memory (B2's,
    wgrad's and B7's variants with their dynamic shared memory; a wgrad or
    B7 variant that spills, or a report without all 24 wgrad and 32 B7
@@ -111,6 +113,9 @@ line is printed):
    beside the plain version, the PyTorch call that computes the same
    function and its bound; the GEMMs with their plans (tile, blocks, K
    split) and, where this PyTorch has it, ``torch.mm`` with an f32 out;
+   the rank with its plan (``rank_plan``: a warp a row), on every plan of
+   its sweep (warps a block, the keys counted or searched) and on the
+   parent's kernel (one block a row, built in phase 2), in turns;
 13. the MNIST classifier (``SparseClassifier(2, 1, 10)``, batch 8 on 28 x
    28) trained 5 SGD steps at ``examples/mnist_sparse.py``'s lr with launch
    counts, and its first step in f32 (logits, loss, grads) against the plain
@@ -178,7 +183,17 @@ line is printed):
    losses; the ``DistributedDataParallel`` path equal); a failed or hung
    rank fails the run and none is left behind; and what BatchNorm's f64
    statistics cost a ``bn=True`` step against f32 sums, in turns;
-17. prints a JSON line of the kernels, each with its bound (the least time
+17. deployment: the bf16 CenterPoint encoder of phase 6 (113,000 voxels
+   on ``[80, 1024, 1024]``, its calibrated buffers) and the int8 encoder
+   of phase 8, each exported through ``torch.export``
+   (``spconv_tpu_torch.export``: every kernel a ``torch.library`` op),
+   saved to bytes and reloaded in this process and in a fresh interpreter
+   that imports only the port: three requests bit-equal to eager with
+   eager's launches kernel by kernel (the fresh interpreter's on seed 0),
+   the blob's bytes, host ms of eager against the exported module in
+   turns, and the host µs of one op call against the direct launch (and
+   of an op made by ``Library`` against one made by ``custom_op``);
+18. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -585,28 +600,18 @@ def b7_tile(name):
 def plain_kernels(D, b2_forward=False):
     """While the block runs, every DG conv kernel that ``ops.dg_conv``
     launches is swapped for its plain version, on whatever device: B1's
-    tables (``dg_pos_plain``, ``dg_pos_affine_plain``,
-    ``dg_pos_divide_plain``), the backward (``dg_dgrad_plain``,
-    ``dg_wgrad_plain``) and, unless ``b2_forward``, B2's forward
-    (``dg_fwd_plain``).  A net run inside takes its own code, so what it
-    computes holds the kernels against their plain versions (with
-    ``b2_forward``, the backward alone).  The plain versions count no
-    launch."""
-    import numpy as np
-
-    def table(keys, ksize, dilation, dims, sentinel, reverse):
-        return D.dg_pos_plain(keys, ksize=ksize, dilation=dilation,
-                              spatial_shape=dims,
-                              batch_size=sentinel // int(np.prod(dims)),
-                              reverse=reverse)
-
-    def regular(name, in_keys, out_keys, path, **geom):
-        plain = (D.dg_pos_affine_plain if name == "dg_pos_affine"
-                 else D.dg_pos_divide_plain)
-        return plain(in_keys, out_keys, **geom)
+    tables (every ``dg_pos`` op call, ``_pos_op``, by ``_pos_plain``:
+    ``dg_pos_plain``, ``dg_pos_affine_plain``, ``dg_pos_divide_plain``),
+    the backward (``dg_dgrad_plain``, ``dg_wgrad_plain``) and, unless
+    ``b2_forward``, B2's forward (``dg_fwd_plain``).  A net run inside
+    takes its own code, so what it computes holds the kernels against
+    their plain versions (with ``b2_forward``, the backward alone).  The
+    plain versions count no launch."""
+    def table(rows, table, tg, batch_size, counter):
+        return D._pos_plain(rows, table, tg, batch_size)
 
     swap = dict(
-        _dg_pos_cuda=table, _regular_pos_cuda=regular,
+        _pos_op=table,
         dg_dgrad=lambda dout, w, pos, path="subm": D.dg_dgrad_plain(
             dout, w, pos),
         dg_wgrad=lambda x, dout, pos, path="subm": D.dg_wgrad_plain(
@@ -1212,11 +1217,11 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note,
     shape (``cp_rec``: phase 3's tables) and at an inverse layer, serves the
     three scans in int8 with their checks, times the int8 requests beside
     the bf16 net ``cp_net``, and runs an int8 downsample + inverse pair.
-    Returns ``(tallies, serve_launches, pair_launches)``: B7's kernel,
-    plain and bound ms summed over one int8 request (subm, strided) or the
-    inverse layer; and one width of each B7 variant with its MMA rows
-    counted on the card by ``b7_count_lib`` (``tools/b7_ablation.py``'s
-    counting build)."""
+    Returns ``(tallies, serve_launches, pair_launches, variants, qnet)``:
+    B7's kernel, plain and bound ms summed over one int8 request (subm,
+    strided) or the inverse layer; one width of each B7 variant with its
+    MMA rows counted on the card by ``b7_count_lib``
+    (``tools/b7_ablation.py``'s counting build); and the int8 encoder."""
     import numpy as np
     from spconv_tpu_torch import SparseConv3d, SparseInverseConv3d
     from spconv_tpu_torch.ops import dg_conv as D
@@ -1507,7 +1512,7 @@ def int8_phase(torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note,
               "int8 pair: the inverse's sites are not the input's, or 0")
     print(f"int8 pair (down0 16->32 + inverse 32->16 on seed 0's int8 stage "
           f"0): bit-equal to plain; launches {pair_launches}")
-    return tally, serve_launches, pair_launches, b7_variants
+    return tally, serve_launches, pair_launches, b7_variants, qnet
 
 
 def pool_bound(n_act, n_buf, m, c, esz):
@@ -2623,14 +2628,17 @@ def transposed_phase(torch, dev, cp_in, note):
     return tally, serve_launches, train_launches, k3_launches
 
 
-def probe_phase(torch, dev):
+def probe_phase(torch, dev, rank_parent_lib):
     """Phase 12: every probe script's ``main()`` on the card, each case OK,
     with the launches of each; then each probe kernel against its plain
     version at its probe's shape (exact, the bf16 GEMM within 1e-5 of
     max|ref|), timed beside the plain version, the PyTorch call that
-    computes the same function (where one does) and its bound.  Returns
-    ``{row: dict(launches, errs, tally, library_ms, ...)}``."""
+    computes the same function (where one does) and its bound; the rank
+    also on every plan of ``rank_plan``'s sweep and on the parent's kernel
+    (``rank_parent_lib``, built in phase 2), in turns.  Returns ``{row:
+    dict(launches, errs, tally, library_ms, ...)}``."""
     import numpy as np
+    from spconv_tpu_torch._build import load_library
     from spconv_tpu_torch.benchmark import basic as B
     from spconv_tpu_torch.ops import coords as C
     from spconv_tpu_torch.ops import dg_conv as D
@@ -2638,6 +2646,7 @@ def probe_phase(torch, dev):
     from spconv_tpu_torch.tools import (probe_cast, probe_dg,
                                         probe_dma_align, probe_int8,
                                         probe_sk)
+    from spconv_tpu_torch.tools import join_gather_tiles as JG
 
     launches = {}
     for mod in (probe_int8, probe_dma_align, probe_cast, probe_dg, probe_sk):
@@ -2788,14 +2797,28 @@ def probe_phase(torch, dev):
              bound(4 * (t_n + w_n + t_n * c)
                    + matched * c * table.element_size()),
              (src, "probe_join"), searchsorted_ms=half, plan=jp._asdict())
-    keys = torch.sort(torch.randint(0, 10_000, (128,), device=dev,
-                                    dtype=i32)).values
-    pr = torch.randint(0, 10_000, (16, 128), device=dev, dtype=i32)
+    keys, pr = JG.rank_case(dev)
     first = pr[:, 0].contiguous()
+    # every plan rank_plan can give and the parent's kernel (one block a
+    # row, thread 0's binary search: tools/join_gather_tiles.py's
+    # PARENT_RANK build), in turns
+    sweep, rplan, sweep_ms, parent_ms, _ = JG.rank_sweep(
+        load_library(), rank_parent_lib, keys, pr, sms)
+    check(rplan == P.rank_launch_plan(keys, pr) and rplan.search == "count"
+          and rplan.kvec and rplan.grid * rplan.rb >= 16,
+          f"probe_rank: plan {rplan}")
+    print(f"  {'probe_rank':22s} plan: {rplan.grid} blocks of {rplan.rb} "
+          "warp(s), a warp a row, its 128 keys read once 16 bytes a lane "
+          "and counted, the row written 16 bytes a lane; sweep (search/"
+          "blocks x warps, ms): " + "  ".join(
+              f"{p.search}/{p.grid}x{p.rb} {t:.5f}"
+              + ("*" if p == rplan else "") for p, t in zip(sweep, sweep_ms))
+          + f"; the parent's kernel {parent_ms:.5f}")
     case("probe_rank", lambda: P.lane_rank(keys, pr),
          lambda: P.lane_rank_plain(keys, pr),
          lambda: torch.searchsorted(keys, first),
-         bound(4 * (128 + 16 + 16 * 128)), ("probe_dg", "probe_rank"))
+         bound(4 * (128 + 16 + 16 * 128)), ("probe_dg", "probe_rank"),
+         plan=rplan._asdict(), parent_ms=parent_ms)
     a8 = torch.randint(-127, 127, (128, 256), device=dev).to(torch.int8)
     b8 = torch.randint(-127, 127, (256, 128), device=dev).to(torch.int8)
     try:
@@ -4495,6 +4518,227 @@ def dp_phase(torch, dev, cp_in, cp_bounds):
           f"DistributedDataParallel path's {[f'{v:.6e}' for v in ex['ddp_losses']]}")
 
 
+# ---- phase 17: export, save and reload (torch.export) ---------------------
+
+# one process that reloads a blob: it imports the port (which registers the
+# kernels' ops) and nothing of the model, runs the program on the saved
+# inputs on the card and saves its output and launch counts
+EXPORT_CHILD = """
+import sys
+import torch
+import spconv_tpu_torch  # registers the kernels' ops
+from spconv_tpu_torch.export import deserialize_and_call
+from spconv_tpu_torch.ops import dg_conv as D
+
+blob_path, in_path, out_path = sys.argv[1:4]
+data = torch.load(in_path)
+args = [data[k].to("cuda") for k in ("f", "i")]
+D.reset_launch_counts()
+out = deserialize_and_call(open(blob_path, "rb").read(), *args)
+torch.cuda.synchronize()
+torch.save({"out": out.cpu(), "counts": dict(D.launch_counts)}, out_path)
+if "jax" in sys.modules or "spconv_tpu" in sys.modules:
+    sys.exit("the child imported JAX or the JAX package")
+"""
+DISPATCH_CALLS = 500  # calls a reading: fewer than the launch queue holds
+DISPATCH_ROWS = 128   # B2's rows: a few µs on the card
+
+
+def dispatch_us(torch, dev):
+    """Host µs a call, on the host clock with no sync inside
+    ``DISPATCH_CALLS`` calls (the card takes them as fast as they come and
+    the launch queue holds them all, so the host's cost is what is read),
+    read in turns (the calls in order, then in reverse), a sync before and
+    after each reading: B2 (bf16, a ``[27, DISPATCH_ROWS]`` table, 16 ->
+    16 channels) by the launch the op wraps (``_gather_gemm_cuda``), by
+    the ``dg_gather_gemm`` op (``_gather_gemm_op``) and by the wrapper
+    ``dg_fwd`` (its checks and the op), all three bit-equal; and a clone
+    of 16 floats, alone, as an op defined by ``torch.library.Library``
+    (the port's way) and as one made by the ``custom_op`` decorator.
+    Returns ``({call: [µs, µs]}, B2's µs on the card)``."""
+    from spconv_tpu_torch.ops import dg_conv as D
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    n = DISPATCH_ROWS
+    x = torch.randn((n, 16), device=dev, generator=g).bfloat16()
+    w = torch.randn((27, 16, 16), device=dev, generator=g).bfloat16()
+    pos = torch.randint(-1, n, (27, n), device=dev, generator=g,
+                        dtype=torch.int32)
+    small = torch.randn(16, device=dev, generator=g)
+    lib = torch.library.Library("spconv_tpu_smoke", "DEF")
+    lib.define("clone_lib(Tensor x) -> Tensor")
+    lib.impl("clone_lib", lambda t: t.clone(), "CUDA")
+
+    @torch.library.custom_op("spconv_tpu_smoke::clone_deco", mutates_args=())
+    def clone_deco(t: torch.Tensor) -> torch.Tensor:
+        return t.clone()
+
+    calls = {
+        "direct": lambda: D._gather_gemm_cuda(x, w, pos, "dg_fwd"),
+        "op": lambda: D._gather_gemm_op(x, w, pos, "dg_fwd"),
+        "wrapper": lambda: D.dg_fwd(x, w, pos),
+        "clone": lambda: small.clone(),
+        "clone Library op": lambda: torch.ops.spconv_tpu_smoke.clone_lib(
+            small),
+        "clone custom_op": lambda: clone_deco(small)}
+    outs = [calls[k]() for k in ("direct", "op", "wrapper")]
+    check(all(torch.equal(o, outs[0]) for o in outs),
+          "dispatch: the op or the wrapper differs from the direct launch")
+    check(torch.equal(calls["clone Library op"](), small)
+          and torch.equal(calls["clone custom_op"](), small),
+          "dispatch: a clone op differs from its input")
+    device_us = cuda_ms(torch, calls["direct"], DISPATCH_CALLS) * 1e3
+    reads = {k: [] for k in calls}
+    for k in [*calls, *reversed(calls)]:
+        fn = calls[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_CALLS):
+            fn()
+        reads[k].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+        torch.cuda.synchronize()
+    D.reset_launch_counts()
+    del lib
+    return reads, device_us
+
+
+def export_phase(torch, dev, cp16, cp_net, cp_in, qnet):
+    """Phase 17: the full-width bf16 CenterPoint encoder (phase 6's
+    calibrated buffers) and the int8 encoder of phase 8, each exported
+    (``spconv_tpu_torch.export``, a ``bev`` request of seed 0's buffers),
+    saved to bytes, reloaded in this process and in a fresh interpreter
+    (``EXPORT_CHILD``).  Every request of the exported and the reloaded
+    program bit-equal to eager and launching exactly eager's kernels, kernel
+    by kernel (the child's on seed 0 too); the blob's bytes; host ms of
+    eager against ``ExportedProgram.module()`` over the same window, in
+    turns; and the dispatch µs of one op call against the direct launch
+    (:func:`dispatch_us`).  Returns ``{net: launches of one eager
+    request}``."""
+    import gc
+    import io
+
+    from spconv_tpu_torch.core import SparseConvTensor
+    from spconv_tpu_torch.export import export_inference
+    from spconv_tpu_torch.ops import dg_conv as D
+
+    tmp = Path(tempfile.mkdtemp(prefix="spconv_tpu_export_"))
+    launches = {}
+    try:
+        for name, net, inputs, want in (
+                ("bf16", cp_net, cp16, CP_LAUNCHES),
+                ("int8", qnet, cp_in, CP_INT8_LAUNCHES)):
+            x0 = inputs[0]
+
+            def request(f, i, net=net, x0=x0):
+                return net.bev(SparseConvTensor(
+                    f, i, x0.spatial_shape, x0.batch_size, keys_sorted=True))
+
+            args = {s: (inputs[s].features, inputs[s].indices)
+                    for s in REQUEST_SEEDS}
+            t0 = time.perf_counter()
+            program = export_inference(request, args[0])
+            t_export = time.perf_counter() - t0
+            buf = io.BytesIO()
+            t0 = time.perf_counter()
+            torch.export.save(program, buf)
+            blob = buf.getvalue()
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            reloaded = torch.export.load(io.BytesIO(blob)).module()
+            t_load = time.perf_counter() - t0
+            exported = program.module()
+            nodes = sum(1 for n in program.graph.nodes
+                        if str(n.target).startswith("spconv_tpu_torch."))
+            # the tensors the program holds: the net's weights and
+            # buffers, lifted (the request closes over the net)
+            held = sum(t.numel() * t.element_size() for t in (
+                *program.constants.values(), *program.state_dict.values())
+                if isinstance(t, torch.Tensor))
+            runs = {"eager": request, "exported": exported,
+                    "reloaded": reloaded}
+            eager0 = None
+            with torch.no_grad():
+                for seed in REQUEST_SEEDS:
+                    outs, counts = {}, {}
+                    for how, fn in runs.items():
+                        torch.cuda.synchronize()
+                        D.reset_launch_counts()
+                        outs[how] = fn(*args[seed])
+                        torch.cuda.synchronize()
+                        counts[how] = dict(D.launch_counts)
+                    check(counts["eager"] == expected(D, **want),
+                          f"export {name} request {seed}: eager launches "
+                          f"{counts['eager']}, expected {want}")
+                    for how in ("exported", "reloaded"):
+                        check(counts[how] == counts["eager"],
+                              f"export {name} request {seed}: {how} "
+                              f"launches {counts[how]} != eager's "
+                              f"{counts['eager']}")
+                        check(outs[how].shape == outs["eager"].shape
+                              and torch.equal(outs[how], outs["eager"]),
+                              f"export {name} request {seed}: {how} output "
+                              "differs from eager")
+                    check(bool(torch.isfinite(outs["eager"]).all())
+                          and bool(outs["eager"].any()),
+                          f"export {name} request {seed}: bev not finite "
+                          "or all 0")
+                    if eager0 is None:
+                        eager0 = outs["eager"]
+                launches[name] = counts["eager"]
+                # host ms a request, in turns over the same window; the
+                # tracing's garbage collected first (a full collection of
+                # it takes ~0.2 s, which fell on the first request timed)
+                gc.collect()
+                ms = {"eager": [], "exported": []}
+                for how in ("eager", "exported", "exported", "eager"):
+                    for seed in REQUEST_SEEDS:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        runs[how](*args[seed])
+                        torch.cuda.synchronize()
+                        ms[how].append((time.perf_counter() - t0) * 1e3)
+            # a fresh interpreter: the blob and seed 0's inputs from files
+            blob_path = tmp / f"cp_{name}.pt2"
+            blob_path.write_bytes(blob)
+            torch.save({"f": args[0][0].cpu(), "i": args[0][1].cpu()},
+                       tmp / f"{name}_in.pt")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-c", EXPORT_CHILD, str(blob_path),
+                 str(tmp / f"{name}_in.pt"), str(tmp / f"{name}_out.pt")],
+                capture_output=True, text=True, timeout=600, cwd=str(ROOT))
+            t_child = time.perf_counter() - t0
+            check(r.returncode == 0, f"export {name}: the fresh interpreter "
+                  f"failed ({r.returncode}):\n{r.stderr[-3000:]}")
+            child = torch.load(tmp / f"{name}_out.pt")
+            check(torch.equal(child["out"], eager0.cpu()),
+                  f"export {name}: the fresh interpreter's output differs "
+                  "from eager")
+            check(child["counts"] == launches[name],
+                  f"export {name}: the fresh interpreter launched "
+                  f"{child['counts']}, eager {launches[name]}")
+            print(f"export {name}: {len(blob)} B blob ({held} B of tensors), "
+                  f"{nodes} kernel op "
+                  f"nodes of {len(program.graph.nodes)}; export "
+                  f"{t_export:.2f} s, save {t_save:.2f} s, load "
+                  f"{t_load:.2f} s, the fresh interpreter {t_child:.2f} s; "
+                  f"{len(REQUEST_SEEDS)} requests exported and reloaded "
+                  "bit-equal to eager with its launches "
+                  f"{ {k: v for k, v in launches[name].items() if v} } "
+                  "(the fresh interpreter's too); host ms a request, in "
+                  f"turns: eager {[round(m, 3) for m in ms['eager']]}, "
+                  "exported "
+                  f"{[round(m, 3) for m in ms['exported']]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    reads, device_us = dispatch_us(torch, dev)
+    print("dispatch: host us a call (B2: bf16, [27, "
+          f"{DISPATCH_ROWS}] table, 16 -> 16, {device_us:.3f} us on the "
+          f"card; {DISPATCH_CALLS} calls a reading, in turns): " + "; ".join(
+              f"{k} {[round(v, 3) for v in r]}" for k, r in reads.items()))
+    return launches
+
+
 def main():
     if not (ROOT / "spconv_tpu_torch" / "__init__.py").is_file():
         fail(f"no spconv_tpu_torch package beside {Path(__file__).name}; "
@@ -4513,7 +4757,7 @@ def main():
 
 
 def run(tune_root):
-    """Phases 1-17 (see the module docstring), the tuner's cache under
+    """Phases 1-18 (see the module docstring), the tuner's cache under
     ``tune_root``."""
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -4544,14 +4788,20 @@ def run(tune_root):
                                          load_library)
     from spconv_tpu_torch.tools import ablation as AB
     from spconv_tpu_torch.tools import b7_ablation as BA
+    from spconv_tpu_torch.tools import join_gather_tiles as JG
     from spconv_tpu_torch.tools import table_count as TCN
     from spconv_tpu_torch.tools import wgrad_ablation as WA
 
     # beside the library: the bf16 wgrad's and B7's counting builds (their
     # MMAs counted on the card, tools/wgrad_ablation.py's and
-    # tools/b7_ablation.py's COUNT) and B1's (its windows that did not fit
-    # its pool whole, tools/table_count.py's COUNT)
-    with ThreadPoolExecutor(3) as pool:
+    # tools/b7_ablation.py's COUNT), B1's (its windows that did not fit
+    # its pool whole, tools/table_count.py's COUNT) and the probes with
+    # the parent's rank kernel (tools/join_gather_tiles.py's PARENT_RANK,
+    # timed beside the rank in phase 12)
+    with ThreadPoolExecutor(4) as pool:
+        rank_parent_build = pool.submit(AB.build, "probes.cu",
+                                        (JG.PARENT_RANK,), JG.RANK_ARGTYPES,
+                                        BUILD_DIR / "rank_parent")
         count_build = pool.submit(AB.build, "dg_wgrad.cu", (WA.COUNT,),
                                   WA.COUNT_ARGTYPES,
                                   BUILD_DIR / "wgrad_count")
@@ -4566,8 +4816,9 @@ def run(tune_root):
         count_lib = count_build.result()[WA.COUNT[0]]
         b7_count_lib = b7_count_build.result()[BA.COUNT[0]]
         table_count_lib = table_count_build.result()[TCN.COUNT[0]]
-    print(f"build: {path.name} in {secs:.2f} s, and the wgrad, B7 and B1 "
-          "counting builds")
+        rank_parent_lib = rank_parent_build.result()[JG.PARENT_RANK[0]]
+    print(f"build: {path.name} in {secs:.2f} s, the wgrad, B7 and B1 "
+          "counting builds and the parent rank's")
 
     from spconv_tpu_torch.benchmark import basic as B
     from spconv_tpu_torch.core import SparseConvTensor
@@ -5258,7 +5509,7 @@ def run(tune_root):
      u_sk) = unet_phase(torch, dev, gen, cp_in, cp_rec, note)
 
     # ---- 8. the int8 CenterPoint encoder -------------------------------
-    q_tot, q_serve, q_pair, b7_variants = int8_phase(
+    q_tot, q_serve, q_pair, b7_variants, qnet = int8_phase(
         torch, dev, gen, cp_in, cp16, cp_net, net32, cp_rec, note,
         b7_count_lib)
 
@@ -5276,7 +5527,7 @@ def run(tune_root):
      t_k3) = transposed_phase(torch, dev, cp_in, note)
 
     # ---- 12. the probe kernels (B9) -----------------------------------
-    probes = probe_phase(torch, dev)
+    probes = probe_phase(torch, dev, rank_parent_lib)
 
     # ---- 13. the MNIST classifier and QAT flow, CenterPoint with BN ----
     qat_launches = qat_phase(torch, dev, cp_in, cp_bounds, net32)
@@ -5319,7 +5570,12 @@ def run(tune_root):
           f"{parts[1] - parts[0]:.1f}, timing {parts[2] - parts[1]:.1f}, "
           f"data parallelism {parts[3] - parts[2]:.1f})")
 
-    # ---- 17. report --------------------------------------------------
+    # ---- 17. export, save and reload ---------------------------------
+    t0 = time.perf_counter()
+    export_phase(torch, dev, cp16, cp_net, cp_in, qnet)
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 18. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, library_ms=None,
             **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against

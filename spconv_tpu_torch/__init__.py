@@ -42,7 +42,10 @@ it.  ``tools`` runs the JAX package's ``tools/`` probe scripts on the card
 ``SPCONV_TPU_TUNE=1``, B2's tile on the native path), ``benchmark=True``
 tensors record each conv's and pool's time and voxel counts, and
 ``parallel`` trains data-parallel over ``torch.distributed`` with
-``SparseSyncBatchNorm`` (and runs a column-parallel conv).
+``SparseSyncBatchNorm`` (and runs a column-parallel conv).  Every kernel
+is a ``torch.library`` op (``ops.library``), so ``export`` traces a net
+into a ``torch.export`` program that is saved, reloaded and served bit
+for bit (``examples.export_model`` writes a deployment artifact).
 Constructors, input builders and the probes put their tensors on the CUDA
 card unless given ``device``.
 See ROADMAP.md for what is still to come.

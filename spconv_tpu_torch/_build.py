@@ -172,8 +172,8 @@ def load_library() -> ctypes.CDLL:
         # probes, t_n, keys, w_n, table, c, is_int8, vec, threads, search,
         # grid, out, stream
         "probe_join_launch": [vp, i32, vp, i32, vp, *[i32] * 6, vp, vp],
-        # keys, w_n, probes, rows, lanes, out, stream
-        "probe_rank_launch": [vp, i32, vp, i32, i32, vp, vp],
+        # keys, w_n, probes, rows, lanes, search, kvec, rb, grid, out, stream
+        "probe_rank_launch": [vp, i32, vp, *[i32] * 6, vp, vp],
         # a, b, m, k, n, is_int8, bm, bn, kw, ks, kc, vec, smem, out, stream
         "probe_gemm_launch": [vp, vp, *[i32] * 11, vp, vp],
     }

@@ -18,7 +18,8 @@
 //     out[t] = sum_w [probe[t] == keys[w]] * table[w], as an equal-range
 //     search in the sorted keys and a sum of the matched rows in
 //     ascending w (int8 -> int32 or f32); `probe_rank_launch`
-//     (probe_dg.py::kr): a lower bound per row, broadcast over its lanes.
+//     (probe_dg.py::kr): the count of keys below each row's first lane,
+//     broadcast over the row.
 //   - gemm: `probe_gemm_launch` (probe_int8.py::probe_plain_matmul.kern,
 //     probe_dg.py::kg): a dense product on the tensor cores, s8 x s8 -> s32
 //     (mma.sync m16n8k32, as B7 multiplies) and f32 inputs rounded to bf16
@@ -28,8 +29,17 @@
 //   does at most ~14 MFLOP, so on the card each is bound by the launch and
 //   one trip to memory (a few microseconds), not by bytes or operations.
 //
-// Design: the rank block searches once (one thread), then its threads
-//   write the columns.
+// The rank (host plan ops/probes.py::rank_plan; a few KB at the probe's
+//   shape, bound by the launch and one trip to memory) gives a warp to each
+//   row and several rows to a block: lane 0 loads the row's probe and a
+//   shuffle hands it to the warp, while the warp reads the keys once,
+//   coalesced, 16 bytes a lane; each lane counts its keys below the probe
+//   and the warp adds the counts (past 1,024 keys: the join's ballot lower
+//   bound in global memory instead).  The warp then writes the row with
+//   16-byte stores, the elements before and after its 16-byte body one a
+//   lane.  (The parent gave each row a block of 128 threads whose thread 0
+//   ran a serial binary search in global memory while the others waited
+//   at a barrier, then wrote the row 4 bytes a thread.)
 //
 // The join and the gathers (a few KB at the probes' shapes) are bound by
 //   the launch and their chains of dependent trips, so their design is
@@ -271,20 +281,6 @@ __global__ void broadcast_rows_kernel(const float* __restrict__ x, int width,
 // ascending
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ int first_not_below(const int* keys, int n, int p) {
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (keys[mid] < p) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 // keys a join counts in registers, at most (ops/probes.py::
 // JOIN_COUNT_KEYS): 32 a lane; more are searched in global memory
 constexpr int kJoinCountKeys = 1024;
@@ -390,20 +386,82 @@ __global__ void join_kernel(const int* __restrict__ probes, int t_n,
   }
 }
 
-// one block per row: the rank of the row's first lane among the keys,
-// written to every lane
+// keys a rank counts whole, at most (ops/probes.py::RANK_COUNT_KEYS); more
+// are searched
+constexpr int kRankCountKeys = 1024;
+
+// a rank's searches (ops/probes.py::RANK_SEARCHES)
+enum RankSearch {
+  kRankSearch = 0,  // the warp's ballot lower bound: a step narrows 32-fold
+  kRankCount = 1,   // every key read once, 16 bytes a lane (KVEC: the keys
+                    // 16-byte aligned; the last W % 4 one a lane), counted
+                    // below the probe and summed across the warp
+};
+
+// The rank out[r, :] = #{w : keys[w] < probes[r, 0]}, keys ascending (the
+// count needs no order; the search does).  A warp a row, blockDim.x / 32
+// rows a block (the host plan's, ops/probes.py::rank_plan).  Lane 0 loads
+// the row's probe and __shfl_sync hands it to the warp; the count's key
+// loads do not wait on it.  The row is written from its 16-byte boundary
+// on (out 16-byte aligned): `head` elements before the first boundary and
+// the `tail` after the last one a lane, the body one int4 a lane
+// (ops/probes.py::rank_row_split repeats the arithmetic).
+template <int SEARCH, bool KVEC>
 __global__ void rank_kernel(const int* __restrict__ keys, int w_n,
-                            const int* __restrict__ probes, int lanes,
-                            int* __restrict__ out) {
-  __shared__ int rank;
-  const int r = blockIdx.x;
-  if (threadIdx.x == 0) {
-    rank = first_not_below(keys, w_n, probes[static_cast<size_t>(r) * lanes]);
+                            const int* __restrict__ probes, int rows,
+                            int lanes, int* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (r >= rows) return;  // the whole warp: a warp owns one row
+  const size_t row0 = static_cast<size_t>(r) * lanes;
+  int p = lane == 0 ? __ldg(probes + row0) : 0;
+  int n = 0;
+  if constexpr (SEARCH == kRankCount) {
+    int i = 0;
+    if constexpr (KVEC) {
+      const int w4 = w_n >> 2;
+      int4 k[kRankCountKeys / 128];
+#pragma unroll
+      for (int j = 0; j < kRankCountKeys / 128; ++j) {
+        const int v = lane + 32 * j;
+        k[j] = v < w4 ? __ldg(reinterpret_cast<const int4*>(keys) + v)
+                      : make_int4(0, 0, 0, 0);
+      }
+      p = __shfl_sync(0xffffffffu, p, 0);
+#pragma unroll
+      for (int j = 0; j < kRankCountKeys / 128; ++j) {
+        if (lane + 32 * j < w4) {
+          n += (k[j].x < p) + (k[j].y < p) + (k[j].z < p) + (k[j].w < p);
+        }
+      }
+      i = w4 << 2;
+    } else {
+      p = __shfl_sync(0xffffffffu, p, 0);
+    }
+    for (i += lane; i < w_n; i += 32) n += __ldg(keys + i) < p;
+    n = __reduce_add_sync(0xffffffffu, n);
+  } else {
+    p = __shfl_sync(0xffffffffu, p, 0);
+    // a step of 32^l keys a lane, from the top level down (equal_range's
+    // lower half)
+    int shift = 0;
+    while (shift < 30 && (1 << (shift + 5)) < w_n) shift += 5;
+    for (; shift >= 0; shift -= 5) {
+      const long long i = n + (static_cast<long long>(lane + 1) << shift);
+      const bool a = i <= w_n && __ldg(keys + i - 1) < p;
+      n += __popc(__ballot_sync(0xffffffffu, a)) << shift;
+    }
   }
-  __syncthreads();
-  for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
-    out[static_cast<size_t>(r) * lanes + l] = rank;
+  int* o = out + row0;
+  const int head = min(lanes, static_cast<int>((4 - (row0 & 3)) & 3));
+  const int body = (lanes - head) >> 2;
+  const int tail0 = head + 4 * body;
+  if (lane < head) o[lane] = n;
+  const int4 v4 = make_int4(n, n, n, n);
+  for (int v = lane; v < body; v += 32) {
+    reinterpret_cast<int4*>(o + head)[v] = v4;
   }
+  if (lane < lanes - tail0) o[tail0 + lane] = n;
 }
 
 // ---------------------------------------------------------------------------
@@ -926,13 +984,36 @@ extern "C" int probe_join_launch(const void* probes, int t_n, const void* keys,
 #undef PROBE_JOIN_V
 }
 
-// keys [w_n] ascending, probes and out [rows, lanes] int32
+// keys [w_n] ascending, probes and out [rows, lanes] int32, out 16-byte
+// aligned.  The plan (ops/probes.py::rank_plan): search (a RankSearch;
+// kRankCount: at most kRankCountKeys keys), kvec (16-byte key loads, the
+// keys 16-byte aligned), rb warps (rows) a block, grid blocks covering the
+// rows.
 extern "C" int probe_rank_launch(const void* keys, int w_n, const void* probes,
-                                 int rows, int lanes, void* out,
-                                 void* stream) {
-  rank_kernel<<<rows, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(keys), w_n, static_cast<const int*>(probes),
-      lanes, static_cast<int*>(out));
+                                 int rows, int lanes, int search, int kvec,
+                                 int rb, int grid, void* out, void* stream) {
+  if (rb < 1 || rb > 32 || grid < 1 ||
+      static_cast<long long>(grid) * rb < rows || search < 0 ||
+      search > kRankCount ||
+      (search == kRankCount && w_n > kRankCountKeys) ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      (kvec && reinterpret_cast<uintptr_t>(keys) % 16 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* ks = static_cast<const int*>(keys);
+  const auto* pr = static_cast<const int*>(probes);
+  auto* o = static_cast<int*>(out);
+  if (search == kRankSearch) {
+    rank_kernel<kRankSearch, false><<<grid, rb * 32, 0, s>>>(ks, w_n, pr,
+                                                           rows, lanes, o);
+  } else if (kvec) {
+    rank_kernel<kRankCount, true><<<grid, rb * 32, 0, s>>>(ks, w_n, pr, rows,
+                                                         lanes, o);
+  } else {
+    rank_kernel<kRankCount, false><<<grid, rb * 32, 0, s>>>(ks, w_n, pr,
+                                                          rows, lanes, o);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

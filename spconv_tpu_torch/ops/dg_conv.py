@@ -60,8 +60,11 @@ package);
 wanted.  ``DGSearchFn`` is the table-free subm conv's (``_dg_conv`` and its
 VJP), and ``dg_subm_conv_search`` its entry.
 
-A wrapper takes the plain version only for tensors on the CPU.  On a CUDA
-tensor it launches its kernel or raises; it never falls back.  Each launch
+Each kernel family is a ``torch.library`` op (``ops/library.py``):
+``dg_pos`` (B1), ``dg_gather_gemm`` (B2, dgrad, S1, S2), ``dg_fwd_q`` (B7,
+S4) and ``dg_wgrad`` (wgrad, S3).  A wrapper checks its arguments and
+calls its op, whose CPU kernel is the plain version and whose CUDA kernel
+launches the hand-written one or raises; it never falls back.  Each launch
 adds one to its entry of ``launch_counts``, one entry per kernel and conv
 path.
 """
@@ -76,6 +79,7 @@ import numpy as np
 import torch
 
 from . import coords as C
+from .library import define_op
 
 __all__ = [
     "subm_key_deltas",
@@ -260,14 +264,11 @@ def build_dg_pos(
     dims = tuple(int(s) for s in spatial_shape)
     _check(len(ksize) == len(dims) == len(dilation),
            "ksize, dilation and spatial_shape must have ndim entries")
-    sentinel = C.grid_sentinel(dims, batch_size)
-    if keys.device.type == "cpu":
-        return dg_pos_plain(keys, ksize=ksize, dilation=dilation,
-                            spatial_shape=dims, batch_size=batch_size,
-                            reverse=reverse)
-    if keys.device.type != "cuda":
+    C.grid_sentinel(dims, batch_size)
+    if keys.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no dg_pos kernel for {keys.device}")
-    return _dg_pos_cuda(keys, ksize, dilation, dims, sentinel, reverse)
+    return _pos_op(keys, keys, TableGeom.subm(ksize, dilation, dims, reverse),
+                   int(batch_size), "dg_pos_rev" if reverse else "dg_pos")
 
 
 def dg_pos_plain(keys: torch.Tensor, *, ksize, dilation, spatial_shape,
@@ -299,13 +300,6 @@ def dg_pos_plain(keys: torch.Tensor, *, ksize, dilation, spatial_shape,
     return pos
 
 
-def _dg_pos_cuda(keys, ksize, dilation, dims, sentinel, reverse):
-    tg = TableGeom.subm(ksize, dilation, dims, reverse)
-    pos = _table_cuda("dg_pos", keys, keys, tg, sentinel)
-    launch_counts["dg_pos_rev" if reverse else "dg_pos"] += 1
-    return pos
-
-
 def build_dg_pos_affine(
     in_keys: torch.Tensor,
     out_keys: torch.Tensor,
@@ -333,10 +327,7 @@ def build_dg_pos_affine(
                          stride=stride, padding=padding, dilation=dilation,
                          in_shape=in_shape, out_shape=out_shape,
                          batch_size=batch_size)
-    if in_keys.device.type == "cpu":
-        return dg_pos_affine_plain(in_keys, out_keys, **geom)
-    return _regular_pos_cuda("dg_pos_affine", in_keys, out_keys, path,
-                             **geom)
+    return _regular_pos("dg_pos_affine", in_keys, out_keys, path, **geom)
 
 
 def _check_reg_path(path: str) -> None:
@@ -424,10 +415,7 @@ def build_dg_pos_divide(
                          stride=stride, padding=padding, dilation=dilation,
                          in_shape=in_shape, out_shape=out_shape,
                          batch_size=batch_size)
-    if in_keys.device.type == "cpu":
-        return dg_pos_divide_plain(in_keys, out_keys, **geom)
-    return _regular_pos_cuda("dg_pos_divide", in_keys, out_keys, path,
-                             **geom)
+    return _regular_pos("dg_pos_divide", in_keys, out_keys, path, **geom)
 
 
 def dg_pos_divide_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
@@ -461,21 +449,19 @@ def dg_pos_divide_plain(in_keys: torch.Tensor, out_keys: torch.Tensor, *,
     return pos
 
 
-def _regular_pos_cuda(name, in_keys, out_keys, path, *, ksize, stride,
-                      padding, dilation, in_shape, out_shape, batch_size):
-    """Launches B1 in affine (``name == "dg_pos_affine"``: a table over
-    the output rows) or divide mode (over the input rows), counted under
-    ``name``, or ``name + "_transposed"`` for a transposed conv."""
+def _regular_pos(name, in_keys, out_keys, path, *, ksize, stride, padding,
+                 dilation, in_shape, out_shape, batch_size):
+    """B1 in affine (``name == "dg_pos_affine"``: a table over the output
+    rows) or divide mode (over the input rows), counted under ``name``, or
+    ``name + "_transposed"`` for a transposed conv."""
     affine = name == "dg_pos_affine"
     tg = TableGeom.regular(not affine, ksize=ksize, stride=stride,
                            padding=padding, dilation=dilation,
                            in_shape=in_shape, out_shape=out_shape)
     # the rows the table is over, and the keys it searches
     rows, table = (out_keys, in_keys) if affine else (in_keys, out_keys)
-    sentinel = C.grid_sentinel(tg.row_dims, batch_size)
-    pos = _table_cuda(name, rows, table, tg, sentinel)
-    launch_counts[f"{name}_transposed" if path == "transposed" else name] += 1
-    return pos
+    return _pos_op(rows, table, tg, batch_size,
+                   f"{name}_transposed" if path == "transposed" else name)
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +638,68 @@ def _table_cuda(name, rows, table, tg: TableGeom, sentinel):
     return pos
 
 
+# B1's op: the table of ``rows`` searched in ``table`` on a TableGeom (its
+# fields as int lists), the grid's batch size and the launch count's name
+
+
+def _pos_plain(rows, table, tg: TableGeom, batch_size: int) -> torch.Tensor:
+    """B1's plain version on ``tg``: :func:`dg_pos_plain` (a subm stage),
+    :func:`dg_pos_divide_plain` or :func:`dg_pos_affine_plain`."""
+    if tg.self_rows:
+        return dg_pos_plain(rows, ksize=tg.ksize, dilation=tg.dilation,
+                            spatial_shape=tg.row_dims, batch_size=batch_size,
+                            reverse=tg.divide)
+    geom = dict(ksize=tg.ksize, stride=tg.stride, padding=tg.padding,
+                dilation=tg.dilation, batch_size=batch_size)
+    if tg.divide:
+        return dg_pos_divide_plain(rows, table, in_shape=tg.row_dims,
+                                   out_shape=tg.tab_dims, **geom)
+    return dg_pos_affine_plain(table, rows, in_shape=tg.tab_dims,
+                               out_shape=tg.row_dims, **geom)
+
+
+def _pos_geom(row_dims, tab_dims, stride, ksize, dilation, padding, divide,
+              self_rows) -> TableGeom:
+    return TableGeom(tuple(row_dims), tuple(tab_dims), tuple(stride),
+                     tuple(ksize), tuple(dilation), tuple(padding),
+                     bool(divide), bool(self_rows))
+
+
+def _dg_pos_cuda(rows, table, *args):
+    *geom, batch_size, counter = args
+    tg = _pos_geom(*geom)
+    pos = _table_cuda(counter, rows, table, tg,
+                      C.grid_sentinel(tg.row_dims, batch_size))
+    launch_counts[counter] += 1
+    return pos
+
+
+def _dg_pos_cpu(rows, table, *args):
+    *geom, batch_size, _ = args
+    return _pos_plain(rows, table, _pos_geom(*geom), batch_size)
+
+
+def _dg_pos_fake(rows, table, row_dims, tab_dims, stride, ksize, *args):
+    return rows.new_empty((int(np.prod(ksize)), rows.shape[0]),
+                          dtype=torch.int32)
+
+
+_DG_POS = define_op(
+    "dg_pos", "(Tensor rows, Tensor table, int[] row_dims, int[] tab_dims, "
+    "int[] stride, int[] ksize, int[] dilation, int[] padding, bool divide, "
+    "bool self_rows, int batch_size, str counter) -> Tensor",
+    cuda=_dg_pos_cuda, cpu=_dg_pos_cpu, fake=_dg_pos_fake)
+
+
+def _pos_op(rows, table, tg: TableGeom, batch_size: int, counter: str):
+    """Every B1 table goes through here: the ``dg_pos`` op, counted under
+    ``counter`` on the card."""
+    return _DG_POS(rows, table, list(tg.row_dims), list(tg.tab_dims),
+                   list(tg.stride), list(tg.ksize), list(tg.dilation),
+                   list(tg.padding), tg.divide, tg.self_rows, batch_size,
+                   counter)
+
+
 # ---------------------------------------------------------------------------
 # B2: gather-GEMM forward, and B3's dgrad through the same kernel
 # ---------------------------------------------------------------------------
@@ -726,9 +774,7 @@ def dg_fwd(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
                             and 0 <= tile < len(B2_TILES)),
            f"{name}: tile {tile} is not one of B2's {len(B2_TILES)} bf16 "
            f"tiles for {x.dtype} features")
-    if x.device.type == "cpu":
-        return dg_fwd_plain(x, weight_kv, pos)
-    return _gather_gemm_cuda(x, weight_kv, pos, name, tile=tile)
+    return _gather_gemm_op(x, weight_kv, pos, name, tile=tile)
 
 
 def dg_fwd_plain(x: torch.Tensor, weight_kv: torch.Tensor,
@@ -762,9 +808,7 @@ def dg_dgrad(dout: torch.Tensor, weight_kv: torch.Tensor,
     name = _count_name("dg_dgrad", path)
     _check_gather_gemm(name, dout, weight_kv, pos_bwd, 2,
                        n_out=None if path == "subm" else pos_bwd.shape[-1])
-    if dout.device.type == "cpu":
-        return dg_dgrad_plain(dout, weight_kv, pos_bwd)
-    return _gather_gemm_cuda(dout, weight_kv, pos_bwd, name, trans=True)
+    return _gather_gemm_op(dout, weight_kv, pos_bwd, name, trans=True)
 
 
 def dg_dgrad_plain(dout: torch.Tensor, weight_kv: torch.Tensor,
@@ -877,6 +921,70 @@ def _gather_gemm_cuda(x, weight_kv, rows, counter, search=(), trans=False,
     return out
 
 
+# The search mode's geometry (a SearchGeom, or None for a table) as the
+# ops take it: int lists (empty for a table) and the batch size
+
+_NO_SEARCH = ([], [], [], 0)
+
+
+def _search_lists(geom):
+    return _NO_SEARCH if geom is None else (
+        list(geom.ksize), list(geom.dilation), list(geom.spatial_shape),
+        geom.batch_size)
+
+
+def _search_geom(ksize, dilation, spatial_shape, batch_size):
+    return SearchGeom(tuple(ksize), tuple(dilation), tuple(spatial_shape),
+                      batch_size) if ksize else None
+
+
+def _search_kv(rows, ksize):
+    """Offsets of an op's table ``rows`` ``[kv, N]``, or of ``ksize``'s
+    kernel in search mode."""
+    return int(np.prod(ksize)) if ksize else rows.shape[0]
+
+
+# B2's op: forward (trans False) and dgrad (trans True) on a table, or
+# with a search geometry S1 and S2 on the keys
+
+
+def _dg_gather_gemm_cuda(x, weight_kv, rows, ksize, dilation, spatial_shape,
+                         batch_size, trans, tile, counter):
+    geom = _search_geom(ksize, dilation, spatial_shape, batch_size)
+    search = () if geom is None else (*_search_args(geom, counter),
+                                      int(trans))
+    return _gather_gemm_cuda(x, weight_kv, rows, counter, search, trans, tile)
+
+
+def _dg_gather_gemm_cpu(x, weight_kv, rows, ksize, dilation, spatial_shape,
+                        batch_size, trans, tile, counter):
+    geom = _search_geom(ksize, dilation, spatial_shape, batch_size)
+    pos = rows if geom is None else _table(rows, geom, reverse=trans)
+    return (dg_dgrad_plain if trans else dg_fwd_plain)(x, weight_kv, pos)
+
+
+def _dg_gather_gemm_fake(x, weight_kv, rows, ksize, dilation, spatial_shape,
+                         batch_size, trans, tile, counter):
+    return x.new_empty((rows.shape[-1], weight_kv.shape[1 if trans else 2]))
+
+
+_DG_GATHER_GEMM = define_op(
+    "dg_gather_gemm", "(Tensor x, Tensor weight_kv, Tensor rows, int[] ksize, "
+    "int[] dilation, int[] spatial_shape, int batch_size, bool trans, "
+    "int? tile, str counter) -> Tensor",
+    cuda=_dg_gather_gemm_cuda, cpu=_dg_gather_gemm_cpu,
+    fake=_dg_gather_gemm_fake)
+
+
+def _gather_gemm_op(x, weight_kv, rows, counter, geom=None, trans=False,
+                    tile=None):
+    """Every B2 call goes through here: the ``dg_gather_gemm`` op on the
+    table ``rows`` (or, with ``geom``, the keys), counted under
+    ``counter`` on the card."""
+    return _DG_GATHER_GEMM(x, weight_kv, rows, *_search_lists(geom), trans,
+                           tile, counter)
+
+
 # ---------------------------------------------------------------------------
 # B7: int8 gather-GEMM with the fused requant epilogue
 # ---------------------------------------------------------------------------
@@ -922,11 +1030,8 @@ def dg_fwd_q(x: torch.Tensor, weight_kv: torch.Tensor, pos: torch.Tensor,
     _check(add is None or path in ("subm", "native"),
            f"{name}: the residual add is subm-only (paths 'subm' and "
            "'native', whose rows align with the output's)")
-    if x.device.type == "cpu":
-        return dg_fwd_q_plain(x, weight_kv, pos, scale, bias, act=act,
-                              add=add, add_scale=add_scale)
-    return _dg_fwd_q_cuda(x, weight_kv, pos, scale, bias, act, add,
-                          add_scale, name)
+    return _fwd_q_op(x, weight_kv, pos, scale, bias, act, add, add_scale,
+                     name)
 
 
 def _check_q(name, x, weight_kv, n, scale, bias, act, add, rows):
@@ -1103,6 +1208,45 @@ def _dg_fwd_q_cuda(x, weight_kv, rows, scale, bias, act, add, add_scale,
     return out
 
 
+# B7's op: on a table, or with a search geometry S4 on the keys
+
+
+def _dg_fwd_q_cuda_op(x, weight_kv, rows, scale, bias, add, add_scale, act,
+                      ksize, dilation, spatial_shape, batch_size, counter):
+    geom = _search_geom(ksize, dilation, spatial_shape, batch_size)
+    return _dg_fwd_q_cuda(x, weight_kv, rows, scale, bias, act, add,
+                          add_scale, counter,
+                          () if geom is None else _search_args(geom, counter))
+
+
+def _dg_fwd_q_cpu(x, weight_kv, rows, scale, bias, add, add_scale, act,
+                  ksize, dilation, spatial_shape, batch_size, counter):
+    geom = _search_geom(ksize, dilation, spatial_shape, batch_size)
+    pos = rows if geom is None else _table(rows, geom)
+    return dg_fwd_q_plain(x, weight_kv, pos, scale, bias, act=act, add=add,
+                          add_scale=add_scale)
+
+
+def _dg_fwd_q_fake(x, weight_kv, rows, *args):
+    return x.new_empty((rows.shape[-1], weight_kv.shape[2]))
+
+
+_DG_FWD_Q = define_op(
+    "dg_fwd_q", "(Tensor x, Tensor weight_kv, Tensor rows, Tensor scale, "
+    "Tensor? bias, Tensor? add, float add_scale, str act, int[] ksize, "
+    "int[] dilation, int[] spatial_shape, int batch_size, str counter) -> "
+    "Tensor", cuda=_dg_fwd_q_cuda_op, cpu=_dg_fwd_q_cpu, fake=_dg_fwd_q_fake)
+
+
+def _fwd_q_op(x, weight_kv, rows, scale, bias, act, add, add_scale, counter,
+              geom=None):
+    """Every B7 call goes through here: the ``dg_fwd_q`` op on the table
+    ``rows`` (or, with ``geom``, the keys), counted under ``counter`` on
+    the card."""
+    return _DG_FWD_Q(x, weight_kv, rows, scale, bias, add, float(add_scale),
+                     act, *_search_lists(geom), counter)
+
+
 # ---------------------------------------------------------------------------
 # B3: weight gradient
 # ---------------------------------------------------------------------------
@@ -1228,9 +1372,7 @@ def dg_wgrad(x: torch.Tensor, dout: torch.Tensor, pos_bwd: torch.Tensor,
            f"{name}: x has {x.shape[0]} rows, dout {dout.shape[0]}, "
            f"pos_bwd {pos_bwd.shape[1]}")
     _check_operands(name, x, dout, pos_bwd)
-    if x.device.type == "cpu":
-        return dg_wgrad_plain(x, dout, pos_bwd)
-    return _dg_wgrad_cuda(x, dout, pos_bwd, pos_bwd.shape[0], name)
+    return _wgrad_op(x, dout, pos_bwd, name)
 
 
 def dg_wgrad_plain(x: torch.Tensor, dout: torch.Tensor,
@@ -1285,6 +1427,41 @@ def _dg_wgrad_cuda(x, dout, rows, kv, counter, search=()):
     _raise_on(err, counter)
     launch_counts[counter] += 1
     return out
+
+
+# wgrad's op: on the backward's table, or with a search geometry S3 on the
+# keys (the reversed probes)
+
+
+def _dg_wgrad_cuda_op(x, dout, rows, ksize, dilation, spatial_shape,
+                      batch_size, counter):
+    geom = _search_geom(ksize, dilation, spatial_shape, batch_size)
+    return _dg_wgrad_cuda(x, dout, rows, _search_kv(rows, ksize), counter,
+                          () if geom is None else _search_args(geom, counter))
+
+
+def _dg_wgrad_cpu(x, dout, rows, ksize, dilation, spatial_shape, batch_size,
+                  counter):
+    geom = _search_geom(ksize, dilation, spatial_shape, batch_size)
+    pos = rows if geom is None else _table(rows, geom, reverse=True)
+    return dg_wgrad_plain(x, dout, pos)
+
+
+def _dg_wgrad_fake(x, dout, rows, ksize, *args):
+    return x.new_empty((_search_kv(rows, ksize), x.shape[1], dout.shape[1]))
+
+
+_DG_WGRAD = define_op(
+    "dg_wgrad", "(Tensor x, Tensor dout, Tensor rows, int[] ksize, "
+    "int[] dilation, int[] spatial_shape, int batch_size, str counter) -> "
+    "Tensor", cuda=_dg_wgrad_cuda_op, cpu=_dg_wgrad_cpu, fake=_dg_wgrad_fake)
+
+
+def _wgrad_op(x, dout, rows, counter, geom=None):
+    """Every wgrad call goes through here: the ``dg_wgrad`` op on the
+    backward's table ``rows`` (or, with ``geom``, the keys), counted under
+    ``counter`` on the card."""
+    return _DG_WGRAD(x, dout, rows, *_search_lists(geom), counter)
 
 
 # ---------------------------------------------------------------------------
@@ -1355,10 +1532,7 @@ def dg_fwd_search(x: torch.Tensor, weight_kv: torch.Tensor,
            f"{name}: x must be [N, C], weight_kv [kv, C, K]")
     _check_search(name, geom, keys, weight_kv.shape[0], x.shape[0])
     _check_operands(name, x, weight_kv, keys)
-    if x.device.type == "cpu":
-        return dg_fwd_search_plain(x, weight_kv, keys, geom)
-    return _gather_gemm_cuda(x, weight_kv, keys, name,
-                             (*_search_args(geom, name), 0))
+    return _gather_gemm_op(x, weight_kv, keys, name, geom)
 
 
 def dg_fwd_search_plain(x, weight_kv, keys, geom: SearchGeom):
@@ -1379,10 +1553,7 @@ def dg_dgrad_search(dout: torch.Tensor, weight_kv: torch.Tensor,
            f"{name}: dout must be [N, K], weight_kv [kv, C, K]")
     _check_search(name, geom, keys, weight_kv.shape[0], dout.shape[0])
     _check_operands(name, dout, weight_kv, keys)
-    if dout.device.type == "cpu":
-        return dg_dgrad_search_plain(dout, weight_kv, keys, geom)
-    return _gather_gemm_cuda(dout, weight_kv, keys, name,
-                             (*_search_args(geom, name), 1), trans=True)
+    return _gather_gemm_op(dout, weight_kv, keys, name, geom, trans=True)
 
 
 def dg_dgrad_search_plain(dout, weight_kv, keys, geom: SearchGeom):
@@ -1403,9 +1574,7 @@ def dg_wgrad_search(x: torch.Tensor, dout: torch.Tensor, keys: torch.Tensor,
     kv = int(np.prod(geom.ksize))
     _check_search(name, geom, keys, kv, x.shape[0])
     _check_operands(name, x, dout, keys)
-    if x.device.type == "cpu":
-        return dg_wgrad_search_plain(x, dout, keys, geom)
-    return _dg_wgrad_cuda(x, dout, keys, kv, name, _search_args(geom, name))
+    return _wgrad_op(x, dout, keys, name, geom)
 
 
 def dg_wgrad_search_plain(x, dout, keys, geom: SearchGeom):
@@ -1425,11 +1594,8 @@ def dg_fwd_q_search(x: torch.Tensor, weight_kv: torch.Tensor,
     name = "dg_fwd_q_search"
     _check_q(name, x, weight_kv, x.shape[0], scale, bias, act, add, keys)
     _check_search(name, geom, keys, weight_kv.shape[0], x.shape[0])
-    if x.device.type == "cpu":
-        return dg_fwd_q_search_plain(x, weight_kv, keys, scale, bias, geom,
-                                     act=act, add=add, add_scale=add_scale)
-    return _dg_fwd_q_cuda(x, weight_kv, keys, scale, bias, act, add,
-                          add_scale, name, _search_args(geom, name))
+    return _fwd_q_op(x, weight_kv, keys, scale, bias, act, add, add_scale,
+                     name, geom)
 
 
 def dg_fwd_q_search_plain(x, weight_kv, keys, scale, bias,

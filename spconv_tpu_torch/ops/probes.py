@@ -18,7 +18,7 @@ plain PyTorch version beside it:
   [probes[t] == keys[w]] * table[w]``, int8 -> int32 or f32, launched on
   :func:`join_plan`'s blocks;
 * :func:`lane_rank` (search family): ``out[r, :] = #{keys < probes[r,
-  0]}``;
+  0]}``, launched on :func:`rank_plan`'s warps;
 * :func:`gemm` (gemm family): ``a @ b`` on the tensor cores, s8 -> s32, or
   f32 inputs rounded to bf16 with f32 sums, launched on
   :func:`gemm_plan`'s tile and K split.
@@ -31,7 +31,7 @@ adds one to its entry of ``launch_counts``.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,6 +73,14 @@ __all__ = [
     "launch_join",
     "lane_rank",
     "lane_rank_plain",
+    "RANK_WARPS",
+    "RANK_SEARCHES",
+    "RANK_COUNT_KEYS",
+    "RankPlan",
+    "rank_plan",
+    "rank_launch_plan",
+    "rank_row_split",
+    "launch_rank",
     "gemm",
     "gemm_plain",
     "GEMM_TILES",
@@ -626,11 +634,98 @@ def keyed_sum_plain(probes: torch.Tensor, keys: torch.Tensor,
     return out
 
 
+# a rank block's warps (rows), largest first
+RANK_WARPS = (8, 4, 2, 1)
+# a rank's searches, as csrc/probes.cu's RankSearch numbers them: the
+# warp's ballot lower bound in global memory, every key read and counted
+RANK_SEARCHES = ("warp", "count")
+# keys a rank counts whole, at most (csrc/probes.cu's kRankCountKeys);
+# more are searched
+RANK_COUNT_KEYS = 1024
+
+
+class RankPlan(NamedTuple):
+    search: str    # one of RANK_SEARCHES
+    kvec: bool     # the count's 16-byte key loads (keys 16-byte aligned)
+    key_tail: int  # keys the count reads one a lane after its 16-byte
+                   # loads: W % 4 with kvec, W without; 0 for "warp"
+    rb: int        # warps a block, a row each
+    grid: int      # blocks: ceil(rows / rb)
+
+
+def rank_plan(rows: int, w_n: int, lanes: int, sms: int, *,
+              aligned: bool = True, rb: Optional[int] = None,
+              search: Optional[str] = None) -> RankPlan:
+    """The launch of :func:`lane_rank` of ``rows`` rows of ``lanes`` into
+    ``w_n`` keys on a card of ``sms`` SMs: a warp per row, ``rb`` warps a
+    block, the largest of ``RANK_WARPS`` whose grid has at least ``sms //
+    3`` blocks, else the smallest.  The search: every key read once and
+    counted up to ``RANK_COUNT_KEYS`` (16 bytes a lane where the keys are
+    ``aligned``, the last ``W % 4`` one a lane), else the warp's ballot
+    lower bound.  Each row is written 16 bytes a lane whatever ``lanes``
+    is (:func:`rank_row_split`).  At the probe's shape on the H100 (16
+    rows, 128 keys, 128 lanes): 16 blocks of one warp, the keys counted;
+    in ``tools/join_gather_tiles.py``'s sweep there 1-8 warps a block are
+    within 0.01 us of each other, 16 warps 0.2 us slower, and the ballot
+    search 0.15-0.2 us behind the count (``PERF.md`` keeps the readings).
+    ``rb`` and ``search``: a plan to take instead (the sweep's)."""
+    _check(lanes >= 1, f"rank_plan: {lanes} lanes")
+    if rb is None:
+        rb = next((w for w in RANK_WARPS if -(-rows // w) >= sms // 3),
+                  RANK_WARPS[-1])
+    _check(1 <= rb <= 32, f"rank_plan: {rb} warps a block")
+    if search is None:
+        search = "count" if w_n <= RANK_COUNT_KEYS else "warp"
+    _check(search in RANK_SEARCHES, f"rank_plan: no search {search!r}")
+    _check(search != "count" or w_n <= RANK_COUNT_KEYS,
+           f"rank_plan: {w_n} keys exceed the {RANK_COUNT_KEYS} counted")
+    kvec = search == "count" and aligned
+    key_tail = 0 if search == "warp" else (w_n % 4 if kvec else w_n)
+    return RankPlan(search, kvec, key_tail, rb, max(1, -(-rows // rb)))
+
+
+def rank_row_split(row: int, lanes: int) -> Tuple[int, int, int]:
+    """``(head, vectors, tail)`` of row ``row``'s stores in ``rank_kernel``
+    (``out`` 16-byte aligned, rows of ``lanes`` int32): ``head`` elements
+    up to the row's first 16-byte boundary, then ``vectors`` 16-byte
+    stores, then ``tail`` elements, each store one a lane."""
+    head = min(lanes, -(row * lanes) % 4)
+    vectors = (lanes - head) // 4
+    return head, vectors, lanes - head - 4 * vectors
+
+
+def rank_launch_plan(keys: torch.Tensor, probes: torch.Tensor) -> RankPlan:
+    """The plan :func:`lane_rank` launches on for its operands on the card
+    (the keys' alignment included)."""
+    rows, lanes = probes.shape
+    return rank_plan(rows, keys.shape[0], lanes, sm_count(keys.device.index),
+                     aligned=_aligned(keys, 16))
+
+
+def _rank_args(keys, probes, plan, out):
+    """``probe_rank_launch``'s arguments but the stream."""
+    rows, lanes = probes.shape
+    return [_ptr(keys), keys.shape[0], _ptr(probes), rows, lanes,
+            RANK_SEARCHES.index(plan.search), int(plan.kvec), plan.rb,
+            plan.grid, _ptr(out)]
+
+
+def launch_rank(lib, keys: torch.Tensor, probes: torch.Tensor,
+                plan: RankPlan, out: torch.Tensor) -> int:
+    """One launch of ``lib``'s ``probe_rank_launch`` on ``plan``, writing
+    ``out``; returns its CUDA error (uncounted: the wrapper is
+    :func:`lane_rank`)."""
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    return lib.probe_rank_launch(*_rank_args(keys, probes, plan, out),
+                                 ctypes.c_void_p(stream))
+
+
 def lane_rank(keys: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
     """``out[r, :] = #{w : keys[w] < probes[r, 0]}`` -> ``[R, L]`` int32:
     the rank of each row's first lane, broadcast over the row (``tools/
     probe_dg.py``'s ``kr``).  ``keys``: ``[W]`` int32, ascending;
-    ``probes``: ``[R, L]`` int32."""
+    ``probes``: ``[R, L]`` int32; launched on :func:`rank_plan`'s
+    warps."""
     name = "lane_rank"
     _check(keys.ndim == 1 and probes.ndim == 2
            and keys.dtype == probes.dtype == torch.int32,
@@ -640,8 +735,9 @@ def lane_rank(keys: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
     rows, lanes = probes.shape
     out = torch.empty_like(probes)
     if rows and lanes:
-        _launch("probe_rank_launch", "probe_rank", _ptr(keys), keys.shape[0],
-                _ptr(probes), rows, lanes, _ptr(out), device=keys.device)
+        _launch("probe_rank_launch", "probe_rank",
+                *_rank_args(keys, probes, rank_launch_plan(keys, probes),
+                            out), device=keys.device)
     return out
 
 

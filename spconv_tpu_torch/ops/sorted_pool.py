@@ -19,10 +19,10 @@ parent with no child) is written as 0, and the max's backward hands the
 parent's full gradient to every child equal to the max (ties are not
 split).
 
-``sk_pool2`` takes the plain version only for tensors on the CPU.  On a
-CUDA tensor it launches B6 or raises; it never falls back.  Each launch
-adds one to ``launch_counts["sk_pool"]`` (the port's counts, kept in
-``ops/dg_conv.py``).
+``sk_pool2`` calls the ``sk_pool`` op (``ops/library.py``), whose CPU
+kernel is the plain version and whose CUDA kernel launches B6 or raises;
+it never falls back.  Each launch adds one to ``launch_counts["sk_pool"]``
+(the port's counts, kept in ``ops/dg_conv.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ import torch
 from . import coords as C
 from .dg_conv import (_check, _check_keys, _decode, _ptr, _raise_on,
                       _stream_ptr, launch_counts, sm_count, window_smem)
+from .library import define_op
 from .pool import indice_avgpool, indice_maxpool
 from .rulebook import pool2_parent_keys
 
@@ -120,14 +121,10 @@ def sk_pool2(features: torch.Tensor, in_keys: torch.Tensor,
     number (at least 1).  Sentinel parents are 0.  Records no autograd
     graph on CUDA: :class:`SKPool2Fn` differentiates."""
     _check_pool(features, in_keys, out_keys, in_shape, out_shape, mode)
-    if features.device.type == "cpu":
-        return sk_pool2_plain(features, in_keys, out_keys, in_shape=in_shape,
-                              out_shape=out_shape, batch_size=batch_size,
-                              mode=mode)
-    if features.device.type != "cuda":
+    if features.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"no sk_pool kernel for {features.device}")
-    return _sk_pool2_cuda(features, in_keys, out_keys, in_shape, out_shape,
-                          batch_size, mode)
+    return _SK_POOL(features, in_keys, out_keys, [int(s) for s in in_shape],
+                    [int(s) for s in out_shape], int(batch_size), mode)
 
 
 def sk_pool2_plain(features: torch.Tensor, in_keys: torch.Tensor,
@@ -242,6 +239,24 @@ def _sk_pool2_cuda(features, in_keys, out_keys, in_shape, out_shape,
                         out_dims, batch_size, mode, plan, out), "sk_pool")
     launch_counts["sk_pool"] += 1
     return out
+
+
+def _sk_pool_cpu(features, in_keys, out_keys, in_shape, out_shape,
+                 batch_size, mode):
+    return sk_pool2_plain(features, in_keys, out_keys, in_shape=in_shape,
+                          out_shape=out_shape, batch_size=batch_size,
+                          mode=mode)
+
+
+def _sk_pool_fake(features, in_keys, out_keys, *args):
+    return features.new_empty((out_keys.shape[0], features.shape[1]))
+
+
+# B6's op: the pool of out_keys' parents over features' rows
+_SK_POOL = define_op(
+    "sk_pool", "(Tensor features, Tensor in_keys, Tensor out_keys, "
+    "int[] in_shape, int[] out_shape, int batch_size, str mode) -> Tensor",
+    cuda=_sk_pool2_cuda, cpu=_sk_pool_cpu, fake=_sk_pool_fake)
 
 
 def _parent_rows(in_keys: torch.Tensor, out_keys: torch.Tensor, in_shape,

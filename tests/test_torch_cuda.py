@@ -872,6 +872,52 @@ def test_int8_encoder_on_card_matches_cpu(dev):
     assert torch.equal(got.features.cpu(), ref.features)
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_exported_centerpoint_matches_eager_on_card(dev, kind):
+    """The CenterPoint encoder's ``bev`` request (f32, bf16, and int8 from
+    ``quantize_encoder``) exported (``spconv_tpu_torch.export``), saved
+    and reloaded: bit-equal to eager on the card, launching eager's
+    kernels, kernel by kernel."""
+    import io
+
+    from spconv_tpu_torch.export import export_inference, serialize
+    from spconv_tpu_torch.quantization import (observe_encoder_scales,
+                                               quantize_encoder)
+
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                           n_target=1500, dtype=dtype,
+                                           device=dev)
+    net = centerpoint_encoder(in_channels=5, bn=False, dtype=dtype,
+                              device=dev).eval()
+    if kind == "int8":
+        with torch.no_grad():
+            net = quantize_encoder(net, scales=observe_encoder_scales(
+                net, [x]))
+
+    def request(f, i):
+        return net.bev(st.SparseConvTensor(f, i, x.spatial_shape, 1,
+                                           keys_sorted=True))
+
+    args = (x.features, x.indices)
+    program = export_inference(request, args)
+    loaded = torch.export.load(io.BytesIO(serialize(request, args)))
+    outs, counts = [], []
+    with torch.no_grad():
+        for fn in (request, program.module(), loaded.module()):
+            torch.cuda.synchronize()
+            TD.reset_launch_counts()
+            outs.append(fn(*args))
+            torch.cuda.synchronize()
+            counts.append(dict(TD.launch_counts))
+    want = (_counts(dg_pos=4, dg_pos_affine=4, dg_fwd_q=17,
+                    dg_fwd_q_strided=4) if kind == "int8" else
+            _counts(dg_pos=4, dg_pos_affine=4, dg_fwd=17, dg_fwd_strided=4))
+    assert counts == [want] * 3
+    assert outs[0].abs().max() > 0
+    assert torch.equal(outs[1], outs[0]) and torch.equal(outs[2], outs[0])
+
+
 # B6, the sorted-key pool: 3-d and 4-d grids with odd edges
 _POOL_SHAPES = {3: (9, 41, 40), 4: (11, 13, 12, 13)}
 
@@ -1583,6 +1629,46 @@ def test_probe_rank_matches_plain(dev):
     torch.cuda.synchronize()
     assert TP.launch_counts == _probe_counts(probe_rank=1)
     assert torch.equal(got.cpu(), TP.lane_rank_plain(keys, probes))
+
+
+@pytest.mark.parametrize("w_n", (1, 100, 128, 1024, 5000))
+@pytest.mark.parametrize("lanes", (1, 7, 128))
+@pytest.mark.parametrize("rows,place", [(16, "aligned"), (33, "aligned"),
+                                        (16, "misaligned")])
+def test_probe_rank_sizes_match_plain(dev, w_n, lanes, rows, place):
+    """The warp-a-row rank bit-equal to its plain version with one launch
+    at every key count (counted up to 1,024, searched past it), row width
+    (16-byte bodies with a head and a tail a row at 7 lanes) and row
+    count, keys with repeats, probes below, between and above them, the
+    keys one element off their 16-byte alignment (counted one a lane); and
+    on every plan of the sweep (``tools/join_gather_tiles.py``)."""
+    g = torch.Generator().manual_seed(w_n + lanes + rows)
+    keys = torch.sort(torch.randint(0, 3000, (w_n,), generator=g,
+                                    dtype=torch.int32)).values
+    probes = torch.randint(-10, 3010, (rows, lanes), generator=g,
+                           dtype=torch.int32)
+    probes[0, 0], probes[-1, 0] = -5, 3005
+    ref = TP.lane_rank_plain(keys, probes)
+    kd = (_off_by_one(keys, dev) if place == "misaligned"
+          else keys.to(dev))
+    pd = probes.to(dev)
+    plan = TP.rank_launch_plan(kd, pd)
+    assert plan.kvec == (place == "aligned" and w_n <= TP.RANK_COUNT_KEYS)
+    TP.reset_launch_counts()
+    got = TP.lane_rank(kd, pd)
+    torch.cuda.synchronize()
+    assert TP.launch_counts == _probe_counts(probe_rank=1)
+    assert torch.equal(got.cpu(), ref)
+    sms = TD.sm_count(dev.index or 0)
+    for p in [TP.rank_plan(rows, w_n, lanes, sms, aligned=plan.kvec, rb=rb,
+                           search=sr)
+              for sr in TP.RANK_SEARCHES
+              if sr != "count" or w_n <= TP.RANK_COUNT_KEYS
+              for rb in TP.RANK_WARPS + (16,)]:
+        out = torch.full_like(got, -1)
+        assert TP.launch_rank(load_library(), kd, pd, p, out) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), ref), p
 
 
 def _probe_gemm_operands(m, k, n, values, g):

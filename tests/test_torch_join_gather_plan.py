@@ -1,11 +1,12 @@
-"""The probe join's and gathers' host plans (``ops/probes.py::join_plan``,
-``gather_plan``) on the CPU: the plans at the probes' shapes on the H100,
+"""The probe join's, gathers' and rank's host plans (``ops/probes.py::
+join_plan``, ``gather_plan``, ``rank_plan``) on the CPU: the plans at the
+probes' shapes on the H100,
 the keys searched in global memory past those counted in registers, the
 one-element path where the columns or the table's alignment do not fit
 16-byte vectors, ragged row counts, and every output element written by
 exactly one lane (the kernels' index maps, replayed here) on cards of
-132, 66 and 1 SMs; and the sweep's ablations, each text in the kernel
-source."""
+132, 66 and 1 SMs, the rank's keys each read once; and the sweep's
+ablations and the parent rank's build, each text in the kernel source."""
 
 import itertools
 
@@ -27,6 +28,10 @@ JOINS = [(128, 256, 128), (256, 1024, 64), (50, 300, 33), (100, 777, 36),
 # card tests' ragged row counts, and a long one
 GATHER_ROWS = (8, 16, 32, 64, 128, 7, 33, 129, 200, 1, 1000)
 GATHER_WIDTHS = (128, 4, 8, 64, 132, 256, 1000)
+# the rank's keys (one, ragged, the probe's 128, the most counted) and row
+# widths (one lane, ragged, the probe's 128)
+RANK_KEYS = (1, 100, 128, 1024)
+RANK_LANES = (1, 7, 128)
 
 
 def join_cover(plan, t_n, c):
@@ -214,3 +219,111 @@ def test_sweep_ablations_are_in_the_kernel_source(name, edits):
     changes the source."""
     src = ablated_source("probes.cu", edits)
     assert (src == ablated_source("probes.cu", ())) == (name == "as is")
+
+
+def rank_cover(plan, rows, lanes):
+    """How many times ``rank_kernel`` on ``plan`` writes each element of
+    ``out [rows, lanes]``: block b's warp w serves row ``b * rb + w`` (if
+    below rows), from element ``row * lanes`` of a 16-byte aligned
+    ``out``: lane l writes head element l (l < head), the 16-byte vectors
+    l, l + 32, ... of the body, and tail element l (l < tail)."""
+    hits = np.zeros(rows * lanes, np.int64)
+    for b, w in itertools.product(range(plan.grid), range(plan.rb)):
+        r = b * plan.rb + w
+        if r >= rows:
+            continue
+        head, vectors, tail = P.rank_row_split(r, lanes)
+        row0 = r * lanes
+        assert (row0 + head) % 4 == 0 or vectors == 0
+        for lane in range(32):
+            if lane < head:
+                hits[row0 + lane] += 1
+            for v in range(lane, vectors, 32):
+                hits[row0 + head + 4 * v:row0 + head + 4 * v + 4] += 1
+            if lane < tail:
+                hits[row0 + head + 4 * vectors + lane] += 1
+    return hits.reshape(rows, lanes)
+
+
+def rank_key_reads(plan, w_n):
+    """How many times a warp of ``rank_kernel`` on ``plan`` with the keys
+    counted reads each key: with ``kvec`` lane l loads the 16-byte vectors
+    l, l + 32, ... of the first ``4 * (W // 4)`` keys, then the last
+    ``key_tail`` one a lane; else every key one a lane."""
+    reads = np.zeros(w_n, np.int64)
+    start = 0
+    if plan.kvec:
+        for lane in range(32):
+            for v in range(lane, w_n // 4, 32):
+                reads[4 * v:4 * v + 4] += 1
+        start = 4 * (w_n // 4)
+    assert w_n - start == plan.key_tail
+    for lane in range(32):
+        reads[start + lane:w_n:32] += 1
+    return reads
+
+
+def test_rank_probe_plan_on_the_h100():
+    """The probe's rank (16 rows of 128 lanes into 128 aligned keys) on 132
+    SMs: 16 blocks of one warp, the keys counted 16 bytes a lane with no
+    tail, each row one 16-byte vector a lane."""
+    plan = P.rank_plan(16, 128, 128, 132)
+    assert plan == P.RankPlan("count", True, 0, 1, 16)
+    assert all(P.rank_row_split(r, 128) == (0, 32, 0) for r in range(16))
+
+
+@pytest.mark.parametrize("w_n", RANK_KEYS)
+@pytest.mark.parametrize("lanes", RANK_LANES)
+@pytest.mark.parametrize("rows", (16, 1, 33, 200))
+@pytest.mark.parametrize("sms", SMS)
+def test_rank_plan_covers_every_output_once(w_n, lanes, rows, sms):
+    """Every element of the rank's output written once at each key count,
+    row width, row count and card: the warps a block the largest of
+    ``RANK_WARPS`` with a third of the SMs' blocks (else 1), the grid
+    covering the rows; the keys counted, each read once, with ``W % 4``
+    read one a lane after the 16-byte loads (all of them, one a lane,
+    where the keys are not aligned)."""
+    for aligned in (True, False):
+        plan = P.rank_plan(rows, w_n, lanes, sms, aligned=aligned)
+        want = next((w for w in P.RANK_WARPS if -(-rows // w) >= sms // 3),
+                    1)
+        assert plan.rb == want and plan.grid == -(-rows // want)
+        assert plan.search == "count" and plan.kvec == aligned
+        assert plan.key_tail == (w_n % 4 if aligned else w_n)
+        assert (rank_cover(plan, rows, lanes) == 1).all()
+        assert (rank_key_reads(plan, w_n) == 1).all()
+
+
+@pytest.mark.parametrize("rb", P.RANK_WARPS + (16,))
+@pytest.mark.parametrize("search", P.RANK_SEARCHES)
+def test_rank_sweep_plans_cover_the_probe(rb, search):
+    """Each plan of the sweep (every warp count, both searches) writes each
+    element of the probe's ``[16, 128]`` output once; the search reads no
+    key one a lane."""
+    plan = P.rank_plan(16, 128, 128, 132, rb=rb, search=search)
+    assert plan.rb == rb and plan.grid == -(-16 // rb)
+    assert plan.key_tail == 0 and plan.kvec == (search == "count")
+    assert (rank_cover(plan, 16, 128) == 1).all()
+
+
+def test_rank_keys_choose_the_search():
+    """Up to ``RANK_COUNT_KEYS`` keys are counted, more searched (the
+    warp's ballot lower bound); a count past it, an unknown search and a
+    block of 0 or 33 warps are refused."""
+    assert P.rank_plan(16, P.RANK_COUNT_KEYS, 8, 132).search == "count"
+    plan = P.rank_plan(16, P.RANK_COUNT_KEYS + 1, 8, 132)
+    assert plan.search == "warp" and not plan.kvec and plan.key_tail == 0
+    for kwargs, match in (({"w_n": 1025, "search": "count"}, "counted"),
+                          ({"w_n": 8, "search": "binary"}, "no search"),
+                          ({"w_n": 8, "rb": 0}, "warps a block"),
+                          ({"w_n": 8, "rb": 33}, "warps a block")):
+        with pytest.raises(ValueError, match=match):
+            P.rank_plan(16, lanes=8, sms=132, **kwargs)
+
+
+def test_rank_parent_build_is_in_the_kernel_source():
+    """The parent rank's build replaces texts that are in
+    ``csrc/probes.cu`` and launches its kernel in place of the plan's."""
+    src = ablated_source("probes.cu", JG.PARENT_RANK[1])
+    assert "rank_parent_kernel<<<rows, 128, 0, s>>>" in src
+    assert src.count("__global__ void rank_parent_kernel") == 1

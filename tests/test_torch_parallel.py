@@ -15,6 +15,7 @@ neither ``jax`` nor ``spconv_tpu`` at its top level: a spawned rank
 imports it by name, and stays free of JAX."""
 
 import multiprocessing
+import re
 import time
 
 import numpy as np
@@ -160,6 +161,12 @@ def _rank_checks(rank, world, data):
 def _rank_raises(rank, world):
     if rank == 1:
         raise ValueError("rank 1 fails")
+    return rank
+
+
+def _rank_booms(rank, world):
+    if rank == 1:
+        raise ValueError("rank 1 boom")
     return rank
 
 
@@ -515,6 +522,25 @@ def test_failed_or_hung_rank_fails_loudly(tmp_path, fn, timeout, why):
         run_ranks(fn, 2, backend="gloo", timeout=timeout,
                   workdir=str(tmp_path))
     assert time.monotonic() - t0 < timeout + 60
+    assert multiprocessing.active_children() == []
+
+
+def test_failed_rank_traceback_reaches_the_error(tmp_path):
+    """A rank that raises hands its traceback to ``run_ranks``: the
+    ``RuntimeError`` holds the exit codes, the rank's exception and its
+    message; the rank's exit code stays non-zero."""
+    from spconv_tpu_torch.parallel import run_ranks
+
+    with pytest.raises(RuntimeError) as err:
+        run_ranks(_rank_booms, 2, backend="gloo", timeout=120,
+                  workdir=str(tmp_path))
+    text = str(err.value)
+    codes = re.search(r"exited with codes \[(-?\d+|None), (-?\d+|None)\]",
+                      text)
+    assert codes and codes[2] == "1", text
+    assert "--- rank 1 (exit code 1) raised:" in text
+    assert 'ValueError: rank 1 boom' in text
+    assert "_rank_booms" in text
     assert multiprocessing.active_children() == []
 
 
