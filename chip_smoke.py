@@ -11,7 +11,8 @@ line is printed):
    beside them the bf16 wgrad's and B7's counting builds
    (``tools/wgrad_ablation.py``, ``tools/b7_ablation.py``), B1's, and the
    probes with the parent's rank kernel (``tools/join_gather_tiles.py``'s
-   ``PARENT_RANK``), and prints
+   ``PARENT_RANK``), and with g++ phase 18's C++ op library and loader,
+   and prints
    each kernel's ptxas registers, spills and static shared memory (B2's,
    wgrad's and B7's variants with their dynamic shared memory; a wgrad or
    B7 variant that spills, or a report without all 24 wgrad and 32 B7
@@ -193,7 +194,16 @@ line is printed):
    the blob's bytes, host ms of eager against the exported module in
    turns, and the host µs of one op call against the direct launch (and
    of an op made by ``Library`` against one made by ``custom_op``);
-18. prints a JSON line of the kernels, each with its bound (the least time
+18. the C++ loader: the two encoders of phase 17 and
+   ``examples.export_model``'s native net, each compiled ahead of time into
+   an AOTInductor package (``spconv_tpu_torch.export.package``) and served
+   by ``examples/libtorch_loader`` in a process with no Python, through the
+   kernels' ops defined from C++ (``csrc/torch_ops*.cpp``, built in phase 2
+   beside the kernels): 23 requests each, every one checked against eager
+   (indices, int8 and f32 bit-equal, bf16 within its gate) with eager's
+   launches; package bytes, compile s, load s and host ms a request beside
+   phase 17's;
+19. prints a JSON line of the kernels, each with its bound (the least time
    the card could take for the same work, from the H100's published peaks),
    then the result line.
 """
@@ -4540,6 +4550,7 @@ torch.save({"out": out.cpu(), "counts": dict(D.launch_counts)}, out_path)
 if "jax" in sys.modules or "spconv_tpu" in sys.modules:
     sys.exit("the child imported JAX or the JAX package")
 """
+SMOKE_LIBS = []  # the torch.library.Library objects dispatch_us made
 DISPATCH_CALLS = 500  # calls a reading: fewer than the launch queue holds
 DISPATCH_ROWS = 128   # B2's rows: a few µs on the card
 
@@ -4565,7 +4576,11 @@ def dispatch_us(torch, dev):
     pos = torch.randint(-1, n, (27, n), device=dev, generator=g,
                         dtype=torch.int32)
     small = torch.randn(16, device=dev, generator=g)
+    # a Library kept for the life of the process: deleting one leaves its
+    # op's stale entry in torch.ops, on which torch 2.11's decomposition
+    # table (AOTInductor's, phase 18) fails
     lib = torch.library.Library("spconv_tpu_smoke", "DEF")
+    SMOKE_LIBS.append(lib)
     lib.define("clone_lib(Tensor x) -> Tensor")
     lib.impl("clone_lib", lambda t: t.clone(), "CUDA")
 
@@ -4598,7 +4613,6 @@ def dispatch_us(torch, dev):
         reads[k].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
         torch.cuda.synchronize()
     D.reset_launch_counts()
-    del lib
     return reads, device_us
 
 
@@ -4612,8 +4626,8 @@ def export_phase(torch, dev, cp16, cp_net, cp_in, qnet):
     by kernel (the child's on seed 0 too); the blob's bytes; host ms of
     eager against ``ExportedProgram.module()`` over the same window, in
     turns; and the dispatch µs of one op call against the direct launch
-    (:func:`dispatch_us`).  Returns ``{net: launches of one eager
-    request}``."""
+    (:func:`dispatch_us`).  Returns ``{net: {"eager": host ms,
+    "exported": host ms}}`` of the requests timed in turns."""
     import gc
     import io
 
@@ -4622,7 +4636,7 @@ def export_phase(torch, dev, cp16, cp_net, cp_in, qnet):
     from spconv_tpu_torch.ops import dg_conv as D
 
     tmp = Path(tempfile.mkdtemp(prefix="spconv_tpu_export_"))
-    launches = {}
+    launches, host_ms = {}, {}
     try:
         for name, net, inputs, want in (
                 ("bf16", cp_net, cp16, CP_LAUNCHES),
@@ -4697,6 +4711,7 @@ def export_phase(torch, dev, cp16, cp_net, cp_in, qnet):
                         runs[how](*args[seed])
                         torch.cuda.synchronize()
                         ms[how].append((time.perf_counter() - t0) * 1e3)
+            host_ms[name] = ms
             # a fresh interpreter: the blob and seed 0's inputs from files
             blob_path = tmp / f"cp_{name}.pt2"
             blob_path.write_bytes(blob)
@@ -4736,7 +4751,148 @@ def export_phase(torch, dev, cp16, cp_net, cp_in, qnet):
           f"{DISPATCH_ROWS}] table, 16 -> 16, {device_us:.3f} us on the "
           f"card; {DISPATCH_CALLS} calls a reading, in turns): " + "; ".join(
               f"{k} {[round(v, 3) for v in r]}" for k, r in reads.items()))
-    return launches
+    return host_ms
+
+
+# ---- phase 18: the C++ loader (libtorch, no Python) -----------------------
+
+# requests a loader run serves: the first LOADER_CHECKED each timed and
+# reported, the LOADER_TIMED after them timed for the median; every one's
+# outputs are checked against the goldens and its launches against the
+# first's
+LOADER_CHECKED = 3
+LOADER_TIMED = 20
+
+
+def cpp_loader_phase(torch, dev, cp16, cp_net, cp_in, qnet, cpp_built,
+                     export_ms):
+    """Phase 18: the bf16 and int8 CenterPoint encoders of phase 17 (a
+    ``bev`` request of seed 0's buffers) and ``examples.export_model``'s
+    native net at its ``NBUF``, each packaged ahead of time
+    (``export.package``: an AOTInductor package, with its manifest, inputs
+    and eager outputs, ``export_model.write_artifact``) and served by the
+    C++ loader (``cpp_built``: the CUDA op library and the loader, built in
+    phase 2) in a process with no Python: ``LOADER_OK``; indices, int8 and
+    f32 outputs bit-equal to eager on the card, bf16 within its gate with
+    the difference printed; the loader's launches a request equal to
+    eager's.  Prints each package's bytes and compile s, the loader's load
+    s, its first request's ms and its host ms a request beside phase 17's
+    eager and exported-module ms (``export_ms``), and the device busy a
+    request of eager against the package loaded in this process."""
+    from torch._inductor import aoti_load_package
+
+    from spconv_tpu_torch.core import SparseConvTensor
+    from spconv_tpu_torch.examples import export_model as EM
+    from spconv_tpu_torch.ops import dg_conv as D
+
+    (ops_lib, ops_s, _), (loader, loader_s, _) = cpp_built
+    print(f"C++ loader: op library {ops_lib.name} ({ops_s:.1f} s of g++), "
+          f"loader {loader.name} ({loader_s:.1f} s), built in phase 2 beside "
+          "the kernels")
+    r = subprocess.run(["ldd", str(loader)], capture_output=True, text=True,
+                       timeout=60)
+    check(r.returncode == 0 and "libtorch_cuda" in r.stdout
+          and "libpython" not in r.stdout,
+          f"ldd of the loader: libpython linked, or no libtorch_cuda:\n"
+          f"{r.stdout}{r.stderr}")
+    tmp = Path(tempfile.mkdtemp(prefix="spconv_tpu_loader_"))
+    programs = {}
+    try:
+        for name, net, inputs, want in (
+                ("bf16", cp_net, cp16, CP_LAUNCHES),
+                ("int8", qnet, cp_in, CP_INT8_LAUNCHES)):
+            x0 = inputs[0]
+
+            def request(f, i, net=net, x0=x0):
+                return net.bev(SparseConvTensor(
+                    f, i, x0.spatial_shape, x0.batch_size, keys_sorted=True))
+
+            programs[name] = (request, (x0.features, x0.indices), want)
+        net = EM.build_net(dev, EM.NBUF)
+        feats, inds, shape = EM.load_input(0, EM.NBUF)
+
+        def native(f, i):
+            y = net(SparseConvTensor(f, i, shape, 1, keys_sorted=True))
+            return y.features, y.indices
+
+        programs["native"] = (native, (torch.from_numpy(feats).to(dev),
+                                       torch.from_numpy(inds).to(dev)),
+                              dict(dg_fwd_native=3))
+        for name, (fn, args, want) in programs.items():
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                D.reset_launch_counts()
+                fn(*args)
+                torch.cuda.synchronize()
+            eager = {k: v for k, v in D.launch_counts.items() if v}
+            check(eager == want, f"loader {name}: eager launches {eager}, "
+                  f"expected {want}")
+            art = tmp / name
+            res = EM.write_artifact(art, fn, args, package=True)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            run = EM.run_loader(ops_lib, loader, art,
+                                LOADER_CHECKED + LOADER_TIMED)
+            wall = time.perf_counter() - t0
+            check(run["rc"] == 0 and run["ok"],
+                  f"loader {name}: exit {run['rc']}\n{run['stdout'][-3000:]}"
+                  f"\n{run['stderr'][-3000:]}")
+            check(run["launches"] == eager,
+                  f"loader {name}: launches {run['launches']} a request, "
+                  f"eager {eager}")
+            check(len(run["outputs"]) == len(res["outputs"]),
+                  f"loader {name}: {len(run['outputs'])} outputs")
+            for o, ref in zip(run["outputs"], res["outputs"]):
+                check(o["ok"] and (o["bitequal"]
+                                   or ref.dtype == torch.bfloat16),
+                      f"loader {name}: {o['dtype']} output not bit-equal "
+                      f"to eager (max|d| {o['max_abs_diff']}, gate "
+                      f"{o['gate']})")
+                check(o["max_abs_ref"] > 0, f"loader {name}: output all 0")
+            # device busy a request: eager against the same package loaded
+            # in this process (its kernel nodes call the Python ops, which
+            # launch the same kernels)
+            compiled = aoti_load_package(str(art / "package.pt2"))
+            with torch.no_grad():
+                outs = compiled(*args)  # a tensor where fn returns one
+                if isinstance(outs, torch.Tensor):
+                    outs = (outs,)
+                check(len(outs) == len(res["outputs"])
+                      and all(torch.equal(o, r) for o, r in
+                              zip(outs, res["outputs"])),
+                      f"loader {name}: the package in this process differs "
+                      "from eager")
+                busy = {how: device_busy(torch, lambda f=f: f(*args), 3)
+                        for how, f in (("eager", fn), ("package", compiled))}
+            del compiled, outs
+            ms = run["request_ms"]
+            timed = sorted(ms[LOADER_CHECKED:])
+            size = (art / "package.pt2").stat().st_size
+            eager_ms = export_ms.get(name, {})
+            print(f"loader {name}: package.pt2 {size} B compiled in "
+                  f"{res['package_s']:.2f} s; the loader process "
+                  f"{wall:.2f} s, load {run['load_s']:.3f} s, "
+                  f"{LOADER_CHECKED + LOADER_TIMED} requests each checked "
+                  f"against eager ("
+                  + "; ".join(f"{o['dtype']} [{o['dims']}] max|d| "
+                              f"{o['max_abs_diff']} of max|ref| "
+                              f"{o['max_abs_ref']}, bit-equal "
+                              f"{o['bitequal']}" for o in run["outputs"])
+                  + f"), launches a request {run['launches']} = eager's; "
+                  f"host ms: first request {ms[0]:.3f}, checked "
+                  f"{[round(m, 3) for m in ms[:LOADER_CHECKED]]}, then "
+                  f"{LOADER_TIMED} timed median "
+                  f"{timed[len(timed) // 2]:.3f} (min {timed[0]:.3f}, max "
+                  f"{timed[-1]:.3f}); phase 17 eager "
+                  f"{[round(m, 3) for m in eager_ms.get('eager', [])]}, "
+                  "exported module "
+                  f"{[round(m, 3) for m in eager_ms.get('exported', [])]}; "
+                  "device busy a request (3 in a profiler window): " + ", ".join(
+                      f"{how} {b[1] / 3:.3f} ms of {b[2] // 3} device ops"
+                      if b[1] else f"{how} not measured (no device time)"
+                      for how, b in busy.items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -4757,7 +4913,7 @@ def main():
 
 
 def run(tune_root):
-    """Phases 1-18 (see the module docstring), the tuner's cache under
+    """Phases 1-19 (see the module docstring), the tuner's cache under
     ``tune_root``."""
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -4785,6 +4941,7 @@ def run(tune_root):
     from concurrent.futures import ThreadPoolExecutor
 
     from spconv_tpu_torch._build import (BUILD_DIR, build_library,
+                                         build_loader, build_ops_library,
                                          load_library)
     from spconv_tpu_torch.tools import ablation as AB
     from spconv_tpu_torch.tools import b7_ablation as BA
@@ -4798,7 +4955,10 @@ def run(tune_root):
     # its pool whole, tools/table_count.py's COUNT) and the probes with
     # the parent's rank kernel (tools/join_gather_tiles.py's PARENT_RANK,
     # timed beside the rank in phase 12)
-    with ThreadPoolExecutor(4) as pool:
+    # and phase 18's C++ op library and loader (g++ beside nvcc)
+    with ThreadPoolExecutor(6) as pool:
+        cpp_builds = [pool.submit(build_ops_library, True),
+                      pool.submit(build_loader, True)]
         rank_parent_build = pool.submit(AB.build, "probes.cu",
                                         (JG.PARENT_RANK,), JG.RANK_ARGTYPES,
                                         BUILD_DIR / "rank_parent")
@@ -4817,6 +4977,7 @@ def run(tune_root):
         b7_count_lib = b7_count_build.result()[BA.COUNT[0]]
         table_count_lib = table_count_build.result()[TCN.COUNT[0]]
         rank_parent_lib = rank_parent_build.result()[JG.PARENT_RANK[0]]
+        cpp_built = [b.result() for b in cpp_builds]
     print(f"build: {path.name} in {secs:.2f} s, the wgrad, B7 and B1 "
           "counting builds and the parent rank's")
 
@@ -5572,10 +5733,16 @@ def run(tune_root):
 
     # ---- 17. export, save and reload ---------------------------------
     t0 = time.perf_counter()
-    export_phase(torch, dev, cp16, cp_net, cp_in, qnet)
+    export_ms = export_phase(torch, dev, cp16, cp_net, cp_in, qnet)
     print(f"phase 17: {time.perf_counter() - t0:.1f} s")
 
-    # ---- 18. report --------------------------------------------------
+    # ---- 18. the C++ loader ------------------------------------------
+    t0 = time.perf_counter()
+    cpp_loader_phase(torch, dev, cp16, cp_net, cp_in, qnet, cpp_built,
+                     export_ms)
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 19. report --------------------------------------------------
     def row(name, source, replaces, launches, errs, t, library_ms=None,
             **extra):
         """One kernel's entry: ``errs`` = (max|d|, max|d|/max|ref|) against

@@ -5,8 +5,9 @@ Only what the port reads lives here: the weight layout that a state dict
 carries between the two packages, the conv algorithm a layer takes when
 none is given (``SPCONV_TPU_ALGO``), the reference's algorithm enum, the
 tuner's switch and cache directory (``SPCONV_TPU_TUNE``,
-``SPCONV_TPU_TUNE_CACHE``) and the opt-in overflow check, each read when
-the port is imported.  The JAX package's ``SPCONV_TPU_OUT_BOUND_RATIO`` and
+``SPCONV_TPU_TUNE_CACHE``), the opt-in overflow check and the debug dump's
+directory (``SPCONV_TPU_DEBUG_SAVE_PATH``), each read when the port is
+imported.  The JAX package's ``SPCONV_TPU_OUT_BOUND_RATIO`` and
 ``SPCONV_TPU_FP32_HIGHEST`` are not ported: nothing in that package reads
 them.
 """
@@ -48,6 +49,11 @@ SPCONV_TUNE_CACHE = os.getenv(
 # Without the flag, ``SparseConvTensor.check_overflow()`` does the same on
 # demand.
 SPCONV_CHECK_OVERFLOW = os.getenv("SPCONV_TPU_CHECK_OVERFLOW", "0") == "1"
+
+# Debug: the directory ``debug_utils.spconv_save_debug_data`` pickles a
+# problem's coordinates into (the reference's SPCONV_DEBUG_SAVE_PATH); empty
+# (the default): it writes nothing.
+SPCONV_DEBUG_SAVE_PATH = os.getenv("SPCONV_TPU_DEBUG_SAVE_PATH", "")
 
 
 class ConvAlgo(enum.Enum):

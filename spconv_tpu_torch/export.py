@@ -7,19 +7,31 @@ Every kernel is a ``torch.library`` op (``ops/library.py``), so the
 program holds one node per kernel call; on the card each runs the
 hand-written kernel and counts its launch as an eager call does.  Loading
 a blob needs ``import spconv_tpu_torch`` (which registers the ops), none
-of the model's modules.  A C++ loader over libtorch reads the same bytes
-(ROADMAP A12b).
+of the model's modules.
+
+:func:`package` compiles the same program ahead of time into an
+AOTInductor package, which a process with no Python serves through
+libtorch: the kernels' ops are then defined from C++ (``csrc/torch_ops.cpp``,
+``_build.build_ops_library``) and the C++ loader
+(``examples/libtorch_loader``) runs it.
 """
 
 from __future__ import annotations
 
+import functools
 import io
-from typing import Callable, Sequence, Union
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
-__all__ = ["export_inference", "serialize", "deserialize_and_call"]
+__all__ = ["export_inference", "serialize", "deserialize_and_call",
+           "package"]
 
 
 class _Fn(nn.Module):
@@ -70,3 +82,52 @@ def deserialize_and_call(blob: bytes, *args):
     program = torch.export.load(io.BytesIO(blob))
     with torch.no_grad():
         return program.module()(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _openmp_cxx() -> Optional[str]:
+    """A C++ compiler that builds OpenMP code, which AOTInductor needs (it
+    compiles every package's wrapper with ``-fopenmp``): Inductor's own
+    pick (``$CXX``, else ``g++``) where it can, else ``g++`` or ``c++`` on
+    ``PATH`` (a ``$CXX`` may be a compiler built without libgomp).  None
+    where none can: Inductor's own choice and its error then stand."""
+    candidates = dict.fromkeys(c for c in (os.environ.get("CXX"), "g++",
+                                           "c++") if c)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "omp.cc"
+        src.write_text("#include <omp.h>\n"
+                       "int main() { return omp_get_max_threads() < 1; }\n")
+        for cxx in candidates:
+            if shutil.which(cxx) is None:
+                continue
+            r = subprocess.run([cxx, "-fopenmp", str(src), "-o",
+                                str(Path(tmp) / "omp")], capture_output=True,
+                               timeout=120)
+            if r.returncode == 0:
+                return cxx
+    return None
+
+
+def package(fn_or_module: Union[Callable, nn.Module], example_args: Sequence,
+            path: Union[str, Path]) -> Path:
+    """:func:`export_inference`, then
+    ``torch._inductor.aoti_compile_and_package``: the program compiled
+    ahead of time for the device of ``example_args`` into an AOTInductor
+    package at ``path`` (a ``.pt2`` zip), which libtorch's
+    ``AOTIModelPackageLoader`` runs with no Python.  Each kernel stays a
+    node that calls its ``spconv_tpu_torch`` op by name; the torch ops
+    around them are compiled, with Inductor's bf16 arithmetic rounded
+    where eager's separate ops round it (``emulate_precision_casts``), by
+    a C++ compiler that builds OpenMP code (:func:`_openmp_cxx`).  Returns
+    the package's path."""
+    import torch._inductor
+    from torch._inductor import config
+
+    program = export_inference(fn_or_module, example_args)
+    patch = {"emulate_precision_casts": True}
+    cxx = _openmp_cxx()
+    if cxx is not None:
+        patch["cpp.cxx"] = (None, cxx)
+    with config.patch(patch):
+        return Path(torch._inductor.aoti_compile_and_package(
+            program, package_path=str(path)))

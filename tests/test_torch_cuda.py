@@ -2788,3 +2788,97 @@ def test_sync_bn_two_ranks_on_card_matches_cpu(dev, tmp_path):
         for k, g in cpu["grads"].items():
             err = (card["grads"][k] - g).abs().max().item()
             assert err <= 1e-4 * g.abs().max().item(), (k, err)
+
+
+# ---- the C++ loader: packages served by libtorch with no Python ----------
+
+@pytest.fixture(scope="module")
+def cpp_loader():
+    """``(CUDA op library, loader)``, built from the repo's sources."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only there)")
+    from spconv_tpu_torch._build import build_loader, build_ops_library
+
+    return build_ops_library(True)[0], build_loader(True)[0]
+
+
+def _loader_case(case, dev):
+    """``(forward, inputs, launches of one request)`` of a small net on the
+    card: together they reach every CUDA kernel of the C++ op library."""
+    from spconv_tpu_torch.quantization import (observe_encoder_scales,
+                                               quantize_encoder)
+
+    if case == "int8":
+        x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                               n_target=1500, device=dev)
+        net = centerpoint_encoder(in_channels=5, bn=False, device=dev).eval()
+        with torch.no_grad():
+            net = quantize_encoder(net, scales=observe_encoder_scales(
+                net, [x]))
+        want = dict(dg_pos=4, dg_pos_affine=4, dg_fwd_q=17,
+                    dg_fwd_q_strided=4)
+        shape, args = x.spatial_shape, (x.features, x.indices)
+    else:
+        dtype = torch.float32 if case == "keyed_f32" else torch.bfloat16
+        gen = torch.Generator().manual_seed(3)
+        kw = dict(algo="dg", device=dev, dtype=dtype, generator=gen)
+        layers = {
+            "keyed_bf16": lambda: [
+                st.SubMConv3d(16, 32, 3, indice_key="s0", **kw),
+                st.SparseConv3d(32, 64, 3, stride=2, padding=1,
+                                out_bound=768, **kw)],
+            "no_key": lambda: [st.SubMConv3d(16, 32, 3, **kw)],
+            "sk_pool": lambda: [
+                st.SubMConv3d(16, 16, 3, indice_key="s0", **kw),
+                st.SparseMaxPool3d(2, 2, algo="sk", out_bound=768)],
+            "inverse": lambda: [
+                st.SparseConv3d(16, 32, 3, stride=2, padding=1,
+                                indice_key="d1", out_bound=768, **kw),
+                st.SparseInverseConv3d(32, 16, 3, indice_key="d1", **kw)],
+        }
+        layers["keyed_f32"] = layers["keyed_bf16"]
+        net = st.SparseSequential(*layers[case]()).eval()
+        want = {"keyed_bf16": dict(dg_pos=1, dg_fwd=1, dg_pos_affine=1,
+                                   dg_fwd_strided=1),
+                "no_key": dict(dg_fwd_search=1),
+                "sk_pool": dict(dg_pos=1, dg_fwd=1, sk_pool=1),
+                "inverse": dict(dg_pos_affine=1, dg_fwd_strided=1,
+                                dg_pos_divide=1, dg_fwd_inverse=1)}
+        want = want.get(case, want["keyed_bf16"])
+        fb, ib = _sorted_input(7, 600, 16, 768)
+        shape = SHAPE
+        args = (torch.from_numpy(fb).to(dev, dtype), torch.from_numpy(ib)
+                .to(dev))
+
+    def forward(f, i):
+        y = net(st.SparseConvTensor(f, i, shape, 1, keys_sorted=True))
+        return y.features, y.indices
+
+    return forward, args, want
+
+
+@pytest.mark.parametrize("case", ["keyed_bf16", "keyed_f32", "int8",
+                                  "no_key", "sk_pool", "inverse"])
+def test_cpp_loader_serves_package_on_card(dev, cpp_loader, tmp_path, case):
+    """A small net packaged on the card (``export.package``) and served by
+    the C++ loader through the C++ op library: every output bit-equal to
+    eager's, and the loader's launches a request eager's (B1 subm, affine
+    and divide; B2 bf16 and f32 in table and search mode; B7; B6)."""
+    from spconv_tpu_torch.examples.export_model import (run_loader,
+                                                        write_artifact)
+
+    forward, args, want = _loader_case(case, dev)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        TD.reset_launch_counts()
+        forward(*args)
+        torch.cuda.synchronize()
+    assert TD.launch_counts == _counts(**want)
+    res = write_artifact(tmp_path / case, forward, args, package=True)
+    run = run_loader(*cpp_loader, tmp_path / case, 2)
+    assert run["rc"] == 0 and run["ok"], (run["stdout"][-3000:],
+                                          run["stderr"][-3000:])
+    assert run["launches"] == want
+    assert len(run["outputs"]) == len(res["outputs"]) == 2
+    assert all(o["bitequal"] for o in run["outputs"]), run["outputs"]
+    assert run["outputs"][0]["max_abs_ref"] > 0
