@@ -37,7 +37,8 @@ layout, JAX state dicts), box ops (``utils.boxops``), the point-cloud codec
 (``examples.voxel_gen``, ``fuse_bn_act``, ``int8_ptq_encoder``) come with
 it.  ``tools`` runs the JAX package's ``tools/`` probe scripts on the card
 (``ops.probes``) and holds the timers (``KernelTimer``,
-``benchmark_model``).  ``algo="auto"`` resolves through the conv tuner
+``benchmark_model``); ``tracing`` holds the profiler spans of each
+layer's phases and the count of tables built and reused.  ``algo="auto"`` resolves through the conv tuner
 (``tuner.CONV_TUNER``: cached winners, tune-on-first-call with
 ``SPCONV_TPU_TUNE=1``, B2's tile on the native path), ``benchmark=True``
 tensors record each conv's and pool's time and voxel counts, and
@@ -54,8 +55,8 @@ See ROADMAP.md for what is still to come.
 __version__ = "0.1.0"
 
 from . import (calibrate, checkpoint, constants, debug_utils, functional,
-               hash, models, ops, parallel, quantization, tools, tuner,
-               utils)
+               hash, models, ops, parallel, quantization, tools, tracing,
+               tuner, utils)
 from .checkpoint import (load_checkpoint, load_jax_state_dict,
                          load_torch_state_dict, save_checkpoint)
 from .constants import ConvAlgo

@@ -16,6 +16,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .tracing import span
+
 __all__ = ["SparseConvTensor", "IndiceData", "ImplicitGemmIndiceData",
            "default_device", "expand_nd", "scatter_nd"]
 
@@ -252,16 +254,18 @@ class SparseConvTensor:
     def dense(self, channels_first: bool = True) -> torch.Tensor:
         """Densify to ``[B, C, *spatial]`` (``[B, *spatial, C]`` without
         ``channels_first``); inactive rows are dropped.  Sync-free: every
-        inactive row writes one spare row past the grid, which is cut."""
+        inactive row writes one spare row past the grid, which is cut.
+        Runs in the ``spconv.dense`` span (:mod:`tracing`)."""
         from .ops import coords as C
 
-        keys, sentinel = C.linearize(self.indices, self.spatial_shape,
-                                     self.batch_size)
-        c = self.features.shape[1]
-        flat = self.features.new_zeros((sentinel + 1, c))
-        flat[keys.long()] = self.features
-        res = flat[:sentinel].reshape(self.batch_size, *self.spatial_shape,
-                                      c)
+        with span("spconv.dense"):
+            keys, sentinel = C.linearize(self.indices, self.spatial_shape,
+                                         self.batch_size)
+            c = self.features.shape[1]
+            flat = self.features.new_zeros((sentinel + 1, c))
+            flat[keys.long()] = self.features
+            res = flat[:sentinel].reshape(self.batch_size,
+                                          *self.spatial_shape, c)
         if not channels_first:
             return res
         return res.permute(0, self.ndim + 1, *range(1, self.ndim + 1))

@@ -52,6 +52,10 @@ its own ``algo``.  The reference's ``ConvAlgo`` enum is accepted for
 Every forward runs through ``modules.run_layer``: a
 ``torch.profiler.record_function`` range under the layer's name while a
 profiler records, and the per-layer record of ``benchmark=True`` input.
+Inside it each table build opens a ``spconv.rulebook`` span, the product a
+``spconv.product`` span and the epilogue a ``spconv.epilogue`` span
+(``tracing``), and each build or reuse of a record adds one to its entry
+of ``tracing.table_counts``.
 
 The native rulebook path (``algo="native"``, and ``"auto"``, ``"dg"`` or
 ``"sk"`` wherever the DG route does not serve: input that is not
@@ -87,6 +91,7 @@ from ..ops.epilogue import bias_add_act
 from ..ops.gather_gemm import indice_conv
 from ..ops.rulebook import (build_conv_outputs, build_conv_rulebook,
                             build_deconv_outputs, build_subm_rulebook)
+from ..tracing import span, table_counts
 from .modules import SparseModule, run_layer
 
 __all__ = ["DGData", "DGRegData", "SparseConvolution", "SubMConv1d",
@@ -299,9 +304,10 @@ class SparseConvolution(SparseModule):
     def _forward(self, input: SparseConvTensor,
                  add_input: Optional[SparseConvTensor]) -> SparseConvTensor:
         if self.conv1x1:
-            w = self.weight.reshape(self.out_channels, self.in_channels)
-            out_feat = self._epilogue(input.features @ w.t(),
-                                      input.valid_mask, add_input)
+            with span("spconv.product"):
+                w = self.weight.reshape(self.out_channels, self.in_channels)
+                out_feat = input.features @ w.t()
+            out_feat = self._epilogue(out_feat, input.indices, add_input)
             out = input.shadow_copy()
             out.features = out_feat
             return out
@@ -321,15 +327,16 @@ class SparseConvolution(SparseModule):
             return self._call_transposed(input, add_input)
         return self._call_dg_regular(input, add_input)
 
-    def _epilogue(self, out_feat, valid, add_input):
+    def _epilogue(self, out_feat, out_indices, add_input):
         """Bias, residual add and activation, then 0 on the rows that are
-        not ``valid`` (the output sites' mask)."""
-        out_feat = bias_add_act(
-            out_feat, self.bias, self.act_type, self.act_alpha,
-            self.act_beta,
-            add_input.features if add_input is not None else None)
-        return torch.where(valid[:, None], out_feat,
-                           torch.zeros_like(out_feat))
+        not active in ``out_indices`` (the output sites)."""
+        with span("spconv.epilogue"):
+            out_feat = bias_add_act(
+                out_feat, self.bias, self.act_type, self.act_alpha,
+                self.act_beta,
+                add_input.features if add_input is not None else None)
+            return torch.where((out_indices[:, 0] >= 0)[:, None], out_feat,
+                               torch.zeros_like(out_feat))
 
     def _out_shape(self, in_shape: Sequence[int]) -> Tuple[int, ...]:
         """The output grid of a regular or transposed conv on
@@ -400,13 +407,18 @@ class SparseConvolution(SparseModule):
                     f"subm match-table reuse mismatch under indice_key="
                     f"{self.indice_key!r}: " + ", ".join(
                         f"{w} {g} vs {x}" for w, g, x in mismatch))
+            table_counts["subm.reused"] += 1
             if need_rev and rec.pos_rev is None:
-                rec.pos_rev = build_dg_pos(rec.keys, reverse=True, **geom)
+                with span("spconv.rulebook"):
+                    rec.pos_rev = build_dg_pos(rec.keys, reverse=True,
+                                               **geom)
             return rec.pos, rec.pos_rev, None
-        keys, _ = C.linearize(input.indices, shape, input.batch_size)
-        pos = build_dg_pos(keys, **geom)
-        pos_rev = (build_dg_pos(keys, reverse=True, **geom) if need_rev
-                   else None)
+        table_counts["subm.built"] += 1
+        with span("spconv.rulebook"):
+            keys, _ = C.linearize(input.indices, shape, input.batch_size)
+            pos = build_dg_pos(keys, **geom)
+            pos_rev = (build_dg_pos(keys, reverse=True, **geom) if need_rev
+                       else None)
         return pos, pos_rev, (key, DGData(
             keys, pos, ksize=self.kernel_size, dilation=self.dilation,
             spatial_shape=shape, pos_rev=pos_rev))
@@ -414,8 +426,9 @@ class SparseConvolution(SparseModule):
     def _search_keys(self, input: SparseConvTensor) -> torch.Tensor:
         """The keys a table-free subm conv searches: ``input``'s rows
         linearized, ascending with the sentinel tail (key-sorted input)."""
-        return C.linearize(input.indices, input.spatial_shape,
-                           input.batch_size)[0]
+        with span("spconv.rulebook"):
+            return C.linearize(input.indices, input.spatial_shape,
+                               input.batch_size)[0]
 
     def _call_dg(self, input: SparseConvTensor,
                  add_input: Optional[SparseConvTensor]) -> SparseConvTensor:
@@ -435,7 +448,7 @@ class SparseConvolution(SparseModule):
             out_feat = dg_subm_conv(input.features, self.weight, pos,
                                     pos_rev)
         out = SparseConvTensor(
-            self._epilogue(out_feat, input.valid_mask, add_input),
+            self._epilogue(out_feat, input.indices, add_input),
             input.indices,
             input.spatial_shape,
             input.batch_size,
@@ -466,21 +479,24 @@ class SparseConvolution(SparseModule):
         if (isinstance(rec, DGRegData)
                 and rec.in_keys.shape[0] == indices.shape[0]
                 and all(getattr(rec, k) == v for k, v in geom.items())):
+            table_counts["regular.reused"] += 1
             return rec
+        table_counts["regular.built"] += 1
         discover = dict(
             spatial_shape=in_shape, batch_size=input.batch_size,
             ksize=self.kernel_size, stride=self.stride,
             padding=self.padding, dilation=self.dilation,
             out_bound=self._resolve_out_bound(indices.shape[0]))
-        if self.transposed:
-            found = build_deconv_outputs(
-                indices, out_padding=self.output_padding, **discover)
-        else:
-            found = build_conv_outputs(indices, **discover)
-        out_indices, out_keys, num_out, num_out_total = found
-        maybe_assert_overflow(num_out_total, out_keys.shape[0],
-                              self.name or type(self).__name__)
-        in_keys, _ = C.linearize(indices, in_shape, input.batch_size)
+        with span("spconv.rulebook"):
+            if self.transposed:
+                found = build_deconv_outputs(
+                    indices, out_padding=self.output_padding, **discover)
+            else:
+                found = build_conv_outputs(indices, **discover)
+            out_indices, out_keys, num_out, num_out_total = found
+            maybe_assert_overflow(num_out_total, out_keys.shape[0],
+                                  self.name or type(self).__name__)
+            in_keys, _ = C.linearize(indices, in_shape, input.batch_size)
         return DGRegData(in_keys, out_keys, out_indices, num_out,
                          num_out_total, None, **geom)
 
@@ -546,7 +562,7 @@ class SparseConvolution(SparseModule):
         ``rec`` cached (:meth:`_cache_record`)."""
         calibrate._maybe_record(self, rec.num_out)
         out = SparseConvTensor(
-            self._epilogue(out_feat, rec.out_indices[:, 0] >= 0, add_input),
+            self._epilogue(out_feat, rec.out_indices, add_input),
             rec.out_indices, rec.out_shape, input.batch_size,
             num_voxels=rec.num_out, indice_dict=dict(input.indice_dict),
             # discovery emits ascending unique keys, invalid rows last
@@ -584,6 +600,7 @@ class SparseConvolution(SparseModule):
                 f"inverse conv mismatch with the regular conv under "
                 f"indice_key={self.indice_key!r}: " + ", ".join(
                     f"{w} {g} vs {x}" for w, g, x in mismatch))
+        table_counts["regular.reused"] += 1
         return rec, enc_in
 
     def _call_inverse(self, input: SparseConvTensor,
@@ -602,7 +619,7 @@ class SparseConvolution(SparseModule):
             padding=rec.padding, dilation=rec.dilation, path="inverse",
             pos=rec.pos_div, pos_bwd=rec.pos)
         return SparseConvTensor(
-            self._epilogue(out_feat, enc_in[:, 0] >= 0, add_input), enc_in,
+            self._epilogue(out_feat, enc_in, add_input), enc_in,
             rec.in_shape, input.batch_size,
             indice_dict=dict(input.indice_dict), keys_sorted=True)
 
@@ -620,19 +637,23 @@ class SparseConvolution(SparseModule):
         route, whose input was key-sorted.  Checked against this conv and
         ``input``."""
         data = self._key_record(input)
-        if data is None:
+        if data is not None:
+            table_counts["native.reused"] += 1
+        else:
             for ns in ("__skreg", "__dgreg"):
                 rec = input.indice_dict.get(f"{ns}__{self.indice_key}")
                 enc_in = input.indice_dict.get(f"{ns}_in__{self.indice_key}")
                 if isinstance(rec, DGRegData) and enc_in is not None:
-                    data = build_conv_rulebook(
-                        enc_in, spatial_shape=rec.in_shape,
-                        batch_size=input.batch_size, ksize=rec.ksize,
-                        stride=rec.stride, padding=rec.padding,
-                        dilation=rec.dilation,
-                        out_padding=rec.output_padding,
-                        transposed=rec.transposed,
-                        out_bound=rec.out_keys.shape[0])
+                    table_counts["native.built"] += 1
+                    with span("spconv.rulebook"):
+                        data = build_conv_rulebook(
+                            enc_in, spatial_shape=rec.in_shape,
+                            batch_size=input.batch_size, ksize=rec.ksize,
+                            stride=rec.stride, padding=rec.padding,
+                            dilation=rec.dilation,
+                            out_padding=rec.output_padding,
+                            transposed=rec.transposed,
+                            out_bound=rec.out_keys.shape[0])
                     data.in_sorted = True
                     break
         if data is None:
@@ -662,10 +683,12 @@ class SparseConvolution(SparseModule):
         new one (``new`` True)."""
         data = self._key_record(input)
         if data is None:
-            return build_subm_rulebook(
-                input.indices, spatial_shape=input.spatial_shape,
-                batch_size=input.batch_size, ksize=self.kernel_size,
-                dilation=self.dilation), True
+            table_counts["native.built"] += 1
+            with span("spconv.rulebook"):
+                return build_subm_rulebook(
+                    input.indices, spatial_shape=input.spatial_shape,
+                    batch_size=input.batch_size, ksize=self.kernel_size,
+                    dilation=self.dilation), True
         mismatch = [
             (what, got, want) for what, got, want in (
                 ("subm", data.is_subm, True),
@@ -678,6 +701,7 @@ class SparseConvolution(SparseModule):
                 f"subm rulebook reuse mismatch under indice_key="
                 f"{self.indice_key!r}: " + ", ".join(
                     f"{w} {g} vs {x}" for w, g, x in mismatch))
+        table_counts["native.reused"] += 1
         return data, False
 
     def _native_regular_record(self, input: SparseConvTensor,
@@ -700,16 +724,19 @@ class SparseConvolution(SparseModule):
                     f"rulebook reuse mismatch under indice_key="
                     f"{self.indice_key!r}: cached (ksize, stride, padding, "
                     f"dilation, transposed, spatial) {got} vs layer {want}")
+            table_counts["native.reused"] += 1
             return data, False
-        data = build_conv_rulebook(
-            input.indices, spatial_shape=input.spatial_shape,
-            batch_size=input.batch_size, ksize=self.kernel_size,
-            stride=self.stride, padding=self.padding,
-            dilation=self.dilation,
-            out_padding=(self.output_padding if out_padding is None
-                         else out_padding),
-            transposed=self.transposed,
-            out_bound=self._resolve_out_bound(input.indices.shape[0]))
+        table_counts["native.built"] += 1
+        with span("spconv.rulebook"):
+            data = build_conv_rulebook(
+                input.indices, spatial_shape=input.spatial_shape,
+                batch_size=input.batch_size, ksize=self.kernel_size,
+                stride=self.stride, padding=self.padding,
+                dilation=self.dilation,
+                out_padding=(self.output_padding if out_padding is None
+                             else out_padding),
+                transposed=self.transposed,
+                out_bound=self._resolve_out_bound(input.indices.shape[0]))
         data.in_sorted = input.keys_sorted
         return data, True
 
@@ -748,7 +775,7 @@ class SparseConvolution(SparseModule):
                                pair_bwd, is_subm=self.subm,
                                mirrored=not data.rank_slots)
         out = SparseConvTensor(
-            self._epilogue(out_feat, out_indices[:, 0] >= 0, add_input),
+            self._epilogue(out_feat, out_indices, add_input),
             out_indices, out_shape, input.batch_size, num_voxels=num_voxels,
             indice_dict=dict(input.indice_dict), keys_sorted=out_sorted,
             num_out_total=total)

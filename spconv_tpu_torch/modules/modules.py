@@ -21,9 +21,9 @@ from typing import Callable, Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.autograd import profiler as _profiler
 
 from ..core import SparseConvTensor, default_device
+from ..tracing import span
 
 __all__ = ["SparseModule", "SparseSequential", "Lambda", "SparseIdentity",
            "Identity", "SparseReLU", "SparseLeakyReLU", "SparseSigmoid",
@@ -79,19 +79,18 @@ def run_layer(module: nn.Module, input: SparseConvTensor,
 
     While a profiler records, the call runs inside a
     ``torch.profiler.record_function(name)`` range (the JAX package's
-    ``jax.named_scope``), a host event around the layer's device ops.
-    Under ``input.benchmark`` the output carries the producer's records
-    and adds the layer's own (:func:`record_benchmark_layer`): its
-    ``time_ms`` is the time between two CUDA events around the call, read
-    after a sync at its end (on the CPU, the host clock), and its
-    ``num_pairs`` is ``module._num_pairs(input, out)`` where the module
-    has one.  Otherwise it adds no device op, no sync and no allocation:
-    the profiler check is one boolean."""
+    ``jax.named_scope``; :func:`tracing.span`), a host event around the
+    layer's device ops and its ``spconv.*`` spans.  Under
+    ``input.benchmark`` the output carries the producer's records and adds
+    the layer's own (:func:`record_benchmark_layer`): its ``time_ms`` is
+    the time between two CUDA events around the call, read after a sync at
+    its end (on the CPU, the host clock), and its ``num_pairs`` is
+    ``module._num_pairs(input, out)`` where the module has one.  Otherwise
+    it adds no device op, no sync and no allocation: the profiler check is
+    one boolean."""
     name = module.name or type(module).__name__
     if not input.benchmark:
-        if not _profiler._is_profiler_enabled:
-            return module._forward(input, *args)
-        with torch.profiler.record_function(name):
+        with span(name):
             return module._forward(input, *args)
     cuda = input.features.is_cuda
     if cuda:
@@ -100,7 +99,7 @@ def run_layer(module: nn.Module, input: SparseConvTensor,
         start.record()
     else:
         t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with span(name):
         out = module._forward(input, *args)
     if cuda:
         end.record()
@@ -256,7 +255,8 @@ class BatchNorm1d(SparseModule):
     statistics.
 
     Takes a :class:`SparseConvTensor` or a plain ``[N, C]`` tensor (all
-    rows active).  ``device`` None is the CUDA card."""
+    rows active).  ``device`` None is the CUDA card.  ``forward`` runs in
+    the ``spconv.bn`` span (:mod:`tracing`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -321,18 +321,19 @@ class BatchNorm1d(SparseModule):
 
     def forward(self, x: Union[SparseConvTensor, torch.Tensor]
                 ) -> Union[SparseConvTensor, torch.Tensor]:
-        feats, mask = self._feats_mask(x)
-        if self.training:
-            mean, var, _ = self._batch_stats(feats, mask)
-        else:
-            mean, var = self.running_mean, self.running_var
-        out = (feats.float() - mean) * torch.rsqrt(var + self.eps)
-        if self.weight is not None:
-            out = out * self.weight + self.bias
-        out = out.to(feats.dtype)
-        if isinstance(x, SparseConvTensor):
-            return x.replace_feature_masked(out)
-        return out
+        with span("spconv.bn"):
+            feats, mask = self._feats_mask(x)
+            if self.training:
+                mean, var, _ = self._batch_stats(feats, mask)
+            else:
+                mean, var = self.running_mean, self.running_var
+            out = (feats.float() - mean) * torch.rsqrt(var + self.eps)
+            if self.weight is not None:
+                out = out * self.weight + self.bias
+            out = out.to(feats.dtype)
+            if isinstance(x, SparseConvTensor):
+                return x.replace_feature_masked(out)
+            return out
 
     @torch.no_grad()
     def updated(self, x: Union[SparseConvTensor, torch.Tensor]

@@ -26,7 +26,12 @@ geometry; else ``build_conv_rulebook``), or reuses the one under
 registers its rulebook under its key, so a ``SparseInverseConv`` of the
 same key can swap it (of a 2x pool rulebook only slot 0 of ``pair_bwd`` is
 filled, so that inverse conv gives every child ``W[0]``, as the JAX
-package's does)."""
+package's does).
+
+Inside the layer's range (``modules.run_layer``) output discovery and the
+rulebooks run in ``spconv.rulebook`` spans and the reduction in a
+``spconv.pool`` span (``tracing``); each discovery or rulebook built adds
+one to ``tracing.table_counts["pool.built"]``."""
 
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from ..ops.pool import (global_pool, indice_avgpool, indice_maxpool,
 from ..ops.rulebook import (build_conv_rulebook, build_pool2_outputs,
                             build_pool2_rulebook, build_subm_rulebook)
 from ..ops.sorted_pool import sk_pool2_ad
+from ..tracing import span, table_counts
 from .modules import SparseModule, run_layer
 
 __all__ = [
@@ -132,17 +138,22 @@ class _SparsePoolBase(SparseModule):
             in_shape, two, two, (0,) * self.ndim, (1,) * self.ndim))
         out_bound = self._resolve_out_bound(input.indices.shape[0])
         context = self.name or type(self).__name__
+        table_counts["pool.built"] += 1
         if self.algo == "sk":
-            out_indices, out_keys, num_out, num_out_total = \
-                build_pool2_outputs(input.indices, spatial_shape=in_shape,
-                                    batch_size=input.batch_size,
-                                    out_bound=out_bound)
-            maybe_assert_overflow(num_out_total, out_bound, context)
-            in_keys, _ = C.linearize(input.indices, in_shape,
-                                     input.batch_size)
-            pair_fwd = None if input.keys_sorted else build_pool2_rulebook(
-                input.indices, spatial_shape=in_shape,
-                batch_size=input.batch_size, out_bound=out_bound).pair_fwd
+            with span("spconv.rulebook"):
+                out_indices, out_keys, num_out, num_out_total = \
+                    build_pool2_outputs(input.indices,
+                                        spatial_shape=in_shape,
+                                        batch_size=input.batch_size,
+                                        out_bound=out_bound)
+                maybe_assert_overflow(num_out_total, out_bound, context)
+                in_keys, _ = C.linearize(input.indices, in_shape,
+                                         input.batch_size)
+                pair_fwd = (None if input.keys_sorted else
+                            build_pool2_rulebook(
+                                input.indices, spatial_shape=in_shape,
+                                batch_size=input.batch_size,
+                                out_bound=out_bound).pair_fwd)
             out_feat = sk_pool2_ad(input.features, in_keys, out_keys,
                                    in_shape=in_shape, out_shape=out_shape,
                                    batch_size=input.batch_size,
@@ -175,35 +186,43 @@ class _SparsePoolBase(SparseModule):
             data = None
         geom = dict(spatial_shape=input.spatial_shape,
                     batch_size=input.batch_size)
+        if data is None:
+            table_counts["pool.built"] += 1
         if self.subm:
             if data is None:
-                data = build_subm_rulebook(input.indices,
-                                           ksize=self.kernel_size,
-                                           dilation=self.dilation, **geom)
+                with span("spconv.rulebook"):
+                    data = build_subm_rulebook(input.indices,
+                                               ksize=self.kernel_size,
+                                               dilation=self.dilation,
+                                               **geom)
             out_indices, out_shape = input.indices, input.spatial_shape
             num_out = input.num_voxels
         else:
             if data is None:
                 out_bound = self._resolve_out_bound(input.indices.shape[0])
                 two = (2,) * self.ndim
-                if (self.kernel_size, self.stride, self.padding,
-                        self.dilation) == (two, two, (0,) * self.ndim,
-                                           (1,) * self.ndim):
-                    data = build_pool2_rulebook(input.indices,
-                                                out_bound=out_bound, **geom)
-                else:
-                    data = build_conv_rulebook(
-                        input.indices, ksize=self.kernel_size,
-                        stride=self.stride, padding=self.padding,
-                        dilation=self.dilation, out_bound=out_bound, **geom)
-                maybe_assert_overflow(data.num_out_total, out_bound,
-                                      self.name or type(self).__name__)
+                with span("spconv.rulebook"):
+                    if (self.kernel_size, self.stride, self.padding,
+                            self.dilation) == (two, two, (0,) * self.ndim,
+                                               (1,) * self.ndim):
+                        data = build_pool2_rulebook(
+                            input.indices, out_bound=out_bound, **geom)
+                    else:
+                        data = build_conv_rulebook(
+                            input.indices, ksize=self.kernel_size,
+                            stride=self.stride, padding=self.padding,
+                            dilation=self.dilation, out_bound=out_bound,
+                            **geom)
+                    maybe_assert_overflow(data.num_out_total, out_bound,
+                                          self.name or type(self).__name__)
             out_indices, out_shape = data.out_indices, data.out_spatial_shape
             num_out = data.num_out
             calibrate._maybe_record(self, num_out)
         pool = indice_maxpool if self._mode == "max" else indice_avgpool
+        with span("spconv.pool"):
+            out_feat = pool(input.features, data.pair_fwd)
         out = SparseConvTensor(
-            pool(input.features, data.pair_fwd), out_indices, out_shape,
+            out_feat, out_indices, out_shape,
             input.batch_size, num_voxels=num_out,
             indice_dict=dict(input.indice_dict),
             keys_sorted=input.keys_sorted if self.subm else True,

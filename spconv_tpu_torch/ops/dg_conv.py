@@ -67,6 +67,11 @@ calls its op, whose CPU kernel is the plain version and whose CUDA kernel
 launches the hand-written one or raises; it never falls back.  Each launch
 adds one to its entry of ``launch_counts``, one entry per kernel and conv
 path.
+
+The convs open the port's spans (``tracing``): a table that
+``dg_regular_conv`` builds in ``spconv.rulebook``, the product with the
+weight's layout change in ``spconv.product``, and the backward's input and
+weight gradients in ``spconv.dgrad`` and ``spconv.wgrad``.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..tracing import span
 from . import coords as C
 from .library import define_op
 
@@ -1629,13 +1635,15 @@ class DGConvFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, weight_kv, pos_bwd = ctx.saved_tensors
-        dout = dout.to(x.dtype).contiguous()
         din = dw = None
-        if ctx.needs_input_grad[0]:
-            din = dg_dgrad(dout, weight_kv, pos_bwd, path=ctx.path)
+        with span("spconv.dgrad"):
+            dout = dout.to(x.dtype).contiguous()
+            if ctx.needs_input_grad[0]:
+                din = dg_dgrad(dout, weight_kv, pos_bwd, path=ctx.path)
         if ctx.needs_input_grad[1]:
-            # in x's dtype, which dg_fwd checked is the weight's
-            dw = dg_wgrad(x, dout, pos_bwd, path=ctx.path)
+            with span("spconv.wgrad"):
+                # in x's dtype, which dg_fwd checked is the weight's
+                dw = dg_wgrad(x, dout, pos_bwd, path=ctx.path)
         return din, dw, None, None, None
 
 
@@ -1655,15 +1663,18 @@ def dg_subm_conv(features: torch.Tensor, weight: torch.Tensor,
     kv = int(np.prod(weight.shape[1:-1]))
     _check(pos.shape[0] == kv,
            f"pos has {pos.shape[0]} offsets, weight has {kv}")
-    weight_kv = weight_krsc_to_kv(weight)
-    if _wants_grad(features, weight):
+    grad = _wants_grad(features, weight)
+    if grad:
         _check(pos_rev is not None,
                "a gradient through the DG conv needs the reversed match "
                "table (build_dg_pos(..., reverse=True)) as pos_rev")
         _check(pos_rev.shape == pos.shape,
                f"pos_rev is {tuple(pos_rev.shape)}, pos {tuple(pos.shape)}")
-        return DGConvFn.apply(features, weight_kv, pos, pos_rev, "subm")
-    return dg_fwd(features, weight_kv, pos)
+    with span("spconv.product"):
+        weight_kv = weight_krsc_to_kv(weight)
+        if grad:
+            return DGConvFn.apply(features, weight_kv, pos, pos_rev, "subm")
+        return dg_fwd(features, weight_kv, pos)
 
 
 def dg_regular_conv(
@@ -1721,18 +1732,22 @@ def dg_regular_conv(
            f"{'out' if inverse else 'in'}_keys has {n_src} rows, features "
            f"{features.shape[0]}")
     if pos is None:
-        pos = build_fwd(in_keys, out_keys, path=path, **geom)
+        with span("spconv.rulebook"):
+            pos = build_fwd(in_keys, out_keys, path=path, **geom)
     _check(tuple(pos.shape) == (kv, n_dst),
            f"pos is {tuple(pos.shape)}, expected {(kv, n_dst)}")
-    weight_kv = weight_krsc_to_kv(weight)
-    if not _wants_grad(features, weight):
-        return dg_fwd(features, weight_kv, pos, path=path), pos, pos_bwd
-    if pos_bwd is None:
-        pos_bwd = build_bwd(in_keys, out_keys, path=path, **geom)
-    _check(tuple(pos_bwd.shape) == (kv, n_src),
-           f"pos_bwd is {tuple(pos_bwd.shape)}, expected {(kv, n_src)}")
-    return (DGConvFn.apply(features, weight_kv, pos, pos_bwd, path), pos,
-            pos_bwd)
+    grad = _wants_grad(features, weight)
+    if grad:
+        if pos_bwd is None:
+            with span("spconv.rulebook"):
+                pos_bwd = build_bwd(in_keys, out_keys, path=path, **geom)
+        _check(tuple(pos_bwd.shape) == (kv, n_src),
+               f"pos_bwd is {tuple(pos_bwd.shape)}, expected {(kv, n_src)}")
+    with span("spconv.product"):
+        weight_kv = weight_krsc_to_kv(weight)
+        out = (DGConvFn.apply(features, weight_kv, pos, pos_bwd, path)
+               if grad else dg_fwd(features, weight_kv, pos, path=path))
+    return out, pos, pos_bwd
 
 
 class DGSearchFn(torch.autograd.Function):
@@ -1751,12 +1766,14 @@ class DGSearchFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, weight_kv, keys = ctx.saved_tensors
-        dout = dout.to(x.dtype).contiguous()
         din = dw = None
-        if ctx.needs_input_grad[0]:
-            din = dg_dgrad_search(dout, weight_kv, keys, ctx.geom)
+        with span("spconv.dgrad"):
+            dout = dout.to(x.dtype).contiguous()
+            if ctx.needs_input_grad[0]:
+                din = dg_dgrad_search(dout, weight_kv, keys, ctx.geom)
         if ctx.needs_input_grad[1]:
-            dw = dg_wgrad_search(x, dout, keys, ctx.geom)
+            with span("spconv.wgrad"):
+                dw = dg_wgrad_search(x, dout, keys, ctx.geom)
         return din, dw, None, None
 
 
@@ -1772,7 +1789,8 @@ def dg_subm_conv_search(features: torch.Tensor, keys: torch.Tensor,
     through :class:`DGSearchFn`."""
     geom = SearchGeom.of(weight.shape[1:-1], dilation, spatial_shape,
                          batch_size)
-    weight_kv = weight_krsc_to_kv(weight)
-    if _wants_grad(features, weight):
-        return DGSearchFn.apply(features, weight_kv, keys, geom)
-    return dg_fwd_search(features, weight_kv, keys, geom)
+    with span("spconv.product"):
+        weight_kv = weight_krsc_to_kv(weight)
+        if _wants_grad(features, weight):
+            return DGSearchFn.apply(features, weight_kv, keys, geom)
+        return dg_fwd_search(features, weight_kv, keys, geom)

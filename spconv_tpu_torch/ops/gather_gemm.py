@@ -19,6 +19,10 @@ GEMM.  On CPU tensors the wrappers take their plain versions.
 Every sum accumulates in f32 and rounds once, as the JAX default
 ``fp32_accum=True`` does; ``fp32_accum=False`` (accumulation in the
 feature dtype) is not ported and raises.
+
+``indice_conv`` runs in the ``spconv.product`` span, its backward's input
+and weight gradients in ``spconv.dgrad`` and ``spconv.wgrad``
+(``tracing``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import tuner
+from ..tracing import span
 from . import dg_conv as D
 
 __all__ = ["indice_conv", "gather_mm", "dgrad_gather_mm", "wgrad_gather_mm",
@@ -124,13 +129,16 @@ class IndiceConvFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, weight_kv, pair_fwd, pair_bwd = ctx.saved_tensors
-        dout = dout.to(x.dtype).contiguous()
         din = dw = None
-        if ctx.needs_input_grad[0]:
-            din = dgrad_gather_mm(dout, weight_kv, pair_bwd, None)
+        with span("spconv.dgrad"):
+            dout = dout.to(x.dtype).contiguous()
+            if ctx.needs_input_grad[0]:
+                din = dgrad_gather_mm(dout, weight_kv, pair_bwd, None)
         if ctx.needs_input_grad[1]:
-            dw = wgrad_gather_mm(x, dout, pair_fwd, None,
-                                 pair_bwd=pair_bwd if ctx.mirrored else None)
+            with span("spconv.wgrad"):
+                dw = wgrad_gather_mm(
+                    x, dout, pair_fwd, None,
+                    pair_bwd=pair_bwd if ctx.mirrored else None)
         return din, dw, None, None, None
 
 
@@ -158,8 +166,9 @@ def indice_conv(features: torch.Tensor, weight: torch.Tensor,
     D._check(pair_bwd.shape[1] == features.shape[0],
              f"pair_bwd has {pair_bwd.shape[1]} rows, features "
              f"{features.shape[0]}")
-    weight_kv = D.weight_krsc_to_kv(weight)
-    if D._wants_grad(features, weight):
-        return IndiceConvFn.apply(features, weight_kv, pair_fwd, pair_bwd,
-                                  mirrored)
-    return gather_mm(features, weight_kv, pair_fwd, None)
+    with span("spconv.product"):
+        weight_kv = D.weight_krsc_to_kv(weight)
+        if D._wants_grad(features, weight):
+            return IndiceConvFn.apply(features, weight_kv, pair_fwd,
+                                      pair_bwd, mirrored)
+        return gather_mm(features, weight_kv, pair_fwd, None)

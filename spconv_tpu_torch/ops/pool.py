@@ -6,6 +6,8 @@ path's pools over a rulebook's ``pair_fwd``; and ``global_pool``.  All are
 plain tensor code in the JAX package too (no Pallas kernel), so they stay
 torch ops here and differentiate through autograd.  The sorted-key route
 of the 2x pool, which runs kernel B6, is ``ops/sorted_pool.py``.
+``pool2_seg`` opens a ``spconv.rulebook`` span around its output discovery
+and a ``spconv.pool`` span around its reduction (``tracing``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from ..tracing import span
 from . import coords as C
 from .rulebook import pool2_parent_keys, unique_sorted_keys
 
@@ -116,37 +119,39 @@ def pool2_seg(
     """
     _check_mode(mode)
     c = features.shape[1]
-    keys, sentinel, out_shape = pool2_parent_keys(indices, spatial_shape,
-                                                  batch_size)
-    sk, order = torch.sort(keys, stable=True)
-    out_keys, uniq_pos, num_out_total = unique_sorted_keys(sk, sentinel,
-                                                           out_bound)
-    not_sent = sk != sentinel
-    seg = torch.where(not_sent & (uniq_pos < out_bound), uniq_pos,
-                      torch.full_like(uniq_pos, out_bound))
+    with span("spconv.rulebook"):
+        keys, sentinel, out_shape = pool2_parent_keys(indices, spatial_shape,
+                                                      batch_size)
+        sk, order = torch.sort(keys, stable=True)
+        out_keys, uniq_pos, num_out_total = unique_sorted_keys(sk, sentinel,
+                                                               out_bound)
+        not_sent = sk != sentinel
+        seg = torch.where(not_sent & (uniq_pos < out_bound), uniq_pos,
+                          torch.full_like(uniq_pos, out_bound))
+        out_indices = C.delinearize(out_keys, out_shape, out_keys != sentinel)
+        num_out = torch.clamp(num_out_total, max=out_bound)
 
-    g = features[order]
-    if mode == "max":
-        acc = torch.full((out_bound + 1, c), float("-inf"),
-                         dtype=features.dtype, device=features.device)
-        acc = acc.scatter_reduce(0, seg[:, None].expand(-1, c), g, "amax",
-                                 include_self=True)
-        present = (torch.arange(out_bound, device=features.device)
-                   < num_out_total)[:, None]
-        out_feat = torch.where(present, acc[:out_bound],
-                               torch.zeros((), dtype=features.dtype,
-                                           device=features.device))
-    else:
-        acc = torch.zeros((out_bound + 1, c), dtype=torch.float32,
-                          device=features.device).index_add(0, seg, g.float())
-        cnt = torch.zeros((out_bound + 1,), dtype=torch.float32,
-                          device=features.device).index_add(
-                              0, seg, not_sent.float())
-        out_feat = (acc[:out_bound]
-                    / cnt[:out_bound, None].clamp(min=1.0)).to(features.dtype)
-
-    out_indices = C.delinearize(out_keys, out_shape, out_keys != sentinel)
-    num_out = torch.clamp(num_out_total, max=out_bound)
+    with span("spconv.pool"):
+        g = features[order]
+        if mode == "max":
+            acc = torch.full((out_bound + 1, c), float("-inf"),
+                             dtype=features.dtype, device=features.device)
+            acc = acc.scatter_reduce(0, seg[:, None].expand(-1, c), g,
+                                     "amax", include_self=True)
+            present = (torch.arange(out_bound, device=features.device)
+                       < num_out_total)[:, None]
+            out_feat = torch.where(present, acc[:out_bound],
+                                   torch.zeros((), dtype=features.dtype,
+                                               device=features.device))
+        else:
+            acc = torch.zeros((out_bound + 1, c), dtype=torch.float32,
+                              device=features.device).index_add(
+                                  0, seg, g.float())
+            cnt = torch.zeros((out_bound + 1,), dtype=torch.float32,
+                              device=features.device).index_add(
+                                  0, seg, not_sent.float())
+            out_feat = (acc[:out_bound] / cnt[:out_bound, None].clamp(
+                min=1.0)).to(features.dtype)
     return out_feat, out_indices, num_out, num_out_total
 
 

@@ -22,7 +22,9 @@ split).
 ``sk_pool2`` calls the ``sk_pool`` op (``ops/library.py``), whose CPU
 kernel is the plain version and whose CUDA kernel launches B6 or raises;
 it never falls back.  Each launch adds one to ``launch_counts["sk_pool"]``
-(the port's counts, kept in ``ops/dg_conv.py``).
+(the port's counts, kept in ``ops/dg_conv.py``).  ``sk_pool2_ad`` runs in
+the ``spconv.pool`` span, its backward in ``spconv.pool.bwd``
+(``tracing``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..tracing import span
 from . import coords as C
 from .dg_conv import (_check, _check_keys, _decode, _ptr, _raise_on,
                       _stream_ptr, launch_counts, sm_count, window_smem)
@@ -334,9 +337,10 @@ class SKPool2Fn(torch.autograd.Function):
     def backward(ctx, dout):
         features, out, in_keys, out_keys = ctx.saved_tensors
         in_shape, _, batch_size, mode = ctx.geom
-        din = sk_pool2_bwd(features, out, dout, in_keys, out_keys,
-                           in_shape=in_shape, batch_size=batch_size,
-                           mode=mode)
+        with span("spconv.pool.bwd"):
+            din = sk_pool2_bwd(features, out, dout, in_keys, out_keys,
+                               in_shape=in_shape, batch_size=batch_size,
+                               mode=mode)
         return din, None, None, None, None
 
 
@@ -352,6 +356,8 @@ def sk_pool2_ad(features: torch.Tensor, in_keys: torch.Tensor,
     the same as on sorted input."""
     geom = (tuple(int(s) for s in in_shape),
             tuple(int(s) for s in out_shape), int(batch_size), mode)
-    if torch.is_grad_enabled() and features.requires_grad:
-        return SKPool2Fn.apply(features, in_keys, out_keys, geom, pair_fwd)
-    return _sk_pool2_forward(features, in_keys, out_keys, geom, pair_fwd)
+    with span("spconv.pool"):
+        if torch.is_grad_enabled() and features.requires_grad:
+            return SKPool2Fn.apply(features, in_keys, out_keys, geom,
+                                   pair_fwd)
+        return _sk_pool2_forward(features, in_keys, out_keys, geom, pair_fwd)

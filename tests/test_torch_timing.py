@@ -204,7 +204,8 @@ def test_no_benchmark_no_records():
 def test_profiler_ranges_per_layer():
     """Inside a profiler window each conv and pool runs in a
     ``record_function`` range under its name (the JAX package's
-    ``jax.named_scope``); outside one no range opens."""
+    ``jax.named_scope``), its ``spconv.*`` phase spans inside it in order
+    (``spconv_tpu_torch.tracing``); outside one no range opens."""
     rng = np.random.RandomState(2)
     fp, ip = _modules_input(rng)
     net = st.SparseSequential(
@@ -232,6 +233,10 @@ def test_profiler_ranges_per_layer():
                 net(x)
     finally:
         torch.profiler.record_function = real
-    assert opened == ["sub_a", "SparseConv3d", "pool_b"]
+    # unsorted rows: both convs take the native path
+    conv = ["spconv.rulebook", "spconv.product", "spconv.epilogue"]
+    assert opened == ["sub_a", *conv, "SparseConv3d", *conv,
+                      "pool_b", "spconv.rulebook", "spconv.pool"]
     names = {e.name for e in prof.events()}
-    assert {"sub_a", "SparseConv3d", "pool_b"} <= names
+    assert {"sub_a", "SparseConv3d", "pool_b", *conv,
+            "spconv.pool"} <= names
