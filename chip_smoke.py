@@ -130,8 +130,12 @@ line is printed):
    the plain run, the QAT-int8 output against the QAT net's forward, host
    ms, device busy, peak memory); and the CenterPoint encoder with
    ``bn=True`` (bf16, phase 6's buffers, BN on batch statistics) trained 3
-   steps with launch counts, a profiler window, coordinates against a plain
-   run, busy, peak memory and the f32 grads against the plain backward;
+   steps with launch counts (each BN kernel once a BatchNorm1d), each
+   BN input of a step through BN's four kernels against the plain formula
+   (statistics, ``y``, ``dx``, ``dweight``, ``dbias``, a repeat bit-equal)
+   and each kernel timed beside its plain version and its bound, a
+   profiler window, coordinates against a plain run, busy, peak memory and
+   the f32 grads against the plain backward, BatchNorm's included;
 14. the native rulebook path (``ops.rulebook`` + ``ops.gather_gemm``: the
    DG kernels on the rulebooks' pair tables, counted as ``*_native``):
    BenchNet on ``algo="native"`` (bf16, phase 4's pool buffers) with every
@@ -182,8 +186,8 @@ line is printed):
    bit-equal; ``conv_out`` column-parallel within the f32 and bf16
    gates), and the ``dist_train`` example's 2 steps (finite, falling
    losses; the ``DistributedDataParallel`` path equal); a failed or hung
-   rank fails the run and none is left behind; and what BatchNorm's f64
-   statistics cost a ``bn=True`` step against f32 sums, in turns;
+   rank fails the run and none is left behind; and a ``bn=True`` step
+   with BatchNorm on its kernels against the plain formula, in turns;
 17. deployment: the bf16 CenterPoint encoder of phase 6 (113,000 voxels
    on ``[80, 1024, 1024]``, its calibrated buffers) and the int8 encoder
    of phase 8, each exported through ``torch.export``
@@ -606,6 +610,65 @@ def b7_tile(name):
     return None
 
 
+def bn_plain_train(x, indices, weight, bias, eps, group=None):
+    """BatchNorm1d's training forward by the plain formula (the port's
+    torch ops before its kernels: ``ops.batch_norm.bn_stats_plain`` and
+    ``bn_norm_plain``), differentiated by autograd op by op, on whatever
+    device: the yardstick of ``csrc/bn.cu``.  Takes no process group."""
+    from spconv_tpu_torch.ops import batch_norm as BNK
+
+    check(group is None, "the plain BatchNorm takes no process group")
+    stats, mask = BNK.bn_stats_plain(x, indices)
+    return BNK.bn_norm_plain(x, mask, stats, weight, bias, eps)[0]
+
+
+def bn_plain_backward(x, indices, weight, bias, eps, group=None):
+    """BatchNorm1d's training forward on its kernels
+    (``ops.batch_norm.batch_norm_train``) with the plain formula's
+    backward (:func:`bn_plain_train` differentiated by autograd at the same
+    input): BN's part of :func:`plain_kernels` with ``b2_forward``.  A
+    whole net's f32 gradients are gated only where both runs share the
+    forward: they move by up to 3 % of max|ref| with the forward's
+    rounding (the CenterPoint encoder's ``stages.2.1.conv1.weight`` with
+    the plain BN forward on the card).  No process group."""
+    import torch
+
+    from spconv_tpu_torch.ops import batch_norm as BNK
+
+    check(group is None, "the plain BatchNorm takes no process group")
+
+    class PlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, weight, bias):
+            ctx.save_for_backward(x, weight, bias)
+            return BNK.batch_norm_train(x, indices, weight, bias, eps)
+
+        @staticmethod
+        def backward(ctx, dy):
+            ins = [None if t is None else t.detach().requires_grad_()
+                   for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                y = bn_plain_train(ins[0], indices, ins[1], ins[2], eps)
+            grads = iter(torch.autograd.grad(
+                y, [t for t in ins if t is not None], dy))
+            return tuple(None if t is None else next(grads) for t in ins)
+
+    return PlainBackward.apply(x, weight, bias)
+
+
+def bn_plain_stats(x, indices, group=None):
+    """``BatchNorm1d.updated``'s f32 ``(mean, biased var, count)`` by the
+    plain formula (no process group)."""
+    import torch
+
+    from spconv_tpu_torch.ops import batch_norm as BNK
+
+    check(group is None, "the plain BatchNorm takes no process group")
+    with torch.no_grad():
+        stats, _ = BNK.bn_stats_plain(x, indices)
+        return BNK.moments(stats, x.shape[1], torch.float32)
+
+
 @contextlib.contextmanager
 def plain_kernels(D, b2_forward=False):
     """While the block runs, every DG conv kernel that ``ops.dg_conv``
@@ -613,10 +676,16 @@ def plain_kernels(D, b2_forward=False):
     tables (every ``dg_pos`` op call, ``_pos_op``, by ``_pos_plain``:
     ``dg_pos_plain``, ``dg_pos_affine_plain``, ``dg_pos_divide_plain``),
     the backward (``dg_dgrad_plain``, ``dg_wgrad_plain``) and, unless
-    ``b2_forward``, B2's forward (``dg_fwd_plain``).  A net run inside
-    takes its own code, so what it computes holds the kernels against
-    their plain versions (with ``b2_forward``, the backward alone).  The
-    plain versions count no launch."""
+    ``b2_forward``, B2's forward (``dg_fwd_plain``); and BatchNorm1d's
+    training and ``updated`` (``modules.batch_norm_train`` and
+    ``batch_stats``, the four kernels of ``csrc/bn.cu``) by the plain
+    formula (:func:`bn_plain_train`, :func:`bn_plain_stats`), with
+    ``b2_forward`` its backward alone (:func:`bn_plain_backward`).  A net
+    run inside takes its own code, so what it computes holds the kernels
+    against their plain versions (with ``b2_forward``, the backward
+    alone).  The plain versions count no launch."""
+    from spconv_tpu_torch.modules import modules as MM
+
     def table(rows, table, tg, batch_size, counter):
         return D._pos_plain(rows, table, tg, batch_size)
 
@@ -629,14 +698,20 @@ def plain_kernels(D, b2_forward=False):
     if not b2_forward:
         swap["dg_fwd"] = (lambda x, w, pos, path="subm", tile=None:
                           D.dg_fwd_plain(x, w, pos))
-    saved = {name: getattr(D, name) for name in swap}
-    for name, fn in swap.items():
-        setattr(D, name, fn)
+    swaps = ((D, swap), (MM, dict(
+        batch_norm_train=bn_plain_backward if b2_forward else bn_plain_train,
+        batch_stats=bn_plain_stats)))
+    saved = [(mod, {name: getattr(mod, name) for name in sw})
+             for mod, sw in swaps]
+    for mod, sw in swaps:
+        for name, fn in sw.items():
+            setattr(mod, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(D, name, fn)
+        for mod, sw in saved:
+            for name, fn in sw.items():
+                setattr(mod, name, fn)
 
 
 def step_vs_plain(torch, D, nets, step, what, b2_forward=True,
@@ -2928,7 +3003,8 @@ QAT_INT8_SHARE = 0.01
 QAT_TIE_SHARE = 0.01
 # per CenterPoint bn=True training step: the bn=False request's tables and
 # forward launches, the reversed and divide tables, and the backward (the
-# first conv's input needs no gradient); BN is torch ops
+# first conv's input needs no gradient); BN's four kernels count in
+# ops.batch_norm.launch_counts, once each a BatchNorm1d
 CP_BN_STEP = dict(CP_LAUNCHES, dg_pos_rev=4, dg_pos_divide=4, dg_dgrad=16,
                   dg_wgrad=17, dg_dgrad_strided=4, dg_wgrad_strided=4)
 
@@ -2956,13 +3032,190 @@ def recorded(mods, fn):
             h.remove()
 
 
+# BatchNorm1d's kernels (ops/batch_norm.py, csrc/bn.cu), in launch order
+BN_KERNELS = ("bn_stats", "bn_norm", "bn_bwd_reduce", "bn_bwd_dx")
+# each BN kernel against the plain formula on a step's BN inputs, at the
+# card tests' tolerances (tests/test_torch_cuda.py::
+# test_bn_kernels_match_plain): count, mean and var relative each (f64
+# sums in another order); y within one bf16 ulp, or of max|ref| in f32
+# (torch's rsqrt on the card is not correctly rounded, the kernel's is); dx
+# of max|ref| (bf16: two f32 results a rounding apart can round to
+# neighbouring bf16 values); dweight and dbias of max|ref| (f64 sums
+# against autograd's f32 ones)
+BN_STATS_RTOL = 1e-6
+BN_Y_F32_TOL = 1e-5
+BN_DX_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+BN_PARAM_TOL = 2e-5
+BN_REPS = 5  # timed calls of each BN kernel and its plain version a BN
+
+
+def bf16_ulp(torch, t):
+    """One bf16 unit in the last place of each element of ``t``, in f32."""
+    e = torch.frexp(t.float().abs().clamp(min=1e-30))[1]
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def bn_calls(torch, net, fn):
+    """``[(bn, x, dy)]``: each ``BatchNorm1d`` call of ``net`` while
+    ``fn()`` runs a forward and its backward, in call order: the module,
+    its input (a ``SparseConvTensor`` or an ``[N, C]`` tensor) and the
+    gradient that reached its output's features."""
+    from spconv_tpu_torch.modules import BatchNorm1d
+
+    calls = []
+
+    def hook(bn, args, out):
+        call = [bn, args[0], None]
+        calls.append(call)
+
+        def keep(grad):
+            call[2] = grad
+
+        (out if isinstance(out, torch.Tensor) else out.features
+         ).register_hook(keep)
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, BatchNorm1d)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    check(all(c[2] is not None for c in calls),
+          "a BatchNorm1d's output got no gradient")
+    return [tuple(c) for c in calls]
+
+
+def bn_step(train, x, indices, bn, dy):
+    """``(y, dx, dweight, dbias)`` of ``train(x, indices, weight, bias,
+    eps)`` with ``bn``'s parameters, and the backward of ``sum(y * dy)``."""
+    x = x.detach().clone().requires_grad_()
+    w, b = (p.detach().clone().requires_grad_() for p in (bn.weight,
+                                                           bn.bias))
+    y = train(x, indices, w, b, bn.eps)
+    y.backward(dy)
+    return y.detach(), x.grad, w.grad, b.grad
+
+
+def bn_vs_plain(torch, calls):
+    """Each call of :func:`bn_calls` (a step's BN inputs at their real
+    shapes) through ``ops.batch_norm.batch_norm_train`` (the four kernels)
+    twice and through the plain formula (:func:`bn_plain_train`,
+    autograd) on the features and the gradient cast to f32, which is exact
+    (in bf16, autograd casts the gradient of each of the formula's two
+    uses of ``x`` to bf16 before it adds them, and they cancel: 1.2e-2 of
+    max|ref| in ``dx`` at the CenterPoint encoder's last BN on the CPU),
+    gated at the ``BN_*`` tolerances: the row mask equal, count,
+    mean and var, ``y``, ``dx``, ``dweight`` and ``dbias``, inactive rows
+    of ``y`` and ``dx`` 0, the repeat bit-equal.  Then each kernel and its
+    plain version on the same operands, timed (:func:`cuda_ms`) beside its
+    bound by the bytes the work needs (PERF.md's BN bound): x of the
+    active rows read once by the statistics, the normalisation and the
+    backward's sums, dy of the active rows by the backward's two kernels,
+    y and dx written on every row (inactive rows 0), and a mask byte a row
+    a kernel with the 4 bytes of ``indices[:, 0]`` a row once.  Returns
+    ``{kernel: ((max|d|, max|d| / max|ref|), Tally)}``."""
+    from spconv_tpu_torch.ops import batch_norm as BNK
+
+    err = dict.fromkeys(BN_KERNELS, (0.0, 0.0))
+    tally = {k: Tally() for k in BN_KERNELS}
+
+    def worse(kernel, e):
+        err[kernel] = (max(err[kernel][0], e[0]), max(err[kernel][1], e[1]))
+
+    for i, (bn, x, dy) in enumerate(calls):
+        sparse = not isinstance(x, torch.Tensor)
+        feats, ind = (x.features, x.indices) if sparse else (x, None)
+        feats, dt = feats.detach(), str(feats.dtype)[6:]
+        n, c = feats.shape
+        what = f"BatchNorm1d call {i} ([{n}, {c}] {dt})"
+        check(bn.weight is not None, f"{what}: no affine part")
+        got = bn_step(BNK.batch_norm_train, feats, ind, bn, dy)
+        again = bn_step(BNK.batch_norm_train, feats, ind, bn, dy)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{what}: a repeat through the kernels differs")
+        want = bn_step(bn_plain_train, feats.float(), ind, bn, dy.float())
+        with torch.no_grad():
+            stats, mask = BNK._BN_STATS(feats, ind)
+            pstats, pmask = BNK.bn_stats_plain(feats, ind)
+        check(torch.equal(mask, pmask), f"{what}: the row masks differ")
+        for name, k, p in zip(("mean", "var", "count"),
+                              BNK.moments(stats, c, torch.float64),
+                              BNK.moments(pstats, c, torch.float64)):
+            d = (k - p).abs()
+            check(bool((d <= BN_STATS_RTOL * p.abs()).all()),
+                  f"{what}: {name} off the plain one by up to "
+                  f"{float((d / p.abs()).nan_to_num(0.0).max()):.3e} "
+                  f"relative (tolerance {BN_STATS_RTOL})")
+            worse("bn_stats", (float(d.max()),
+                               float(d.max() / p.abs().max().clamp(
+                                   min=1e-300))))
+        y, ref = got[0].float(), want[0].float()
+        e = rel_err(torch, y, ref)
+        check(bool(((y - ref).abs() <= bf16_ulp(torch, ref)).all())
+              if dt == "bfloat16" else e[1] <= BN_Y_F32_TOL,
+              f"{what}: y off the plain formula by {e[1]:.3e} of max|ref| "
+              "(tolerance " + ("one bf16 ulp" if dt == "bfloat16" else
+                               f"{BN_Y_F32_TOL}") + ")")
+        worse("bn_norm", e)
+        if sparse:
+            off = ind[:, 0] < 0
+            check(not got[0][off].any() and not got[1][off].any(),
+                  f"{what}: an inactive row of y or dx is not 0")
+        for kernel, name, k, p, tol in (
+                ("bn_bwd_dx", "dx", got[1], want[1], BN_DX_TOL[dt]),
+                ("bn_bwd_reduce", "dweight", got[2], want[2], BN_PARAM_TOL),
+                ("bn_bwd_reduce", "dbias", got[3], want[3], BN_PARAM_TOL)):
+            e = rel_err(torch, k, p)
+            check(p.abs().max().item() > 0 and e[1] <= tol,
+                  f"{what}: {name} off the plain formula by {e[1]:.3e} of "
+                  f"max|ref| (tolerance {tol})")
+            worse(kernel, e)
+        # each kernel and its plain version on the same operands
+        w, b, eps = bn.weight.detach(), bn.bias.detach(), bn.eps
+        with torch.no_grad():
+            _, mean, rstd = BNK._BN_NORM(feats, mask, stats, w, b, eps)
+            sums, _ = BNK._BN_BWD_REDUCE(dy, feats, mask, mean, rstd)
+            calls_of = {
+                "bn_stats": (lambda: BNK._BN_STATS(feats, ind),
+                             lambda: BNK.bn_stats_plain(feats, ind)),
+                "bn_norm": (
+                    lambda: BNK._BN_NORM(feats, mask, stats, w, b, eps),
+                    lambda: BNK.bn_norm_plain(feats, mask, stats, w, b,
+                                              eps)),
+                "bn_bwd_reduce": (
+                    lambda: BNK._BN_BWD_REDUCE(dy, feats, mask, mean, rstd),
+                    lambda: BNK.bn_bwd_reduce_plain(dy, feats, mask, mean,
+                                                    rstd)),
+                "bn_bwd_dx": (
+                    lambda: BNK._BN_BWD_DX(dy, feats, mask, mean, rstd, w,
+                                           sums, stats),
+                    lambda: BNK.bn_bwd_dx_plain(dy, feats, mask, mean, rstd,
+                                                w, sums, stats)),
+            }
+            act = int(mask.sum()) if sparse else n
+            elem = act * c * feats.element_size()  # active rows
+            out = n * c * feats.element_size()  # every row
+            row_b = n if sparse else 0  # a mask byte a row
+            nbytes = dict(bn_stats=elem + 5 * row_b,
+                          bn_norm=elem + out + row_b,
+                          bn_bwd_reduce=2 * elem + row_b,
+                          bn_bwd_dx=2 * elem + out + row_b)
+            for k, (kern, plain) in calls_of.items():
+                tally[k].add(cuda_ms(torch, kern, BN_REPS),
+                             cuda_ms(torch, plain, BN_REPS),
+                             bound(nbytes[k]))
+    return {k: (err[k], tally[k]) for k in BN_KERNELS}
+
+
 def qat_phase(torch, dev, cp_in, cp_bounds, net32):
     """Phase 13: the MNIST classifier's SGD steps, the MNIST QAT flow from
     float pretraining through PTQ and QAT to int8, both int8 nets served
     on B7 at ndim 2, and the CenterPoint encoder with BN trained three
     steps (``cp_in``: the f32 scans, ``cp_bounds`` / ``net32``: phase 6's
     bounds and bn=False f32 encoder, whose plain run gives the
-    coordinates).  Returns ``{path: launches}``."""
+    coordinates).  Returns ``({path: launches}, {BN kernel: (launches,
+    errors, Tally)})``."""
     import copy
 
     import numpy as np
@@ -2972,6 +3225,8 @@ def qat_phase(torch, dev, cp_in, cp_bounds, net32):
     from spconv_tpu_torch.examples import mnist_qat as MQ
     from spconv_tpu_torch.examples import mnist_sparse as MS
     from spconv_tpu_torch.models import SparseClassifier, centerpoint_encoder
+    from spconv_tpu_torch.modules import BatchNorm1d
+    from spconv_tpu_torch.ops import batch_norm as BNK
     from spconv_tpu_torch.ops import dg_conv as D
     from spconv_tpu_torch.quantization import QATConvBnReLU, qat_observe
 
@@ -3219,13 +3474,18 @@ def qat_phase(torch, dev, cp_in, cp_bounds, net32):
     D.reset_launch_counts()
     step_ms = []
     want = {k: v for k, v in CP_BN_STEP.items() if v}
+    n_bn = sum(isinstance(m, BatchNorm1d) for m in net16.modules())
     for seed in REQUEST_SEEDS:
+        BNK.reset_launch_counts()
         t0 = time.perf_counter()
         loss, got = launched(torch, D, lambda: B.train_step(
             net16, x16[seed], lr))
         step_ms.append((time.perf_counter() - t0) * 1e3)
         check(got == want, f"CenterPoint bn=True step {seed}: launches "
               f"{got}, expected {want}")
+        check(BNK.launch_counts == dict.fromkeys(BNK.launch_counts, n_bn),
+              f"CenterPoint bn=True step {seed}: BN launches "
+              f"{BNK.launch_counts}, expected {n_bn} of each")
         loss = loss.item()
         check(np.isfinite(loss) and loss > 0,
               f"CenterPoint bn=True step {seed}: loss {loss}")
@@ -3234,6 +3494,26 @@ def qat_phase(torch, dev, cp_in, cp_bounds, net32):
                   and bool(p.grad.any()),
                   f"CenterPoint bn=True step {seed}: {name} grad")
     launches["cp_bn"] = dict(D.launch_counts)
+    bn_launches = n_bn * len(REQUEST_SEEDS)
+    # each BN kernel on the step's BN inputs against the plain formula, and
+    # timed beside it and its bound
+    calls = bn_calls(torch, net16, lambda: B.train_step(net16, x16[0], 0.0))
+    check(len(calls) == n_bn, f"CenterPoint bn=True: {len(calls)} "
+          f"BatchNorm1d calls recorded in a step, expected {n_bn}")
+    rows = [int(x.indices.shape[0]) for _, x, _ in calls]
+    active = [int(x.valid_mask.sum()) for _, x, _ in calls]
+    bn_report = {k: (bn_launches, *v) for k, v in
+                 bn_vs_plain(torch, calls).items()}
+    del calls
+    print(f"CenterPoint bn=True bf16 step's {n_bn} BatchNorm1d inputs "
+          f"({sum(active)} active of {sum(rows)} rows, channels 16-128) "
+          "through BN's kernels against the plain formula (autograd), "
+          f"each within its tolerance (count, mean, var {BN_STATS_RTOL} "
+          f"relative; y one bf16 ulp; dx {BN_DX_TOL['bfloat16']}, dweight "
+          f"and dbias {BN_PARAM_TOL} of max|ref|), a repeat bit-equal, "
+          "inactive rows 0; worst max|d| / max|ref| and summed ms: "
+          + "; ".join(f"{k} {e[1]:.3e}, {t}" for k, (_, e, t)
+                      in bn_report.items()))
 
     def b2_window(ops):
         modes = [b2_mode(o) for o in ops]
@@ -3261,15 +3541,16 @@ def qat_phase(torch, dev, cp_in, cp_bounds, net32):
         lambda n: zero_lr_step(B, n, cp_in[0]), "CenterPoint bn=True")
     print(f"CenterPoint bn=True train (bf16, BN on batch statistics, SGD "
           f"lr={lr:.4e}): ms per step {[round(m, 3) for m in step_ms]}, "
-          f"launches a step {want}; profiler window: {len(ops)} device ops;"
+          f"launches a step {want} and {n_bn} of each BN kernel; profiler "
+          f"window: {len(ops)} device ops;"
           f" " + busy_text(wall, busy, 3, "a step")
           + f"; peak allocated {peak[0]:.1f} MiB above the {peak[1]:.1f} "
           f"MiB held before the step; coordinates equal to the plain run "
-          f"at every stage; f32 loss {loss_k:.9e} (plain backward "
-          f"{loss_p:.9e}), worst f32 grad vs plain backward "
+          f"at every stage; f32 loss {loss_k:.9e} (plain backward, BN's "
+          f"included: {loss_p:.9e}), worst f32 grad vs it "
           f"{cp_worst[0]:.3e} ({cp_worst[1]}, tolerance {GRAD_F32_TOL} per "
           "tensor)")
-    return launches
+    return launches, bn_report
 
 
 # per native BenchNet request: 14 B2 launches on the subm rulebooks' tables
@@ -4283,43 +4564,31 @@ def timing_phase(torch, dev, scans, bounds, served, cp_net, cp16, cp_ms):
           f"{[round(m, 3) for m in again]}")
 
 
-def bn_stats_f32(self, feats, mask):
-    """``BatchNorm1d._batch_stats`` with its sums in f32 (the port's
-    formula before the f64 sums; no ``axis_name``): the yardstick of what
-    the f64 sums cost."""
-    m = mask[:, None].float()
-    f32 = feats.float() * m
-    cnt = m.sum().clamp(min=1.0)
-    mean = f32.sum(0) / cnt
-    var = (f32 * f32).sum(0) / cnt - mean * mean
-    return mean, var.clamp(min=0.0), cnt
-
-
-def bn_stats_cost(torch, dev, cp_in, cp_bounds):
+def bn_kernel_cost(torch, dev, cp_in, cp_bounds):
     """A bf16 ``bn=True`` CenterPoint training step (phase 13's) with
-    BatchNorm's statistics summed in f64 (the port's) and in f32
-    (:func:`bn_stats_f32`), profiler windows of 3 steps in turns."""
+    BatchNorm on its kernels and on the plain formula
+    (:func:`bn_plain_train`), profiler windows of 3 steps in turns."""
     from spconv_tpu_torch.benchmark import basic as B
     from spconv_tpu_torch.calibrate import apply_out_bounds
     from spconv_tpu_torch.models import centerpoint_encoder
-    from spconv_tpu_torch.modules import BatchNorm1d
+    from spconv_tpu_torch.modules import modules as MM
 
     net = apply_out_bounds(centerpoint_encoder(
         in_channels=5, bn=True, dtype=torch.bfloat16, device=dev),
         cp_bounds).train()
     x = cp_in[0].replace_feature(cp_in[0].features.bfloat16())
-    f64 = BatchNorm1d._batch_stats
+    kernels = MM.batch_norm_train
     windows = []
     try:
-        for name, fn in (("f64", f64), ("f32", bn_stats_f32),
-                         ("f32", bn_stats_f32), ("f64", f64)):
-            BatchNorm1d._batch_stats = fn
+        for name, fn in (("kernels", kernels), ("plain", bn_plain_train),
+                         ("plain", bn_plain_train), ("kernels", kernels)):
+            MM.batch_norm_train = fn
             windows.append((name, device_busy(
                 torch, lambda: B.train_step(net, x, 0.0), 3)))
     finally:
-        BatchNorm1d._batch_stats = f64
-    print("CenterPoint bn=True bf16 step with BatchNorm's sums in f64 (the "
-          "port's) and in f32, windows of 3 in turns: "
+        MM.batch_norm_train = kernels
+    print("CenterPoint bn=True bf16 step with BatchNorm on its kernels "
+          "(csrc/bn.cu) and on the plain formula, windows of 3 in turns: "
           + turns_text(windows))
 
 
@@ -5691,7 +5960,8 @@ def run(tune_root):
     probes = probe_phase(torch, dev, rank_parent_lib)
 
     # ---- 13. the MNIST classifier and QAT flow, CenterPoint with BN ----
-    qat_launches = qat_phase(torch, dev, cp_in, cp_bounds, net32)
+    qat_launches, bn_report = qat_phase(torch, dev, cp_in, cp_bounds,
+                                        net32)
     print("phase 13 launches (each path counted on its own; the kernels "
           "line below keeps the counts of phases 3-12 and 14): " + "; ".join(
               f"{path} { {k: v for k, v in c.items() if v} }"
@@ -5723,7 +5993,7 @@ def run(tune_root):
     tune_phase(torch, dev, scans, bounds, served, geo, tune_root)
     parts.append(time.perf_counter())
     timing_phase(torch, dev, scans, bounds, served, cp_net, cp16, cp_ms)
-    bn_stats_cost(torch, dev, cp_in, cp_bounds)
+    bn_kernel_cost(torch, dev, cp_in, cp_bounds)
     parts.append(time.perf_counter())
     dp_phase(torch, dev, cp_in, cp_bounds)
     parts.append(time.perf_counter())
@@ -5993,6 +6263,12 @@ def run(tune_root):
         kernels.append(row(name, source, replaces, r["launches"], r["errs"],
                            r["tally"], library_ms=r["library_ms"],
                            **r["extra"]))
+    # BatchNorm1d's training kernels (phase 13): no TPU kernel behind them
+    for name, (launches, e, t) in bn_report.items():
+        kernels.append(row(
+            name, csrc + "bn.cu", "none: the JAX BatchNorm1d "
+            "(spconv_tpu/modules/modules.py:208) is plain jnp that XLA "
+            "fuses", launches, e, t))
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was never launched on its "
               "path")

@@ -237,11 +237,12 @@ def build_loader(cuda: bool) -> tuple:
 def load_library() -> ctypes.CDLL:
     """The kernels' library, built on first call, with every entry's
     ``argtypes`` set (pointers and the stream as ``c_void_p``, sizes as
-    ``c_int``, a float scale as ``c_float``) so that no pointer is cut to
+    ``c_int``, BN's row counts as ``c_longlong``, a float scale as
+    ``c_float``) so that no pointer is cut to
     32 bits."""
     path, _, _ = build_library()
     lib = ctypes.CDLL(str(path))
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     argtypes = {
         # rows, n_rows, tab, n_tab, geom, row_sent, divide, self, sort,
         # tile, gpp, pool, smem, pos, stream
@@ -307,6 +308,19 @@ def load_library() -> ctypes.CDLL:
         "probe_rank_launch": [vp, i32, vp, *[i32] * 6, vp, vp],
         # a, b, m, k, n, is_int8, bm, bn, kw, ks, kc, vec, smem, out, stream
         "probe_gemm_launch": [vp, vp, *[i32] * 11, vp, vp],
+        # BatchNorm1d's training kernels (csrc/bn.cu); each takes the plan
+        # (ops/batch_norm.py::bn_plan) as n, c, dtype, vec, threads, grid,
+        # groups
+        # x, ind, ind_stride, mask, plan, part, stats, stream
+        "bn_stats_launch": [vp, vp, i32, vp, i64, *[i32] * 6, vp, vp, vp],
+        # x, mask, stats, w, b, eps, plan, y, mean, rstd, stream
+        "bn_norm_launch": [*[vp] * 5, ctypes.c_float, i64, *[i32] * 6,
+                           vp, vp, vp, vp],
+        # dy, x, mask, mean, rstd, plan, part, sums, sums32, stream
+        "bn_bwd_reduce_launch": [*[vp] * 5, i64, *[i32] * 6, vp, vp, vp,
+                                 vp],
+        # dy, x, mask, mean, rstd, w, sums, stats, plan, dx, stream
+        "bn_bwd_dx_launch": [*[vp] * 8, i64, *[i32] * 6, vp, vp],
     }
     for name, types in argtypes.items():
         fn = getattr(lib, name)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core import SparseConvTensor, default_device
+from ..ops.batch_norm import batch_norm_train, batch_stats
 from ..tracing import span
 
 __all__ = ["SparseModule", "SparseSequential", "Lambda", "SparseIdentity",
@@ -208,28 +209,6 @@ class SparseIdentity(SparseModule):
 Identity = SparseIdentity
 
 
-class _AllReduceSum(torch.autograd.Function):
-    """Sum of ``x`` over the ranks of ``group``, its gradient the sum of
-    the ranks' gradients (the JAX ``psum`` and its transpose)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-
-        g = grad.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 class BatchNorm1d(SparseModule):
     """Feature-row batch norm whose statistics cover active rows only (a
     dense BN over the padded buffer would count the zero padding).
@@ -244,19 +223,32 @@ class BatchNorm1d(SparseModule):
     JAX package, ``forward`` never changes the running statistics:
     :meth:`updated` advances them by a batch.
 
-    With ``axis_name`` (SyncBN), the masked count, sum and sum of squares
-    are summed across the ranks of the process group that
-    ``parallel.make_mesh`` registered under that axis, in one all-reduce
-    of a packed f64 ``[2C + 1]`` vector whose gradient is all-reduced too
-    (the JAX ``psum``): training normalizes with the global statistics
-    and :meth:`updated` advances the running ones by them.  In eval mode
-    there is no collective.  An axis with no group raises
+    Training and :meth:`updated` run :mod:`ops.batch_norm`'s ops (on the
+    card its CUDA kernels, ``csrc/bn.cu``; on the CPU their plain
+    versions): the masked count, sum and sum of squares in f64, the
+    normalization, and a closed-form backward that saves the input, the
+    mask, the mean and rstd.  Eval mode normalizes with plain torch ops:
+    no benchmark or exported net runs it (served nets fold BN into the
+    convs), so the C++ op library needs no BN op.
+
+    With ``axis_name`` (SyncBN), the packed f64 ``[2C + 1]`` count, sum
+    and sum of squares are all-reduced across the ranks of the process
+    group that ``parallel.make_mesh`` registered under that axis, and the
+    backward's f64 ``[2C]`` sums likewise before the input gradient (the
+    JAX ``psum`` and its transpose): training normalizes with the global
+    statistics and :meth:`updated` advances the running ones by them.  In
+    eval mode there is no collective.  An axis with no group raises
     ``RuntimeError`` in training; it never falls back to the local
     statistics.
 
     Takes a :class:`SparseConvTensor` or a plain ``[N, C]`` tensor (all
-    rows active).  ``device`` None is the CUDA card.  ``forward`` runs in
-    the ``spconv.bn`` span (:mod:`tracing`)."""
+    rows active).  On the card, training and :meth:`updated` take f32,
+    bf16 or fp16 features and int32 indices (the kernels' types; a
+    :class:`SparseConvTensor`'s indices are int32) and raise on any other;
+    on the CPU the plain versions take f64 features and other integer
+    indices too.  Eval mode takes any float dtype on either.  ``device``
+    None is the CUDA card.  ``forward`` runs in the ``spconv.bn`` span
+    (:mod:`tracing`), and so does its backward."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1, affine: bool = True,
@@ -288,52 +280,30 @@ class BatchNorm1d(SparseModule):
                 else "")
         return f"{self.num_features}, eps={self.eps}{axis}"
 
-    @staticmethod
-    def _feats_mask(x):
-        if isinstance(x, SparseConvTensor):
-            return x.features, x.valid_mask
-        return x, torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    def _group(self):
+        """The process group of ``axis_name``, None without one."""
+        if self.axis_name is None:
+            return None
+        from ..parallel.mesh import axis_group
 
-    def _batch_stats(self, feats, mask):
-        """f32 ``(mean, biased var, count)`` over the rows of ``mask``
-        (count at least 1), over every rank of ``axis_name`` when set.
-        The count, sum and sum of squares of the f32 features accumulate
-        in f64, so the statistics do not depend on the order of the sums
-        (rows, ranks): the one-pass variance cancels where a channel is
-        near constant, and f32 sums would leave order-dependent noise
-        there that the gradient amplifies."""
-        m = mask[:, None].float()
-        f32 = feats.float() * m
-        f64 = torch.float64
-        cnt = m.sum(dtype=f64)
-        s, ss = f32.sum(0, dtype=f64), (f32 * f32).sum(0, dtype=f64)
-        if self.axis_name is not None:
-            from ..parallel.mesh import axis_group
-
-            c = s.shape[0]
-            packed = _AllReduceSum.apply(torch.cat([cnt[None], s, ss]),
-                                         axis_group(self.axis_name))
-            cnt, s, ss = packed[0], packed[1:c + 1], packed[c + 1:]
-        cnt = cnt.clamp(min=1.0)
-        mean = s / cnt
-        var = (ss / cnt - mean * mean).clamp(min=0.0)
-        return mean.float(), var.float(), cnt.float()
+        return axis_group(self.axis_name)
 
     def forward(self, x: Union[SparseConvTensor, torch.Tensor]
                 ) -> Union[SparseConvTensor, torch.Tensor]:
+        sparse = isinstance(x, SparseConvTensor)
+        feats = x.features if sparse else x
         with span("spconv.bn"):
-            feats, mask = self._feats_mask(x)
             if self.training:
-                mean, var, _ = self._batch_stats(feats, mask)
-            else:
-                mean, var = self.running_mean, self.running_var
-            out = (feats.float() - mean) * torch.rsqrt(var + self.eps)
+                out = batch_norm_train(feats, x.indices if sparse else None,
+                                       self.weight, self.bias, self.eps,
+                                       self._group())
+                return x.replace_feature(out) if sparse else out
+            out = ((feats.float() - self.running_mean)
+                   * torch.rsqrt(self.running_var + self.eps))
             if self.weight is not None:
                 out = out * self.weight + self.bias
             out = out.to(feats.dtype)
-            if isinstance(x, SparseConvTensor):
-                return x.replace_feature_masked(out)
-            return out
+            return x.replace_feature_masked(out) if sparse else out
 
     @torch.no_grad()
     def updated(self, x: Union[SparseConvTensor, torch.Tensor]
@@ -343,7 +313,10 @@ class BatchNorm1d(SparseModule):
         batch``, with the unbiased variance ``var * cnt / max(cnt - 1,
         1)``.  Returns ``self`` (the JAX ``updated`` returns a new
         module)."""
-        mean, var, cnt = self._batch_stats(*self._feats_mask(x))
+        sparse = isinstance(x, SparseConvTensor)
+        mean, var, cnt = batch_stats(x.features if sparse else x,
+                                     x.indices if sparse else None,
+                                     self._group())
         unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
         mom = self.momentum
         self.running_mean.copy_((1 - mom) * self.running_mean + mom * mean)

@@ -1,5 +1,5 @@
-from . import (coords, dg_conv, epilogue, gather_gemm, point2voxel, pool,
-               probes, rulebook, sorted_pool)
+from . import (batch_norm, coords, dg_conv, epilogue, gather_gemm,
+               point2voxel, pool, probes, rulebook, sorted_pool)
 from .coords import (delinearize, get_conv_output_size,
                      get_deconv_output_size, kernel_offsets, linearize)
 from .dg_conv import (build_dg_pos, build_dg_pos_affine,
@@ -15,10 +15,11 @@ from .rulebook import (build_conv_outputs, build_conv_rulebook,
                        get_indice_pairs)
 from .sorted_pool import sk_pool2
 
-__all__ = ["coords", "dg_conv", "epilogue", "gather_gemm", "point2voxel",
-           "pool", "probes", "rulebook", "sorted_pool", "get_conv_output_size",
-           "get_deconv_output_size", "kernel_offsets", "linearize",
-           "delinearize", "build_dg_pos", "build_dg_pos_affine",
+__all__ = ["batch_norm", "coords", "dg_conv", "epilogue", "gather_gemm",
+           "point2voxel", "pool", "probes", "rulebook", "sorted_pool",
+           "get_conv_output_size", "get_deconv_output_size",
+           "kernel_offsets", "linearize", "delinearize", "build_dg_pos",
+           "build_dg_pos_affine",
            "build_dg_pos_divide", "dg_fwd", "dg_subm_conv",
            "dg_regular_conv", "build_conv_outputs", "build_deconv_outputs",
            "build_pool2_outputs", "build_subm_rulebook",

@@ -28,7 +28,9 @@ span                 what it holds
 ``spconv.epilogue``  bias, residual add, activation and the output mask
 ``spconv.pool``      a pool's reduction (B6, the seg route's, the
                      native pool's)
-``spconv.bn``        ``BatchNorm1d``: statistics, normalization, mask
+``spconv.bn``        ``BatchNorm1d``: statistics and normalization,
+                     and in its backward the two reductions and
+                     ``dx`` (``ops/batch_norm.py``)
 ``spconv.dense``     ``SparseConvTensor.dense``: the scatter into the
                      dense grid
 ``spconv.dgrad``     a conv's input gradient, with the cast of ``dout``
@@ -36,7 +38,7 @@ span                 what it holds
 ``spconv.pool.bwd``  the sorted-key pool's backward
 ===================  =================================================
 
-The backward of BN, the epilogue and the seg pool runs as autograd's own
+The backward of the epilogue and the seg pool runs as autograd's own
 nodes, which open no span of the port: a reader of a trace reaches their
 forward span through the node's sequence number.
 

@@ -7,6 +7,7 @@ machine that has only PyTorch; there, skip the JAX-importing conftest:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import copy
 import re
 
 import numpy as np
@@ -2184,6 +2185,172 @@ def test_batchnorm_updated_on_card_matches_cpu(dev, dtype):
         np.testing.assert_allclose(
             getattr(bns["cuda"], name).cpu().numpy(),
             getattr(bns["cpu"], name).numpy(), rtol=1e-6, err_msg=name)
+
+
+# ---- BatchNorm1d's training kernels (csrc/bn.cu) --------------------------
+
+BN_EPS = 1e-3
+
+
+def _bn_case(c, dtype, sparse, n=3000, active=2600, seed=0):
+    """``(x, indices, weight, bias, dy)`` on the CPU: ``n`` rows of ``c``
+    channels in ``dtype``, channel 0 near constant (100 or 100.5: var
+    0.06 against a mean square of 1e4, the one-pass variance's
+    cancellation); with ``sparse`` every 7th row and an all-inactive tail
+    from ``active`` on are inactive (index -1, features 0), else
+    ``indices`` is None and every row counts."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, c), generator=g) * 3 + 1
+    x[:, 0] = 100 + 0.5 * torch.randint(0, 2, (n,), generator=g)
+    ind = None
+    if sparse:
+        ind = torch.full((n, 4), -1, dtype=torch.int32)
+        rows = torch.arange(active)
+        ind[rows[rows % 7 != 3], 0] = 0
+        ind[:, 1] = torch.arange(n, dtype=torch.int32)
+        x[ind[:, 0] < 0] = 0
+    w = torch.rand(c, generator=g) + 0.5
+    b = 0.3 * torch.randn(c, generator=g)
+    dy = torch.randn((n, c), generator=g).to(dtype)
+    return x.to(dtype), ind, w, b, dy
+
+
+def _bn_step(x, ind, w, b, dy, train):
+    """``(y, dx, dweight, dbias)`` of ``train(x, ind, w, b)`` and the
+    backward of ``sum(y * dy)``."""
+    x = x.clone().requires_grad_()
+    w, b = w.clone().requires_grad_(), b.clone().requires_grad_()
+    y = train(x, ind, w, b)
+    y.backward(dy)
+    return y.detach(), x.grad, w.grad, b.grad
+
+
+def _bn_plain_train(x, ind, w, b):
+    """The plain formula on any device, differentiated by autograd."""
+    from spconv_tpu_torch.ops import batch_norm as TBN
+
+    stats, mask = TBN.bn_stats_plain(x, ind)
+    return TBN.bn_norm_plain(x, mask, stats, w, b, BN_EPS)[0]
+
+
+def _bf16_ulp(t):
+    """One bf16 unit in the last place of each element of ``t``."""
+    e = torch.frexp(t.float().abs().clamp(min=1e-30))[1]
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("sparse", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [5, 16, 32, 64, 128, 256])
+def test_bn_kernels_match_plain(dev, c, dtype, sparse):
+    """BN's four kernels (one launch each a step) against the plain
+    formula on the card, and the plain formula on the card against the
+    CPU.  The count, mean and var of the kernels within 1e-6 relative of
+    the plain ones (f64 sums in another order), the near-constant channel
+    included; ``y`` within one bf16 ulp (bf16) or 1e-5 of max|ref| (f32:
+    torch's rsqrt on the card is not correctly rounded, the kernel's is);
+    ``dx`` within 1e-5 (f32) or 8e-3 (bf16: two f32 results a rounding
+    apart can round to neighbouring bf16 values) of max|ref|, against
+    autograd's op-by-op chain; ``dweight`` and ``dbias`` within 2e-5 of
+    max|ref| (f64 sums against autograd's f32 ones); inactive rows of
+    ``y`` and ``dx`` 0; two runs bit-equal."""
+    from spconv_tpu_torch.ops import batch_norm as TBN
+
+    x, ind, w, b, dy = _bn_case(c, dtype, sparse)
+    xd, dyd, wd, bd = x.to(dev), dy.to(dev), w.to(dev), b.to(dev)
+    indd = None if ind is None else ind.to(dev)
+    runs = []
+    for _ in range(2):
+        before = dict(TBN.launch_counts)
+        runs.append(_bn_step(xd, indd, wd, bd, dyd, lambda *a:
+                             TBN.batch_norm_train(*a, BN_EPS)))
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in TBN.launch_counts.items()} \
+            == dict.fromkeys(before, 1)
+    assert all(torch.equal(p, q) for p, q in zip(*runs))
+    got = [t.cpu() for t in runs[0]]
+    want = [t.cpu() for t in _bn_step(xd, indd, wd, bd, dyd,
+                                      _bn_plain_train)]
+    cpu = _bn_step(x, ind, w, b, dy, _bn_plain_train)
+
+    stats, mask = TBN._BN_STATS(xd, indd)
+    pstats, pmask = TBN.bn_stats_plain(xd, indd)
+    assert torch.equal(mask.cpu(), pmask.cpu())
+    for k, p in zip(TBN.moments(stats, c, torch.float64),
+                    TBN.moments(pstats, c, torch.float64)):
+        np.testing.assert_allclose(k.cpu().numpy(), p.cpu().numpy(),
+                                   rtol=1e-6)
+    if sparse:
+        off = ind[:, 0] < 0
+        assert off.any() and not got[0][off].any() and not got[1][off].any()
+    y, ref = got[0].float(), want[0].float()
+    if dtype == torch.bfloat16:
+        assert ((y - ref).abs() <= _bf16_ulp(ref)).all()
+        assert ((ref - cpu[0].float()).abs() <= _bf16_ulp(ref)).all()
+    else:
+        scale = ref.abs().max().item()
+        assert (y - ref).abs().max().item() <= 1e-5 * scale
+        assert (ref - cpu[0]).abs().max().item() <= 1e-5 * scale
+    tols = (1e-5 if dtype == torch.float32 else 8e-3, 2e-5, 2e-5)
+    for name, k, p, q, tol in zip(("dx", "dweight", "dbias"), got[1:],
+                                  want[1:], cpu[1:], tols):
+        k, p, q = k.float(), p.float(), q.float()
+        scale = p.abs().max().item()
+        assert scale > 0, name
+        assert (k - p).abs().max().item() <= tol * scale, name
+        assert (p - q).abs().max().item() <= tol * scale, name
+
+
+def _bn_after_downs(device):
+    """The port's CenterPoint encoder with BN, in f32, with a BN and a ReLU
+    after each of its three downsamples, as OpenPCDet's VoxelResBackBone8x
+    (the ``cp-train-b16`` net) has them: 21 BatchNorm1d."""
+    net = centerpoint_encoder(in_channels=5, bn=True, device=device)
+    net.downs = torch.nn.ModuleList(
+        st.SparseSequential(d, st.BatchNorm1d(d.out_channels, eps=1e-3,
+                                              device=device),
+                            st.SparseReLU()) for d in net.downs)
+    return net
+
+
+@pytest.mark.parametrize("name,n_bn", [("port", 18), ("bn_after_downs", 21)])
+def test_bn_centerpoint_step_launches(dev, name, n_bn):
+    """One training step of a CenterPoint encoder with BN on the card
+    launches each BN kernel once a BatchNorm1d and nothing of BN falls
+    back: the port's ``centerpoint_encoder(bn=True)`` (18 BNs, none after
+    its downsamples) and the same with a BN after each downsample (21, the
+    ``cp-train-b16`` net's count).  The loss within 1e-4 relative and
+    every BN parameter's gradient within 1e-3 of max|ref| of the same step
+    on the CPU (the convs' f32 sums in another order through 21 layers)."""
+    from spconv_tpu_torch.modules import BatchNorm1d
+    from spconv_tpu_torch.ops import batch_norm as TBN
+
+    x, _ = TCP.synthetic_centerpoint_input(0, shape=(40, 64, 64),
+                                           n_target=1500, device="cpu")
+    cpu = torch.device("cpu")
+    net = (centerpoint_encoder(in_channels=5, bn=True, device=cpu)
+           if name == "port" else _bn_after_downs(cpu))
+    nets = {"cpu": net.train(), "cuda": copy.deepcopy(net).to(dev)}
+    assert sum(isinstance(m, BatchNorm1d) for m in net.modules()) == n_bn
+    out = {}
+    for d, net in nets.items():
+        TBN.reset_launch_counts()
+        loss = (net.bev(_to(x, torch.device(d))).float() ** 2).sum()
+        loss.backward()
+        if d == "cuda":
+            torch.cuda.synchronize()
+        out[d] = (float(loss.detach()), dict(TBN.launch_counts),
+                  {f"{mn}.{pn}": p.grad.cpu()
+                   for mn, m in net.named_modules()
+                   if isinstance(m, BatchNorm1d)
+                   for pn, p in m.named_parameters()})
+    assert out["cuda"][1] == dict.fromkeys(TBN.launch_counts, n_bn)
+    assert not any(out["cpu"][1].values())
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * out["cpu"][0]
+    assert len(out["cpu"][2]) == 2 * n_bn
+    for k, g in out["cpu"][2].items():
+        err = (out["cuda"][2][k] - g).abs().max().item()
+        assert err <= 1e-3 * g.abs().max().item(), (k, err)
 
 
 # ---------------------------------------------------------------------------

@@ -100,9 +100,11 @@ FORWARD = {
                *_layer("pool", "rulebook", "pool"),
                "spconv.dense"],
 }
-# the backward's: the four convs in reverse, sub_a with no input gradient
-# (its dgrad span holds the cast of dout alone)
-BACKWARD = ["spconv.dgrad", "spconv.wgrad"] * 4
+# the backward's: the four convs in reverse, BN's backward between sub_b's
+# and sub_a's, sub_a with no input gradient (its dgrad span holds the cast
+# of dout alone)
+BACKWARD = (["spconv.dgrad", "spconv.wgrad"] * 3 + ["spconv.bn"]
+            + ["spconv.dgrad", "spconv.wgrad"])
 
 CASES = {"dg": ("s1", True), "native": ("s1", False),
          "search": (None, True)}
